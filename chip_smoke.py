@@ -22,17 +22,31 @@ no result line) on any fault:
      decode_chunk=8 (the FAME harness's setting) on prompts sharing a
      system prompt; prefix hits > 0, paged-decode kernel launched;
   5. dense against paged: teacher-forced logits of both cache layouts on the
-     same weights and tokens, and their greedy-token agreement.
+     same weights and tokens, and their greedy-token agreement;
+  6. speculative decode: the same model served with spec_len=4, dense and
+     paged (page_size=16, decode_chunk=8), on copy-heavy agent prompts;
+     every request COMPLETED, verify steps and drafts > 0, the path's four
+     kernels launched (flash, one-token decode, multi-query decode,
+     accept_len); verify logits against step-by-step decode logits of one
+     request (5e-2), greedy agreement with non-speculative serving (bf16,
+     printed), and greedy spec == non-spec token for token at full width
+     and 4 layers in float32 (asserted);
+  7. FAME: one log-analytics M+C session through the port's
+     WorkflowServingRuntime on the paged spec_len=4 server; statuses equal
+     the ScriptedOracle backend's, prefix hits > 0, session tail reused.
 
 Kernel launch counts are zeroed just before each serving phase and read
 just after it. The line before the last is a JSON object with one entry per
 kernel; the last line is ``{"ok": true, "device": {...}}``.
 
 Run from the repository root:  python3 chip_smoke.py
+(``--phases`` picks a subset of kernels,serve,spec,fame.)
 """
 from __future__ import annotations
 
 import argparse
+import collections
+import dataclasses
 import json
 import math
 import random
@@ -67,6 +81,8 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple:
+    """(least time in ms, "bytes" or "operations"); int32 and float32 work
+    runs outside the tensor cores, at the float32 rate."""
     import torch
     peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
     t_b, t_f = nbytes / HBM * 1e3, flops / peak * 1e3
@@ -217,11 +233,151 @@ def kernel_phase(dev):
         replaces="src/repro/kernels/paged_decode_attention.py:70",
         max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
         library_ms=lib)
+    rows.update(spec_kernel_rows(dev, rnd))
     for r in rows.values():
+        lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         log(f"[kernels] {r['name']}: kernel_ms={r['ms']:.4f} plain_ms="
-            f"{r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} bound_ms="
+            f"{r['plain_ms']:.4f} library_ms={lib} bound_ms="
             f"{r['bound_ms']:.4f} ({r['bound_by']})")
     return rows
+
+
+def spec_kernel_rows(dev, rnd):
+    """accept_len and the multi-query (verify) decode kernels against their
+    plain versions, at the spec phase's shapes (4 slots, spec_len=4: S=5)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import paged_spec_decode_attention as kpsda
+    from repro_torch.kernels import spec_decode_attention as ksda
+    from repro_torch.kernels import spec_scan
+
+    rows = {}
+    H, K, hd = 16, 2, 128
+    G = H // K
+    f32 = dict(dtype=torch.float32)
+
+    # ---- accept_len: the verify step's [slots, spec_len + 1] flags --------
+    log("[kernels] accept_len")
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    cases = []
+    for B, S in ((4, 5), (64, 33)):
+        acc = torch.rand(B, S, generator=g, device=dev) < 0.85
+        lens = torch.randint(0, S, (B,), generator=g, device=dev, dtype=torch.int32)
+        lens[0], acc[0] = S - 1, True                  # all accepted
+        lens[1], acc[1] = S - 1, False                 # all rejected
+        lens[2] = 0
+        got, want = spec_scan.accept_len(acc, lens), spec_scan.accept_len_ref(acc, lens)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        log(f"  accept_len B={B} S={S}: mismatches={int((got != want).sum())}")
+        if err != 0:
+            raise AssertionError(f"accept_len B={B} S={S}: {got.tolist()} != {want.tolist()}")
+        cases.append((acc, lens))
+    acc, lens = cases[0]
+    ms = time_ms(lambda: spec_scan.accept_len(acc, lens), 200)
+    plain = time_ms(lambda: spec_scan.accept_len_ref(acc, lens), 50)
+    B, S = acc.shape
+    b_ms, b_by = bound(B * S + 4 * B + 4 * B, 2 * B * S, torch.int32)
+    rows["accept_len"] = dict(
+        name="accept_len", route="cuda",
+        source="src/repro_torch/kernels/csrc/spec_scan.cu",
+        replaces="src/repro/kernels/spec_scan.py:33",
+        max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None)
+
+    # ---- spec_decode_attention: 4 slots x capacity 2048, S = 5 -----------
+    log("[kernels] spec_decode_attention")
+    B, W, S = 4, 2048, 5
+    qs, kc, vc = rnd(B, S, H, hd), rnd(B, W, K, hd), rnd(B, W, K, hd)
+    clen = torch.tensor([1500, 200, 2043, 700], dtype=torch.int32, device=dev)
+    sa = lambda: ksda.spec_decode_attention(qs, kc, vc, clen, q_per_kv=G)      # noqa: E731
+    sr = lambda: ksda.spec_attention_ref(qs, kc, vc, clen, q_per_kv=G)         # noqa: E731
+    err = check_close("bf16 [4,5,16,128] vs [4,2048,2,128]", sa(), sr(), "bfloat16")
+    q7, k7, v7 = rnd(3, 5, 8, 32, **f32), rnd(3, 200, 2, 32, **f32), rnd(3, 200, 2, 32, **f32)
+    c7 = torch.tensor([0, 99, 195], dtype=torch.int32, device=dev)
+    err = max(err, check_close(
+        "f32 [3,5,8,32] vs [3,200,2,32]",
+        ksda.spec_decode_attention(q7, k7, v7, c7, q_per_kv=4),
+        ksda.spec_attention_ref(q7, k7, v7, c7, q_per_kv=4), "float32"))
+    one = multi_query_equals_steps(qs, kc, vc, clen)
+    ms, plain = time_ms(sa, 50), time_ms(sr, 10)
+    pos_q = clen[:, None].long() + torch.arange(S, device=dev)[None, :]
+    mask = (torch.arange(W, device=dev)[None, None, :] <= pos_q[:, :, None])[:, None]
+    qst, kct, vct = qs.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
+    lib = time_ms(lambda: F.scaled_dot_product_attention(
+        qst, kct, vct, attn_mask=mask, enable_gqa=True), 50)
+    live = int(torch.clamp(clen.long() + S, max=W).sum())
+    pairs = int(torch.clamp(pos_q + 1, max=W).sum())
+    b_ms, b_by = bound(2 * (2 * B * S * H * hd + 2 * live * K * hd) + 4 * B,
+                       4 * hd * H * pairs, torch.bfloat16)
+    rows["spec_decode_attention"] = dict(
+        name="spec_decode_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/decode_attention.cu",
+        replaces="src/repro/models/attention.py:344 (XLA spec_attention; no Pallas kernel)",
+        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+        library_ms=lib)
+    log(f"  S=5 multi-query == 5 one-token decode calls, bit for bit: {one}")
+
+    # ---- paged_spec_decode_attention: the paged server's pool, S = 5 -----
+    log("[kernels] paged_spec_decode_attention")
+    P, ps, nw = 1025, 16, 128
+    kp, vp = rnd(P, ps, K, hd), rnd(P, ps, K, hd)
+    perm = torch.randperm(P - 1, generator=g, device=dev)[: B * nw] + 1
+    bt = perm.reshape(B, nw).to(torch.int32)
+    cl = torch.tensor([1500, 17, 2043, 700], dtype=torch.int32, device=dev)
+    for b, c in enumerate(cl.tolist()):          # trash page past the live ones
+        bt[b, -(-(c + S) // ps):] = 0
+    pa = lambda: kpsda.paged_spec_decode_attention(qs, kp, vp, bt, cl, q_per_kv=G)    # noqa: E731
+    pr = lambda: kpsda.paged_spec_attention_ref(qs, kp, vp, bt, cl, q_per_kv=G)       # noqa: E731
+    err = check_close("bf16 pool [1025,16,2,128] bt [4,128] S=5", pa(), pr(), "bfloat16")
+    kp8, vp8 = rnd(11, 8, 2, 16, **f32), rnd(11, 8, 2, 16, **f32)
+    q8 = rnd(3, 5, 4, 16, **f32)
+    bt8 = torch.tensor([[3, 1, 7, 10], [2, 5, 0, 0], [9, 8, 6, 4]],
+                       dtype=torch.int32, device=dev)
+    c8 = torch.tensor([25, 10, 26], dtype=torch.int32, device=dev)
+    err = max(err, check_close(
+        "f32 pool [11,8,2,16] bt [3,4] S=5",
+        kpsda.paged_spec_decode_attention(q8, kp8, vp8, bt8, c8, q_per_kv=2),
+        kpsda.paged_spec_attention_ref(q8, kp8, vp8, bt8, c8, q_per_kv=2), "float32"))
+    ms, plain = time_ms(pa, 50), time_ms(pr, 10)
+    kview = kp[bt.long()].reshape(B, nw * ps, K, hd).transpose(1, 2)
+    vview = vp[bt.long()].reshape(B, nw * ps, K, hd).transpose(1, 2)
+    pos_q = cl[:, None].long() + torch.arange(S, device=dev)[None, :]
+    pmask = (torch.arange(nw * ps, device=dev)[None, None, :]
+             <= pos_q[:, :, None])[:, None]
+    lib = time_ms(lambda: F.scaled_dot_product_attention(
+        qst, kview, vview, attn_mask=pmask, enable_gqa=True), 50)
+    live = int((cl.long() + S).sum())
+    pairs = int((pos_q + 1).sum())
+    pages = sum(-(-(c + S) // ps) for c in cl.tolist())
+    b_ms, b_by = bound(2 * (2 * B * S * H * hd + 2 * live * K * hd) + 4 * (B + pages),
+                       4 * hd * H * pairs, torch.bfloat16)
+    rows["paged_spec_decode_attention"] = dict(
+        name="paged_spec_decode_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/decode_attention.cu",
+        replaces="src/repro/models/transformer.py:194 (XLA spec_attention over "
+                 "paged_view; no Pallas kernel)",
+        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+        library_ms=lib)
+    return rows
+
+
+def multi_query_equals_steps(qs, kc, vc, clen):
+    """The multi-query kernel runs one block per query position, each the
+    one-token kernel at cache length clen + s: its output equals S
+    one-token decode calls bit for bit."""
+    import torch
+    from repro_torch.kernels import decode_attention as kda
+    from repro_torch.kernels import spec_decode_attention as ksda
+    G = qs.shape[2] // kc.shape[2]
+    got = ksda.spec_decode_attention(qs, kc, vc, clen, q_per_kv=G)
+    steps = torch.cat([kda.decode_attention(qs[:, s:s + 1].contiguous(), kc, vc,
+                                            clen + s, q_per_kv=G)
+                       for s in range(qs.shape[1])], dim=1)
+    if not torch.equal(got, steps):
+        raise AssertionError("multi-query decode differs from one-token steps")
+    return True
 
 
 # ---------------------------------------------------------------------------
@@ -242,19 +398,24 @@ def make_text(tok, rng: random.Random, n_tokens: int) -> str:
             return text
 
 
+def kernel_modules():
+    from repro_torch.kernels import (decode_attention, flash_attention,
+                                     paged_decode_attention,
+                                     paged_spec_decode_attention,
+                                     spec_decode_attention, spec_scan)
+    return {"flash_attention": flash_attention, "decode_attention": decode_attention,
+            "paged_decode_attention": paged_decode_attention,
+            "accept_len": spec_scan, "spec_decode_attention": spec_decode_attention,
+            "paged_spec_decode_attention": paged_spec_decode_attention}
+
+
 def kernel_counts():
-    from repro_torch.kernels import decode_attention as kda
-    from repro_torch.kernels import flash_attention as kfa
-    from repro_torch.kernels import paged_decode_attention as kpda
-    return {"flash_attention": kfa.launches, "decode_attention": kda.launches,
-            "paged_decode_attention": kpda.launches}
+    return {name: m.launches for name, m in kernel_modules().items()}
 
 
 def reset_counts():
-    from repro_torch.kernels import decode_attention as kda
-    from repro_torch.kernels import flash_attention as kfa
-    from repro_torch.kernels import paged_decode_attention as kpda
-    kfa.launches = kda.launches = kpda.launches = 0
+    for m in kernel_modules().values():
+        m.launches = 0
 
 
 def serve_phase(name, server, prompts, sampled_idx, session_turns, warm=None):
@@ -381,24 +542,31 @@ def teacher_forced(model, params, ids, n_prompt, *, paged: bool, dev):
     return torch.cat(out)
 
 
-def serving_phases(dev):
+def full_model(dev):
+    """Full-width qwen2.5-3b (bf16), random weights from seed 0."""
     import torch
     from repro_torch.configs.registry import ARCHS
     from repro_torch.models import Model
-    from repro_torch.serving.server import EngineConfig, LLMServer
     from repro_torch.serving.tokenizer import ByteTokenizer
 
     cfg = ARCHS["qwen2.5-3b"]                       # full width, bf16
-    log(f"[serve] {cfg.name}: layers={cfg.num_layers} d_model={cfg.d_model} "
+    log(f"[model] {cfg.name}: layers={cfg.num_layers} d_model={cfg.d_model} "
         f"heads={cfg.num_heads}/{cfg.num_kv_heads} d_ff={cfg.d_ff} "
         f"vocab={cfg.vocab_size} dtype={cfg.dtype}")
     t0 = time.perf_counter()
     model = Model(cfg, device=dev)
     params = model.init(seed=0)
     torch.cuda.synchronize()
-    log(f"[serve] params={model.param_count() / 1e9:.3f}B init_s="
+    log(f"[model] params={model.param_count() / 1e9:.3f}B init_s="
         f"{time.perf_counter() - t0:.2f}")
-    tok = ByteTokenizer(cfg.vocab_size)
+    return model, params, ByteTokenizer(cfg.vocab_size)
+
+
+def serving_phases(dev, model, params, tok):
+    import torch
+    from repro_torch.serving.server import EngineConfig, LLMServer
+
+    cfg = model.cfg
     rng = random.Random(0)
 
     # ---- phase 3: dense ---------------------------------------------------
@@ -451,10 +619,262 @@ def serving_phases(dev):
     return {k: dcounts[k] + pcounts[k] for k in dcounts}
 
 
+# ---------------------------------------------------------------------------
+# phase 6: speculative decode
+# ---------------------------------------------------------------------------
+
+
+def copy_prompts(tok, rng):
+    """Agent prompts that repeat tool output inside themselves, the traffic
+    the n-gram drafter is for."""
+    out = []
+    for role, n in (("actor", 150), ("evaluator", 300), ("planner", 450),
+                    ("actor", 600)):
+        tool = make_text(tok, rng, n)
+        out.append(f"System: one agent of a Planner/Actor/Evaluator workflow.\n"
+                   f"[ToolMessage tool=search_logs]\n{tool}\n[{role}] The tool "
+                   f"returned:\n{tool}\nQuote it again:\n{tool[:len(tool) // 2]}")
+    return out
+
+
+def spec_server(model, params, dev, mode, spec_len=4):
+    from repro_torch.serving.server import EngineConfig, LLMServer
+    kw = dict(page_size=16, decode_chunk=8) if mode == "paged" else {}
+    return LLMServer(model.cfg, num_slots=4, capacity=2048, params=params,
+                     engine_cfg=EngineConfig(cache_mode=mode, spec_len=spec_len, **kw),
+                     device=dev)
+
+
+def serve_ids(server, prompts, max_new_tokens=48):
+    from repro_torch.serving.server import SamplingParams
+    hs = [server.submit(p, SamplingParams(max_new_tokens=max_new_tokens))
+          for p in prompts]
+    server.run_until_idle()
+    for h in hs:
+        if h.request.status != "completed" or not h.request.output_ids:
+            raise AssertionError(f"rid={h.request.rid} status={h.request.status}")
+    return hs
+
+
+def verify_vs_decode(model, params, ids, n, S, dev, paged):
+    """Teacher-forced: logits of one verify forward over ids[n:n+S] against
+    S decode steps, after a prefill of ids[:n]; max abs difference."""
+    import torch
+    from repro_torch.serving import kvpool
+    cap, ps = 2048, 16
+    out = []
+    for how in ("verify", "decode"):
+        tok = torch.tensor([ids[:n]], device=dev)
+        if paged:
+            cache = kvpool.init_paged_cache(model.cfg, 1 + cap // ps, ps, dev)
+            bt = torch.arange(1, 1 + cap // ps, dtype=torch.int32, device=dev)[None]
+            model.extend(params, model.make_batch(tok), cache, 0, length=n,
+                         block_tables=bt, with_logits=False)
+        else:
+            bt = None
+            cache = model.init_cache(1, cap)
+            model.prefill(params, model.make_batch(tok), cache, length=n,
+                          with_logits=False)
+        x = torch.tensor([ids[n:n + S]], device=dev)
+        pos = n + torch.arange(S, device=dev)[None]
+        if how == "verify":
+            lg, _ = model.verify(params, {"tokens": x, "positions": pos}, cache,
+                                 torch.tensor([n], dtype=torch.int32, device=dev),
+                                 lens=torch.tensor([S], device=dev), block_tables=bt)
+        else:
+            steps = []
+            for i in range(S):
+                b = {"tokens": x[:, i:i + 1], "positions": pos[:, i:i + 1]}
+                li, _ = model.decode_step(
+                    params, b, cache,
+                    torch.tensor([n + i], dtype=torch.int32, device=dev),
+                    block_tables=bt)
+                steps.append(li)
+            lg = torch.cat(steps, 1)
+        out.append(lg.float())
+    diff = float((out[0] - out[1]).abs().max())
+    agree = float((out[0].argmax(-1) == out[1].argmax(-1)).float().mean())
+    return diff, agree, float(out[1].abs().max())
+
+
+def spec_phase(dev, model, params, tok):
+    import torch
+    from repro_torch.models import Model
+
+    rng = random.Random(1)
+    prompts = copy_prompts(tok, rng)
+    counts_all = collections.Counter()
+    served = {}
+    for mode in ("dense", "paged"):
+        srv = spec_server(model, params, dev, mode)
+        serve_ids(srv, [prompts[0][:200]], 4)              # warm
+        torch.cuda.synchronize()
+        before = srv.stats()
+        eng = srv.engine
+        rows0 = eng._verify_rows
+        reset_counts()
+        t0 = time.perf_counter()
+        hs = serve_ids(srv, prompts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernel_counts()
+        st = srv.stats()
+        d = {k: st[k] - before[k] for k in ("verify_steps", "draft_tokens",
+                                            "accepted_tokens", "decode_tokens")}
+        rows = eng._verify_rows - rows0
+        dec_s = sum(h.request.decode_s for h in hs)
+        ttft = [round(h.request.first_token_s, 4) for h in hs]
+        log(f"[spec-{mode}] requests={len(hs)} prompt_tokens="
+            f"{[h.request.prompt_tokens for h in hs]} output_tokens="
+            f"{[h.request.output_tokens for h in hs]}")
+        log(f"[spec-{mode}] wall_s={wall:.3f} ttft_s={ttft} decode_tok_per_s="
+            f"{d['decode_tokens'] / max(dec_s, 1e-9):.1f} verify_steps="
+            f"{d['verify_steps']} draft_tokens={d['draft_tokens']} accepted_tokens="
+            f"{d['accepted_tokens']} acceptance_rate="
+            f"{d['accepted_tokens'] / max(d['draft_tokens'], 1):.4f} "
+            f"verified_rows={rows} tokens_per_verify_step="
+            f"{(d['accepted_tokens'] + rows) / max(d['verify_steps'], 1):.3f} "
+            f"tokens_per_verified_row={(d['accepted_tokens'] + rows) / max(rows, 1):.3f}")
+        log(f"[spec-{mode}] launches={counts}")
+        if d["verify_steps"] <= 0 or d["draft_tokens"] <= 0:
+            raise AssertionError(f"spec-{mode}: no verify steps / drafts: {d}")
+        path = ("flash_attention", "accept_len") + (
+            ("paged_decode_attention", "paged_spec_decode_attention")
+            if mode == "paged" else ("decode_attention", "spec_decode_attention"))
+        missing = [k for k in path if counts[k] <= 0]
+        if missing:
+            raise AssertionError(f"spec-{mode}: kernels not launched: {missing}")
+        counts_all.update(counts)
+        served[mode] = [h.request.output_ids for h in hs]
+        if mode == "dense":
+            r = hs[1].request
+            ids = tok.encode(prompts[1])[-r.prompt_tokens:] + list(r.output_ids)
+        del srv
+        torch.cuda.empty_cache()
+
+    # verify logits against step-by-step decode logits (bf16, full depth)
+    for paged in (False, True):
+        diff, agree, scale = verify_vs_decode(model, params, ids, len(ids) - 8, 5,
+                                              dev, paged)
+        log(f"[spec-verify-vs-decode] {'paged' if paged else 'dense'} S=5 "
+            f"max_abs_logit_diff={diff:.3e} (|logit| max {scale:.3f}, tol 5e-2) "
+            f"argmax_agreement={agree:.4f}")
+        if not math.isfinite(diff) or diff > 5e-2:
+            raise AssertionError(f"verify vs decode logits differ by {diff}")
+
+    # greedy agreement with non-speculative serving (bf16: printed), and
+    # the non-speculative decode rate on the same prompts
+    base = spec_server(model, params, dev, "dense", spec_len=0)
+    serve_ids(base, [prompts[0][:200]], 4)               # warm
+    torch.cuda.synchronize()
+    before = base.stats()
+    t0 = time.perf_counter()
+    hs = serve_ids(base, prompts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    dec = base.stats()["decode_tokens"] - before["decode_tokens"]
+    log(f"[spec-base-dense] spec_len=0 on the same prompts: wall_s={wall:.3f} "
+        f"decode_tok_per_s={dec / max(sum(h.request.decode_s for h in hs), 1e-9):.1f}")
+    ref = [h.request.output_ids for h in hs]
+    del base
+    torch.cuda.empty_cache()
+    for mode, outs in served.items():
+        same = sum(a == b for o, r in zip(outs, ref) for a, b in zip(o, r))
+        total = sum(len(r) for r in ref)
+        log(f"[spec-{mode}] bf16 greedy agreement with spec_len=0: {same}/{total} "
+            f"tokens, identical requests {sum(o == r for o, r in zip(outs, ref))}/"
+            f"{len(ref)}")
+
+    # float32, full width, 4 layers: greedy spec == non-spec, token for token
+    cfg4 = dataclasses.replace(model.cfg, num_layers=4, dtype="float32",
+                               param_dtype="float32")
+    m4 = Model(cfg4, device=dev)
+    p4 = m4.init(seed=1)
+    outs4 = {}
+    for mode, sl in (("dense", 0), ("dense", 4), ("paged", 4)):
+        srv = spec_server(m4, p4, dev, mode, spec_len=sl)
+        outs4[mode, sl] = [h.request.output_ids for h in serve_ids(srv, prompts)]
+        st = srv.stats()
+        if sl and st["verify_steps"] <= 0:
+            raise AssertionError(f"f32 4-layer {mode}: no verify steps")
+        del srv
+    ok = outs4["dense", 4] == outs4["dense", 0] == outs4["paged", 4]
+    log(f"[spec-f32-4-layers] greedy spec == non-spec (dense and paged): {ok} "
+        f"output_tokens={[len(o) for o in outs4['dense', 0]]}")
+    if not ok:
+        raise AssertionError("float32 greedy spec output differs from non-spec")
+    del m4, p4
+    torch.cuda.empty_cache()
+    return dict(counts_all)
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the FAME runtime on the paged spec server
+# ---------------------------------------------------------------------------
+
+
+def fame_phase(dev, model, params):
+    import torch
+    from repro_torch.apps import log_analytics as la
+    from repro_torch.core.config import CONFIGS
+    from repro_torch.core.runtime import FameRuntime
+    from repro_torch.fame import ServingMeter, WorkflowServingRuntime
+    from repro_torch.serving.server import SamplingParams
+
+    srv = spec_server(model, params, dev, "paged")
+    serve_ids(srv, ["warmup " * 8], 8)
+    query_input = la.APP.inputs[0]
+    oracle_rt = FameRuntime(config=CONFIGS["M+C"])
+    for role, oracle in la.build_oracles().items():
+        oracle_rt.set_llm(role, oracle)
+    oracle_rt.deploy_mcp(la.APP.servers, la.APP.sources)
+    want = oracle_rt.run_session(f"fame-{query_input}",
+                                 la.APP.queries(query_input)).statuses
+
+    meter = ServingMeter(srv)
+    rt = WorkflowServingRuntime(config=CONFIGS["M+C"], server=srv, meter=meter,
+                                params=SamplingParams(max_new_tokens=8))
+    for role, oracle in la.build_oracles().items():
+        rt.set_llm(role, oracle)
+    rt.deploy_mcp(la.APP.servers, la.APP.sources)
+    torch.cuda.synchronize()
+    before = srv.stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = rt.run_session(f"fame-{query_input}", la.APP.queries(query_input))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernel_counts()
+    st = srv.stats()
+    hits = st["prefix_hit_tokens"] - before["prefix_hit_tokens"]
+    conts = meter.continuation_turns()
+    turns = meter.turns()
+    log(f"[fame] log_analytics M+C: statuses={res.statuses} (oracle {want}) "
+        f"session_wall_s={wall:.3f} turns={len(turns)} "
+        f"continuation_turns={len(conts)} prefix_hit_tokens={hits} "
+        f"billed_tokens={sum(r.billed_tokens for r in turns)} "
+        f"prompt_tokens={sum(r.prompt_tokens for r in turns)} "
+        f"verify_steps={st['verify_steps'] - before['verify_steps']}")
+    log(f"[fame] launches={counts}")
+    if res.statuses != want:
+        raise AssertionError(f"fame: statuses {res.statuses} != oracle {want}")
+    if not meter.all_terminal():
+        raise AssertionError("fame: a turn is not terminal")
+    if hits <= 0:
+        raise AssertionError("fame: no prefix hits")
+    if not conts or not meter.tail_reuse_ok():
+        raise AssertionError("fame: the session tail was not reused")
+    if counts["flash_attention"] <= 0 or counts["paged_decode_attention"] <= 0:
+        raise AssertionError(f"fame: kernels not launched: {counts}")
+    del srv
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernels,serve",
-                    help="comma list of kernels,serve (default: both)")
+    ap.add_argument("--phases", default="kernels,serve,spec,fame",
+                    help="comma list of kernels,serve,spec,fame (default: all)")
     args = ap.parse_args()
     try:
         import torch
@@ -496,9 +916,21 @@ def main() -> int:
 
     phases = set(args.phases.split(","))
     rows = kernel_phase(dev) if "kernels" in phases else {}
-    launches = serving_phases(dev) if "serve" in phases else {}
+    launches = collections.Counter()
+    if phases & {"serve", "spec", "fame"}:
+        model, params, tok = full_model(dev)
+        if "serve" in phases:
+            launches.update(serving_phases(dev, model, params, tok))
+        if "spec" in phases:
+            launches.update(spec_phase(dev, model, params, tok))
+        if "fame" in phases:
+            launches.update(fame_phase(dev, model, params))
     for name, r in rows.items():
         r["launches"] = launches.get(name, 0)
+    if {"serve", "spec"} <= phases:
+        idle = [name for name, r in rows.items() if r["launches"] <= 0]
+        if idle:
+            raise AssertionError(f"kernels never launched on the main path: {idle}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(card)

@@ -11,6 +11,15 @@
 // Each keeps its own entry point (decode_attention_fwd /
 // paged_decode_attention_fwd) and its own launch counter in Python.
 //
+// Multi-query mode (the speculative verify step) replaces the XLA
+// spec_attention of src/repro/models/attention.py, which has no Pallas
+// counterpart: S queries per row, query s of row b at position
+// cache_len[b] + s seeing positions <= its own. A third grid dimension runs
+// one block per query position: block (kh, b, s) is the one-token kernel at
+// cache length cache_len[b] + s, so the verify step's attention equals S
+// successive decode steps bit for bit, and S = 1 is the one-token kernel
+// itself. Entries spec_decode_attention_fwd / paged_spec_decode_attention_fwd.
+//
 // Design: one block per (KV head, batch row) computes the G = H / K query
 // heads that share that KV head (grouped GQA, no KV repetition), streaming
 // the cache in tiles of 32 positions (16-byte vector loads) through shared
@@ -23,8 +32,10 @@
 // (qwen2.5-3b: 2 KV heads x 128 x 2 bytes x 2 per position and layer) and
 // does ~4·G·hd FLOPs per position, far below the card's 295 FLOP/byte
 // ridge. Known weakness: at 4 slots and 2 KV heads the grid is 8 blocks on
-// 132 SMs, so one SM's load bandwidth, not the card's, bounds a step;
-// splitting the sequence across blocks (split-K) is later work.
+// 132 SMs (40 with S = 5), so a few SMs' load bandwidth, not the card's,
+// bounds a step; splitting the sequence across blocks (split-K) is later
+// work. In multi-query mode the S blocks of a (head, row) read the same
+// K/V; all but the first read mostly hit the 50 MB L2.
 #include "common.cuh"
 
 namespace {
@@ -38,9 +49,10 @@ template <typename T, bool PAGED>
 __global__ void __launch_bounds__(NT)
 decode_fwd(const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
            const int* __restrict__ cache_len, const int* __restrict__ bt,
-           T* __restrict__ o, int W, int K, int G, int hd, int window, int ps, int nw,
-           float scale) {
-  const int kh = blockIdx.x, b = blockIdx.y;
+           T* __restrict__ o, int S, int W, int K, int G, int hd, int window, int ps,
+           int nw, float scale) {
+  // q / o are [B, S, H, hd]; block z takes query sq = z at cache_len[b] + sq
+  const int kh = blockIdx.x, b = blockIdx.y, sq = blockIdx.z;
   const int H = K * G;
   const int HS = hd + 1;  // padded K-tile row stride
   extern __shared__ float smem[];
@@ -56,7 +68,7 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ kc, const T* __restric
 
   constexpr int VN = repro::Vec<T>::N;  // elements per 16-byte load
   const int vpr = hd / VN;              // vector loads per row
-  const T* qb = q + ((size_t)b * H + (size_t)kh * G) * hd;
+  const T* qb = q + (((size_t)b * S + sq) * H + (size_t)kh * G) * hd;
   for (int i = tid; i < G * vpr; i += NT) repro::Vec<T>::load(qb + i * VN, sQ + i * VN);
   for (int i = tid; i < G * hd; i += NT) sAcc[i] = 0.f;
   for (int g = tid; g < G; g += NT) {
@@ -64,7 +76,7 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ kc, const T* __restric
     sL[g] = 0.f;
   }
 
-  const int clen = cache_len[b];
+  const int clen = cache_len[b] + sq;
   const int n_valid = min(clen + 1, W);
   const int ring = clen % W;
   const int win_lim = window > 0 ? min(window, n_valid + 1) : 0;
@@ -148,23 +160,24 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ kc, const T* __restric
   }
   __syncthreads();
 
-  T* ob = o + ((size_t)b * H + (size_t)kh * G) * hd;
+  T* ob = o + (((size_t)b * S + sq) * H + (size_t)kh * G) * hd;
   for (int i = tid; i < G * hd; i += NT)
     ob[i] = repro::from_f<T>(sAcc[i] / fmaxf(sL[i / hd], 1e-30f));
 }
 
 template <typename T, bool PAGED>
 int launch(const void* q, const void* k, const void* v, const int* clen, const int* bt,
-           void* o, int B, int W, int K, int G, int hd, int window, int ps, int nw,
+           void* o, int B, int S, int W, int K, int G, int hd, int window, int ps, int nw,
            cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (2 * G * hd + TW * (hd + 1) + TW * hd + G * TW + 3 * G);
   auto kern = decode_fwd<T, PAGED>;
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  dim3 grid(K, B);
+  if (S < 1) return (int)cudaErrorInvalidValue;
+  dim3 grid(K, B, S);
   kern<<<grid, NT, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
                                    static_cast<const T*>(v), clen, bt, static_cast<T*>(o),
-                                   W, K, G, hd, window, ps, nw,
+                                   S, W, K, G, hd, window, ps, nw,
                                    1.0f / sqrtf((float)hd));
   return (int)cudaGetLastError();
 }
@@ -178,10 +191,10 @@ extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
                                     int G, int hd, int window, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == repro::kF32)
-    return launch<float, false>(q, k, v, cache_len, nullptr, o, B, W, K, G, hd, window,
+    return launch<float, false>(q, k, v, cache_len, nullptr, o, B, 1, W, K, G, hd, window,
                                 1, 1, st);
   if (dtype == repro::kBF16)
-    return launch<__nv_bfloat16, false>(q, k, v, cache_len, nullptr, o, B, W, K, G, hd,
+    return launch<__nv_bfloat16, false>(q, k, v, cache_len, nullptr, o, B, 1, W, K, G, hd,
                                         window, 1, 1, st);
   return (int)cudaErrorInvalidValue;
 }
@@ -195,10 +208,44 @@ extern "C" int paged_decode_attention_fwd(const void* q, const void* k, const vo
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int W = nw * ps;  // the dense view's width: n_valid = min(clen + 1, nw * ps)
   if (dtype == repro::kF32)
-    return launch<float, true>(q, k, v, cache_len, block_tables, o, B, W, K, G, hd, 0,
+    return launch<float, true>(q, k, v, cache_len, block_tables, o, B, 1, W, K, G, hd, 0,
                                ps, nw, st);
   if (dtype == repro::kBF16)
-    return launch<__nv_bfloat16, true>(q, k, v, cache_len, block_tables, o, B, W, K, G,
+    return launch<__nv_bfloat16, true>(q, k, v, cache_len, block_tables, o, B, 1, W, K, G,
+                                       hd, 0, ps, nw, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Multi-query (verify) forms: q, o [B, S, K*G, hd]; query s of row b sits at
+// position cache_len[b] + s and sees positions <= its own (no window).
+// Dense: caches [B, W, K, hd]. Returns cudaGetLastError() of the launch.
+extern "C" int spec_decode_attention_fwd(const void* q, const void* k, const void* v,
+                                         const int* cache_len, void* o, int B, int S, int W,
+                                         int K, int G, int hd, int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == repro::kF32)
+    return launch<float, false>(q, k, v, cache_len, nullptr, o, B, S, W, K, G, hd, 0, 1, 1,
+                                st);
+  if (dtype == repro::kBF16)
+    return launch<__nv_bfloat16, false>(q, k, v, cache_len, nullptr, o, B, S, W, K, G, hd,
+                                        0, 1, 1, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Paged: pools [P, ps, K, hd], block_tables [B, nw] int32; a block reads only
+// the live pages of its query (positions < min(cache_len + s + 1, nw * ps)).
+extern "C" int paged_spec_decode_attention_fwd(const void* q, const void* k, const void* v,
+                                               const int* block_tables,
+                                               const int* cache_len, void* o, int B, int S,
+                                               int ps, int K, int G, int hd, int nw,
+                                               int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int W = nw * ps;
+  if (dtype == repro::kF32)
+    return launch<float, true>(q, k, v, cache_len, block_tables, o, B, S, W, K, G, hd, 0,
+                               ps, nw, st);
+  if (dtype == repro::kBF16)
+    return launch<__nv_bfloat16, true>(q, k, v, cache_len, block_tables, o, B, S, W, K, G,
                                        hd, 0, ps, nw, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -48,10 +48,11 @@ def decode_attention_ref(q, k_cache, v_cache, cache_len, *, q_per_kv: int,
     return o.reshape(B, 1, H, hd).to(q.dtype)
 
 
-def check_decode_inputs(name, q, k, v, q_per_kv):
-    """Shape / dtype / device / contiguity checks shared by both decode
-    wrappers. Returns (B, H, hd)."""
-    if q.dim() != 4 or q.shape[1] != 1:
+def check_decode_inputs(name, q, k, v, q_per_kv, *, multi_query=False):
+    """Shape / dtype / device / contiguity checks shared by the decode
+    wrappers (one query per row, or S with ``multi_query``). Returns
+    (B, H, hd)."""
+    if q.dim() != 4 or (q.shape[1] != 1 and not multi_query):
         raise ValueError(f"{name}: q must be [B, 1, H, hd], got {tuple(q.shape)}")
     B, _, H, hd = q.shape
     if k.dim() != 4 or k.shape != v.shape or k.shape[3] != hd:

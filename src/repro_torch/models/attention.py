@@ -16,6 +16,8 @@ import torch
 
 from repro_torch.kernels.paged_decode_attention import \
     paged_decode_attention_ref  # noqa: F401  (the JAX module's name)
+from repro_torch.kernels.spec_decode_attention import \
+    spec_attention_ref as spec_attention  # noqa: F401  (the JAX module's name)
 from repro_torch.models.layers import rms_norm_headwise, rotary_embed
 
 
@@ -58,6 +60,57 @@ def chunk_write(cache, chunk, start: int):
         raise ValueError(f"chunk [{start}, {start + S}) overruns capacity {W}")
     cache[:, start:start + S].copy_(chunk)                            # mutation
     return cache
+
+
+# ---------------------------------------------------------------------------
+# Speculative verify: S draft tokens per row at per-row positions
+# [cache_lens[b], cache_lens[b]+S). Linear caches write ahead: K/V past a
+# row's accepted prefix needs no rollback, because every later read masks by
+# cache position and K/V at accepted positions never depended on rejected
+# tokens. The attention itself is ``spec_attention`` (plain) or the
+# multi-query decode kernels of repro_torch.kernels.
+# ---------------------------------------------------------------------------
+
+
+def spec_cache_update(k_cache, v_cache, k_new, v_new, cache_lens, valid):
+    """Verify-step write: k_new/v_new [B,S,K,hd] land at positions
+    ``cache_lens[b] + s`` of row b (linear cache). Rows with ``valid[b,s]``
+    False (padded draft tail) and positions past the cache are dropped:
+    they write back the value they would have replaced (at ``pos % W``,
+    distinct from every kept position of the row while S <= W), so no host
+    sync picks them out."""
+    B, S = k_new.shape[:2]
+    W = k_cache.shape[1]
+    dev = k_cache.device
+    clens = torch.as_tensor(cache_lens, device=dev).reshape(-1).long()
+    pos = clens[:, None] + torch.arange(S, device=dev)[None, :]
+    keep = (valid.to(dev) & (pos < W))[:, :, None, None]
+    pos = pos % W
+    rows = torch.arange(B, device=dev)[:, None].expand(B, S)
+    for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+        val = torch.where(keep, new.to(cache.dtype), cache[rows, pos])
+        cache.index_put_((rows, pos), val)                            # mutation
+    return k_cache, v_cache
+
+
+def paged_spec_cache_update(pool_k, pool_v, k_new, v_new, block_tables,
+                            cache_lens, valid, page_size: int):
+    """Paged verify-step write: positions route through per-row block tables;
+    invalid rows land on the trash page (kvpool.TRASH_PAGE == 0), the same
+    place block-table padding already sends masked-out decode writes."""
+    B, S = k_new.shape[:2]
+    nbt = block_tables.shape[1]
+    dev = pool_k.device
+    clens = torch.as_tensor(cache_lens, device=dev).reshape(-1).long()
+    rows = torch.arange(B, device=dev)[:, None].expand(B, S)
+    pos = clens[:, None] + torch.arange(S, device=dev)[None, :]
+    pi = torch.clamp(pos // page_size, 0, nbt - 1)
+    page = torch.where(valid.to(dev), block_tables[rows, pi].long(),
+                       torch.zeros_like(pos))
+    off = pos % page_size
+    pool_k.index_put_((page, off), k_new.to(pool_k.dtype))            # mutation
+    pool_v.index_put_((page, off), v_new.to(pool_v.dtype))            # mutation
+    return pool_k, pool_v
 
 
 # ---------------------------------------------------------------------------

@@ -65,6 +65,16 @@ class Model:
         prefill / paged suffix prefill). See transformer.extend."""
         return tfm.extend(params, batch, self.cfg, cache, cache_len, **kw)
 
+    def verify(self, params, batch, cache, cache_lens, **kw):
+        """Speculative-decode verify: score all draft positions in one
+        forward, per-row cache lengths. See transformer.verify."""
+        return tfm.verify(params, batch, self.cfg, cache, cache_lens, **kw)
+
+    def verify_commit(self, staged, cache_lens, ns, lens):
+        """Resolve a verify call's staged record to the committed cache at
+        each row's accepted length. See transformer.verify_commit."""
+        return tfm.verify_commit(self.cfg, staged, cache_lens, ns, lens)
+
     # ---- input construction ------------------------------------------------
     def make_batch(self, tokens, *, positions=None, start: int = 0):
         B, S = tokens.shape[0], tokens.shape[1]

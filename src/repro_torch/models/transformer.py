@@ -13,7 +13,9 @@ Attention runs through the kernel wrappers of ``repro_torch.kernels`` on
 every path (the CUDA kernel for tensors on the card, its plain version on
 the CPU): prefill and train through ``flash_attention``, dense and paged
 extend through ``flash_attention`` with ``q_start``, decode through
-``decode_attention`` / ``paged_decode_attention``.
+``decode_attention`` / ``paged_decode_attention``, and the speculative
+verify step through their multi-query forms ``spec_decode_attention`` /
+``paged_spec_decode_attention``.
 """
 from __future__ import annotations
 
@@ -26,6 +28,9 @@ from repro_torch.configs import base as cfgbase
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_decode_attention import paged_decode_attention
+from repro_torch.kernels.paged_spec_decode_attention import \
+    paged_spec_decode_attention
+from repro_torch.kernels.spec_decode_attention import spec_decode_attention
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (apply_mlp, apply_norm, embed_tokens,
                                        init_, unembed)
@@ -200,11 +205,17 @@ def layer_cache(cache, cfg, layer: int):
 
 
 def _attn_mixer(p, x, cfg, *, positions, mode, cache, cache_len,
-                block_tables=None):
+                block_tables=None, lens=None):
     """Attention temporal mixer (the ATTN part of the JAX ``_attn_mixer``).
     ``mode == "extend"`` continues a partially filled cache: a chunk at
     positions [cache_len, cache_len+S) attends to the cached prefix plus
-    itself; ``cache_len`` is then a Python int."""
+    itself; ``cache_len`` is then a Python int. ``mode == "verify"`` scores
+    S draft tokens per row at per-row positions [cache_len[b],
+    cache_len[b]+S), the first ``lens[b]`` of them valid: the linear cache
+    is written ahead (padded-tail writes dropped, or sent to trash page 0
+    when paged) and needs no rollback, since later reads mask by position.
+    Only linear full-attention caches reach it (``check_supported``); the
+    JAX package's ring-cache branch is not ported."""
     G = cfg.q_per_kv
     q, k, v = attn.qkv_proj(p, x, cfg, positions)
     if mode == "decode" and block_tables is not None:
@@ -216,6 +227,23 @@ def _attn_mixer(p, x, cfg, *, positions, mode, cache, cache_len,
     elif mode == "decode":
         kc, vc = attn.cache_update(cache["k"], cache["v"], k, v, cache_len)
         o = decode_attention(q, kc, vc, cache_len, q_per_kv=G)
+    elif mode == "verify":
+        S = k.shape[1]
+        clens = torch.as_tensor(cache_len, device=x.device).reshape(-1)
+        clens = clens.to(torch.int32)
+        n = torch.as_tensor(S if lens is None else lens, device=x.device)
+        valid = (torch.arange(S, device=x.device)[None, :]
+                 < n.reshape(-1, 1)).expand(k.shape[0], S)
+        if block_tables is not None:
+            ps = cache["k"].shape[1]
+            kc, vc = attn.paged_spec_cache_update(cache["k"], cache["v"], k, v,
+                                                  block_tables, clens, valid, ps)
+            o = paged_spec_decode_attention(q, kc, vc, block_tables, clens,
+                                            q_per_kv=G)
+        else:
+            kc, vc = attn.spec_cache_update(cache["k"], cache["v"], k, v, clens,
+                                            valid)
+            o = spec_decode_attention(q, kc, vc, clens, q_per_kv=G)
     elif mode == "extend":
         S = k.shape[1]
         start = int(cache_len)
@@ -247,26 +275,26 @@ def _attn_mixer(p, x, cfg, *, positions, mode, cache, cache_len,
 
 
 def apply_block(kind, p, x, cfg, *, positions, mode, cache, cache_len,
-                block_tables=None):
+                block_tables=None, lens=None):
     """One residual ATTN block (the only kind this slice carries; see
     ``check_supported``). Returns x'; the cache is updated in place."""
     h = apply_norm(p.attn.norm, x, cfg)
     x = x + _attn_mixer(p.attn, h, cfg, positions=positions, mode=mode,
                         cache=cache, cache_len=cache_len,
-                        block_tables=block_tables)
+                        block_tables=block_tables, lens=lens)
     h2 = apply_norm(p.norm2, x, cfg)
     return x + apply_mlp(p.mlp, h2, cfg)
 
 
 def apply_stack(params, x, cfg, *, positions, mode, cache=None,
-                cache_len=None, block_tables=None):
+                cache_len=None, block_tables=None, lens=None):
     """Run all layers (a Python loop over layers stands in for the JAX
     scan). Returns (x, cache)."""
     for layer, (kind, blk) in enumerate(zip(cfg.layer_kinds, params.blocks)):
         lc = layer_cache(cache, cfg, layer) if cache is not None else None
         x = apply_block(kind, blk, x, cfg, positions=positions, mode=mode,
                         cache=lc, cache_len=cache_len,
-                        block_tables=block_tables)
+                        block_tables=block_tables, lens=lens)
     return x, cache
 
 
@@ -278,7 +306,7 @@ def apply_stack(params, x, cfg, *, positions, mode, cache=None,
 @torch.no_grad()
 def forward_logits(params, batch, cfg, *, mode="train", cache=None,
                    cache_len=None, prefill_len=None, block_tables=None,
-                   with_logits=True):
+                   with_logits=True, lens=None):
     """``with_logits``: False skips final-norm + unembed (None logits);
     "last" unembeds only position ``prefill_len - 1`` (or the final one),
     [B, 1, V]; "all" / True unembeds every position. Returns
@@ -286,7 +314,7 @@ def forward_logits(params, batch, cfg, *, mode="train", cache=None,
     x = embed_tokens(params, batch["tokens"], cfg)
     x, new_cache = apply_stack(params, x, cfg, positions=batch["positions"],
                                mode=mode, cache=cache, cache_len=cache_len,
-                               block_tables=block_tables)
+                               block_tables=block_tables, lens=lens)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if not with_logits:
         return None, new_cache, aux
@@ -329,3 +357,30 @@ def extend(params, batch, cfg, cache, cache_len, *, length=None,
                                           block_tables=block_tables,
                                           with_logits=with_logits)
     return logits, new_cache
+
+
+def verify(params, batch, cfg, cache, cache_lens, *, lens=None,
+           block_tables=None):
+    """Speculative-decode verify: score S draft tokens per row in ONE
+    forward. batch tokens [B, S] are ``[last, d_1 .. d_k, pad...]`` per row
+    at per-row positions ``[cache_lens[b], cache_lens[b]+S)``; ``lens`` [B]
+    counts the valid inputs (k+1). Returns (logits [B,S,V], staged):
+    ``logits[:, i]`` is the target distribution for the token following
+    input i. For the linear full-attention caches of this slice ``staged``
+    IS the new cache (written ahead in place)."""
+    logits, new_cache, _ = forward_logits(params, batch, cfg, mode="verify",
+                                          cache=cache, cache_len=cache_lens,
+                                          block_tables=block_tables,
+                                          with_logits="all", lens=lens)
+    return logits, new_cache
+
+
+def verify_commit(cfg, staged, cache_lens, ns, lens):
+    """Resolve a ``verify`` call's staged record to the committed cache.
+    Linear full-attention K/V was written ahead and is masked by position,
+    so the commit is the staged cache itself. The JAX package's other
+    commits (ring splices for windowed attention, state rewinds for
+    recurrent / xLSTM blocks) are not ported; ``check_supported`` refuses
+    those archs, naming ROADMAP.md queue 1 items 8 and 9."""
+    del cfg, cache_lens, ns, lens
+    return staged

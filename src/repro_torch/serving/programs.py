@@ -3,10 +3,12 @@
 Counterpart of ``repro.serving.programs``: every device computation the
 scheduler (serving/scheduler.py) dispatches lives here — bucketed
 **prefill** into a slot's cache row, **extend** continuations (dense
-chunked prefill and paged suffix prefill through block tables) and the
-chunked **decode** loop with on-device per-slot sampling. PyTorch runs
-eagerly, so there is no compile step: the "programs" are plain methods and
-the cache is updated in place (the JAX package donated it to its jits).
+chunked prefill and paged suffix prefill through block tables), the
+chunked **decode** loop with on-device per-slot sampling and the batched
+speculative **verify** step (one verify forward, acceptance, commit).
+PyTorch runs eagerly, so there is no compile step: the "programs" are
+plain methods and the cache is updated in place (the JAX package donated
+it to its jits).
 
 The decode chunk runs exactly ``decode_chunk`` steps with no host sync
 inside (JAX exits its ``while_loop`` early once every row is done): a done
@@ -23,7 +25,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.serving.faults import DeadLetterError, RetryPolicy, TransientFault
-from repro_torch.serving.sampler import sample_batched
+from repro_torch.serving.sampler import accept_batched, sample_batched
 
 
 def slot_extract(cache, slot: int):
@@ -121,8 +123,7 @@ class EnginePrograms:
         return self._run("decode", self._decode_chunk_fn, *args)
 
     def verify(self, *args):
-        raise NotImplementedError(
-            "speculative verify is not ported yet (ROADMAP.md queue 1, item 7)")
+        return self._run("verify", self._verify_fn, *args)
 
     def snap_capture(self, *args):
         raise NotImplementedError(
@@ -225,3 +226,31 @@ class EnginePrograms:
             tok_buf[i] = torch.where(emit, nxt, torch.zeros_like(nxt))
             emit_buf[i] = emit
         return cache, tok_buf, emit_buf, clens, rem, done
+
+    # ---- speculative decode: verify + accept + commit ----------------------
+    def _verify_fn(self, params, cache, tokens, clens, lens, temps, top_ks,
+                   keys, block_tables=None):
+        """One batched speculative verify step for every slot.
+
+        tokens [B, S]: ``[last, d_1 .. d_k, pad]`` per row (S = spec_len+1),
+        lens [B] = k+1 valid inputs (0 for rows sitting this verify out:
+        empty, done or undrafted slots write only dropped / trash-page rows
+        and commit nothing). One forward scores every draft position;
+        ``accept_batched`` picks the matched prefix + a correction/bonus
+        token per drafted row; ``model.verify_commit`` resolves the cache
+        (for linear full attention, the written-ahead cache itself).
+        ``keys`` [B, 2] are the rows' (request key, token index of column
+        0) pairs, or None for an all-greedy batch. Nothing here reads back
+        to the host; the scheduler pulls (out_tok, out_len) once.
+        """
+        S = tokens.shape[1]
+        positions = clens[:, None].long() + torch.arange(
+            S, device=self.device)[None, :]
+        batch = {"tokens": tokens.long(), "positions": positions}
+        logits, staged = self.model.verify(params, batch, cache, clens,
+                                           lens=lens, block_tables=block_tables)
+        out_tok, out_len = accept_batched(
+            logits, tokens, torch.clamp(lens - 1, min=0), keys,
+            temperature=temps, top_k=top_ks, vocab_limit=self.cfg.vocab_size)
+        cache = self.model.verify_commit(staged, clens, out_len, lens)
+        return cache, out_tok, out_len

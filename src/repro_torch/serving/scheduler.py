@@ -4,10 +4,11 @@ the program set in serving/programs.py.
 A copy of ``repro.serving.scheduler`` in which only the JAX sites changed:
 keys are the sampler's counter-hash keys, dispatch scalars are Python ints,
 inputs are torch tensors on the scheduler's device, and the decode chunk's
-outputs come back in one transfer. Speculative decode, snapshot mode and
-``EngineConfig.mesh`` raise ``NotImplementedError`` naming the ROADMAP.md
-item that ports them. The rest — admission, sessions and tail pages, stop
-sequences, cancel, deadlines, overload, journal, counters — is unchanged.
+outputs come back in one transfer, as do the verify step's. Snapshot mode
+and ``EngineConfig.mesh`` raise ``NotImplementedError`` naming the
+ROADMAP.md item that ports them. The rest — admission, sessions and tail
+pages, stop sequences, cancel, deadlines, overload, journal, counters — is
+unchanged.
 
 The scheduler owns everything host-side: the request queue (FIFO within
 priority classes), slot lifecycle (admit → decode/verify → finalize), the
@@ -398,10 +399,6 @@ class Scheduler:
             raise ValueError(
                 f"spec_len must be >= 0, got {self.engine_cfg.spec_len}")
         self.spec = self.engine_cfg.spec_len > 0
-        if self.spec:
-            raise NotImplementedError(
-                "spec_len > 0: speculative decode is not ported yet "
-                "(ROADMAP.md queue 1, item 7)")
         bw = max(1, self.engine_cfg.block_w)
         if capacity > bw:
             capacity = -(-capacity // bw) * bw      # align to kernel block
@@ -468,6 +465,7 @@ class Scheduler:
         self._draft_tokens = 0                   # spec: tokens proposed
         self._accepted_tokens = 0                # spec: drafts verify accepted
         self._verify_steps = 0                   # spec: verify forwards run
+        self._verify_rows = 0                    # spec: drafted rows verified
         self._grouped_admissions = 0             # paged/snap: radix-grouped
         self._snap_hits = 0                      # snap: admissions restored
         self._snap_misses = 0                    # ... or prefilled from zero
@@ -1679,11 +1677,56 @@ class Scheduler:
         return set(drafted)
 
     def _spec_step_batched(self, live, drafts):
-        """ONE batched verify forward scores every drafted slot's proposal
-        (the JAX package's fused verify + accept + rewind). Not ported yet:
-        ``spec_len > 0`` already raises at construction."""
-        raise NotImplementedError(
-            "speculative verify is not ported yet (ROADMAP.md queue 1, item 7)")
+        """ONE verify forward scores every drafted slot's proposal at once
+        (rows of undrafted slots carry lens=0: dropped or trash-page writes,
+        no commits). Rollback: linear full-attention K/V is masked by cache
+        position until overwritten. Stochastic rows draw with the key pair
+        (request key, token index of the row's first verify column)."""
+        t0 = time.perf_counter()
+        S = self.engine_cfg.spec_len + 1
+        tok_rows = [[0] * S for _ in range(self.num_slots)]
+        lens = [0] * self.num_slots
+        for i in live:
+            s = self.slots[i]
+            row = [s.generated[-1]] + drafts[i]
+            lens[i] = len(row)
+            tok_rows[i][:len(row)] = row
+        dev = self._tensor
+        tokens = dev(tok_rows)
+        lens_a = dev(lens)
+        clens = dev([s.cache_len for s in self.slots])
+        # the same greedy/temps/top-k static specialization as the decode loop
+        sampling = any(self.slots[i].request.temperature > 0.0 for i in live)
+        temps = (dev([s.request.temperature if s.request else 0.0
+                      for s in self.slots], torch.float32)
+                 if sampling else None)
+        top_ks = (dev([s.request.top_k if s.request else 0
+                       for s in self.slots])
+                  if sampling and any(self.slots[i].request.top_k > 0
+                                      for i in live)
+                  else None)
+        # column 0 judges the token at index cache_len - prompt_len + 1, the
+        # index the decode loop would give it
+        keys = (dev([[s.request._key if s.request else 0,
+                      s.cache_len - s.prompt_len + 1] for s in self.slots],
+                    torch.int64)
+                if sampling else None)
+        bt = self._decode_block_tables()
+        self.cache, out_tok, out_len = self.progs.verify(
+            self.params, self.cache, tokens, clens, lens_a, temps, top_ks,
+            keys, bt)
+        # the ONE host sync of the verify step
+        pulled = torch.cat([out_tok.flatten(), out_len]).cpu().numpy()
+        out_tok = pulled[:self.num_slots * S].reshape(self.num_slots, S)
+        out_len = pulled[self.num_slots * S:]
+        self._breaker_note(True)
+        self._decode_syncs += 1
+        self._verify_steps += 1
+        self._verify_rows += len(live)
+        dt = time.perf_counter() - t0
+        for i in live:
+            self._commit_spec(i, drafts[i], out_tok[i], int(out_len[i]),
+                              dt / len(live))
 
     def _commit_spec(self, si, draft, out_row, n, dt):
         """Commit one slot's verify outcome: n = accepted drafts + 1
@@ -1723,6 +1766,10 @@ class Scheduler:
             self._finalize(si)
 
     # ---- engine step --------------------------------------------------------
+    def _tensor(self, values, dtype=torch.int32):
+        """Host values as a tensor on the scheduler's device."""
+        return torch.tensor(values, dtype=dtype, device=self.device)
+
     def _decode_block_tables(self):
         """Per-slot block tables for the decode/verify jits (paged mode):
         the table only changes when slot membership does — cached on device
@@ -1780,9 +1827,7 @@ class Scheduler:
         if not rest:
             return True
         t0 = time.perf_counter()
-        def dev(values, dtype=torch.int32):
-            return torch.tensor(values, dtype=dtype, device=self.device)
-
+        dev = self._tensor
         last = dev([s.generated[-1] if s.request else 0 for s in self.slots])
         clens = dev([s.cache_len for s in self.slots])
         rem = dev([s.remaining for s in self.slots])

@@ -2,7 +2,8 @@
 
 Each kernel against its plain PyTorch version at the tolerances of
 tests/test_kernels.py (float32 2e-5, bf16 2e-2), and the port's model and
-server on the card against the same code on the CPU (plain versions). This
+server (speculative decode included) on the card against the same code on
+the CPU (plain versions). This
 file imports no JAX, so it also runs on a machine with a card and no JAX:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
@@ -17,6 +18,9 @@ from repro_torch.configs.registry import ARCHS  # noqa: E402
 from repro_torch.kernels import decode_attention as kda  # noqa: E402
 from repro_torch.kernels import flash_attention as kfa  # noqa: E402
 from repro_torch.kernels import paged_decode_attention as kpda  # noqa: E402
+from repro_torch.kernels import paged_spec_decode_attention as kpsda  # noqa: E402
+from repro_torch.kernels import spec_decode_attention as ksda  # noqa: E402
+from repro_torch.kernels import spec_scan  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.serving.server import EngineConfig, LLMServer, SamplingParams  # noqa: E402
 
@@ -89,6 +93,71 @@ def test_gpu_paged_kernel_matches_plain(dtype):
     assert float((got.float() - want.float()).abs().max()) < GPU_TOL[dtype]
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S", [(4, 5), (64, 33), (3, 1), (7, 64)])
+def test_gpu_accept_len_kernel_matches_plain(B, S):
+    dev = _need_card()
+    g = torch.Generator(device=dev).manual_seed(B * 100 + S)
+    acc = torch.rand(B, S, generator=g, device=dev) < 0.8
+    acc[0] = True                                   # all accept
+    if B > 1:
+        acc[1] = False                              # all reject
+    lens = torch.randint(0, S, (B,), generator=g, device=dev, dtype=torch.int32)
+    lens[0] = S - 1
+    before = spec_scan.launches
+    got = spec_scan.accept_len(acc, lens)
+    torch.cuda.synchronize()
+    assert spec_scan.launches == before + 1
+    assert got.tolist() == spec_scan.accept_len_ref(acc, lens).tolist()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [1, 5])
+def test_gpu_spec_decode_kernel_matches_plain(dtype, S):
+    """Dense multi-query decode == its plain version, and == S one-token
+    decode calls at cache lengths clen + s bit for bit."""
+    dev = _need_card()
+    g = torch.Generator(device=dev).manual_seed(4)
+    q = torch.randn(3, S, 16, 128, generator=g, device=dev).to(dtype)
+    kc = torch.randn(3, 300, 2, 128, generator=g, device=dev).to(dtype)
+    vc = torch.randn(3, 300, 2, 128, generator=g, device=dev).to(dtype)
+    clen = torch.tensor([0, 170, 298 - S], dtype=torch.int32, device=dev)
+    before = ksda.launches
+    got = ksda.spec_decode_attention(q, kc, vc, clen, q_per_kv=8)
+    torch.cuda.synchronize()
+    assert ksda.launches == before + 1
+    want = ksda.spec_attention_ref(q, kc, vc, clen, q_per_kv=8)
+    assert float((got.float() - want.float()).abs().max()) < GPU_TOL[dtype]
+    steps = [kda.decode_attention(q[:, s:s + 1].contiguous(), kc, vc, clen + s,
+                                  q_per_kv=8) for s in range(S)]
+    assert torch.equal(got, torch.cat(steps, dim=1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [1, 5])
+def test_gpu_paged_spec_decode_kernel_matches_plain(dtype, S):
+    dev = _need_card()
+    g = torch.Generator(device=dev).manual_seed(5)
+    kp = torch.randn(40, 16, 2, 128, generator=g, device=dev).to(dtype)
+    vp = torch.randn(40, 16, 2, 128, generator=g, device=dev).to(dtype)
+    q = torch.randn(3, S, 16, 128, generator=g, device=dev).to(dtype)
+    bt = torch.randperm(39, generator=g, device=dev)[:24].add(1).reshape(3, 8)
+    bt = bt.to(torch.int32)
+    bt[1, 2:] = 0                                   # trash-page padding
+    clen = torch.tensor([120, 20, 64], dtype=torch.int32, device=dev)
+    before = kpsda.launches
+    got = kpsda.paged_spec_decode_attention(q, kp, vp, bt, clen, q_per_kv=8)
+    torch.cuda.synchronize()
+    assert kpsda.launches == before + 1
+    want = kpsda.paged_spec_attention_ref(q, kp, vp, bt, clen, q_per_kv=8)
+    assert float((got.float() - want.float()).abs().max()) < GPU_TOL[dtype]
+    steps = [kpda.paged_decode_attention(q[:, s:s + 1].contiguous(), kp, vp, bt,
+                                         clen + s, q_per_kv=8) for s in range(S)]
+    assert torch.equal(got, torch.cat(steps, dim=1))
+
+
 # ---------------------------------------------------------------------------
 # the model and the server on the card against the same code on the CPU
 # ---------------------------------------------------------------------------
@@ -153,4 +222,34 @@ def test_gpu_server_greedy_matches_cpu(mode):
             assert (kpda.launches if mode == "paged" else kda.launches) > \
                 before[2 if mode == "paged" else 1]
     assert all(len(x) == 10 for x in ids["cpu"])
+    assert ids[str(dev)] == ids["cpu"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["dense", "paged"])
+def test_gpu_spec_server_greedy_matches_cpu(mode):
+    """LLMServer(spec_len=6) on the card gives the CPU server's greedy ids
+    (float32, same weights) through the verify kernels."""
+    dev = _need_card()
+    cfg = _qwen()
+    sd = Model(cfg, device="cpu").init(seed=1).state_dict()
+    sd["embed.table"][cfg.vocab_size - 1] = 0.0        # EOS guard
+    prompts = ["Tool result: ERROR 429 rate limit exceeded at gateway. " * 2,
+               "log: a=1 b=2; log: a=1 b=2; log: a=1 b=3; what changed?"]
+    ids = {}
+    for d in ("cpu", dev):
+        srv = LLMServer(cfg, num_slots=2, capacity=160, device=d,
+                        params={k: v.to(d) for k, v in sd.items()},
+                        engine_cfg=EngineConfig(cache_mode=mode, page_size=16,
+                                                decode_chunk=4, spec_len=6))
+        before = (spec_scan.launches, ksda.launches, kpsda.launches)
+        hs = [srv.submit(p, SamplingParams(max_new_tokens=40)) for p in prompts]
+        srv.run_until_idle()
+        ids[str(d)] = [h.request.output_ids for h in hs]
+        assert srv.stats()["verify_steps"] > 0
+        if d != "cpu":
+            assert spec_scan.launches > before[0]
+            assert (kpsda.launches if mode == "paged" else ksda.launches) > \
+                before[2 if mode == "paged" else 1]
+    assert all(len(x) == 40 for x in ids["cpu"])
     assert ids[str(dev)] == ids["cpu"]

@@ -22,6 +22,9 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import decode_attention as kda  # noqa: E402
 from repro_torch.kernels import flash_attention as kfa  # noqa: E402
 from repro_torch.kernels import paged_decode_attention as kpda  # noqa: E402
+from repro_torch.kernels import paged_spec_decode_attention as kpsda  # noqa: E402
+from repro_torch.kernels import spec_decode_attention as ksda  # noqa: E402
+from repro_torch.kernels import spec_scan  # noqa: E402
 
 TOL = 2e-5          # float32, as tests/test_kernels.py
 
@@ -156,24 +159,30 @@ def _calls(device):
     pool = torch.zeros(3, 4, 2, 16, **kw)
     bt = torch.zeros(2, 2, dtype=torch.int32, **kw)
     clen = torch.ones(2, dtype=torch.int32, **kw)
+    qs = torch.zeros(2, 3, 4, 16, **kw)
+    acc = torch.ones(2, 3, dtype=torch.bool, **kw)
     return [
         (kfa, lambda: kfa.flash_attention(q, kv, kv, q_per_kv=2)),
         (kda, lambda: kda.decode_attention(qd, cache, cache, clen, q_per_kv=2)),
         (kpda, lambda: kpda.paged_decode_attention(qd, pool, pool, bt, clen,
                                                    q_per_kv=2)),
+        (spec_scan, lambda: spec_scan.accept_len(acc, clen)),
+        (ksda, lambda: ksda.spec_decode_attention(qs, cache, cache, clen, q_per_kv=2)),
+        (kpsda, lambda: kpsda.paged_spec_decode_attention(qs, pool, pool, bt, clen,
+                                                          q_per_kv=2)),
     ]
 
 
-@pytest.mark.parametrize("i", [0, 1, 2])
+@pytest.mark.parametrize("i", range(6))
 def test_wrapper_cpu_runs_plain_version_uncounted(i):
     mod, call = _calls("cpu")[i]
     before = mod.launches
     out = call()
-    assert out.device.type == "cpu" and torch.isfinite(out).all()
+    assert out.device.type == "cpu" and torch.isfinite(out.float()).all()
     assert mod.launches == before          # a plain-version call is no launch
 
 
-@pytest.mark.parametrize("i", [0, 1, 2])
+@pytest.mark.parametrize("i", range(6))
 def test_wrapper_refuses_other_devices(i):
     """A tensor on neither the CPU nor a card raises; nothing falls back."""
     mod, call = _calls("meta")[i]
@@ -187,7 +196,7 @@ def test_build_commands_target_sm90a():
     from pathlib import Path
     cmds, link, lib = build.compile_commands(Path("/tmp/out"))
     srcs = {Path(c[c.index("-c") + 1]).name for c in cmds}
-    assert srcs == {"flash_attention.cu", "decode_attention.cu"}
+    assert srcs == {"flash_attention.cu", "decode_attention.cu", "spec_scan.cu"}
     for c in cmds + [link]:
         assert "arch=compute_90a,code=sm_90a" in c
     assert "-shared" in link and lib.suffix == ".so"

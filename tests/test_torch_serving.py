@@ -335,13 +335,25 @@ def test_seed_reproducible_across_num_slots(cfgs, weights):
 
 
 @pytest.mark.parametrize("ecfg,item", [
-    (dict(spec_len=4), "item 7"),
     (dict(mesh=object()), "item 11"),
 ])
 def test_unported_engine_options_raise(cfgs, weights, ecfg, item):
     _, cfg = cfgs
     with pytest.raises(NotImplementedError, match=item):
         _server(cfg, weights[1], engine_cfg=EngineConfig(**ecfg))
+
+
+def test_spec_len_builds_and_serves(cfgs, weights):
+    """``spec_len=4`` (speculative decode) builds and serves on the port:
+    a copy-heavy prompt completes its budget through verify steps."""
+    _, cfg = cfgs
+    srv = _server(cfg, weights[1], engine_cfg=EngineConfig(spec_len=4,
+                                                          decode_chunk=2))
+    h = srv.submit("err 429 err 429 err 429 err 429 err",
+                   SamplingParams(max_new_tokens=12))
+    h.result()
+    assert h.request.status == "completed" and len(h.request.output_ids) == 12
+    assert srv.stats()["verify_steps"] > 0
 
 
 def test_server_runs_on_the_card_unless_asked_for_cpu(cfgs):
