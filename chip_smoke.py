@@ -33,20 +33,35 @@ no result line) on any fault:
      and 4 layers in float32 (asserted);
   7. FAME: one log-analytics M+C session through the port's
      WorkflowServingRuntime on the paged spec_len=4 server; statuses equal
-     the ScriptedOracle backend's, prefix hits > 0, session tail reused.
+     the ScriptedOracle backend's, prefix hits > 0, session tail reused;
+  8. stateful archs: recurrentgemma-9b (capacity 4096; a ~3000-token prompt
+     wraps the 2048-position local-attention ring) and xlstm-350m
+     (capacity 2048) at full width, bf16, random weights from seed 0,
+     4 slots: dense, snapshot (cache_mode="paged", page_size 16,
+     decode_chunk 8, explicit num_snapshots / snap_stride) with a shared
+     system prompt and a 2-turn session, and spec_len=4 on copy-heavy
+     prompts; every request COMPLETED, snapshot hits > 0, rglru_scan /
+     flash / decode / accept_len (recurrentgemma) and mlstm_chunk /
+     accept_len (xlstm) launched; parameter, slot-cache, arena and
+     verify-staging bytes and peak memory printed, each model freed before
+     the next loads. Then one pattern period (5 / 8 layers) at full width
+     in float32: snapshot == dense and spec == non-spec greedy token for
+     token, and decode-step logits after a prefill against one full
+     forward within 1e-3.
 
 Kernel launch counts are zeroed just before each serving phase and read
 just after it. The line before the last is a JSON object with one entry per
 kernel; the last line is ``{"ok": true, "device": {...}}``.
 
 Run from the repository root:  python3 chip_smoke.py
-(``--phases`` picks a subset of kernels,serve,spec,fame.)
+(``--phases`` picks a subset of kernels,serve,spec,fame,stateful.)
 """
 from __future__ import annotations
 
 import argparse
 import collections
 import dataclasses
+import gc
 import json
 import math
 import random
@@ -59,7 +74,9 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BF16 = 989e12          # H100 SXM dense bf16 FLOP/s (NVIDIA data sheet)
 PEAK_F32 = 67e12            # float32 outside the tensor cores
 HBM = 3.35e12               # bytes/s
-TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+TOL = {"bfloat16": 2e-2, "float32": 2e-5,
+       # the stateful kernels' bounds (tests/test_kernels.py:101, 139)
+       "bf16_state": 5e-2, "float32_scan": 5e-6}
 
 
 def log(*a):
@@ -234,6 +251,24 @@ def kernel_phase(dev):
         max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
         library_ms=lib)
     rows.update(spec_kernel_rows(dev, rnd))
+    # recurrentgemma's local attention: hd = 256, one KV head (MQA)
+    log("[kernels] flash_attention / decode_attention at hd=256, K=1, window 2048")
+    ql, kl, vl = rnd(1, 3000, 16, 256), rnd(1, 3000, 1, 256), rnd(1, 3000, 1, 256)
+    rows["flash_attention"]["max_abs_err"] = max(
+        rows["flash_attention"]["max_abs_err"], check_close(
+            "bf16 [1,3000,16,256] K=1 window=2048",
+            kfa.flash_attention(ql, kl, vl, q_per_kv=16, window=2048),
+            kfa.flash_attention_ref(ql, kl, vl, q_per_kv=16, window=2048),
+            "bfloat16"))
+    qr1, kr1, vr1 = rnd(4, 1, 16, 256), rnd(4, 2048, 1, 256), rnd(4, 2048, 1, 256)
+    cr = torch.tensor([2999, 100, 2047, 4095], dtype=torch.int32, device=dev)
+    rows["decode_attention"]["max_abs_err"] = max(
+        rows["decode_attention"]["max_abs_err"], check_close(
+            "bf16 ring [4,2048,1,256] window=2048 clen=[2999,100,2047,4095]",
+            kda.decode_attention(qr1, kr1, vr1, cr, q_per_kv=16, window=2048),
+            kda.decode_attention_ref(qr1, kr1, vr1, cr, q_per_kv=16, window=2048),
+            "bfloat16"))
+    rows.update(stateful_kernel_rows(dev))
     for r in rows.values():
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         log(f"[kernels] {r['name']}: kernel_ms={r['ms']:.4f} plain_ms="
@@ -363,6 +398,110 @@ def spec_kernel_rows(dev, rnd):
     return rows
 
 
+def check_state(name, got, want, tol):
+    """(C, n, m) against (C, n, m); the error of each part is printed."""
+    errs = [float((g.float() - w.float()).abs().max()) for g, w in zip(got, want)]
+    log(f"  {name} state: max_abs_err C={errs[0]:.3e} n={errs[1]:.3e} "
+        f"m={errs[2]:.3e} (tol {tol})")
+    if not all(math.isfinite(e) and e <= tol for e in errs):
+        raise AssertionError(f"{name}: state differs by {errs}")
+    return max(errs)
+
+
+def stateful_kernel_rows(dev):
+    """rglru_scan and mlstm_chunk against their plain versions at the
+    stateful phase's largest shapes (recurrentgemma-9b's prefill bucket at
+    capacity 4096, R = 4096; xlstm-350m's at capacity 2048, H = 4,
+    hd = 512, chunk 256), plus one float32 shape each and a state-carry
+    check. Bounds as in the JAX package's tests (tests/test_kernels.py:
+    101, 139): bf16 5e-2, float32 5e-6 (scan) and 2e-5 (mLSTM)."""
+    import torch
+    from repro_torch.kernels import mlstm_chunk as kmc
+    from repro_torch.kernels import rglru_scan as krs
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def rnd(*shape, dtype=f32, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    rows = {}
+    # ---- rglru_scan ---------------------------------------------------------
+    log("[kernels] rglru_scan")
+    B, S, R = 1, 4096, 4096
+    # the JAX package's test inputs (tests/test_kernels.py:97): |h| stays
+    # small enough that one bf16 rounding step is below the bound
+    a, bx, h0 = torch.sigmoid(rnd(B, S, R)), rnd(B, S, R, scale=0.5), rnd(B, R)
+    ka = lambda: krs.rglru_scan(a, bx, h0, out_dtype=bf16)           # noqa: E731
+    kr = lambda: krs.rglru_scan_ref(a, bx, h0, out_dtype=bf16)       # noqa: E731
+    (y, h), (yw, hw) = ka(), kr()
+    err = check_close("bf16 out [1,4096,4096] with h0", y, yw, "bf16_state")
+    err = max(err, check_close("  h_last (float32)", h, hw, "float32_scan"))
+    a2, bx2, h2 = torch.sigmoid(rnd(2, 150, 100)), rnd(2, 150, 100), rnd(2, 100)
+    for hh in (None, h2):
+        y2, hl2 = krs.rglru_scan(a2, bx2, hh)
+        y2w, hl2w = krs.rglru_scan_ref(a2, bx2, hh)
+        err = max(err, check_close(f"f32 [2,150,100] h0={hh is not None}", y2, y2w,
+                                   "float32_scan"),
+                  check_close("  h_last", hl2, hl2w, "float32_scan"))
+    ms, plain = time_ms(ka, 20), time_ms(kr, 2, warmup=1)
+    b_ms, b_by = bound(4 * 2 * B * S * R + 2 * B * S * R + 4 * 2 * B * R,
+                       2 * B * S * R, f32)
+    rows["rglru_scan"] = dict(
+        name="rglru_scan", route="cuda",
+        source="src/repro_torch/kernels/csrc/rglru_scan.cu",
+        replaces="src/repro/kernels/rglru_scan.py:42",
+        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None)
+    del a, bx, y, yw
+
+    # ---- mlstm_chunk --------------------------------------------------------
+    log("[kernels] mlstm_chunk")
+    B, S, H, hd, L = 1, 2048, 4, 512, 256
+    # scales of the JAX package's test (tests/test_kernels.py:130-134)
+    q, k = (rnd(B, S, H, hd, dtype=bf16, scale=0.5) for _ in range(2))
+    v = rnd(B, S, H, hd, dtype=bf16)
+    ig, fg = rnd(B, S, H), rnd(B, S, H) + 2.0
+    # a carried-in state: the one a first call leaves
+    _, st0 = kmc.mlstm_chunk_ref(q[:, :300], k[:, :300], v[:, :300], ig[:, :300],
+                                 fg[:, :300], chunk=L)
+    ma = lambda: kmc.mlstm_chunk(q, k, v, ig, fg, st0, chunk=L)       # noqa: E731
+    mr = lambda: kmc.mlstm_chunk_ref(q, k, v, ig, fg, st0, chunk=L)   # noqa: E731
+    (hk, sk), (hr, sr) = ma(), mr()
+    err = check_close("bf16 [1,2048,4,512] chunk 256, state in", hk, hr, "bf16_state")
+    err = max(err, check_state("bf16 [1,2048,4,512]", sk, sr, TOL["bf16_state"]))
+    q3, k3, v3 = (rnd(2, 300, 2, 64, scale=0.5) for _ in range(3))
+    ig3, fg3 = rnd(2, 300, 2), rnd(2, 300, 2) + 2.0
+    h3, s3 = kmc.mlstm_chunk(q3, k3, v3, ig3, fg3, chunk=64)
+    h3w, s3w = kmc.mlstm_chunk_ref(q3, k3, v3, ig3, fg3, chunk=64)
+    err = max(err, check_close("f32 [2,300,2,64] chunk 64", h3, h3w, "float32"),
+              check_state("f32 [2,300,2,64]", s3, s3w, TOL["float32"]))
+    # state carry: two calls (130 + 170 positions) equal one call
+    ha, sa = kmc.mlstm_chunk(q3[:, :130].contiguous(), k3[:, :130].contiguous(),
+                             v3[:, :130].contiguous(), ig3[:, :130], fg3[:, :130],
+                             chunk=64)
+    hb, sb = kmc.mlstm_chunk(q3[:, 130:].contiguous(), k3[:, 130:].contiguous(),
+                             v3[:, 130:].contiguous(), ig3[:, 130:], fg3[:, 130:],
+                             sa, chunk=64)
+    err = max(err, check_close("f32 two calls (130 + 170) == one call",
+                               torch.cat([ha, hb], 1), h3, "float32"),
+              check_state("f32 two calls", sb, s3, TOL["float32"]))
+    ms, plain = time_ms(ma, 5, warmup=1), time_ms(mr, 3, warmup=1)
+    nc = -(-S // L)
+    flops = B * H * nc * (2 * L * L * hd + 4 * L * hd * hd)
+    nbytes = (2 * 4 * B * S * H * hd + 4 * 2 * B * S * H
+              + 2 * 4 * (B * H * hd * hd + B * H * hd + B * H))
+    b_ms, b_by = bound(nbytes, flops, bf16)
+    rows["mlstm_chunk"] = dict(
+        name="mlstm_chunk", route="cuda",
+        source="src/repro_torch/kernels/csrc/mlstm_chunk.cu",
+        replaces="src/repro/kernels/mlstm_chunk.py:77",
+        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None)
+    return rows
+
+
 def multi_query_equals_steps(qs, kc, vc, clen):
     """The multi-query kernel runs one block per query position, each the
     one-token kernel at cache length clen + s: its output equals S
@@ -400,13 +539,14 @@ def make_text(tok, rng: random.Random, n_tokens: int) -> str:
 
 def kernel_modules():
     from repro_torch.kernels import (decode_attention, flash_attention,
-                                     paged_decode_attention,
-                                     paged_spec_decode_attention,
+                                     mlstm_chunk, paged_decode_attention,
+                                     paged_spec_decode_attention, rglru_scan,
                                      spec_decode_attention, spec_scan)
     return {"flash_attention": flash_attention, "decode_attention": decode_attention,
             "paged_decode_attention": paged_decode_attention,
             "accept_len": spec_scan, "spec_decode_attention": spec_decode_attention,
-            "paged_spec_decode_attention": paged_spec_decode_attention}
+            "paged_spec_decode_attention": paged_spec_decode_attention,
+            "rglru_scan": rglru_scan, "mlstm_chunk": mlstm_chunk}
 
 
 def kernel_counts():
@@ -503,7 +643,8 @@ def profile_decode_chunk(server, prompts):
         return
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    log(f"[profile] one dense decode chunk ({server.engine.engine_cfg.decode_chunk} "
+    log(f"[profile] {server.engine.cfg.name}: one dense decode chunk "
+        f"({server.engine.engine_cfg.decode_chunk} "
         f"steps, {live} slots): unprofiled wall_ms={wall_ms:.2f}, kernel time of "
         f"the next chunk device_busy_ms={busy:.2f}, device_idle_share="
         f"{1 - busy / wall_ms:.3f}")
@@ -809,6 +950,270 @@ def spec_phase(dev, model, params, tok):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the stateful archs (recurrentgemma-9b, xlstm-350m)
+# ---------------------------------------------------------------------------
+
+# per arch: capacity, prompt lengths of the dense run (recurrentgemma's
+# longest wraps its 2048-position local-attention ring), the snapshot
+# arena's rows and stride (set explicitly: the default arena,
+# 1 + slots * (capacity / 16 + 2) rows, would hold ~46 GB of xlstm state),
+# the kernels its path must launch, and the float32 one-period depth
+STATEFUL = {
+    "recurrentgemma-9b": dict(capacity=4096, prompts=(200, 800, 1500, 3000),
+                              num_snapshots=48, snap_stride=8, f32_layers=5,
+                              kernels=("rglru_scan", "flash_attention",
+                                       "decode_attention", "accept_len")),
+    "xlstm-350m": dict(capacity=2048, prompts=(200, 600, 1000, 1500),
+                       num_snapshots=16, snap_stride=8, f32_layers=8,
+                       kernels=("mlstm_chunk", "accept_len")),
+}
+
+
+def gb(n: float) -> str:
+    return f"{n / 1e9:.3f}"
+
+
+def stateful_memory(name, cfg, params, spec):
+    """Parameters, slot cache (4 slots) and snapshot arena bytes."""
+    from repro_torch.models import transformer as tfm
+    cap = spec["capacity"]
+    p_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    row = tfm.cache_bytes(cfg, 1, cap)
+    log(f"[{name}] memory: params_GB={gb(p_bytes)} state_row_MB={row / 1e6:.2f} "
+        f"slot_cache_GB(4 slots)={gb(4 * row)} arena_GB({spec['num_snapshots']} "
+        f"rows)={gb(spec['num_snapshots'] * row)} verify_staging_GB(B=4,S=5)="
+        f"{gb(verify_staging_bytes(cfg, 4, 5))}")
+
+
+def verify_staging_bytes(cfg, B, S):
+    """What a verify step stages per layer for the commit (float32 states
+    after every draft position), summed over the layers."""
+    from repro_torch.configs import base as cfgbase
+    total = 0
+    F2 = int(cfg.mlstm_proj_factor * cfg.d_model)
+    for kind in cfg.layer_kinds:
+        if kind == cfgbase.MLSTM:
+            hd = F2 // cfg.num_heads
+            total += 4 * B * S * cfg.num_heads * (hd * hd + hd + 1)
+        elif kind == cfgbase.SLSTM:
+            total += 4 * 4 * B * S * cfg.d_model
+        elif kind == cfgbase.RECURRENT:
+            total += 4 * B * S * (cfg.rglru_dim or cfg.d_model)
+    return total
+
+
+def logits_decode_vs_forward(model, params, ids, n, dev):
+    """Decode-step logits after a prefill of ids[:n] against one full
+    forward over the same tokens; (max abs difference, |logit| max)."""
+    import torch
+    from repro_torch.models import transformer as tfm
+    cache = model.init_cache(1, len(ids) + 16)
+    lg, _ = model.prefill(params, model.make_batch(torch.tensor([ids[:n]], device=dev)),
+                          cache, length=n, with_logits="last")
+    steps = [lg[:, 0]]
+    for i, x in enumerate(ids[n:-1]):
+        b = {"tokens": torch.tensor([[x]], device=dev),
+             "positions": torch.tensor([[n + i]], device=dev)}
+        li, _ = model.decode_step(params, b, cache,
+                                  torch.tensor([n + i], dtype=torch.int32, device=dev))
+        steps.append(li[:, 0])
+    got = torch.cat(steps)
+    full, _, _ = tfm.forward_logits(params, model.make_batch(
+        torch.tensor([ids[:-1]], device=dev)), model.cfg, mode="train")
+    want = full[0, n - 1:]
+    return float((got - want).abs().max()), float(want.abs().max())
+
+
+def self_quotes(tok, rng, prompt_ids, out):
+    """Two requests that quote a greedy continuation ``out`` of
+    ``prompt_ids`` back to the model, so that its drafts do not hang on a
+    random model copying text: the prompt and continuation repeated, and
+    the continuation's second half placed ~64 tokens before the prompt
+    and its first half (these models' gates forget within tens of tokens,
+    so the greedy next token stays out[12], which the drafter finds)."""
+    filler = tok.encode(make_text(tok, rng, 64))
+    return [prompt_ids + out + prompt_ids + out[:12],
+            out[12:] + filler + prompt_ids + out[:12]]
+
+
+def stateful_f32_checks(name, spec, dev, tok, rng):
+    """Full width, one pattern period, float32: snapshot == dense and
+    spec == non-spec greedy token for token; decode-step logits against a
+    full forward within 1e-3."""
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import Model
+    from repro_torch.serving.server import EngineConfig, LLMServer, SamplingParams
+    cfg = dataclasses.replace(ARCHS[name], num_layers=spec["f32_layers"],
+                              dtype="float32", param_dtype="float32")
+    model = Model(cfg, device=dev)
+    params = model.init(seed=1)
+    cap = 2560
+    system = "System: one agent of a Planner/Actor/Evaluator workflow. " + \
+        make_text(tok, rng, 150)
+    shared = [system + f"{r}: " + make_text(tok, rng, 40)
+              for r in ("planner", "actor", "evaluator")]
+    copies = copy_prompts(tok, rng)[:3]
+
+    def run(prompts, quoted=(), **ecfg):
+        srv = LLMServer(cfg, num_slots=4, capacity=cap, params=params, device=dev,
+                        engine_cfg=EngineConfig(**ecfg))
+        out = []
+        for _ in range(2):
+            hs = [srv.submit(p, SamplingParams(max_new_tokens=24)) for p in prompts]
+            hs += [srv.submit("", SamplingParams(max_new_tokens=24), token_ids=q)
+                   for q in quoted]
+            srv.run_until_idle()
+            out += [h.request.output_ids for h in hs]
+        st = srv.stats()
+        del srv
+        return out, st
+
+    dense, _ = run(shared)
+    snap, sst = run(shared, cache_mode="paged", page_size=16, decode_chunk=8,
+                    num_snapshots=16, snap_stride=2)
+    base, _ = run(copies)
+    quoted = self_quotes(tok, rng, tok.encode(copies[0]), base[0])
+    base, _ = run(copies, quoted)
+    spec_out, pst = run(copies, quoted, spec_len=4, spec_ngram_min=1)
+    ok_snap = snap == dense and sst["snapshot_hits"] > 0
+    ok_spec = spec_out == base and pst["verify_steps"] > 0
+    log(f"[{name}-f32-{cfg.num_layers}-layers] snapshot == dense: {ok_snap} "
+        f"(snapshot_hits={sst['snapshot_hits']}); spec == non-spec: {ok_spec} "
+        f"(verify_steps={pst['verify_steps']} accepted={pst['accepted_tokens']}/"
+        f"{pst['draft_tokens']})")
+    if not (ok_snap and ok_spec):
+        raise AssertionError(f"{name} float32: snapshot==dense {ok_snap}, "
+                             f"spec==non-spec {ok_spec}")
+    # long enough that recurrentgemma's decode steps run on a wrapped ring
+    n = 2100 if name.startswith("recurrentgemma") else 300
+    ids = tok.encode(make_text(tok, rng, n + 8))[:n + 8]
+    n = len(ids) - 8
+    diff, scale = logits_decode_vs_forward(model, params, ids, n, dev)
+    log(f"[{name}-f32-{cfg.num_layers}-layers] decode after a {n}-token prefill vs "
+        f"one full forward, 8 steps: max_abs_logit_diff={diff:.3e} (|logit| max "
+        f"{scale:.3f}, tol 1e-3)")
+    if not math.isfinite(diff) or diff > 1e-3:
+        raise AssertionError(f"{name} float32: decode vs forward logits differ by {diff}")
+    del model, params
+    torch.cuda.empty_cache()
+
+
+def stateful_phase(dev):
+    """Both stateful archs at full width (bf16, random weights from seed 0,
+    4 slots): dense, snapshot (cache_mode="paged") and spec_len=4 serving,
+    every request COMPLETED; then the float32 one-period checks. Each model
+    is freed before the next one loads."""
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import Model
+    from repro_torch.serving.server import EngineConfig, LLMServer, SamplingParams
+    from repro_torch.serving.tokenizer import ByteTokenizer
+
+    counts_all = collections.Counter()
+    for name, spec in STATEFUL.items():
+        cfg = ARCHS[name]
+        tok = ByteTokenizer(cfg.vocab_size)
+        rng = random.Random(3)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = Model(cfg, device=dev)
+        params = model.init(seed=0)
+        torch.cuda.synchronize()
+        log(f"[{name}] layers={cfg.num_layers} pattern={cfg.pattern} d_model="
+            f"{cfg.d_model} heads={cfg.num_heads}/{cfg.num_kv_heads} vocab="
+            f"{cfg.vocab_size} params={model.param_count() / 1e9:.3f}B init_s="
+            f"{time.perf_counter() - t0:.2f}")
+        stateful_memory(name, cfg, params, spec)
+        cap = spec["capacity"]
+        counts = collections.Counter()
+
+        # ---- dense ----------------------------------------------------------
+        srv = LLMServer(cfg, num_slots=4, capacity=cap, params=params, device=dev,
+                        engine_cfg=EngineConfig(cache_mode="dense"))
+        prompts = [make_text(tok, rng, n) for n in spec["prompts"]]
+        turns = [make_text(tok, rng, 300), " user: " + make_text(tok, rng, 100)]
+        handles, c, _ = serve_phase(f"{name}-dense", srv, prompts, 1, turns,
+                                    warm=make_text(tok, rng, 40))
+        counts.update(c)
+        profile_decode_chunk(srv, prompts)
+        del handles, srv            # a handle keeps its server (and cache) alive
+        torch.cuda.empty_cache()
+
+        # ---- snapshot mode ----------------------------------------------------
+        srv = LLMServer(cfg, num_slots=4, capacity=cap, params=params, device=dev,
+                        engine_cfg=EngineConfig(
+                            cache_mode="paged", page_size=16, decode_chunk=8,
+                            num_snapshots=spec["num_snapshots"],
+                            snap_stride=spec["snap_stride"]))
+        system = ("System: you are one agent of a Planner/Actor/Evaluator "
+                  "workflow; tools are MCP functions. " + make_text(tok, rng, 500))
+        sprompts = [system + f"{role}: " + make_text(tok, rng, n)
+                    for role, n in (("planner", 100), ("actor", 300),
+                                    ("evaluator", 600), ("actor", 900))]
+        sturns = [system + "planner: " + make_text(tok, rng, 80),
+                  " tool: " + make_text(tok, rng, 120)]
+        before = srv.stats()
+        handles, c, st = serve_phase(f"{name}-snapshot", srv, sprompts, 1, sturns,
+                                     warm=system + "planner: plan the task.")
+        counts.update(c)
+        hits = st["snapshot_hits"] - before["snapshot_hits"]
+        log(f"[{name}-snapshot] snapshot_hits={hits} snapshot_captures="
+            f"{st['snapshot_captures']} snapshot_evictions="
+            f"{st['snapshot_evictions']} turn_prefix_hits={st['turn_prefix_hits']}")
+        if hits <= 0:
+            raise AssertionError(f"{name}: no snapshot hits")
+        del handles, srv
+        torch.cuda.empty_cache()
+
+        # ---- speculative decode -------------------------------------------------
+        # unigram drafts, and requests quoting the model's own greedy
+        # continuation back to it (self_quotes)
+        srv = LLMServer(cfg, num_slots=4, capacity=cap, params=params, device=dev,
+                        engine_cfg=EngineConfig(cache_mode="dense", spec_len=4,
+                                                spec_ngram_min=1))
+        cprompts = copy_prompts(tok, rng)
+        r0 = serve_ids(srv, cprompts[:1])[0].request            # also the warm-up
+        quoted = self_quotes(tok, rng, tok.encode(cprompts[0])[-r0.prompt_tokens:],
+                             list(r0.output_ids[:24]))
+        before = srv.stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        hs = [srv.submit(p, SamplingParams(max_new_tokens=48)) for p in cprompts]
+        hs += [srv.submit("", SamplingParams(max_new_tokens=48), token_ids=q)
+               for q in quoted]
+        srv.run_until_idle()
+        for h in hs:
+            if h.request.status != "completed" or not h.request.output_ids:
+                raise AssertionError(f"{name}-spec: rid={h.request.rid} "
+                                     f"status={h.request.status}")
+        torch.cuda.synchronize()
+        c = kernel_counts()
+        st = srv.stats()
+        d = {k: st[k] - before[k] for k in ("verify_steps", "draft_tokens",
+                                            "accepted_tokens", "decode_tokens")}
+        log(f"[{name}-spec] requests={len(hs)} wall_s={time.perf_counter() - t0:.3f} "
+            f"output_tokens={[h.request.output_tokens for h in hs]} {d} "
+            f"peak_GB={gb(torch.cuda.max_memory_allocated())}")
+        log(f"[{name}-spec] launches={c}")
+        if d["verify_steps"] <= 0 or d["draft_tokens"] <= 0:
+            raise AssertionError(f"{name}-spec: no verify steps / drafts: {d}")
+        counts.update(c)
+        del h, hs, srv, model, params   # a handle keeps its server alive
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        missing = [k for k in spec["kernels"] if counts[k] <= 0]
+        log(f"[{name}] launches={dict(counts)} peak_memory_GB="
+            f"{gb(torch.cuda.max_memory_allocated())}")
+        if missing:
+            raise AssertionError(f"{name}: kernels not launched: {missing}")
+        counts_all.update(counts)
+        stateful_f32_checks(name, spec, dev, tok, rng)
+    return dict(counts_all)
+
+
+# ---------------------------------------------------------------------------
 # phase 7: the FAME runtime on the paged spec server
 # ---------------------------------------------------------------------------
 
@@ -873,8 +1278,9 @@ def fame_phase(dev, model, params):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernels,serve,spec,fame",
-                    help="comma list of kernels,serve,spec,fame (default: all)")
+    ap.add_argument("--phases", default="kernels,serve,spec,fame,stateful",
+                    help="comma list of kernels,serve,spec,fame,stateful "
+                         "(default: all)")
     args = ap.parse_args()
     try:
         import torch
@@ -925,9 +1331,13 @@ def main() -> int:
             launches.update(spec_phase(dev, model, params, tok))
         if "fame" in phases:
             launches.update(fame_phase(dev, model, params))
+        del model, params
+        torch.cuda.empty_cache()
+    if "stateful" in phases:
+        launches.update(stateful_phase(dev))
     for name, r in rows.items():
         r["launches"] = launches.get(name, 0)
-    if {"serve", "spec"} <= phases:
+    if {"serve", "spec", "stateful"} <= phases:
         idle = [name for name, r in rows.items() if r["launches"] <= 0]
         if idle:
             raise AssertionError(f"kernels never launched on the main path: {idle}")

@@ -1,8 +1,10 @@
-"""GQA attention for the port: projections, cache writes, paged helpers.
+"""GQA attention for the port: projections, cache writes, ring and paged
+helpers.
 
-Counterpart of the linear full-attention subset of ``repro.models.
-attention``. The attention math itself lives in ``repro_torch.kernels``
-(each module holds the CUDA wrapper and its plain PyTorch version);
+Counterpart of ``repro.models.attention`` for full attention and the
+local-attention ring cache (recurrentgemma). The attention math itself
+lives in ``repro_torch.kernels`` (each module holds the CUDA wrapper and
+its plain PyTorch version);
 ``repeat_kv`` has no counterpart because the kernels index KV head
 ``h // G`` directly.
 
@@ -12,8 +14,11 @@ buffer donation; each such site is marked ``# mutation``.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
+from repro_torch.kernels.flash_attention import NEG_INF
 from repro_torch.kernels.paged_decode_attention import \
     paged_decode_attention_ref  # noqa: F401  (the JAX module's name)
 from repro_torch.kernels.spec_decode_attention import \
@@ -40,15 +45,19 @@ def out_proj(p, o):
     return torch.einsum("bshk,hkd->bsd", o, p.wo)
 
 
-def cache_update(k_cache, v_cache, k_new, v_new, cache_len):
+def cache_update(k_cache, v_cache, k_new, v_new, cache_len, keep=None):
     """Write k_new/v_new [B,1,K,hd] at ring slot ``cache_len % W`` of each
-    row (``cache_len`` scalar or [B]). Returns the (same) caches."""
+    row (``cache_len`` scalar or [B]). ``keep`` [B] bool: rows marked False
+    write back the value they would replace. Returns the (same) caches."""
     B, W = k_cache.shape[:2]
     rows = torch.arange(B, device=k_cache.device)
     slot = torch.as_tensor(cache_len, device=k_cache.device).long() % W
     slot = slot.expand(B) if slot.dim() == 0 else slot
-    k_cache.index_put_((rows, slot), k_new[:, 0].to(k_cache.dtype))   # mutation
-    v_cache.index_put_((rows, slot), v_new[:, 0].to(v_cache.dtype))   # mutation
+    for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+        val = new[:, 0].to(cache.dtype)
+        if keep is not None:
+            val = torch.where(keep[:, None, None], val, cache[rows, slot])
+        cache.index_put_((rows, slot), val)                           # mutation
     return k_cache, v_cache
 
 
@@ -111,6 +120,90 @@ def paged_spec_cache_update(pool_k, pool_v, k_new, v_new, block_tables,
     pool_k.index_put_((page, off), k_new.to(pool_k.dtype))            # mutation
     pool_v.index_put_((page, off), v_new.to(pool_v.dtype))            # mutation
     return pool_k, pool_v
+
+
+# ---------------------------------------------------------------------------
+# Ring (local-window) cache: position p lives at slot p % cap. Extend and the
+# verify commit splice a chunk in; extend and verify attend to a
+# position-ordered view of the ring plus the chunk.
+# ---------------------------------------------------------------------------
+
+
+def ring_order(cache, start: int):
+    """Position-ordered view of a ring cache: row i holds position
+    ``start - cap + i``."""
+    return torch.roll(cache, shifts=-(start % cache.shape[1]), dims=1)
+
+
+def ring_splice(cache, chunk, starts, lengths, old=None):
+    """The ring holding the last ``cap`` positions of a sequence ending at
+    ``starts[b] + lengths[b]``, where chunk [B,S,...] holds positions
+    [starts[b], starts[b]+S) of row b, the first ``lengths[b]`` valid, and
+    ``old`` (default: ``cache``) the ring of the positions before
+    ``starts[b]``. Slot s takes its position's chunk row or keeps ``old``.
+    Written into ``cache`` in place; ``starts``/``lengths`` are ints or [B]
+    tensors (no host sync)."""
+    B, cap = cache.shape[:2]
+    S = chunk.shape[1]
+    dev = cache.device
+    starts = torch.as_tensor(starts, device=dev).long().reshape(-1).expand(B)
+    lengths = torch.as_tensor(lengths, device=dev).long().reshape(-1).expand(B)
+    end = (starts + lengths)[:, None]
+    slot = torch.arange(cap, device=dev)[None, :]
+    pos = end - cap + torch.remainder(slot - (end - cap), cap)       # [B, cap]
+    from_chunk = pos >= starts[:, None]
+    idx = torch.clamp(pos - starts[:, None], 0, max(S - 1, 0))
+    rows = torch.arange(B, device=dev)[:, None]
+    picked = chunk.to(cache.dtype)[rows, idx]
+    keep_old = cache if old is None else old
+    sel = from_chunk.reshape(B, cap, *([1] * (cache.dim() - 2)))
+    cache.copy_(torch.where(sel, picked, keep_old))                   # mutation
+    return cache
+
+
+def ring_verify_view(cache, cache_lens):
+    """Per-row position-ordered ring view for the verify step: row i of
+    sequence b holds position ``cache_lens[b] - cap + i`` (negative =
+    unwritten, masked by ``spec_attention_ring``)."""
+    B, cap = cache.shape[:2]
+    dev = cache.device
+    idx = (cache_lens.long()[:, None] + torch.arange(cap, device=dev)[None, :]) % cap
+    return cache[torch.arange(B, device=dev)[:, None], idx]
+
+
+def spec_attention_ring(q, k_view, v_view, cache_lens, *, q_per_kv: int,
+                        window: int):
+    """Multi-token decode attention against a ring view plus the draft chunk
+    (the JAX package's XLA ``spec_attention_ring``; no Pallas kernel).
+
+    q [B,S,H,hd] (query s of row b at position ``cache_lens[b] + s``) against
+    ``concat(ring_verify_view(cache), chunk)`` [B,cap+S,K,hd], whose row i
+    holds position ``cache_lens[b] - cap + i``. Queries attend causally
+    within the sliding ``window``; nothing is written.
+    """
+    B, S, H, hd = q.shape
+    T, K = k_view.shape[1], k_view.shape[2]
+    cap = T - S
+    qg = q.reshape(B, S, K, q_per_kv, hd).float()
+    s = torch.einsum("bskgh,bwkh->bkgsw", qg, k_view.float()) / math.sqrt(hd)
+    clens = cache_lens.long()[:, None]
+    pos_k = clens - cap + torch.arange(T, device=q.device)[None]
+    pos_q = clens + torch.arange(S, device=q.device)[None]
+    valid = ((pos_k[:, None, :] >= 0) & (pos_k[:, None, :] <= pos_q[:, :, None])
+             & (pos_q[:, :, None] - pos_k[:, None, :] < window))     # [B,S,T]
+    s = torch.where(valid[:, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgsw,bwkh->bskgh", p.to(v_view.dtype).float(), v_view.float())
+    return o.reshape(B, S, H, hd).to(q.dtype)
+
+
+def ring_verify_commit(record, cache, cache_lens, ns, valid):
+    """Splice the first ``ns[b]`` draft K/V rows of the verify record into
+    each row's ring (rows not ``valid`` stay bit for bit)."""
+    lengths = torch.where(valid, ns.long(), torch.zeros_like(ns.long()))
+    ring_splice(cache["k"], record["k_new"], cache_lens, lengths)
+    ring_splice(cache["v"], record["v_new"], cache_lens, lengths)
+    return cache
 
 
 # ---------------------------------------------------------------------------

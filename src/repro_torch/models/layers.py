@@ -44,6 +44,18 @@ def init_(t: torch.Tensor, init: str, gen: torch.Generator, *,
     return t
 
 
+def assign(dst: torch.Tensor, new: torch.Tensor, keep=None):
+    """``dst.copy_(new)`` in place; with ``keep`` [B] bool only the rows it
+    marks True take ``new`` and the rest keep ``dst`` bit for bit (the JAX
+    package's ``select_rows`` freeze of done rows, here one masked copy per
+    state leaf and no host sync)."""
+    if keep is not None:
+        k = keep.reshape((-1,) + (1,) * (dst.dim() - 1))
+        new = torch.where(k, new.to(dst.dtype), dst)
+    dst.copy_(new)
+    return dst
+
+
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------

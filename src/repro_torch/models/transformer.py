@@ -1,24 +1,29 @@
-"""Block assembly, the layer stack and the train/prefill/decode/extend entry
-points of the port (linear full attention: ``ATTN`` blocks).
+"""Block assembly, the layer stack and the train/prefill/decode/extend/
+verify entry points of the port: full attention (ATTN), local attention on
+a ring cache (LOCAL_ATTN), RG-LRU (RECURRENT), mLSTM and sLSTM blocks.
 
 Counterpart of ``repro.models.transformer``. Parameters are an
 ``nn.Module`` tree whose state-dict names follow the JAX tree
-(``embed.table``, ``blocks.<l>.attn.wq``, ``final_norm.scale``; the JAX
-``scan/sub0`` stack becomes one module per layer and a Python loop over
-layers stands in for ``lax.scan``). Caches keep the JAX pytree and layouts,
-``{"scan": {"sub<i>": {"k", "v": [L, B, cap, K, hd]}}}``, and are updated
-in place: every entry point returns the cache object it was given.
+(``embed.table``, ``blocks.<l>.attn.wq``, ``blocks.<l>.rec.a_param``,
+``final_norm.scale``; the JAX ``scan/sub<i>`` stacks and ``tail<j>``
+layers become one module per layer and a Python loop over layers stands in
+for ``lax.scan``). Caches keep the JAX pytree and layouts, ``{"scan":
+{"sub<i>": {leaf: [G, B, ...]}}, "tail<j>": {leaf: [B, ...]}}`` with the
+mLSTM / sLSTM states as tuples, and are updated in place: every entry
+point returns the cache object it was given.
 
-Attention runs through the kernel wrappers of ``repro_torch.kernels`` on
-every path (the CUDA kernel for tensors on the card, its plain version on
-the CPU): prefill and train through ``flash_attention``, dense and paged
-extend through ``flash_attention`` with ``q_start``, decode through
-``decode_attention`` / ``paged_decode_attention``, and the speculative
-verify step through their multi-query forms ``spec_decode_attention`` /
-``paged_spec_decode_attention``.
+The hot loops run through the kernel wrappers of ``repro_torch.kernels``
+(the CUDA kernel for tensors on the card, its plain version on the CPU):
+prefill, train and extend attention through ``flash_attention`` (with
+``q_start`` and, for local attention, ``window``), decode through
+``decode_attention`` / ``paged_decode_attention``, the verify step through
+``spec_decode_attention`` / ``paged_spec_decode_attention``, the RG-LRU
+scan through ``rglru_scan`` and the mLSTM prefill / extend through
+``mlstm_chunk``.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict
 
 import torch
@@ -32,6 +37,8 @@ from repro_torch.kernels.paged_spec_decode_attention import \
     paged_spec_decode_attention
 from repro_torch.kernels.spec_decode_attention import spec_decode_attention
 from repro_torch.models import attention as attn
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (apply_mlp, apply_norm, embed_tokens,
                                        init_, unembed)
 
@@ -40,17 +47,15 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 
 def check_supported(cfg):
-    """Raise for what this slice of the port does not carry yet; each
-    message names the ROADMAP.md item that ports it."""
-    bad = sorted(set(k for k in cfg.layer_kinds if k != cfgbase.ATTN))
-    if bad:
+    """Raise for what the port does not carry yet; each message names the
+    ROADMAP.md item that ports it."""
+    if cfgbase.ATTN_MOE in cfg.layer_kinds:
         raise NotImplementedError(
-            f"{cfg.name}: block kinds {bad} are not ported yet (ROADMAP.md "
-            "queue 1: item 8 for MoE, item 9 for recurrent / xLSTM / local "
-            "attention)")
-    if cfg.sliding_window is not None or cfg.local_window is not None:
+            f"{cfg.name}: MoE blocks are not ported yet (ROADMAP.md queue 1, "
+            "item 8)")
+    if cfg.sliding_window is not None:
         raise NotImplementedError(
-            f"{cfg.name}: sliding/local-window attention is not ported yet "
+            f"{cfg.name}: sliding-window attention is not ported yet "
             "(ROADMAP.md queue 1, item 8)")
     if cfg.modality == "audio_frames" or cfg.pos_emb == "sinusoidal":
         # vlm_tokens are plain token ids in the JAX model too; only the
@@ -58,7 +63,7 @@ def check_supported(cfg):
         # another input path
         raise NotImplementedError(
             f"{cfg.name}: modality {cfg.modality!r} is not ported yet "
-            "(ROADMAP.md queue 1, item 9: modality stubs)")
+            "(ROADMAP.md queue 1, item 13: modality stubs)")
 
 
 # ---------------------------------------------------------------------------
@@ -71,7 +76,16 @@ def _p(*shape, device, dtype):
                         requires_grad=False)
 
 
-class Norm(nn.Module):
+class Params(nn.Module):
+    """A module of leaves named after the JAX tree. ``INIT`` maps a leaf to
+    its JAX ``ParamDef`` init rule; leaves not named there are "scaled"."""
+
+    INIT: Dict[str, str] = {}
+
+
+class Norm(Params):
+    INIT = {"scale": "ones", "bias": "zeros"}
+
     def __init__(self, cfg, dim, *, device, dtype):
         super().__init__()
         self.scale = _p(dim, device=device, dtype=dtype)
@@ -79,7 +93,9 @@ class Norm(nn.Module):
             self.bias = _p(dim, device=device, dtype=dtype)
 
 
-class Attention(nn.Module):
+class Attention(Params):
+    INIT = {"bq": "zeros", "bk": "zeros", "bv": "zeros"}
+
     def __init__(self, cfg, *, device, dtype):
         super().__init__()
         D, H, K, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -95,7 +111,9 @@ class Attention(nn.Module):
             self.bv = _p(K, hd, **kw)
 
 
-class MLP(nn.Module):
+class MLP(Params):
+    INIT = {"bi": "zeros", "bo": "zeros"}
+
     def __init__(self, cfg, *, device, dtype):
         super().__init__()
         D, F = cfg.d_model, cfg.d_ff
@@ -109,57 +127,125 @@ class MLP(nn.Module):
             self.bo = _p(D, **kw)
 
 
-class Block(nn.Module):
-    """One ATTN block: pre-norm attention + pre-norm MLP."""
+class Recurrent(Params):
+    """RG-LRU mixer leaves (``rglru.rglru_defs``)."""
+    INIT = {"conv_b": "zeros", "b_rgate": "zeros", "b_igate": "zeros",
+            "w_rgate": "normal", "w_igate": "normal", "a_param": "normal"}
 
     def __init__(self, cfg, *, device, dtype):
         super().__init__()
+        D, R, W = cfg.d_model, cfg.rglru_dim or cfg.d_model, cfg.conv1d_width
         kw = dict(device=device, dtype=dtype)
-        self.attn = Attention(cfg, **kw)
-        self.norm2 = Norm(cfg, cfg.d_model, **kw)
-        self.mlp = MLP(cfg, **kw)
+        self.norm = Norm(cfg, D, **kw)
+        self.wx = _p(D, R, **kw)
+        self.wy = _p(D, R, **kw)
+        self.conv_w = _p(W, R, **kw)
+        for name in ("conv_b", "w_rgate", "b_rgate", "w_igate", "b_igate", "a_param"):
+            setattr(self, name, _p(R, **kw))
+        self.wo = _p(R, D, **kw)
 
 
-class Table(nn.Module):
-    def __init__(self, *shape, device, dtype):
+class MLSTM(Params):
+    """mLSTM mixer leaves (``xlstm.mlstm_defs``)."""
+    INIT = {"conv_b": "zeros", "b_ig": "zeros", "b_fg": "ones", "out_norm": "ones"}
+
+    def __init__(self, cfg, *, device, dtype):
         super().__init__()
+        D, H, W = cfg.d_model, cfg.num_heads, cfg.conv1d_width
+        F2 = int(cfg.mlstm_proj_factor * D)
+        kw = dict(device=device, dtype=dtype)
+        self.norm = Norm(cfg, D, **kw)
+        self.w_up = _p(D, F2, **kw)
+        self.w_gate = _p(D, F2, **kw)
+        self.conv_w = _p(W, F2, **kw)
+        self.conv_b = _p(F2, **kw)
+        self.wq = _p(F2, F2, **kw)
+        self.wk = _p(F2, F2, **kw)
+        self.wv = _p(F2, F2, **kw)
+        self.w_ig = _p(F2, H, **kw)
+        self.b_ig = _p(H, **kw)
+        self.w_fg = _p(F2, H, **kw)
+        self.b_fg = _p(H, **kw)
+        self.out_norm = _p(F2, **kw)
+        self.w_down = _p(F2, D, **kw)
+
+
+class SLSTM(Params):
+    """sLSTM mixer leaves (``xlstm.slstm_defs``)."""
+    INIT = {"b_gates": "zeros", "out_norm": "ones"}
+
+    def __init__(self, cfg, *, device, dtype):
+        super().__init__()
+        D, H = cfg.d_model, cfg.slstm_heads
+        kw = dict(device=device, dtype=dtype)
+        self.norm = Norm(cfg, D, **kw)
+        self.w_gates = _p(D, 4, D, **kw)
+        self.r_gates = _p(H, 4, D // H, D // H, **kw)
+        self.b_gates = _p(4, D, **kw)
+        self.out_norm = _p(D, **kw)
+        self.wo = _p(D, D, **kw)
+
+
+class Block(nn.Module):
+    """One residual block of ``kind``, named as the JAX ``block_defs``:
+    ATTN / LOCAL_ATTN {attn, norm2, mlp}, RECURRENT {rec, norm2, mlp},
+    MLSTM {mlstm}, SLSTM {slstm}."""
+
+    def __init__(self, cfg, kind, *, device, dtype):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        if kind in (cfgbase.ATTN, cfgbase.LOCAL_ATTN):
+            self.attn = Attention(cfg, **kw)
+        elif kind == cfgbase.RECURRENT:
+            self.rec = Recurrent(cfg, **kw)
+        elif kind == cfgbase.MLSTM:
+            self.mlstm = MLSTM(cfg, **kw)
+        elif kind == cfgbase.SLSTM:
+            self.slstm = SLSTM(cfg, **kw)
+        else:
+            raise ValueError(kind)
+        if kind in (cfgbase.ATTN, cfgbase.LOCAL_ATTN, cfgbase.RECURRENT):
+            self.norm2 = Norm(cfg, cfg.d_model, **kw)
+            self.mlp = MLP(cfg, **kw)
+
+
+class Table(Params):
+    def __init__(self, *shape, init, device, dtype):
+        super().__init__()
+        self.INIT = {"table": init}
         self.table = _p(*shape, device=device, dtype=dtype)
 
 
 class TransformerParams(nn.Module):
     """The model's parameters (uninitialised until ``init_`` or a load)."""
 
-    # JAX init rule per leaf name (layers.py ParamDefs)
-    _ZEROS = ("bias", "bq", "bk", "bv", "bi", "bo")
-
     def __init__(self, cfg, *, device, dtype):
         super().__init__()
         check_supported(cfg)
         kw = dict(device=device, dtype=dtype)
-        self.embed = Table(cfg.padded_vocab, cfg.d_model, **kw)
+        self.embed = Table(cfg.padded_vocab, cfg.d_model, init="normal", **kw)
         if not cfg.tie_embeddings:
-            self.unembed = Table(cfg.d_model, cfg.padded_vocab, **kw)
-        self.blocks = nn.ModuleList(Block(cfg, **kw) for _ in range(cfg.num_layers))
+            self.unembed = Table(cfg.d_model, cfg.padded_vocab, init="scaled", **kw)
+        self.blocks = nn.ModuleList(Block(cfg, kind, **kw) for kind in cfg.layer_kinds)
         self.final_norm = Norm(cfg, cfg.d_model, **kw)
         self.stack = cfg.num_scan_groups
+        self.scanned = cfg.num_scan_groups * len(cfg.pattern)
 
     def init_(self, gen: torch.Generator):
-        """Fill every parameter by the JAX package's init rules
-        (``layers._init_one``) from ``gen``: norm scales ones, biases zeros,
-        the embedding normal(0.02), every other matrix fan-in scaled normal
-        (block matrices count the scanned layer axis into their fan-in, as
-        the JAX ``stack_defs`` tree does)."""
-        for name, t in self.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if leaf == "scale":
-                init_(t, "ones", gen)
-            elif leaf in self._ZEROS:
-                init_(t, "zeros", gen)
-            elif name == "embed.table":
-                init_(t, "normal", gen)
-            else:
-                init_(t, "scaled", gen,
-                      stack=self.stack if name.startswith("blocks.") else 1)
+        """Fill every parameter by its JAX ``ParamDef`` rule
+        (``layers._init_one``) from ``gen``: ones, zeros, normal(0.02) or
+        fan-in scaled normal, per leaf (``Params.INIT``). The scanned
+        layers' matrices count the scan axis into their fan-in, as the JAX
+        ``stack_defs`` tree does; the tail layers (past the last whole
+        pattern period) have no such axis."""
+        for path, mod in self.named_modules():
+            if not isinstance(mod, Params):
+                continue
+            parts = path.split(".")
+            scanned = parts[0] == "blocks" and int(parts[1]) < self.scanned
+            for name, t in mod.named_parameters(recurse=False):
+                init_(t, mod.INIT.get(name, "scaled"), gen,
+                      stack=self.stack if scanned else 1)
         return self
 
 
@@ -168,34 +254,90 @@ class TransformerParams(nn.Module):
 # ---------------------------------------------------------------------------
 
 
+def tree_map(fn, tree):
+    """Map over the tensor (or spec) leaves of a cache tree of dicts and
+    tuples; a spec leaf is a (shape, dtype) pair."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and not _is_spec(tree):
+        return tuple(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def tree_leaves(tree):
+    """The leaves in ``jax.tree.leaves`` order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, tuple) and not _is_spec(tree):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def _is_spec(x):
+    return isinstance(x, tuple) and len(x) == 2 and isinstance(x[1], torch.dtype)
+
+
+def block_cache_spec(kind, cfg, batch: int, capacity: int):
+    """One layer's cache leaves as (shape, dtype), the JAX
+    ``block_cache_spec`` layout."""
+    K, hd = cfg.num_kv_heads, cfg.head_dim
+    R = cfg.rglru_dim or cfg.d_model
+    F2 = int(cfg.mlstm_proj_factor * cfg.d_model)
+    W = cfg.conv1d_width
+    dt, f32 = DTYPES[cfg.dtype], torch.float32
+    if kind in (cfgbase.ATTN, cfgbase.LOCAL_ATTN):
+        cap = capacity
+        if kind == cfgbase.LOCAL_ATTN:
+            cap = min(capacity, cfg.local_window or capacity)
+        return {"k": ((batch, cap, K, hd), dt), "v": ((batch, cap, K, hd), dt)}
+    if kind == cfgbase.RECURRENT:
+        return {"h": ((batch, R), f32), "conv": ((batch, W - 1, R), dt)}
+    if kind == cfgbase.MLSTM:
+        H = cfg.num_heads
+        mhd = F2 // H
+        return {"state": (((batch, H, mhd, mhd), f32), ((batch, H, mhd), f32),
+                          ((batch, H), f32)),
+                "conv": ((batch, W - 1, F2), dt)}
+    if kind == cfgbase.SLSTM:
+        st = ((batch, cfg.d_model), f32)
+        return {"state": (st, st, st, st)}
+    raise ValueError(kind)
+
+
 def cache_spec(cfg, batch: int, capacity: int) -> Dict[str, Any]:
-    """The cache pytree as (shape, dtype) leaves: scanned attention layers
-    stack to [num_scan_groups, batch, capacity, K, hd]."""
-    row = (batch, capacity, cfg.num_kv_heads, cfg.head_dim)
-    dt = DTYPES[cfg.dtype]
-    stacked = ((cfg.num_scan_groups,) + row, dt)
-    c: Dict[str, Any] = {"scan": {f"sub{i}": {"k": stacked, "v": stacked}
-                                  for i in range(len(cfg.pattern))}}
-    for j, _ in enumerate(cfg.tail_kinds):
-        c[f"tail{j}"] = {"k": (row, dt), "v": (row, dt)}
+    """The cache pytree as (shape, dtype) leaves: the scanned layers of
+    pattern position i stack to [num_scan_groups, ...] under
+    ``scan/sub<i>``, the tail layers sit under ``tail<j>``."""
+    G = cfg.num_scan_groups
+    c: Dict[str, Any] = {"scan": {
+        f"sub{i}": tree_map(lambda s: ((G,) + s[0], s[1]),
+                            block_cache_spec(kind, cfg, batch, capacity))
+        for i, kind in enumerate(cfg.pattern)}}
+    for j, kind in enumerate(cfg.tail_kinds):
+        c[f"tail{j}"] = block_cache_spec(kind, cfg, batch, capacity)
     return c
 
 
+def cache_bytes(cfg, batch: int, capacity: int) -> int:
+    spec = cache_spec(cfg, batch, capacity)
+    return sum(math.prod(s[0]) * torch.empty((), dtype=s[1]).element_size()
+               for s in tree_leaves(spec))
+
+
 def init_cache(cfg, batch: int, capacity: int, device) -> Dict[str, Any]:
-    def mk(spec):
-        if isinstance(spec, dict):
-            return {k: mk(v) for k, v in spec.items()}
-        return torch.zeros(spec[0], dtype=spec[1], device=device)
-    return mk(cache_spec(cfg, batch, capacity))
+    """Zeros in every leaf, as the JAX ``init_cache`` (a prefill starts
+    from the zero recurrent state whatever the row holds)."""
+    return tree_map(lambda s: torch.zeros(s[0], dtype=s[1], device=device),
+                    cache_spec(cfg, batch, capacity))
 
 
 def layer_cache(cache, cfg, layer: int):
-    """Per-layer views {"k", "v"} into the (stacked) cache pytree."""
+    """Per-layer views of every leaf of the (stacked) cache pytree; writes
+    through them update the cache."""
     P = len(cfg.pattern)
     g, i = divmod(layer, P)
     if g < cfg.num_scan_groups:
-        c = cache["scan"][f"sub{i}"]
-        return {"k": c["k"][g], "v": c["v"][g]}
+        return tree_map(lambda t: t[g], cache["scan"][f"sub{i}"])
     return cache[f"tail{layer - cfg.num_scan_groups * P}"]
 
 
@@ -204,20 +346,27 @@ def layer_cache(cache, cfg, layer: int):
 # ---------------------------------------------------------------------------
 
 
-def _attn_mixer(p, x, cfg, *, positions, mode, cache, cache_len,
-                block_tables=None, lens=None):
-    """Attention temporal mixer (the ATTN part of the JAX ``_attn_mixer``).
+def _attn_mixer(p, x, cfg, *, kind, positions, mode, cache, cache_len,
+                block_tables=None, lens=None, prefill_len=None, keep=None):
+    """Attention temporal mixer (the JAX ``_attn_mixer``). Returns
+    (out, record); record is the verify step's staged draft K/V of a ring
+    cache, None otherwise.
+
     ``mode == "extend"`` continues a partially filled cache: a chunk at
     positions [cache_len, cache_len+S) attends to the cached prefix plus
     itself; ``cache_len`` is then a Python int. ``mode == "verify"`` scores
     S draft tokens per row at per-row positions [cache_len[b],
     cache_len[b]+S), the first ``lens[b]`` of them valid: the linear cache
     is written ahead (padded-tail writes dropped, or sent to trash page 0
-    when paged) and needs no rollback, since later reads mask by position.
-    Only linear full-attention caches reach it (``check_supported``); the
-    JAX package's ring-cache branch is not ported."""
+    when paged) and needs no rollback, since later reads mask by position;
+    a ring (LOCAL_ATTN) cache cannot be written ahead, so verify attends to
+    its position-ordered view plus the chunk and stages the chunk for
+    ``verify_commit``. ``prefill_len`` is the valid prompt length of a
+    right-padded prefill or extend chunk; ``keep`` freezes decode rows."""
     G = cfg.q_per_kv
+    window = cfg.local_window if kind == cfgbase.LOCAL_ATTN else None
     q, k, v = attn.qkv_proj(p, x, cfg, positions)
+    record = None
     if mode == "decode" and block_tables is not None:
         ps = cache["k"].shape[1]
         kc, vc = attn.paged_cache_update(cache["k"], cache["v"], k, v,
@@ -225,28 +374,38 @@ def _attn_mixer(p, x, cfg, *, positions, mode, cache, cache_len,
         o = paged_decode_attention(q, kc, vc, block_tables, cache_len,
                                    q_per_kv=G)
     elif mode == "decode":
-        kc, vc = attn.cache_update(cache["k"], cache["v"], k, v, cache_len)
-        o = decode_attention(q, kc, vc, cache_len, q_per_kv=G)
+        kc, vc = attn.cache_update(cache["k"], cache["v"], k, v, cache_len, keep)
+        o = decode_attention(q, kc, vc, cache_len, q_per_kv=G, window=window)
     elif mode == "verify":
         S = k.shape[1]
         clens = torch.as_tensor(cache_len, device=x.device).reshape(-1)
         clens = clens.to(torch.int32)
-        n = torch.as_tensor(S if lens is None else lens, device=x.device)
-        valid = (torch.arange(S, device=x.device)[None, :]
-                 < n.reshape(-1, 1)).expand(k.shape[0], S)
-        if block_tables is not None:
-            ps = cache["k"].shape[1]
-            kc, vc = attn.paged_spec_cache_update(cache["k"], cache["v"], k, v,
-                                                  block_tables, clens, valid, ps)
-            o = paged_spec_decode_attention(q, kc, vc, block_tables, clens,
-                                            q_per_kv=G)
+        if window is not None:
+            kv = torch.cat([attn.ring_verify_view(cache["k"], clens),
+                            k.to(cache["k"].dtype)], dim=1)
+            vv = torch.cat([attn.ring_verify_view(cache["v"], clens),
+                            v.to(cache["v"].dtype)], dim=1)
+            o = attn.spec_attention_ring(q, kv, vv, clens, q_per_kv=G,
+                                         window=window)
+            record = {"k_new": k, "v_new": v}
         else:
-            kc, vc = attn.spec_cache_update(cache["k"], cache["v"], k, v, clens,
-                                            valid)
-            o = spec_decode_attention(q, kc, vc, clens, q_per_kv=G)
+            n = torch.as_tensor(S if lens is None else lens, device=x.device)
+            valid = (torch.arange(S, device=x.device)[None, :]
+                     < n.reshape(-1, 1)).expand(k.shape[0], S)
+            if block_tables is not None:
+                ps = cache["k"].shape[1]
+                kc, vc = attn.paged_spec_cache_update(
+                    cache["k"], cache["v"], k, v, block_tables, clens, valid, ps)
+                o = paged_spec_decode_attention(q, kc, vc, block_tables, clens,
+                                                q_per_kv=G)
+            else:
+                kc, vc = attn.spec_cache_update(cache["k"], cache["v"], k, v,
+                                                clens, valid)
+                o = spec_decode_attention(q, kc, vc, clens, q_per_kv=G)
     elif mode == "extend":
         S = k.shape[1]
         start = int(cache_len)
+        length = S if prefill_len is None else prefill_len
         if block_tables is not None:
             if k.shape[0] != 1:
                 raise NotImplementedError(
@@ -260,42 +419,104 @@ def _attn_mixer(p, x, cfg, *, positions, mode, cache, cache_len,
             n = -(-(start + S) // ps)
             kv = attn.paged_view(cache["k"], block_tables[:, :n])
             vv = attn.paged_view(cache["v"], block_tables[:, :n])
-        else:
+            o = flash_attention(q, kv, vv, q_per_kv=G, q_start=start)
+        elif window is None:
             kv = attn.chunk_write(cache["k"], k, start)
             vv = attn.chunk_write(cache["v"], v, start)
-        o = flash_attention(q, kv, vv, q_per_kv=G, q_start=start)
+            o = flash_attention(q, kv, vv, q_per_kv=G, q_start=start)
+        else:
+            # ring: attend to the position-ordered ring plus the chunk. Row
+            # i of the view holds position start - cap + i; drop the rows
+            # of negative (unwritten) positions so that key row 0 is
+            # position max(start - cap, 0), and shift the queries to match
+            # (the JAX package's k_start mask, by slicing)
+            cap = cache["k"].shape[1]
+            off = max(cap - start, 0)
+            kseq = torch.cat([attn.ring_order(cache["k"], start),
+                              k.to(cache["k"].dtype)], dim=1)[:, off:]
+            vseq = torch.cat([attn.ring_order(cache["v"], start),
+                              v.to(cache["v"].dtype)], dim=1)[:, off:]
+            o = flash_attention(q, kseq.contiguous(), vseq.contiguous(),
+                                q_per_kv=G, window=window, q_start=cap - off)
+            attn.ring_splice(cache["k"], k, start, length)
+            attn.ring_splice(cache["v"], v, start, length)
     else:                                   # train / prefill
-        o = flash_attention(q, k, v, q_per_kv=G)
+        o = flash_attention(q, k, v, q_per_kv=G, window=window)
         if mode == "prefill":
-            # right-padding is harmless: padded rows land at positions >=
-            # the prompt length, which decode masks by cache_len
-            attn.chunk_write(cache["k"], k, 0)
-            attn.chunk_write(cache["v"], v, 0)
-    return attn.out_proj(p, o)
+            S, cap = k.shape[1], cache["k"].shape[1]
+            if cap >= S:
+                # right-padding is harmless: padded rows land at positions
+                # >= the prompt length, which decode masks by cache_len
+                attn.chunk_write(cache["k"], k, 0)
+                attn.chunk_write(cache["v"], v, 0)
+            else:
+                # ring under padding: positions [length - cap, length) at
+                # slot p % cap, zeros for the negative ones (a prefill
+                # starts from an empty ring whatever the row held)
+                length = S if prefill_len is None else prefill_len
+                for name, new in (("k", k), ("v", v)):
+                    attn.ring_splice(cache[name], new, 0, length,
+                                     old=torch.zeros_like(cache[name]))
+    return attn.out_proj(p, o), record
 
 
 def apply_block(kind, p, x, cfg, *, positions, mode, cache, cache_len,
-                block_tables=None, lens=None):
-    """One residual ATTN block (the only kind this slice carries; see
-    ``check_supported``). Returns x'; the cache is updated in place."""
-    h = apply_norm(p.attn.norm, x, cfg)
-    x = x + _attn_mixer(p.attn, h, cfg, positions=positions, mode=mode,
-                        cache=cache, cache_len=cache_len,
-                        block_tables=block_tables, lens=lens)
-    h2 = apply_norm(p.norm2, x, cfg)
-    return x + apply_mlp(p.mlp, h2, cfg)
+                block_tables=None, lens=None, prefill_len=None,
+                prefill_mask=None, keep=None):
+    """One residual block. Returns (x', record); the cache is updated in
+    place. In ``mode="verify"`` the blocks with state (recurrent, mLSTM,
+    sLSTM, ring attention) leave their cache as it is and return a record
+    that ``verify_commit`` resolves once the accept step has picked each
+    row's accepted length; linear full attention commits in place."""
+    rec_mode = mode if mode in ("decode", "extend", "verify") else "full"
+    rec_len = prefill_len if mode in ("prefill", "extend") else None
+    rec_mask = prefill_mask if mode in ("prefill", "extend", "verify") else None
+    if kind in (cfgbase.ATTN, cfgbase.LOCAL_ATTN):
+        h = apply_norm(p.attn.norm, x, cfg)
+        o, record = _attn_mixer(p.attn, h, cfg, kind=kind, positions=positions,
+                                mode=mode, cache=cache, cache_len=cache_len,
+                                block_tables=block_tables, lens=lens,
+                                prefill_len=rec_len, keep=keep)
+        x = x + o
+        return x + apply_mlp(p.mlp, apply_norm(p.norm2, x, cfg), cfg), record
+    if kind == cfgbase.RECURRENT:
+        h = apply_norm(p.rec.norm, x, cfg)
+        o, record = rglru_mod.apply_recurrent_mixer(
+            p.rec, h, cfg, cache=cache, mode=rec_mode, length=rec_len,
+            mask=rec_mask, keep=keep)
+        x = x + o
+        return x + apply_mlp(p.mlp, apply_norm(p.norm2, x, cfg), cfg), record
+    if kind == cfgbase.MLSTM:
+        h = apply_norm(p.mlstm.norm, x, cfg)
+        o, record = xlstm_mod.apply_mlstm(p.mlstm, h, cfg, cache=cache,
+                                          mode=rec_mode, length=rec_len,
+                                          mask=rec_mask, keep=keep)
+        return x + o, record
+    if kind == cfgbase.SLSTM:
+        h = apply_norm(p.slstm.norm, x, cfg)
+        o, record = xlstm_mod.apply_slstm(p.slstm, h, cfg, cache=cache,
+                                          mode=rec_mode, length=rec_len,
+                                          mask=rec_mask, keep=keep)
+        return x + o, record
+    raise ValueError(kind)
 
 
 def apply_stack(params, x, cfg, *, positions, mode, cache=None,
-                cache_len=None, block_tables=None, lens=None):
+                cache_len=None, block_tables=None, lens=None,
+                prefill_len=None, prefill_mask=None, keep=None):
     """Run all layers (a Python loop over layers stands in for the JAX
-    scan). Returns (x, cache)."""
+    scan). Returns (x, records): the verify records by layer index."""
+    records = {}
     for layer, (kind, blk) in enumerate(zip(cfg.layer_kinds, params.blocks)):
         lc = layer_cache(cache, cfg, layer) if cache is not None else None
-        x = apply_block(kind, blk, x, cfg, positions=positions, mode=mode,
-                        cache=lc, cache_len=cache_len,
-                        block_tables=block_tables, lens=lens)
-    return x, cache
+        x, rec = apply_block(kind, blk, x, cfg, positions=positions, mode=mode,
+                             cache=lc, cache_len=cache_len,
+                             block_tables=block_tables, lens=lens,
+                             prefill_len=prefill_len, prefill_mask=prefill_mask,
+                             keep=keep)
+        if rec is not None:
+            records[layer] = rec
+    return x, records
 
 
 # ---------------------------------------------------------------------------
@@ -306,42 +527,63 @@ def apply_stack(params, x, cfg, *, positions, mode, cache=None,
 @torch.no_grad()
 def forward_logits(params, batch, cfg, *, mode="train", cache=None,
                    cache_len=None, prefill_len=None, block_tables=None,
-                   with_logits=True, lens=None):
+                   with_logits=True, lens=None, keep=None):
     """``with_logits``: False skips final-norm + unembed (None logits);
     "last" unembeds only position ``prefill_len - 1`` (or the final one),
-    [B, 1, V]; "all" / True unembeds every position. Returns
-    (logits, cache, aux) with aux = 0 (no MoE in this slice)."""
+    [B, 1, V]; "all" / True unembeds every position. ``prefill_len`` (int)
+    marks the valid prefix of a right-padded prefill / extend chunk and
+    ``lens`` [B] the valid inputs of each verify row: both become the
+    ``prefill_mask`` that stops recurrent, conv and xLSTM state at the
+    last real token. Returns (logits, cache, aux) with aux = 0 (no MoE in
+    the port yet); in ``mode="verify"`` the "cache" is the staged record
+    ``{"cache", "records"}`` that ``verify_commit`` resolves, as in the
+    JAX package."""
     x = embed_tokens(params, batch["tokens"], cfg)
-    x, new_cache = apply_stack(params, x, cfg, positions=batch["positions"],
-                               mode=mode, cache=cache, cache_len=cache_len,
-                               block_tables=block_tables, lens=lens)
+    B, S = x.shape[:2]
+    n = lens if mode == "verify" else prefill_len
+    prefill_mask = None
+    if n is not None:
+        n = torch.as_tensor(n, device=x.device).reshape(-1, 1)
+        prefill_mask = (torch.arange(S, device=x.device)[None, :] < n).expand(B, S)
+    x, records = apply_stack(params, x, cfg, positions=batch["positions"],
+                             mode=mode, cache=cache, cache_len=cache_len,
+                             block_tables=block_tables, lens=lens,
+                             prefill_len=prefill_len, prefill_mask=prefill_mask,
+                             keep=keep)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    out = {"cache": cache, "records": records} if mode == "verify" else cache
     if not with_logits:
-        return None, new_cache, aux
+        return None, out, aux
     x = apply_norm(params.final_norm, x, cfg)
     if with_logits == "last":
         last = prefill_len - 1 if prefill_len is not None else x.shape[1] - 1
         x = x[:, last:last + 1]
-    return unembed(params, x, cfg), new_cache, aux
+    return unembed(params, x, cfg), out, aux
 
 
 def prefill(params, batch, cfg, cache, *, length=None, with_logits=True):
-    """Fill the cache from a (right-padded) prompt at positions [0, S).
-    ``length`` is the valid prompt length (for ``with_logits="last"``).
+    """Fill the cache from a (right-padded) prompt at positions [0, S),
+    starting from the zero state whatever the cache row held. ``length``
+    is the valid prompt length: recurrent, conv, xLSTM and ring-KV state
+    then match an unpadded prefill of the first ``length`` tokens.
     Returns (logits, cache)."""
     logits, new_cache, _ = forward_logits(params, batch, cfg, mode="prefill",
-                                          cache=cache, cache_len=0,
-                                          prefill_len=length,
-                                          with_logits=with_logits)
+                                             cache=cache, cache_len=0,
+                                             prefill_len=length,
+                                             with_logits=with_logits)
     return logits, new_cache
 
 
-def decode_step(params, batch, cfg, cache, cache_len, *, block_tables=None):
+def decode_step(params, batch, cfg, cache, cache_len, *, block_tables=None,
+                keep=None):
     """One decode step. batch tokens [B,1]; cache_len [B] (or scalar).
-    ``block_tables`` [B, n] switches the caches to the paged layout."""
+    ``block_tables`` [B, n] switches the caches to the paged layout;
+    ``keep`` [B] bool leaves the cache rows it marks False bit for bit (the
+    done rows of a decode chunk on archs with state)."""
     logits, new_cache, _ = forward_logits(params, batch, cfg, mode="decode",
-                                          cache=cache, cache_len=cache_len,
-                                          block_tables=block_tables)
+                                             cache=cache, cache_len=cache_len,
+                                             block_tables=block_tables,
+                                             keep=keep)
     return logits, new_cache
 
 
@@ -349,13 +591,14 @@ def extend(params, batch, cfg, cache, cache_len, *, length=None,
            block_tables=None, with_logits=True):
     """Prefill continuation: a chunk of S tokens at positions
     [cache_len, cache_len+S) against a partially filled cache (chunked
-    prefill, paged suffix prefill). ``length`` marks the valid chunk
-    prefix for ``with_logits="last"``."""
+    prefill, paged suffix prefill, a snapshot restore's suffix); recurrent,
+    conv and xLSTM layers resume from their cached state. ``length`` marks
+    the valid chunk prefix."""
     logits, new_cache, _ = forward_logits(params, batch, cfg, mode="extend",
-                                          cache=cache, cache_len=cache_len,
-                                          prefill_len=length,
-                                          block_tables=block_tables,
-                                          with_logits=with_logits)
+                                             cache=cache, cache_len=cache_len,
+                                             prefill_len=length,
+                                             block_tables=block_tables,
+                                             with_logits=with_logits)
     return logits, new_cache
 
 
@@ -366,21 +609,42 @@ def verify(params, batch, cfg, cache, cache_lens, *, lens=None,
     at per-row positions ``[cache_lens[b], cache_lens[b]+S)``; ``lens`` [B]
     counts the valid inputs (k+1). Returns (logits [B,S,V], staged):
     ``logits[:, i]`` is the target distribution for the token following
-    input i. For the linear full-attention caches of this slice ``staged``
-    IS the new cache (written ahead in place)."""
-    logits, new_cache, _ = forward_logits(params, batch, cfg, mode="verify",
-                                          cache=cache, cache_len=cache_lens,
-                                          block_tables=block_tables,
-                                          with_logits="all", lens=lens)
-    return logits, new_cache
+    input i. Linear full-attention K/V is written ahead in place; every
+    other block leaves its cache as it is and stages a record, so
+    ``staged`` is ``{"cache", "records"}`` for ``verify_commit``."""
+    logits, staged, _ = forward_logits(
+        params, batch, cfg, mode="verify", cache=cache, cache_len=cache_lens,
+        block_tables=block_tables, with_logits="all", lens=lens)
+    return logits, staged
 
 
 def verify_commit(cfg, staged, cache_lens, ns, lens):
     """Resolve a ``verify`` call's staged record to the committed cache.
-    Linear full-attention K/V was written ahead and is masked by position,
-    so the commit is the staged cache itself. The JAX package's other
-    commits (ring splices for windowed attention, state rewinds for
-    recurrent / xLSTM blocks) are not ported; ``check_supported`` refuses
-    those archs, naming ROADMAP.md queue 1 items 8 and 9."""
-    del cfg, cache_lens, ns, lens
-    return staged
+
+    ns [B]: tokens emitted per row by ``sampler.accept_batched`` (accepted
+    drafts + 1, the inputs consumed); lens [B]: the verify call's valid
+    inputs, rows with ``lens == 0`` keep their pre-verify state bit for
+    bit. Recurrent, xLSTM and ring-attention layers rewind by gathers and
+    ring splices (no second forward); linear full attention was written
+    ahead and is masked by position. Returns the cache."""
+    cache = staged["cache"]
+    if not staged["records"]:
+        return cache
+    dev = next(iter(tree_leaves(cache))).device
+    clens = torch.as_tensor(cache_lens, device=dev).reshape(-1)
+    ns = torch.as_tensor(ns, device=dev).reshape(-1).long()
+    valid = torch.as_tensor(lens, device=dev).reshape(-1) > 0
+    for layer, rec in staged["records"].items():
+        kind = cfg.layer_kinds[layer]
+        lc = layer_cache(cache, cfg, layer)
+        if kind in (cfgbase.ATTN, cfgbase.LOCAL_ATTN):
+            attn.ring_verify_commit(rec, lc, clens, ns, valid)
+        elif kind == cfgbase.RECURRENT:
+            rglru_mod.verify_commit(rec, lc, ns, valid)
+        elif kind == cfgbase.MLSTM:
+            xlstm_mod.mlstm_verify_commit(rec, lc, ns, valid)
+        elif kind == cfgbase.SLSTM:
+            xlstm_mod.slstm_verify_commit(rec, lc, ns, valid)
+        else:
+            raise ValueError(kind)
+    return cache

@@ -5,7 +5,11 @@ one device pool of ``num_pages`` pages per layer reusing the model's cache
 pytree (batch axis = pages, capacity = page size), a host-side allocator,
 and per-request block tables. Page 0 is the trash page: block-table padding
 for unused entries and empty slots points at it, so writes from masked-out
-lanes land somewhere harmless. ``PagePool`` is a verbatim copy.
+lanes land somewhere harmless. Archs with per-slot state (recurrent, conv,
+xLSTM, ring KV) share prefixes through a snapshot arena instead: the
+model's cache pytree with the batch axis re-purposed as snapshot rows.
+``PagePool``, ``supports_snapshots`` and ``SnapshotArena`` are verbatim
+copies.
 """
 from __future__ import annotations
 
@@ -81,13 +85,84 @@ def init_paged_cache(cfg, num_pages: int, page_size: int, device):
 def supports_paged(cfg) -> tuple:
     """(ok, reason): paged mode needs every layer to be full (non-windowed)
     attention — KV of a position then depends only on the token prefix, so
-    pages are shareable across requests."""
+    pages are shareable across requests. Recurrent / conv / xLSTM state and
+    windowed attention share prefixes through per-prefix state snapshots
+    instead (``supports_snapshots``)."""
     bad = [k for k in cfg.layer_kinds if k not in (cfgbase.ATTN, cfgbase.ATTN_MOE)]
     if bad:
         return False, f"non-attention layers {sorted(set(bad))} keep per-slot state"
     if cfg.sliding_window is not None:
         return False, "sliding-window attention: ring cache is not page-shareable"
     return True, ""
+
+
+def supports_snapshots(cfg) -> tuple:
+    """(ok, reason): per-prefix recurrent-state snapshots need the whole
+    decode state to be O(1)/window-bounded per sequence (recurrent / conv /
+    mLSTM / sLSTM state, ring KV) — then the state after any prefix boundary
+    is a fixed-size pytree that one arena slot can hold, and restoring it is
+    equivalent to re-prefilling the whole prefix. A full-attention layer's
+    KV grows with the prefix, so those archs share via KV pages instead
+    (``supports_paged``)."""
+    if cfg.is_subquadratic:
+        return True, ""
+    return False, ("full-attention KV grows with the prefix; use paged KV "
+                   "sharing instead")
+
+
+class SnapshotArena:
+    """Host-side slot allocator over the snapshot arena's batch axis.
+
+    The device arena is the model's cache pytree with the batch axis
+    re-purposed as snapshot slots (one row = the complete per-sequence state
+    at one radix-node boundary: recurrent h, conv window, mLSTM (C, n, m),
+    sLSTM state, ring-KV cache — the ring write cursor is implicit in the
+    boundary length, position p living at slot ``p % window``). Slots are
+    owned by exactly one of: this free list, the radix tree (one node per
+    boundary), or transiently the engine between capture and trie insert —
+    mirroring the PagePool ownership rule, with the radix refcounts pinning
+    a snapshot's node exactly like a page's.
+    """
+
+    def __init__(self, num_snaps: int):
+        if num_snaps < 1:
+            raise ValueError(f"num_snaps must be >= 1, got {num_snaps}")
+        self.num_snaps = num_snaps
+        self._free: List[int] = list(range(num_snaps - 1, -1, -1))
+        self._free_set = set(self._free)
+        self.peak_in_use = 0
+        self.injector = None        # chaos hook (serving/faults.FaultInjector)
+
+    @property
+    def num_free(self) -> int:
+        return len(self._free)
+
+    @property
+    def num_in_use(self) -> int:
+        return self.num_snaps - len(self._free)
+
+    def alloc(self) -> Optional[int]:
+        """One slot id, or None when the arena is full (the caller evicts
+        from the radix tree and retries, or skips the capture)."""
+        if self.injector is not None and self.injector.take("snap.alloc"):
+            return None             # injected exhaustion: capture is skipped
+        if not self._free:
+            return None
+        sid = self._free.pop()
+        self._free_set.discard(sid)
+        self.peak_in_use = max(self.peak_in_use, self.num_in_use)
+        return sid
+
+    def free(self, snaps: List[int]):
+        if len(set(snaps)) != len(snaps):
+            raise ValueError(f"duplicate snaps in free: {snaps}")
+        for s in snaps:
+            if not (0 <= s < self.num_snaps):
+                raise ValueError(f"free of invalid snap {s}")
+            if s in self._free_set:
+                raise ValueError(f"double free of snap {s}")
+        self._free.extend(snaps)
+        self._free_set.update(snaps)
 
 
 def block_table_array(rows: List[List[int]], width: int, device):

@@ -14,7 +14,11 @@ The decode chunk runs exactly ``decode_chunk`` steps with no host sync
 inside (JAX exits its ``while_loop`` early once every row is done): a done
 row of a full-attention cache rewrites the same K/V at the same position
 and an empty paged row writes to trash page 0, so the extra steps change
-no result. The scheduler then pulls everything in one transfer.
+no result. Archs with per-slot state (recurrent, conv, xLSTM, ring KV) pass
+``keep = ~done`` to every decode step instead, so a done row's state stays
+bit for bit (the JAX package's ``select_rows``), one masked copy per state
+leaf. The scheduler then pulls everything in one transfer. Snapshot mode
+copies whole state rows between the slot cache and the snapshot arena.
 """
 from __future__ import annotations
 
@@ -24,20 +28,29 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.models.transformer import tree_leaves, tree_map
 from repro_torch.serving.faults import DeadLetterError, RetryPolicy, TransientFault
 from repro_torch.serving.sampler import accept_batched, sample_batched
 
 
 def slot_extract(cache, slot: int):
-    """Single-row view of slot ``slot``: scan leaves are [L, B, ...], tail
-    leaves [B, ...]. Views share storage: writes through them update the
-    shared cache, so prefill and extend fill a slot's row in place and the
-    JAX package's ``slot_splice`` has nothing left to do."""
-    def get(tree, axis):
-        if isinstance(tree, dict):
-            return {k: get(v, axis) for k, v in tree.items()}
-        return tree.narrow(axis, slot, 1)
-    return {k: get(v, 1 if k == "scan" else 0) for k, v in cache.items()}
+    """Single-row view of slot ``slot`` of every leaf (dicts and state
+    tuples alike): scan leaves are [L, B, ...], tail leaves [B, ...]. Views
+    share storage: writes through them update the shared cache, so prefill
+    and extend fill a slot's row in place and the JAX package's
+    ``slot_splice`` is a copy between two such views (``slot_copy``)."""
+    return {k: tree_map(lambda t, a=1 if k == "scan" else 0: t.narrow(a, slot, 1), v)
+            for k, v in cache.items()}
+
+
+def slot_copy(dst, dst_row: int, src, src_row: int):
+    """Copy row ``src_row`` of every leaf of ``src`` into row ``dst_row``
+    of ``dst`` (two caches of one pytree, e.g. the slot cache and the
+    snapshot arena). Returns ``dst``."""
+    for d, s in zip(tree_leaves(slot_extract(dst, dst_row)),
+                    tree_leaves(slot_extract(src, src_row))):
+        d.copy_(s)                                                    # mutation
+    return dst
 
 
 def auto_buckets(capacity: int, lo: int = 32) -> Tuple[int, ...]:
@@ -62,14 +75,16 @@ class EnginePrograms:
     """
 
     def __init__(self, model, cfg, engine_cfg, *, capacity: int,
-                 num_slots: int, eos_id: int, injector=None,
-                 retry: RetryPolicy = None, watchdog_s: float = None):
+                 num_slots: int, eos_id: int, freeze_done_rows: bool = False,
+                 injector=None, retry: RetryPolicy = None,
+                 watchdog_s: float = None):
         self.model = model
         self.cfg = cfg
         self.engine_cfg = engine_cfg
         self.capacity = capacity
         self.num_slots = num_slots
         self.eos_id = eos_id
+        self.freeze_done_rows = freeze_done_rows
         self.device = model.device
         # fault layer: every public dispatch goes through _run (injector
         # hook + bounded retry of TransientFaults + watchdog accounting)
@@ -126,19 +141,21 @@ class EnginePrograms:
         return self._run("verify", self._verify_fn, *args)
 
     def snap_capture(self, *args):
-        raise NotImplementedError(
-            "state snapshots are not ported yet (ROADMAP.md queue 1, item 9)")
+        return self._run("snap_capture", self._snap_capture_fn, *args)
 
-    snap_restore = snap_capture
+    def snap_restore(self, *args):
+        return self._run("snap_restore", self._snap_restore_fn, *args)
 
     # ---- prefill / extend --------------------------------------------------
     def _prefill_fn(self, params, cache, tokens, positions, slot, length,
                     key, temperature, top_k):
         """Prefill one (padded) prompt straight into slot ``slot``'s cache
         row and sample its first token. (JAX prefilled a fresh one-row
-        cache and spliced it in; positions past the prompt are masked by
-        every later read, so writing the row directly gives the same
-        results without a capacity-sized allocation per call.)"""
+        cache and spliced it in. Here prefill starts every recurrent, conv
+        and xLSTM state from zero and rewrites a ring whole, and K/V rows
+        past the prompt are masked by every later read, so writing the row
+        directly gives the same results without a capacity-sized
+        allocation per call.)"""
         logits, _ = self.model.prefill(
             params, {"tokens": tokens, "positions": positions},
             slot_extract(cache, slot), length=length, with_logits="last")
@@ -193,8 +210,11 @@ class EnginePrograms:
 
         Per-slot done mask (EOS / budget / capacity); finished or empty
         slots keep running in the fixed batch but stop emitting and stop
-        advancing. ``keys`` [B] are per-request keys and ``prompt_lens`` [B]
-        each row's prompt length, so the row's next token index is
+        advancing (with ``freeze_done_rows``, their state rows are left
+        bit for bit: a spec-handled slot sitting the chunk out decodes on
+        from it next step). ``keys`` [B] are per-request keys and
+        ``prompt_lens`` [B] each row's prompt length, so the row's next
+        token index is
         ``cache_lens[b] - prompt_lens[b] + 1``. ``temps is None`` (an
         all-greedy batch) draws no noise at all. Nothing here reads a value
         back to the host; the scheduler pulls the returned tensors once.
@@ -208,8 +228,9 @@ class EnginePrograms:
         for i in range(chunk):
             batch = {"tokens": last[:, None].long(),
                      "positions": clens[:, None].long()}
-            logits, cache = self.model.decode_step(params, batch, cache, clens,
-                                                   block_tables=block_tables)
+            logits, cache = self.model.decode_step(
+                params, batch, cache, clens, block_tables=block_tables,
+                keep=~done if self.freeze_done_rows else None)
             row_keys = None
             if temps is not None:
                 cnts = (clens - prompt_lens + 1).long()  # tokens sampled so far
@@ -238,7 +259,9 @@ class EnginePrograms:
         and commit nothing). One forward scores every draft position;
         ``accept_batched`` picks the matched prefix + a correction/bonus
         token per drafted row; ``model.verify_commit`` resolves the cache
-        (for linear full attention, the written-ahead cache itself).
+        (linear full attention: the written-ahead cache itself; recurrent,
+        xLSTM and ring layers: gathers and ring splices at each row's
+        accepted length).
         ``keys`` [B, 2] are the rows' (request key, token index of column
         0) pairs, or None for an all-greedy batch. Nothing here reads back
         to the host; the scheduler pulls (out_tok, out_len) once.
@@ -254,3 +277,13 @@ class EnginePrograms:
             temperature=temps, top_k=top_ks, vocab_limit=self.cfg.vocab_size)
         cache = self.model.verify_commit(staged, clens, out_len, lens)
         return cache, out_tok, out_len
+
+    # ---- per-prefix snapshot copies (snapshot mode) ------------------------
+    def _snap_capture_fn(self, arena, cache, sid, slot):
+        """Copy slot ``slot``'s complete state row into arena row ``sid``."""
+        return slot_copy(arena, sid, cache, slot)
+
+    def _snap_restore_fn(self, cache, arena, sid, slot):
+        """Restore arena row ``sid`` into slot ``slot``: equivalent to
+        having prefilled the snapshot's prefix into that slot."""
+        return slot_copy(cache, slot, arena, sid)

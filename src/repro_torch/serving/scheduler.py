@@ -4,9 +4,9 @@ the program set in serving/programs.py.
 A copy of ``repro.serving.scheduler`` in which only the JAX sites changed:
 keys are the sampler's counter-hash keys, dispatch scalars are Python ints,
 inputs are torch tensors on the scheduler's device, and the decode chunk's
-outputs come back in one transfer, as do the verify step's. Snapshot mode
-and ``EngineConfig.mesh`` raise ``NotImplementedError`` naming the
-ROADMAP.md item that ports them. The rest — admission, sessions and tail
+outputs come back in one transfer, as do the verify step's.
+``EngineConfig.mesh`` raises ``NotImplementedError`` naming the ROADMAP.md
+item that ports it. The rest — admission, sessions and tail
 pages, stop sequences, cancel, deadlines, overload, journal, counters — is
 unchanged.
 
@@ -365,7 +365,7 @@ class Scheduler:
         if cfg.modality != "text":
             raise NotImplementedError(
                 f"serving modality {cfg.modality!r} is not ported yet "
-                "(ROADMAP.md queue 1, item 9: modality stubs)")
+                "(ROADMAP.md queue 1, item 13: modality stubs)")
         # fault-tolerance layer (serving/faults.py): bounded retry of
         # transient dispatch faults, deadline default, chaos hooks, and the
         # crash-safe session journal (serving/journal.py)
@@ -389,16 +389,23 @@ class Scheduler:
         self.paged = self.snapshots = False
         if mode == "paged":
             ok, why = kvpool.supports_paged(cfg)
-            if not ok:
-                raise NotImplementedError(
-                    f"cache_mode='paged' on {cfg.name} ({why}) means "
-                    "per-prefix state snapshots, which are not ported yet "
-                    "(ROADMAP.md queue 1, item 9)")
-            self.paged = True
+            if ok:
+                self.paged = True
+            else:
+                ok2, why2 = kvpool.supports_snapshots(cfg)
+                if not ok2:
+                    raise ValueError(
+                        f"cache_mode='paged' unsupported for {cfg.name}: "
+                        f"{why}; {why2}")
+                self.snapshots = True
         if self.engine_cfg.spec_len < 0:
             raise ValueError(
                 f"spec_len must be >= 0, got {self.engine_cfg.spec_len}")
         self.spec = self.engine_cfg.spec_len > 0
+        # pure full-attention caches tolerate done-row decode writes (same
+        # position, same value — idempotent); every other cache family keeps
+        # real state that must be frozen for rows sitting a chunk out
+        self._freeze_done_rows = not kvpool.supports_paged(cfg)[0]
         bw = max(1, self.engine_cfg.block_w)
         if capacity > bw:
             capacity = -(-capacity // bw) * bw      # align to kernel block
@@ -439,8 +446,21 @@ class Scheduler:
             self.cache = self.model.init_cache(num_slots, capacity)
             self.kvpool = None
             self.radix = None
-        self.snaps = None               # snapshot mode raises above
-        self.snap_arena = None
+        if self.snapshots:
+            # snapshot mode: dense per-slot rows + a radix trie whose nodes
+            # own rows of a pooled snapshot arena (the model's cache pytree
+            # with batch axis = snapshot slots)
+            self.radix = RadixTree(ps)
+            stride = max(1, self.engine_cfg.snap_stride)
+            n_snaps = self.engine_cfg.num_snapshots
+            if n_snaps is None:
+                n_snaps = 1 + num_slots * (-(-capacity // (ps * stride)) + 2)
+            self.snaps = kvpool.SnapshotArena(n_snaps)
+            self.snaps.injector = injector
+            self.snap_arena = self.model.init_cache(n_snaps, capacity)
+        else:
+            self.snaps = None
+            self.snap_arena = None
         self.slots = [_Slot() for _ in range(num_slots)]
         self._queue: "collections.deque[Request]" = collections.deque()
         self._req_key_base = prng_key(seed + 2)
@@ -495,7 +515,8 @@ class Scheduler:
         self.progs = EnginePrograms(
             self.model, self.cfg, self.engine_cfg, capacity=self.capacity,
             num_slots=num_slots, eos_id=self.tokenizer.eos_id,
-            injector=injector, retry=self.retry, watchdog_s=watchdog_s)
+            freeze_done_rows=self._freeze_done_rows, injector=injector,
+            retry=self.retry, watchdog_s=watchdog_s)
         self._slot_consts = None        # cached (keys, prompt_lens) device
                                         # arrays; rebuilt on membership change
 

@@ -1,9 +1,10 @@
 """The port's CUDA kernels on the card (tests marked ``gpu``).
 
 Each kernel against its plain PyTorch version at the tolerances of
-tests/test_kernels.py (float32 2e-5, bf16 2e-2), and the port's model and
-server (speculative decode included) on the card against the same code on
-the CPU (plain versions). This
+tests/test_kernels.py (float32 2e-5, bf16 2e-2; the stateful kernels 5e-6 /
+2e-5 / 5e-2), and the port's model and server (speculative decode and the
+stateful archs' snapshot mode included) on the card against the same code
+on the CPU (plain versions). This
 file imports no JAX, so it also runs on a machine with a card and no JAX:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
@@ -17,8 +18,10 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs.registry import ARCHS  # noqa: E402
 from repro_torch.kernels import decode_attention as kda  # noqa: E402
 from repro_torch.kernels import flash_attention as kfa  # noqa: E402
+from repro_torch.kernels import mlstm_chunk as kmc  # noqa: E402
 from repro_torch.kernels import paged_decode_attention as kpda  # noqa: E402
 from repro_torch.kernels import paged_spec_decode_attention as kpsda  # noqa: E402
+from repro_torch.kernels import rglru_scan as krs  # noqa: E402
 from repro_torch.kernels import spec_decode_attention as ksda  # noqa: E402
 from repro_torch.kernels import spec_scan  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
@@ -252,4 +255,101 @@ def test_gpu_spec_server_greedy_matches_cpu(mode):
             assert (kpsda.launches if mode == "paged" else ksda.launches) > \
                 before[2 if mode == "paged" else 1]
     assert all(len(x) == 40 for x in ids["cpu"])
+    assert ids[str(dev)] == ids["cpu"]
+
+
+# ---------------------------------------------------------------------------
+# the stateful kernels and archs (recurrentgemma-9b, xlstm-350m)
+# ---------------------------------------------------------------------------
+
+
+def _rand(dev, *shape, scale=1.0, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=dev) * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_gpu_rglru_kernel_matches_plain(out_dtype):
+    dev = _need_card()
+    a = torch.sigmoid(_rand(dev, 2, 300, 200, seed=1))
+    bx, h0 = _rand(dev, 2, 300, 200, seed=2), _rand(dev, 2, 200, seed=3)
+    for h_in in (None, h0):
+        before = krs.launches
+        y, h = krs.rglru_scan(a, bx, h_in, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert krs.launches == before + 1
+        yw, hw = krs.rglru_scan_ref(a, bx, h_in, out_dtype=out_dtype)
+        tol = 5e-6 if out_dtype == torch.float32 else 5e-2
+        assert float((y.float() - yw.float()).abs().max()) < tol
+        assert float((h - hw).abs().max()) < 5e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,S,H,hd,chunk", [
+    (torch.float32, 96, 2, 32, 32), (torch.float32, 100, 2, 64, 32),
+    (torch.bfloat16, 100, 2, 64, 32), (torch.bfloat16, 300, 4, 128, 256)])
+def test_gpu_mlstm_kernel_matches_plain(dtype, S, H, hd, chunk):
+    """State in and out; the bounds of tests/test_kernels.py:139 at its
+    float32 shapes (2e-5, chunks of 32) and in bf16 (5e-2) up to
+    xlstm's chunk of 256. A float32 chunk of 256 at hd 128 differs from
+    the plain version by ~4e-5 on an H100 (sums over 256 rows in another
+    order), outside the float32 bound, which is why it is not among the
+    cases."""
+    dev = _need_card()
+    q, k = (_rand(dev, 2, S, H, hd, scale=0.5, seed=s).to(dtype) for s in (4, 5))
+    v = _rand(dev, 2, S, H, hd, seed=6).to(dtype)
+    ig, fg = _rand(dev, 2, S, H, seed=7), _rand(dev, 2, S, H, seed=8) + 2.0
+    _, st = kmc.mlstm_chunk_ref(q[:, :17], k[:, :17], v[:, :17], ig[:, :17],
+                                fg[:, :17], chunk=chunk)
+    before = kmc.launches
+    h, state = kmc.mlstm_chunk(q, k, v, ig, fg, st, chunk=chunk)
+    torch.cuda.synchronize()
+    assert kmc.launches == before + 1
+    hw, state_w = kmc.mlstm_chunk_ref(q, k, v, ig, fg, st, chunk=chunk)
+    tol = 2e-5 if dtype == torch.float32 else 5e-2
+    assert float((h.float() - hw.float()).abs().max()) < tol
+    for a, b in zip(state, state_w):
+        assert float((a - b).abs().max()) < tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "xlstm-350m"])
+@pytest.mark.parametrize("mode,spec_len", [("dense", 0), ("paged", 0),
+                                           ("dense", 4)])
+def test_gpu_stateful_server_greedy_matches_cpu(arch, mode, spec_len):
+    """LLMServer on the card gives the CPU server's greedy ids for the
+    reduced stateful archs (float32, same weights) in dense, snapshot and
+    spec mode, through the rglru_scan / mlstm_chunk kernels."""
+    dev = _need_card()
+    cfg = ARCHS[arch].reduced(dtype="float32", param_dtype="float32",
+                              vocab_size=512)
+    sd = Model(cfg, device="cpu").init(seed=1).state_dict()
+    if cfg.tie_embeddings:                               # EOS guard
+        sd["embed.table"][cfg.vocab_size - 1] = 0.0
+    else:
+        sd["unembed.table"][:, cfg.vocab_size - 1] = 0.0
+    sysp = "System: cooperating agents share this conversation verbatim. "
+    prompts = [sysp + "[planner] plan", sysp + "[actor] act now",
+               "Tool result: ERROR 429 rate limit exceeded. " * 2]
+    kern = krs if arch.startswith("recurrentgemma") else kmc
+    ids = {}
+    for d in ("cpu", dev):
+        srv = LLMServer(cfg, num_slots=3, capacity=128, device=d,
+                        params={k: v.to(d) for k, v in sd.items()},
+                        engine_cfg=EngineConfig(cache_mode=mode, page_size=16,
+                                                decode_chunk=4, spec_len=spec_len,
+                                                spec_ngram_min=1))
+        before = kern.launches
+        out = []
+        for _ in range(2):                               # the second wave hits
+            hs = [srv.submit(p, SamplingParams(max_new_tokens=16)) for p in prompts]
+            srv.run_until_idle()
+            out += [h.request.output_ids for h in hs]
+        ids[str(d)] = out
+        if mode == "paged":
+            assert srv.stats()["snapshot_hits"] > 0
+        if d != "cpu":
+            assert kern.launches > before
+    assert all(len(x) == 16 for x in ids["cpu"])
     assert ids[str(dev)] == ids["cpu"]

@@ -196,7 +196,8 @@ def test_build_commands_target_sm90a():
     from pathlib import Path
     cmds, link, lib = build.compile_commands(Path("/tmp/out"))
     srcs = {Path(c[c.index("-c") + 1]).name for c in cmds}
-    assert srcs == {"flash_attention.cu", "decode_attention.cu", "spec_scan.cu"}
+    assert srcs == {"flash_attention.cu", "decode_attention.cu", "spec_scan.cu",
+                    "rglru_scan.cu", "mlstm_chunk.cu"}
     for c in cmds + [link]:
         assert "arch=compute_90a,code=sm_90a" in c
     assert "-shared" in link and lib.suffix == ".so"

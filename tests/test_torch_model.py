@@ -239,9 +239,8 @@ def test_paged_extend_then_decode(pair):
 
 
 @pytest.mark.parametrize("arch,item", [("mixtral-8x22b", "item 8"),
-                                       ("recurrentgemma-9b", "item 9"),
-                                       ("xlstm-350m", "item 9"),
-                                       ("musicgen-large", "item 9")])
+                                       ("dbrx-132b", "item 8"),
+                                       ("musicgen-large", "item 13")])
 def test_unported_archs_raise_naming_roadmap_item(arch, item):
     _, cfg = _cfgs(arch)
     with pytest.raises(NotImplementedError, match=item):
