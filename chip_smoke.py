@@ -9,18 +9,25 @@ no result line) on any fault:
      csrc`` (nvcc, sm_90a) and print registers / spills (-Xptxas -v);
   2. kernels: each kernel against its plain PyTorch version at the serving
      path's shapes in bf16 (tolerance 2e-2) and at one fp32 shape (2e-5),
-     the dense window-ring case included; kernel, plain-version and
+     the dense window-ring case included, and the split-K paged kernels in
+     fp32 at the serving shape too (1-16 splits a row); kernel, plain-version and
      library (``scaled_dot_product_attention``, a yardstick the port never
-     calls) times, and the least time the card could take for the work;
+     calls) times, and the least time the card could take for the work.
+     Flash is timed at qwen2.5-3b's prefill and, as a row of its own
+     (``flash_attention_hd256``), at recurrentgemma-9b's (hd 256, one KV
+     head, window 2048); the multi-query decode kernels, dense and paged,
+     equal S one-token calls bit for bit;
   3. dense serving: ``LLMServer`` with full-width qwen2.5-3b (bf16, random
      weights from a seed, 4 slots, capacity 2048, cache_mode="dense"):
      4 concurrent requests of ~200-1500 prompt tokens, one sampled, and a
      2-turn session; every request COMPLETED, flash and decode kernels
      launched; then torch.profiler over one decode chunk (device time by
-     kernel, the device's idle share);
+     kernel, the device's idle share) and over one 1503-token prefill
+     alone (recurrentgemma-9b's 3002-token one in phase 8);
   4. paged serving: the same server with cache_mode="paged", page_size=16,
      decode_chunk=8 (the FAME harness's setting) on prompts sharing a
-     system prompt; prefix hits > 0, paged-decode kernel launched;
+     system prompt; prefix hits > 0, paged-decode kernel launched; one
+     paged decode chunk profiled as in 3;
   5. dense against paged: teacher-forced logits of both cache layouts on the
      same weights and tokens, and their greedy-token agreement;
   6. speculative decode: the same model served with spec_len=4, dense and
@@ -50,7 +57,8 @@ no result line) on any fault:
      forward within 1e-3.
 
 Kernel launch counts are zeroed just before each serving phase and read
-just after it. The line before the last is a JSON object with one entry per
+just after it; every bf16 serving phase must have launched flash only on
+its tensor-core route (``flash_attention.launches_by_route``). The line before the last is a JSON object with one entry per
 kernel; the last line is ``{"ok": true, "device": {...}}``.
 
 Run from the repository root:  python3 chip_smoke.py
@@ -65,6 +73,7 @@ import gc
 import json
 import math
 import random
+import statistics
 import subprocess
 import sys
 import time
@@ -95,6 +104,24 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time of one call: the self time of its kernels under
+    torch.profiler, without the host's launch and wrapper cost, which
+    ``time_ms`` includes when calls are shorter than their dispatch."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+    return total / 1e3 / iters
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple:
@@ -159,14 +186,16 @@ def kernel_phase(dev):
             kfa.flash_attention_ref(q3, k3, v3, q_per_kv=2, **kw), "float32"))
     ms, plain = time_ms(fa, 20), time_ms(fr, 5)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    lib = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), 20)
+    lf = lambda: F.scaled_dot_product_attention(                    # noqa: E731
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    lib = time_ms(lf, 20)
+    log_device("flash_attention", fa, lf)
     pairs = S * (S + 1) // 2
     b_ms, b_by = bound(2 * (2 * S * H * hd + 2 * S * K * hd), 4 * hd * H * pairs,
                        torch.bfloat16)
     rows["flash_attention"] = dict(
         name="flash_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        source="src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
         replaces="src/repro/kernels/flash_attention.py:63",
         max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
         library_ms=lib)
@@ -223,6 +252,15 @@ def kernel_phase(dev):
     pa = lambda: kpda.paged_decode_attention(qd, kp, vp, bt, cl, q_per_kv=G)      # noqa: E731
     pr = lambda: kpda.paged_decode_attention_ref(qd, kp, vp, bt, cl, q_per_kv=G)  # noqa: E731
     err = check_close("bf16 pool [1025,16,2,128] bt [4,128]", pa(), pr(), "bfloat16")
+    # the same shape in float32: 1-16 splits a row, so the combine across
+    # splits and the split boundaries are held to 2e-5
+    qd32, kp32, vp32 = qd.float(), kp.float(), vp.float()
+    err = max(err, check_close(
+        "f32 pool [1025,16,2,128] bt [4,128] clen [1500,17,2047,700]",
+        kpda.paged_decode_attention(qd32, kp32, vp32, bt, cl, q_per_kv=G),
+        kpda.paged_decode_attention_ref(qd32, kp32, vp32, bt, cl, q_per_kv=G),
+        "float32"))
+    del qd32, kp32, vp32
     kp6, vp6 = rnd(11, 8, 2, 16, **f32), rnd(11, 8, 2, 16, **f32)
     q6 = rnd(3, 1, 4, 16, **f32)
     bt6 = torch.tensor([[3, 1, 7, 10], [2, 5, 0, 0], [9, 8, 6, 4]],
@@ -238,15 +276,17 @@ def kernel_phase(dev):
     vview = vp[bt.long()].reshape(B, nw * ps, K, hd).transpose(1, 2)
     pmask = (torch.arange(nw * ps, device=dev)[None, :]
              <= cl[:, None].long())[:, None, None, :]
-    lib = time_ms(lambda: F.scaled_dot_product_attention(
-        qdt, kview, vview, attn_mask=pmask, enable_gqa=True), 50)
+    lf = lambda: F.scaled_dot_product_attention(                    # noqa: E731
+        qdt, kview, vview, attn_mask=pmask, enable_gqa=True)
+    lib = time_ms(lf, 50)
+    log_device("paged_decode_attention", pa, lf)
     live = int((cl.long() + 1).sum())
     pages = sum(-(-(c + 1) // ps) for c in cl.tolist())
     b_ms, b_by = bound(2 * (2 * B * H * hd + 2 * live * K * hd) + 4 * (B + pages),
                        4 * hd * H * live, torch.bfloat16)
     rows["paged_decode_attention"] = dict(
         name="paged_decode_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/decode_attention.cu",
+        source="src/repro_torch/kernels/csrc/paged_decode_attention.cu",
         replaces="src/repro/kernels/paged_decode_attention.py:70",
         max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
         library_ms=lib)
@@ -260,6 +300,8 @@ def kernel_phase(dev):
             kfa.flash_attention(ql, kl, vl, q_per_kv=16, window=2048),
             kfa.flash_attention_ref(ql, kl, vl, q_per_kv=16, window=2048),
             "bfloat16"))
+    del ql, kl, vl
+    rows["flash_attention_hd256"] = flash_hd256_row(dev, rnd)
     qr1, kr1, vr1 = rnd(4, 1, 16, 256), rnd(4, 2048, 1, 256), rnd(4, 2048, 1, 256)
     cr = torch.tensor([2999, 100, 2047, 4095], dtype=torch.int32, device=dev)
     rows["decode_attention"]["max_abs_err"] = max(
@@ -275,6 +317,44 @@ def kernel_phase(dev):
             f"{r['plain_ms']:.4f} library_ms={lib} bound_ms="
             f"{r['bound_ms']:.4f} ({r['bound_by']})")
     return rows
+
+
+def log_device(name, kernel, library):
+    """The device time of a kernel and of its library call, beside the
+    event-timed call times of the kernels line."""
+    log(f"[kernels] {name}: device_ms={device_ms(kernel):.4f} "
+        f"library_device_ms={device_ms(library):.4f}")
+
+
+def flash_hd256_row(dev, rnd):
+    """Flash at recurrentgemma-9b's prefill bucket: q [1,4096,16,256], one
+    KV head, window 2048, bf16. The bound counts only the causal pairs
+    inside the window; the library call is SDPA with that mask."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as kfa
+    S, H, K, hd, win = 4096, 16, 1, 256, 2048
+    q, k, v = rnd(1, S, H, hd), rnd(1, S, K, hd), rnd(1, S, K, hd)
+    fa = lambda: kfa.flash_attention(q, k, v, q_per_kv=H // K, window=win)      # noqa: E731
+    fr = lambda: kfa.flash_attention_ref(q, k, v, q_per_kv=H // K, window=win)  # noqa: E731
+    err = check_close("bf16 [1,4096,16,256] K=1 window=2048", fa(), fr(), "bfloat16")
+    ms, plain = time_ms(fa, 20), time_ms(fr, 2, warmup=1)
+    pos = torch.arange(S, device=dev)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < win)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lf = lambda: F.scaled_dot_product_attention(                    # noqa: E731
+        qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    lib = time_ms(lf, 20)
+    log_device("flash_attention_hd256", fa, lf)
+    pairs = sum(min(i + 1, win) for i in range(S))
+    b_ms, b_by = bound(2 * (2 * S * H * hd + 2 * S * K * hd), 4 * hd * H * pairs,
+                       torch.bfloat16)
+    return dict(
+        name="flash_attention_hd256", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
+        replaces="src/repro/kernels/flash_attention.py:63",
+        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+        library_ms=lib)
 
 
 def spec_kernel_rows(dev, rnd):
@@ -375,14 +455,28 @@ def spec_kernel_rows(dev, rnd):
         "f32 pool [11,8,2,16] bt [3,4] S=5",
         kpsda.paged_spec_decode_attention(q8, kp8, vp8, bt8, c8, q_per_kv=2),
         kpsda.paged_spec_attention_ref(q8, kp8, vp8, bt8, c8, q_per_kv=2), "float32"))
+    # a row whose 5 positions straddle the split boundary at 2048 - 128 = 1920
+    cs = torch.tensor([1500, 17, 2043, 1917], dtype=torch.int32, device=dev)
+    qs32, kp32, vp32 = qs.float(), kp.float(), vp.float()
+    for c in (cl, cs):                           # 1-16 splits a row, float32
+        err = max(err, check_close(
+            f"f32 pool [1025,16,2,128] bt [4,128] S=5 clen {c.tolist()}",
+            kpsda.paged_spec_decode_attention(qs32, kp32, vp32, bt, c, q_per_kv=G),
+            kpsda.paged_spec_attention_ref(qs32, kp32, vp32, bt, c, q_per_kv=G),
+            "float32"))
+    del qs32, kp32, vp32
+    one = paged_multi_query_equals_steps(qs, kp, vp, bt, cs)
+    log(f"  S=5 paged multi-query == 5 one-token paged calls, bit for bit: {one}")
     ms, plain = time_ms(pa, 50), time_ms(pr, 10)
     kview = kp[bt.long()].reshape(B, nw * ps, K, hd).transpose(1, 2)
     vview = vp[bt.long()].reshape(B, nw * ps, K, hd).transpose(1, 2)
     pos_q = cl[:, None].long() + torch.arange(S, device=dev)[None, :]
     pmask = (torch.arange(nw * ps, device=dev)[None, None, :]
              <= pos_q[:, :, None])[:, None]
-    lib = time_ms(lambda: F.scaled_dot_product_attention(
-        qst, kview, vview, attn_mask=pmask, enable_gqa=True), 50)
+    lf = lambda: F.scaled_dot_product_attention(                    # noqa: E731
+        qst, kview, vview, attn_mask=pmask, enable_gqa=True)
+    lib = time_ms(lf, 50)
+    log_device("paged_spec_decode_attention", pa, lf)
     live = int((cl.long() + S).sum())
     pairs = int((pos_q + 1).sum())
     pages = sum(-(-(c + S) // ps) for c in cl.tolist())
@@ -390,7 +484,7 @@ def spec_kernel_rows(dev, rnd):
                        4 * hd * H * pairs, torch.bfloat16)
     rows["paged_spec_decode_attention"] = dict(
         name="paged_spec_decode_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/decode_attention.cu",
+        source="src/repro_torch/kernels/csrc/paged_decode_attention.cu",
         replaces="src/repro/models/transformer.py:194 (XLA spec_attention over "
                  "paged_view; no Pallas kernel)",
         max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
@@ -519,6 +613,26 @@ def multi_query_equals_steps(qs, kc, vc, clen):
     return True
 
 
+def paged_multi_query_equals_steps(qs, kp, vp, bt, clen):
+    """The paged multi-query kernels cut positions at the same absolute split
+    boundaries as the one-token call, so query s equals a one-token call at
+    cache length clen + s bit for bit."""
+    import torch
+    from repro_torch.kernels import paged_decode_attention as kpda
+    from repro_torch.kernels import paged_spec_decode_attention as kpsda
+    G = qs.shape[2] // kp.shape[2]
+    got = kpsda.paged_spec_decode_attention(qs, kp, vp, bt, clen, q_per_kv=G)
+    steps = torch.cat([kpda.paged_decode_attention(qs[:, s:s + 1].contiguous(), kp, vp,
+                                                   bt, clen + s, q_per_kv=G)
+                       for s in range(qs.shape[1])], dim=1)
+    again = kpsda.paged_spec_decode_attention(qs, kp, vp, bt, clen, q_per_kv=G)
+    if not torch.equal(got, steps):
+        raise AssertionError("paged multi-query decode differs from one-token steps")
+    if not torch.equal(got, again):
+        raise AssertionError("paged multi-query decode differs between two calls")
+    return True
+
+
 # ---------------------------------------------------------------------------
 # phases 3-5: serving
 # ---------------------------------------------------------------------------
@@ -550,12 +664,27 @@ def kernel_modules():
 
 
 def kernel_counts():
-    return {name: m.launches for name, m in kernel_modules().items()}
+    """Launches by kernel, and flash's by route as ``flash_attention/<route>``."""
+    from repro_torch.kernels import flash_attention as kfa
+    counts = {name: m.launches for name, m in kernel_modules().items()}
+    counts.update({f"flash_attention/{r}": n for r, n in kfa.launches_by_route.items()})
+    return counts
 
 
 def reset_counts():
+    from repro_torch.kernels import flash_attention as kfa
     for m in kernel_modules().values():
         m.launches = 0
+    for r in kfa.launches_by_route:
+        kfa.launches_by_route[r] = 0
+
+
+def check_bf16_routes(name, counts):
+    """A bf16 serving phase runs flash on the tensor-core route only."""
+    wg, simt = counts["flash_attention/wgmma"], counts["flash_attention/simt_f32"]
+    if simt != 0 or wg != counts["flash_attention"]:
+        raise AssertionError(f"{name}: flash routes wgmma={wg} simt_f32={simt} of "
+                             f"{counts['flash_attention']} launches")
 
 
 def serve_phase(name, server, prompts, sampled_idx, session_turns, warm=None):
@@ -586,6 +715,7 @@ def serve_phase(name, server, prompts, sampled_idx, session_turns, warm=None):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = kernel_counts()
+    check_bf16_routes(name, counts)
     st = server.stats()
     for h in handles:
         r = h.request
@@ -612,21 +742,50 @@ def serve_phase(name, server, prompts, sampled_idx, session_turns, warm=None):
     return handles, counts, st
 
 
-def profile_decode_chunk(server, prompts):
-    """Where one dense decode chunk's time goes (4 live slots): device time
-    by kernel from torch.profiler, and the device's idle share of the
-    step's wall time. Runs after the launch counts were read."""
-    import torch
+WALL_REPS = 5       # unprofiled runs behind a profile's wall time (median)
+
+
+def device_summary(prof, what: str, wall_ms: float, top: int):
+    """Kernel rows of a torch.profiler run (operator rows would count the
+    same device time twice), by device time: logs the busy time, the
+    device's idle share of ``wall_ms`` and the ``top`` kernels, and returns
+    the busy ms, or None where the profiler recorded no device time."""
     from torch.autograd import DeviceType
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    if not rows:
+        log("[profile] torch.profiler recorded no device time: not measured")
+        return None
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    log(f"[profile] {what}: unprofiled median wall_ms={wall_ms:.2f}, "
+        f"device_busy_ms={busy:.2f}, device_idle_share={1 - busy / wall_ms:.3f}")
+    for name, ms, n in rows[:top]:
+        log(f"[profile]   {ms:9.3f} ms  {n:6d} calls  {name[:90]}")
+    return busy
+
+
+def profile_decode_chunk(server, prompts):
+    """Where one decode chunk's time goes (the prompts' slots live): the
+    median wall time of ``WALL_REPS`` unprofiled chunks, then the next
+    chunk under torch.profiler: device time by kernel, the device's idle
+    share. Runs after the launch counts were read. Returns
+    {"wall_ms": [...], "device_busy_ms", "live_slots"}."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.server import SamplingParams
-    handles = [server.submit(p, SamplingParams(max_new_tokens=60)) for p in prompts]
+    ecfg = server.engine.engine_cfg
+    handles = [server.submit(p, SamplingParams(
+        max_new_tokens=ecfg.decode_chunk * (WALL_REPS + 3))) for p in prompts]
     server.step()                                  # admission + first chunk
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    server.step()                                  # one decode chunk, unprofiled
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
+    walls = []
+    for _ in range(WALL_REPS):                     # decode chunks, unprofiled
+        t0 = time.perf_counter()
+        server.step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         server.step()                              # the next chunk, profiled
         torch.cuda.synchronize()
@@ -634,22 +793,48 @@ def profile_decode_chunk(server, prompts):
     server.run_until_idle()
     if not all(h.request.status == "completed" for h in handles):
         raise AssertionError("profiled requests did not complete")
-    # kernels only (operator rows would count the same device time twice)
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    if not rows:
-        log("[profile] torch.profiler recorded no device time: not measured")
-        return
-    rows.sort(key=lambda r: -r[1])
-    busy = sum(r[1] for r in rows)
-    log(f"[profile] {server.engine.cfg.name}: one dense decode chunk "
-        f"({server.engine.engine_cfg.decode_chunk} "
-        f"steps, {live} slots): unprofiled wall_ms={wall_ms:.2f}, kernel time of "
-        f"the next chunk device_busy_ms={busy:.2f}, device_idle_share="
-        f"{1 - busy / wall_ms:.3f}")
-    for name, ms, n in rows[:10]:
-        log(f"[profile]   {ms:9.3f} ms  {n:6d} calls  {name[:90]}")
+    busy = device_summary(
+        prof, f"{server.engine.cfg.name}: one {ecfg.cache_mode} decode chunk "
+        f"({ecfg.decode_chunk} steps, {live} slots)", statistics.median(walls), 10)
+    return {"wall_ms": walls, "device_busy_ms": busy, "live_slots": live}
+
+
+def profile_prefill(server, prompt):
+    """Where one prefill's time goes: a request admitted alone, the
+    engine's admission step only (prefill, first sample and its host sync:
+    the TTFT path, without the decode chunk that follows): the median wall
+    time of ``WALL_REPS`` unprofiled admissions after a warm-up, then one
+    under torch.profiler: device busy time, the device's idle share, the
+    top kernels. Returns {"wall_ms": [...], "device_busy_ms",
+    "prompt_tokens"}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving.server import SamplingParams
+
+    def admit(prof=None):
+        h = server.submit(prompt, SamplingParams(max_new_tokens=1))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if prof is None:
+            server.engine._admit()
+        else:
+            with prof:
+                server.engine._admit()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        server.run_until_idle()
+        if h.request.status != "completed":
+            raise AssertionError(f"prefill profile: status {h.request.status}")
+        return wall, h.request.prompt_tokens
+
+    admit()                                         # warm
+    walls = [admit()[0] for _ in range(WALL_REPS)]
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    _, n = admit(prof)
+    busy = device_summary(
+        prof, f"{server.engine.cfg.name}: admission of one {n}-token prompt alone "
+        "(prefill + first token)", statistics.median(walls), 8)
+    return {"wall_ms": walls, "device_busy_ms": busy, "prompt_tokens": n}
 
 
 def teacher_forced(model, params, ids, n_prompt, *, paged: bool, dev):
@@ -720,6 +905,7 @@ def serving_phases(dev, model, params, tok):
     if dcounts["flash_attention"] <= 0 or dcounts["decode_attention"] <= 0:
         raise AssertionError(f"dense: kernels not launched: {dcounts}")
     profile_decode_chunk(dense, prompts)
+    profile_prefill(dense, prompts[3])
     del dense
     torch.cuda.empty_cache()
 
@@ -740,6 +926,7 @@ def serving_phases(dev, model, params, tok):
         raise AssertionError(f"paged: kernels not launched: {pcounts}")
     if pst["prefix_hit_tokens"] <= 0:
         raise AssertionError("paged: no prefix hits")
+    profile_decode_chunk(paged, pprompts)
     del paged
     torch.cuda.empty_cache()
 
@@ -859,6 +1046,7 @@ def spec_phase(dev, model, params, tok):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = kernel_counts()
+        check_bf16_routes(f"spec-{mode}", counts)
         st = srv.stats()
         d = {k: st[k] - before[k] for k in ("verify_steps", "draft_tokens",
                                             "accepted_tokens", "decode_tokens")}
@@ -1137,6 +1325,8 @@ def stateful_phase(dev):
                                     warm=make_text(tok, rng, 40))
         counts.update(c)
         profile_decode_chunk(srv, prompts)
+        if "flash_attention" in spec["kernels"]:    # the sLSTM loop is not traced
+            profile_prefill(srv, prompts[-1])
         del handles, srv            # a handle keeps its server (and cache) alive
         torch.cuda.empty_cache()
 
@@ -1189,6 +1379,7 @@ def stateful_phase(dev):
                                      f"status={h.request.status}")
         torch.cuda.synchronize()
         c = kernel_counts()
+        check_bf16_routes(f"{name}-spec", c)
         st = srv.stats()
         d = {k: st[k] - before[k] for k in ("verify_steps", "draft_tokens",
                                             "accepted_tokens", "decode_tokens")}
@@ -1250,6 +1441,7 @@ def fame_phase(dev, model, params):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = kernel_counts()
+    check_bf16_routes("fame", counts)
     st = srv.stats()
     hits = st["prefix_hit_tokens"] - before["prefix_hit_tokens"]
     conts = meter.continuation_turns()
@@ -1334,7 +1526,10 @@ def main() -> int:
         del model, params
         torch.cuda.empty_cache()
     if "stateful" in phases:
-        launches.update(stateful_phase(dev))
+        sc = stateful_phase(dev)
+        launches.update(sc)
+        # recurrentgemma-9b's flash calls: hd 256, one KV head, window 2048
+        launches["flash_attention_hd256"] = sc.get("flash_attention", 0)
     for name, r in rows.items():
         r["launches"] = launches.get(name, 0)
     if {"serve", "spec", "stateful"} <= phases:

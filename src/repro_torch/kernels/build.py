@@ -65,7 +65,8 @@ def compile_commands(out_dir: Path, tool: str = "nvcc"):
         objs.append(obj)
         cmds.append([tool, *ARCH_FLAGS, *NVCC_FLAGS, "-c", str(src),
                      "-o", str(obj)])
-    link = [tool, *ARCH_FLAGS, "-shared", "-o", str(lib), *map(str, objs)]
+    # -ldl: the TMA descriptors' encoder is looked up in the loaded driver
+    link = [tool, *ARCH_FLAGS, "-shared", "-o", str(lib), *map(str, objs), "-ldl"]
     return cmds, link, lib
 
 

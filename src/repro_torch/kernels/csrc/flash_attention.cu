@@ -1,4 +1,5 @@
-// Causal flash attention forward for Hopper (sm_90a).
+// Causal flash attention forward for Hopper (sm_90a): the float32 route and
+// the C entry point.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py::
 // flash_attention. Same algorithm: online softmax over key tiles with
@@ -10,18 +11,21 @@
 //     j), so the one kernel serves prefill (q_start = 0), dense extend over
 //     a cache row and paged extend over a gathered page view.
 //
-// What bounds it on an H100: at the prefill shapes of qwen2.5-3b
-// (S = T <= 2048, H = 16, hd = 128) the work is ~4·S²/2·H·hd FLOPs against
-// a few MB of q/k/v, i.e. compute bound. This first version computes on
-// the CUDA cores in float32 (scalar FMAs from shared memory), which keeps
-// the float32 parity path exact to the reference's 2e-5 and the bf16 path
-// to its 2e-2, but reaches only a small share of the tensor-core peak that
-// bounds it: wgmma/TMA tiles are later work. Design: one block of 128
-// threads per (16-query tile, head, batch row); 8 threads share a query
-// row, each owning 4 of the 32 keys of a tile for the scores and hd/8 of
-// the output columns for P·V; tiles arrive by 16-byte vector loads, and
-// tiles above the causal diagonal (and below a sliding window) are never
-// loaded.
+// The entry point flash_attention_fwd dispatches on dtype: bf16 (every
+// served model) goes to the tensor-core kernel of flash_attention_wgmma.cu
+// (wgmma fed by TMA); float32 (the parity checks) runs the CUDA-core kernel
+// below, because wgmma takes float32 only as TF32, which cannot hold the
+// float32 tolerance of 2e-5. A dispatch on type, not a fallback: neither
+// route retries the other.
+//
+// What bounds it on an H100: operations (~4·S²/2·H·hd FLOPs at prefill
+// against a few MB of q/k/v). This float32 route computes on the CUDA cores
+// (scalar FMAs from shared memory, float32 peak 67 TFLOP/s), exact to the
+// reference's 2e-5. Design: one block of 128 threads per (16-query tile,
+// head, batch row); 8 threads share a query row, each owning 4 of the 32
+// keys of a tile for the scores and hd/8 of the output columns for P·V;
+// tiles arrive by 16-byte vector loads, and tiles above the causal diagonal
+// (and below a sliding window) are never loaded.
 #include "common.cuh"
 
 namespace {
@@ -188,8 +192,15 @@ int dispatch_hd(const void* q, const void* k, const void* v, void* o, int B, int
 
 }  // namespace
 
-// q, o [B, S, H, hd]; k, v [B, T, K, hd]; all contiguous, one dtype.
-// window <= 0: no sliding window. Returns cudaGetLastError() of the launch.
+namespace repro {
+int flash_attention_wgmma(const void* q, const void* k, const void* v, void* o, int B, int S,
+                          int T, int H, int K, int hd, int q_start, int window,
+                          cudaStream_t st);
+}
+
+// q, o [B, S, H, hd]; k, v [B, T, K, hd]; all contiguous, one dtype, T >= 1.
+// window <= 0: no sliding window. bf16: the tensor-core route; float32: the
+// CUDA-core route. Returns cudaGetLastError() of the launch.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    int B, int S, int T, int H, int K, int hd,
                                    int q_start, int window, int dtype, void* stream) {
@@ -197,7 +208,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   if (dtype == repro::kF32)
     return dispatch_hd<float>(q, k, v, o, B, S, T, H, K, hd, q_start, window, st);
   if (dtype == repro::kBF16)
-    return dispatch_hd<__nv_bfloat16>(q, k, v, o, B, S, T, H, K, hd, q_start, window, st);
+    return repro::flash_attention_wgmma(q, k, v, o, B, S, T, H, K, hd, q_start, window, st);
   return (int)cudaErrorInvalidValue;
 }
 

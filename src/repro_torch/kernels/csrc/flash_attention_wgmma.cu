@@ -1,0 +1,457 @@
+// Causal flash attention forward for Hopper (sm_90a) in bf16: tensor cores
+// (wgmma) fed by TMA.
+//
+// Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py::
+// flash_attention for bf16 inputs (every served model runs bf16; the
+// float32 parity path keeps the CUDA-core kernel of flash_attention.cu,
+// chosen by dtype at the C entry point flash_attention_fwd, because wgmma
+// takes float32 only as TF32, which cannot hold the float32 tolerance of
+// 2e-5). Same algorithm as the reference: online softmax over key tiles
+// with float32 (m, l, acc), causal mask, optional sliding window, keys at
+// positions >= T masked, and the probabilities rounded to bf16 for the P·V
+// product while the row sum l is taken over the float32 p
+// (flash_attention.py:44-53). As in the CUDA-core kernel: native GQA
+// (k, v [B, T, K, hd], query head h reads KV head h / (H / K)) and q_start
+// (query row i at position q_start + i, key j at position j).
+//
+// What bounds it on an H100: operations. At qwen2.5-3b's prefill (S = T =
+// 2048, H = 16, hd = 128) the causal work is ~4·hd·H·S²/2 = 17 GFLOP on
+// ~20 MB of q/k/v/o; only the tensor cores (989 TFLOP/s bf16) come near
+// that bound, which the CUDA-core kernel missed by ~150x.
+//
+// Design: one warpgroup (128 threads) per (head, 64-query tile, batch row).
+//   * S = Q·Kᵀ and O += P·V are wgmma m64nNk16 (bf16 in, float32
+//     accumulate): Q and K are K-major operands in shared memory; P is
+//     converted to bf16 in registers, where the S accumulator's fragment is
+//     already the A-operand fragment of the second product; V is the
+//     MN-major (transposed) B operand.
+//   * The Q tile and a two-stage ring of K/V tiles (64 keys) arrive by TMA
+//     (cp.async.bulk.tensor, 4-D maps over [B, T, K, hd] encoded per call on
+//     the host) with mbarrier completion, so the next tile's load overlaps
+//     this tile's math. Shared-memory tiles are column blocks of
+//     min(hd, 64) bf16 (32-, 64- or 128-byte rows) in the TMA swizzle of
+//     the same width, which is the layout the wgmma descriptors name.
+//     Positions past T (and query rows past S) are TMA's zero fill.
+//   * Key tiles entirely above the causal diagonal (shifted by q_start) or
+//     below the window are never loaded; the mask runs only on the tiles
+//     that straddle a boundary.
+//   * q tiles are launched longest causal row first (grid (H, q tiles, B),
+//     the tile index reversed) so the long blocks do not trail.
+#include <cuda.h>
+#include <dlfcn.h>
+
+#include <cstdint>
+
+#include "common.cuh"
+
+namespace {
+
+using repro::kNegInf;
+
+constexpr int BQ = 64;      // query rows per block: one warpgroup's wgmma M
+constexpr int BK = 64;      // keys per tile: the N of S = Q·Kᵀ
+constexpr int NT = 128;     // one warpgroup
+constexpr int STAGES = 2;   // K/V ring depth
+
+// shared-memory geometry of a head_dim: tiles are NCB column blocks of BC
+// bf16 columns, rows of ROWB bytes, in the swizzle of that width
+template <int HD>
+struct Geo {
+  static constexpr int ROWB = HD * 2 < 128 ? HD * 2 : 128;
+  static constexpr int BC = ROWB / 2;
+  static constexpr int NCB = HD / BC;
+  static constexpr int KPR = ROWB / 32;  // 16-wide k steps per row
+  static constexpr int LAYOUT = ROWB == 128 ? 1 : ROWB == 64 ? 2 : 3;  // wgmma descriptor
+  static constexpr int Q_BYTES = NCB * BQ * ROWB;
+  static constexpr int KV_BYTES = NCB * BK * ROWB;  // one K (or V) tile
+  static constexpr int SMEM = Q_BYTES + STAGES * 2 * KV_BYTES;
+  static_assert(HD % BC == 0 && (BQ * ROWB) % 1024 == 0, "geometry");
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// wgmma shared-memory matrix descriptor: start, leading and stride byte
+// offsets (16-byte units), layout type (1: 128-byte swizzle, 2: 64, 3: 32)
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              int layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)layout << 62);
+}
+
+// K-major operand (Q or K tile of `rows` rows), k step kk of 16 columns:
+// column block kk / KPR, 32 bytes into its swizzled rows per step within it
+template <int HD>
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t base, int rows, int kk) {
+  using G = Geo<HD>;
+  const uint32_t a = base + (kk / G::KPR) * rows * G::ROWB + (kk % G::KPR) * 32;
+  return make_desc(a, 16, 8 * G::ROWB, G::LAYOUT);
+}
+
+// MN-major operand: V tile column block cb, keys [16 kk, 16 kk + 16)
+template <int HD>
+__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t base, int cb, int kk) {
+  using G = Geo<HD>;
+  const uint32_t a = base + cb * BK * G::ROWB + kk * 16 * G::ROWB;
+  return make_desc(a, BK * G::ROWB, 8 * G::ROWB, G::LAYOUT);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep the compiler from reading an accumulator before wgmma_wait_all
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+// a completion that never comes traps (a launch error) instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (uint32_t spins = 0;; ++spins) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spins == (1u << 26)) __trap();
+  }
+}
+
+// TMA: box of a 4-D map at coordinates (c0 innermost) into shared memory
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// D[64 x 64] (+)= A[64 x 16] · B[16 x 64], A and B K-major in shared memory;
+// accumulate = 0 overwrites D
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 16] += A[64 x 16] · B[16 x 16], A in registers, B MN-major
+// (transposed) in shared memory
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 32] += A[64 x 16] · B[16 x 32], A in registers, B MN-major
+// (transposed) in shared memory
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 64] += A[64 x 16] · B[16 x 64], A in registers, B MN-major
+// (transposed) in shared memory
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (N == 64) wgmma_rs_n64(d, a, db);
+  else if constexpr (N == 32) wgmma_rs_n32(d, a, db);
+  else wgmma_rs_n16(d, a, db);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(NT, 1)
+flash_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+            const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int S,
+            int Tk, int H, int K, int q_start, int window, float scale_log2) {
+  using G = Geo<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + STAGES];  // Q, then the K/V stages
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;  // swizzle period
+  const uint32_t sQ = base;
+  auto sK = [&](int st) { return base + G::Q_BYTES + st * 2 * G::KV_BYTES; };
+  auto sV = [&](int st) { return sK(st) + G::KV_BYTES; };
+  const uint32_t bar_q = smem_addr(&bars[0]);
+  auto bar_kv = [&](int st) { return smem_addr(&bars[1 + st]); };
+
+  const int h = blockIdx.x, qb = gridDim.y - 1 - blockIdx.y, b = blockIdx.z;
+  const int kh = h / (H / K);
+  const int q0 = qb * BQ, nq = min(BQ, S - q0);
+  const int k_end = min(Tk, q_start + q0 + nq);  // causal: keys <= the tile's last query
+  int k_beg = window > 0 ? max(0, q_start + q0 - window + 1) : 0;
+  k_beg = (k_beg / BK) * BK;
+  const int n_tiles = k_end > k_beg ? (k_end - k_beg + BK - 1) / BK : 0;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  auto load_kv = [&](int t) {  // thread 0 only
+    const int st = t % STAGES, k0 = k_beg + t * BK;
+    mbar_expect_tx(bar_kv(st), 2 * G::KV_BYTES);
+#pragma unroll
+    for (int cb = 0; cb < G::NCB; ++cb) {
+      tma_load_4d(sK(st) + cb * BK * G::ROWB, &tk, bar_kv(st), cb * G::BC, kh, k0, b);
+      tma_load_4d(sV(st) + cb * BK * G::ROWB, &tv, bar_kv(st), cb * G::BC, kh, k0, b);
+    }
+  };
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int st = 0; st < STAGES; ++st) mbar_init(bar_kv(st), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar_q, G::Q_BYTES);
+#pragma unroll
+    for (int cb = 0; cb < G::NCB; ++cb)
+      tma_load_4d(sQ + cb * BQ * G::ROWB, &tq, bar_q, cb * G::BC, h, q0, b);
+    for (int t = 0; t < STAGES && t < n_tiles; ++t) load_kv(t);
+  }
+
+  // this thread's accumulator rows: r0 and r0 + 8 of the tile
+  const int r0 = warp * 16 + (lane >> 2);
+  const int qpos0 = q_start + q0 + r0, qpos1 = qpos0 + 8;
+  float oacc[G::NCB][G::BC / 2];
+#pragma unroll
+  for (int cb = 0; cb < G::NCB; ++cb)
+#pragma unroll
+    for (int i = 0; i < G::BC / 2; ++i) oacc[cb][i] = 0.f;
+  float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
+
+  float sacc[BK / 2];
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) sacc[i] = 0.f;
+
+  mbar_wait(bar_q, 0);
+  __syncwarp();
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % STAGES, k0 = k_beg + t * BK;
+    mbar_wait(bar_kv(st), (t / STAGES) & 1);
+    __syncwarp();  // wgmma is .aligned: the warp reconverges after the wait
+
+    // ---- S = Q·Kᵀ -------------------------------------------------------------
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss_n64(sacc, desc_kmajor<HD>(sQ, BQ, kk), desc_kmajor<HD>(sK(st), BK, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sacc);
+
+    // ---- mask (boundary tiles only) and online softmax, log2 domain -------------
+    const bool need_mask = k0 + BK - 1 > q_start + q0 || k0 + BK > Tk ||
+                           (window > 0 && k0 < q_start + q0 + BQ - window);
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      float s = sacc[i] * scale_log2;
+      if (need_mask) {
+        const int kpos = k0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+        const int qpos = (i & 2) ? qpos1 : qpos0;
+        const bool ok = kpos < Tk && kpos <= qpos && (window <= 0 || qpos - kpos < window);
+        s = ok ? s : kNegInf;
+      }
+      sacc[i] = s;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s);
+    }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {  // a row lives in the 4 lanes of a quad
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_r[r], mx[r]);
+      corr[r] = exp2f(m_r[r] - m_new);
+      m_r[r] = m_new;
+    }
+    float sum[2] = {0.f, 0.f};
+    uint32_t pa[BK / 16][4];  // P in bf16: the A fragments of O += P·V
+#pragma unroll
+    for (int i = 0; i < BK / 2; i += 2) {
+      const int r = (i >> 1) & 1;
+      const float p0 = exp2f(sacc[i] - m_r[r]), p1 = exp2f(sacc[i + 1] - m_r[r]);
+      sum[r] += p0 + p1;
+      pa[i >> 3][(i >> 1) & 3] = pack_bf16(p0, p1);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+      l_r[r] = l_r[r] * corr[r] + sum[r];
+    }
+#pragma unroll
+    for (int cb = 0; cb < G::NCB; ++cb)
+#pragma unroll
+      for (int i = 0; i < G::BC / 2; ++i) oacc[cb][i] *= corr[(i >> 1) & 1];
+
+    // ---- O += P·V --------------------------------------------------------------
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int cb = 0; cb < G::NCB; ++cb)
+        wgmma_rs<G::BC>(oacc[cb], pa[kk], desc_mnmajor<HD>(sV(st), cb, kk));
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int cb = 0; cb < G::NCB; ++cb) fence_regs(oacc[cb]);
+
+    __syncthreads();  // every warp is done with stage st: refill it
+    if (tid == 0 && t + STAGES < n_tiles) load_kv(t + STAGES);
+  }
+
+  const float inv0 = 1.f / fmaxf(l_r[0], 1e-30f), inv1 = 1.f / fmaxf(l_r[1], 1e-30f);
+  const size_t row_stride = (size_t)H * HD;
+  __nv_bfloat16* o0 = o + ((size_t)(b * S + q0 + r0) * H + h) * HD;
+  __nv_bfloat16* o1 = o0 + 8 * row_stride;
+#pragma unroll
+  for (int cb = 0; cb < G::NCB; ++cb)
+#pragma unroll
+    for (int j = 0; j < G::BC / 8; ++j) {
+      const int col = cb * G::BC + 8 * j + 2 * (lane & 3);
+      if (r0 < nq)
+        *reinterpret_cast<uint32_t*>(o0 + col) =
+            pack_bf16(oacc[cb][4 * j] * inv0, oacc[cb][4 * j + 1] * inv0);
+      if (r0 + 8 < nq)
+        *reinterpret_cast<uint32_t*>(o1 + col) =
+            pack_bf16(oacc[cb][4 * j + 2] * inv1, oacc[cb][4 * j + 3] * inv1);
+    }
+}
+
+// cuTensorMapEncodeTiled from the driver the process already loaded
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (h == nullptr) h = dlopen("libcuda.so.1", RTLD_NOW);
+    if (h != nullptr) fn = reinterpret_cast<EncodeTiled>(dlsym(h, "cuTensorMapEncodeTiled"));
+  }
+  return fn;
+}
+
+// 4-D map over a contiguous bf16 [batch, rows, heads, hd] tensor; a box is
+// `box_rows` rows x `box_cols` columns of one head of one batch row
+bool make_map(CUtensorMap* map, const void* ptr, int batch, int rows, int heads, int hd,
+              int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
+  EncodeTiled enc = encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t e = sizeof(__nv_bfloat16);
+  cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads, (cuuint64_t)rows,
+                        (cuuint64_t)batch};
+  cuuint64_t strides[3] = {hd * e, (cuuint64_t)heads * hd * e,
+                           (cuuint64_t)rows * heads * hd * e};
+  cuuint32_t box[4] = {(cuuint32_t)box_cols, 1, (cuuint32_t)box_rows, 1};
+  cuuint32_t elem[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int Tk, int H,
+           int K, int q_start, int window, cudaStream_t stream) {
+  using G = Geo<HD>;
+  const CUtensorMapSwizzle swz = G::ROWB == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : G::ROWB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                 : CU_TENSOR_MAP_SWIZZLE_32B;
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, q, B, S, H, HD, BQ, G::BC, swz) ||
+      !make_map(&tk, k, B, Tk, K, HD, BK, G::BC, swz) ||
+      !make_map(&tv, v, B, Tk, K, HD, BK, G::BC, swz))
+    return (int)cudaErrorInvalidValue;
+  const int smem = G::SMEM + 1024;  // + room to align the tiles to the swizzle period
+  auto kern = flash_wgmma<HD>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const float scale_log2 = 1.4426950408889634f / sqrtf((float)HD);
+  kern<<<dim3(H, (S + BQ - 1) / BQ, B), NT, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, Tk, H, K, q_start, window, scale_log2);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+namespace repro {
+
+// the bf16 route of flash_attention_fwd (flash_attention.cu): q, o
+// [B, S, H, hd]; k, v [B, T, K, hd]; contiguous, 16-byte aligned, T >= 1
+int flash_attention_wgmma(const void* q, const void* k, const void* v, void* o, int B, int S,
+                          int T, int H, int K, int hd, int q_start, int window,
+                          cudaStream_t st) {
+  switch (hd) {
+    case 16: return launch<16>(q, k, v, o, B, S, T, H, K, q_start, window, st);
+    case 32: return launch<32>(q, k, v, o, B, S, T, H, K, q_start, window, st);
+    case 64: return launch<64>(q, k, v, o, B, S, T, H, K, q_start, window, st);
+    case 128: return launch<128>(q, k, v, o, B, S, T, H, K, q_start, window, st);
+    case 256: return launch<256>(q, k, v, o, B, S, T, H, K, q_start, window, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace repro

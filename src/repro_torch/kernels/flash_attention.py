@@ -8,6 +8,11 @@ places query row i at position ``q_start + i`` (key j sits at position j),
 so the same kernel carries prefill, dense extend over a cache row and paged
 extend over a gathered page view.
 
+Two routes, chosen by dtype at the C entry point: bf16 runs the tensor-core
+kernel (``csrc/flash_attention_wgmma.cu``: wgmma fed by TMA), float32 the
+CUDA-core kernel (``csrc/flash_attention.cu``), because the tensor cores
+take float32 only as TF32. ``launches_by_route`` counts each.
+
 ``flash_attention`` runs the plain version only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises.
 """
@@ -25,7 +30,10 @@ NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
+ROUTES = {torch.bfloat16: "wgmma", torch.float32: "simt_f32"}
+
 launches = 0            # kernel launches (never the plain version)
+launches_by_route = {route: 0 for route in ROUTES.values()}
 _fn = None
 
 
@@ -90,8 +98,8 @@ def flash_attention(q, k, v, *, q_per_kv: int, window: Optional[int] = None,
             and aligned16(q, k, v)):
         raise ValueError("flash_attention: inputs must be contiguous and "
                          "16-byte aligned")
-    if q_start < 0 or (window is not None and window < 1):
-        raise ValueError(f"flash_attention: q_start={q_start} window={window}")
+    if q_start < 0 or T < 1 or (window is not None and window < 1):
+        raise ValueError(f"flash_attention: q_start={q_start} T={T} window={window}")
     o = torch.empty_like(q)
     if B == 0 or S == 0:
         return o
@@ -102,4 +110,5 @@ def flash_attention(q, k, v, *, q_per_kv: int, window: Optional[int] = None,
     build.check(err, "flash_attention")
     global launches
     launches += 1
+    launches_by_route[ROUTES[q.dtype]] += 1
     return o

@@ -59,6 +59,97 @@ def test_gpu_flash_kernel_matches_plain(dtype, q_start, window):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B,S,T,H,K,hd,q_start,window", [
+    (1, 100, 100, 4, 4, 16, 0, None),       # GQA ratio 1, hd 16
+    (2, 70, 107, 8, 2, 32, 37, None),       # T = q_start + S, not tile multiples
+    (1, 130, 130, 8, 1, 64, 0, 24),         # window narrower than a tile
+    (2, 200, 200, 16, 2, 128, 0, 100),      # GQA 8, window wider than a tile
+    (1, 65, 193, 16, 2, 128, 128, None),    # extend: q_start 128
+    (1, 300, 300, 16, 1, 256, 0, 48),       # K = 1 at hd 256 (GQA 16), window
+    (1, 77, 300, 16, 1, 256, 223, None),    # extend at hd 256
+])
+def test_gpu_flash_wgmma_route_matches_plain(B, S, T, H, K, hd, q_start, window):
+    """The bf16 tensor-core route against the plain version (2e-2) over
+    head dims 16-256, ragged S and T, q_start, windows and GQA ratios 1, 8,
+    16; it counts on the wgmma route and on no other."""
+    dev = _need_card()
+    g = torch.Generator(device=dev).manual_seed(S + T + hd)
+    q = torch.randn(B, S, H, hd, generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn(B, T, K, hd, generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn(B, T, K, hd, generator=g, device=dev).to(torch.bfloat16)
+    before = dict(kfa.launches_by_route)
+    got = kfa.flash_attention(q, k, v, q_per_kv=H // K, window=window,
+                              q_start=q_start)
+    torch.cuda.synchronize()
+    assert kfa.launches_by_route == {**before, "wgmma": before["wgmma"] + 1}
+    want = kfa.flash_attention_ref(q, k, v, q_per_kv=H // K, window=window,
+                                   q_start=q_start)
+    assert float((got.float() - want.float()).abs().max()) < GPU_TOL[torch.bfloat16]
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    kfa.flash_attention(q32, k32, v32, q_per_kv=H // K, window=window,
+                        q_start=q_start)
+    torch.cuda.synchronize()
+    assert kfa.launches_by_route["simt_f32"] == before["simt_f32"] + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,G", [(128, 8), (256, 16), (16, 2)])
+def test_gpu_paged_split_kernel_at_split_edges(dtype, hd, G):
+    """Split-K paged decode at cache lengths 0, ps - 1, SPLIT - 1, SPLIT
+    and nw * ps - 1, trash-page padding: the plain version's result, and
+    two calls give identical bits."""
+    dev = _need_card()
+    g = torch.Generator(device=dev).manual_seed(hd + G)
+    ps, nw, P = 16, 20, 120
+    split = kpda.SPLIT
+    clen = torch.tensor([0, ps - 1, split - 1, split, nw * ps - 1], dtype=torch.int32,
+                        device=dev)
+    B = clen.shape[0]
+    kp = torch.randn(P, ps, 2, hd, generator=g, device=dev).to(dtype)
+    vp = torch.randn(P, ps, 2, hd, generator=g, device=dev).to(dtype)
+    q = torch.randn(B, 1, 2 * G, hd, generator=g, device=dev).to(dtype)
+    bt = torch.randperm(P - 1, generator=g, device=dev)[:B * nw].add(1).reshape(B, nw)
+    bt = bt.to(torch.int32)
+    for b, c in enumerate(clen.tolist()):           # trash-page padding
+        bt[b, -(-(c + 1) // ps):] = 0
+    before = kpda.launches
+    got = kpda.paged_decode_attention(q, kp, vp, bt, clen, q_per_kv=G)
+    again = kpda.paged_decode_attention(q, kp, vp, bt, clen, q_per_kv=G)
+    torch.cuda.synchronize()
+    assert kpda.launches == before + 2
+    want = kpda.paged_decode_attention_ref(q, kp, vp, bt, clen, q_per_kv=G)
+    assert float((got.float() - want.float()).abs().max()) < GPU_TOL[dtype]
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("clen", [[124, 126, 127], [252, 250, 0]])
+def test_gpu_paged_spec_straddling_a_split_equals_steps(dtype, clen):
+    """The S = 5 verify form whose positions straddle a split boundary
+    equals 5 one-token calls bit for bit, and its plain version."""
+    dev = _need_card()
+    g = torch.Generator(device=dev).manual_seed(sum(clen))
+    S, ps, nw, P = 5, 16, 20, 70
+    kp = torch.randn(P, ps, 2, 128, generator=g, device=dev).to(dtype)
+    vp = torch.randn(P, ps, 2, 128, generator=g, device=dev).to(dtype)
+    q = torch.randn(3, S, 16, 128, generator=g, device=dev).to(dtype)
+    bt = torch.randperm(P - 1, generator=g, device=dev)[:3 * nw].add(1).reshape(3, nw)
+    bt = bt.to(torch.int32)
+    cl = torch.tensor(clen, dtype=torch.int32, device=dev)
+    for b, c in enumerate(clen):
+        bt[b, -(-(c + S) // ps):] = 0
+    got = kpsda.paged_spec_decode_attention(q, kp, vp, bt, cl, q_per_kv=8)
+    steps = [kpda.paged_decode_attention(q[:, s:s + 1].contiguous(), kp, vp, bt,
+                                         cl + s, q_per_kv=8) for s in range(S)]
+    torch.cuda.synchronize()
+    assert torch.equal(got, torch.cat(steps, dim=1))
+    want = kpsda.paged_spec_attention_ref(q, kp, vp, bt, cl, q_per_kv=8)
+    assert float((got.float() - want.float()).abs().max()) < GPU_TOL[dtype]
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("window", [None, 24])
 def test_gpu_decode_kernel_matches_plain(dtype, window):

@@ -190,14 +190,27 @@ def test_wrapper_refuses_other_devices(i):
         call()
 
 
+def test_flash_routes_by_dtype_and_cpu_counts_none():
+    """bf16 launches the tensor-core route, float32 the CUDA-core route (a
+    dispatch on type); the plain version on the CPU counts on neither."""
+    assert kfa.ROUTES == {torch.bfloat16: "wgmma", torch.float32: "simt_f32"}
+    before = dict(kfa.launches_by_route)
+    for dtype in kfa.ROUTES:
+        q = torch.zeros(1, 4, 2, 16, dtype=dtype)
+        kfa.flash_attention(q, q[:, :, :1].contiguous(), q[:, :, :1].contiguous(),
+                            q_per_kv=2)
+    assert kfa.launches_by_route == before
+
+
 def test_build_commands_target_sm90a():
     """The kernels are built by nvcc by hand for sm_90a, one compile per
     source and one shared-library link."""
     from pathlib import Path
     cmds, link, lib = build.compile_commands(Path("/tmp/out"))
     srcs = {Path(c[c.index("-c") + 1]).name for c in cmds}
-    assert srcs == {"flash_attention.cu", "decode_attention.cu", "spec_scan.cu",
-                    "rglru_scan.cu", "mlstm_chunk.cu"}
+    assert srcs == {"flash_attention.cu", "flash_attention_wgmma.cu",
+                    "decode_attention.cu", "paged_decode_attention.cu",
+                    "spec_scan.cu", "rglru_scan.cu", "mlstm_chunk.cu"}
     for c in cmds + [link]:
         assert "arch=compute_90a,code=sm_90a" in c
     assert "-shared" in link and lib.suffix == ".so"
