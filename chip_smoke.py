@@ -9,13 +9,16 @@ no result line) on any fault:
      csrc`` (nvcc, sm_90a) and print registers / spills (-Xptxas -v);
   2. kernels: each kernel against its plain PyTorch version at the serving
      path's shapes in bf16 (tolerance 2e-2) and at one fp32 shape (2e-5),
-     the dense window-ring case included, and the split-K paged kernels in
-     fp32 at the serving shape too (1-16 splits a row); kernel, plain-version and
-     library (``scaled_dot_product_attention``, a yardstick the port never
-     calls) times, and the least time the card could take for the work.
-     Flash is timed at qwen2.5-3b's prefill and, as a row of its own
-     (``flash_attention_hd256``), at recurrentgemma-9b's (hd 256, one KV
-     head, window 2048); the multi-query decode kernels, dense and paged,
+     the dense window-ring cases included (one with whole splits masked),
+     and the split-K decode kernels, dense and paged, in fp32 at the serving
+     shape too (1-16 splits a row); kernel, plain-version and library
+     (``scaled_dot_product_attention``, a yardstick the port never calls)
+     times, profiler device times of the attention kernels, and the least
+     time the card could take for the work. Flash is timed at qwen2.5-3b's
+     prefill and, as a row of its own (``flash_attention_hd256``), at
+     recurrentgemma-9b's (hd 256, one KV head, window 2048); so is the
+     ring decode (``decode_attention_ring``: recurrentgemma's 2048-slot ring,
+     hd 256, one KV head); the multi-query decode kernels, dense and paged,
      equal S one-token calls bit for bit;
   3. dense serving: ``LLMServer`` with full-width qwen2.5-3b (bf16, random
      weights from a seed, 4 slots, capacity 2048, cache_mode="dense"):
@@ -106,10 +109,11 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20) -> float:
+def device_ms(fn, iters: int = 20):
     """Device time of one call: the self time of its kernels under
     torch.profiler, without the host's launch and wrapper cost, which
-    ``time_ms`` includes when calls are shorter than their dispatch."""
+    ``time_ms`` includes when calls are shorter than their dispatch; None
+    where the profiler recorded no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -121,7 +125,7 @@ def device_ms(fn, iters: int = 20) -> float:
         torch.cuda.synchronize()
     total = sum(e.self_device_time_total for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA)
-    return total / 1e3 / iters
+    return total / 1e3 / iters if total > 0 else None
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple:
@@ -208,6 +212,15 @@ def kernel_phase(dev):
     da = lambda: kda.decode_attention(qd, kc, vc, clen, q_per_kv=G)       # noqa: E731
     dr = lambda: kda.decode_attention_ref(qd, kc, vc, clen, q_per_kv=G)   # noqa: E731
     err = check_close("bf16 [4,1,16,128] vs [4,2048,2,128]", da(), dr(), "bfloat16")
+    # the same shape in float32: 1-16 splits a row, so the combine across
+    # splits and the split boundaries are held to 2e-5
+    qd32, kc32, vc32 = qd.float(), kc.float(), vc.float()
+    c32 = torch.tensor([1500, 100, 2047, 700], dtype=torch.int32, device=dev)
+    err = max(err, check_close(
+        "f32 [4,1,16,128] vs [4,2048,2,128] clen [1500,100,2047,700]",
+        kda.decode_attention(qd32, kc32, vc32, c32, q_per_kv=G),
+        kda.decode_attention_ref(qd32, kc32, vc32, c32, q_per_kv=G), "float32"))
+    del qd32, kc32, vc32
     q4, k4, v4 = rnd(3, 1, 8, 32, **f32), rnd(3, 200, 2, 32, **f32), rnd(3, 200, 2, 32, **f32)
     c4 = torch.tensor([0, 99, 199], dtype=torch.int32, device=dev)
     err = max(err, check_close(
@@ -224,18 +237,28 @@ def kernel_phase(dev):
         "f32 window ring W=64 window=24 clen=[70,200]",
         kda.decode_attention(q5, k5, v5, c5, q_per_kv=2, window=24),
         kda.decode_attention_ref(q5, k5, v5, c5, q_per_kv=2, window=24), "float32"))
+    # a wrapped ring whose window leaves whole splits masked: each such split
+    # writes m = -1e30 and is weighted e^{m - M} = 0 by the combine
+    q9, k9, v9 = rnd(4, 1, 16, 128, **f32), rnd(4, 512, 2, 128, **f32), rnd(4, 512, 2, 128, **f32)
+    c9 = torch.tensor([1000, 600, 1023, 511], dtype=torch.int32, device=dev)
+    err = max(err, check_close(
+        "f32 window ring W=512 window=24 clen=[1000,600,1023,511]",
+        kda.decode_attention(q9, k9, v9, c9, q_per_kv=G, window=24),
+        kda.decode_attention_ref(q9, k9, v9, c9, q_per_kv=G, window=24), "float32"))
     ms, plain = time_ms(da, 50), time_ms(dr, 10)
     pos = torch.arange(W, device=dev)
     mask = (pos[None, :] <= clen[:, None].long())[:, None, None, :]
     qdt, kct, vct = qd.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
-    lib = time_ms(lambda: F.scaled_dot_product_attention(
-        qdt, kct, vct, attn_mask=mask, enable_gqa=True), 50)
+    lf = lambda: F.scaled_dot_product_attention(                    # noqa: E731
+        qdt, kct, vct, attn_mask=mask, enable_gqa=True)
+    lib = time_ms(lf, 50)
+    log_device("decode_attention", da, lf)
     live = int((torch.clamp(clen.long() + 1, max=W)).sum())
     b_ms, b_by = bound(2 * (2 * B * H * hd + 2 * live * K * hd) + 4 * B,
                        4 * hd * H * live, torch.bfloat16)
     rows["decode_attention"] = dict(
         name="decode_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/decode_attention.cu",
+        source="src/repro_torch/kernels/csrc/split_decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:71",
         max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
         library_ms=lib)
@@ -286,13 +309,13 @@ def kernel_phase(dev):
                        4 * hd * H * live, torch.bfloat16)
     rows["paged_decode_attention"] = dict(
         name="paged_decode_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/paged_decode_attention.cu",
+        source="src/repro_torch/kernels/csrc/split_decode_attention.cu",
         replaces="src/repro/kernels/paged_decode_attention.py:70",
         max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
         library_ms=lib)
     rows.update(spec_kernel_rows(dev, rnd))
     # recurrentgemma's local attention: hd = 256, one KV head (MQA)
-    log("[kernels] flash_attention / decode_attention at hd=256, K=1, window 2048")
+    log("[kernels] flash_attention at hd=256, K=1, window 2048")
     ql, kl, vl = rnd(1, 3000, 16, 256), rnd(1, 3000, 1, 256), rnd(1, 3000, 1, 256)
     rows["flash_attention"]["max_abs_err"] = max(
         rows["flash_attention"]["max_abs_err"], check_close(
@@ -302,14 +325,7 @@ def kernel_phase(dev):
             "bfloat16"))
     del ql, kl, vl
     rows["flash_attention_hd256"] = flash_hd256_row(dev, rnd)
-    qr1, kr1, vr1 = rnd(4, 1, 16, 256), rnd(4, 2048, 1, 256), rnd(4, 2048, 1, 256)
-    cr = torch.tensor([2999, 100, 2047, 4095], dtype=torch.int32, device=dev)
-    rows["decode_attention"]["max_abs_err"] = max(
-        rows["decode_attention"]["max_abs_err"], check_close(
-            "bf16 ring [4,2048,1,256] window=2048 clen=[2999,100,2047,4095]",
-            kda.decode_attention(qr1, kr1, vr1, cr, q_per_kv=16, window=2048),
-            kda.decode_attention_ref(qr1, kr1, vr1, cr, q_per_kv=16, window=2048),
-            "bfloat16"))
+    rows["decode_attention_ring"] = decode_ring_row(dev, rnd)
     rows.update(stateful_kernel_rows(dev))
     for r in rows.values():
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
@@ -322,8 +338,10 @@ def kernel_phase(dev):
 def log_device(name, kernel, library):
     """The device time of a kernel and of its library call, beside the
     event-timed call times of the kernels line."""
-    log(f"[kernels] {name}: device_ms={device_ms(kernel):.4f} "
-        f"library_device_ms={device_ms(library):.4f}")
+    def fmt(ms):
+        return "not measured" if ms is None else f"{ms:.4f}"
+    log(f"[kernels] {name}: device_ms={fmt(device_ms(kernel))} "
+        f"library_device_ms={fmt(device_ms(library))}")
 
 
 def flash_hd256_row(dev, rnd):
@@ -353,6 +371,47 @@ def flash_hd256_row(dev, rnd):
         name="flash_attention_hd256", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
         replaces="src/repro/kernels/flash_attention.py:63",
+        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+        library_ms=lib)
+
+
+def decode_ring_row(dev, rnd):
+    """Decode at recurrentgemma-9b's local attention: the ring cache of
+    4 slots x window 2048, one KV head, hd 256, bf16, with wrapped cache
+    lengths. The bound counts the slots the ring-age mask keeps; the
+    library call is SDPA with that slot mask."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as kda
+    log("[kernels] decode_attention_ring")
+    B, W, H, K, hd, win = 4, 2048, 16, 1, 256, 2048
+    q, kc, vc = rnd(B, 1, H, hd), rnd(B, W, K, hd), rnd(B, W, K, hd)
+    clen = torch.tensor([2999, 100, 2047, 4095], dtype=torch.int32, device=dev)
+    da = lambda: kda.decode_attention(q, kc, vc, clen, q_per_kv=H // K,      # noqa: E731
+                                      window=win)
+    dr = lambda: kda.decode_attention_ref(q, kc, vc, clen, q_per_kv=H // K,  # noqa: E731
+                                          window=win)
+    err = check_close("bf16 ring [4,2048,1,256] window=2048 clen=[2999,100,2047,4095]",
+                      da(), dr(), "bfloat16")
+    ms, plain = time_ms(da, 50), time_ms(dr, 10)
+    c = clen.long()[:, None]
+    pos = torch.arange(W, device=dev)[None, :]
+    n_valid = torch.clamp(c + 1, max=W)
+    age = torch.remainder(c % W - pos, W)
+    kept = (pos < n_valid) & (age < torch.clamp(n_valid + 1, max=win))
+    mask = kept[:, None, None, :]
+    qt, kt, vt = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
+    lf = lambda: F.scaled_dot_product_attention(                    # noqa: E731
+        qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    lib = time_ms(lf, 50)
+    log_device("decode_attention_ring", da, lf)
+    live = int(kept.sum())
+    b_ms, b_by = bound(2 * (2 * B * H * hd + 2 * live * K * hd) + 4 * B,
+                       4 * hd * H * live, torch.bfloat16)
+    return dict(
+        name="decode_attention_ring", route="cuda",
+        source="src/repro_torch/kernels/csrc/split_decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention.py:71",
         max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
         library_ms=lib)
 
@@ -420,15 +479,17 @@ def spec_kernel_rows(dev, rnd):
     pos_q = clen[:, None].long() + torch.arange(S, device=dev)[None, :]
     mask = (torch.arange(W, device=dev)[None, None, :] <= pos_q[:, :, None])[:, None]
     qst, kct, vct = qs.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
-    lib = time_ms(lambda: F.scaled_dot_product_attention(
-        qst, kct, vct, attn_mask=mask, enable_gqa=True), 50)
+    lf = lambda: F.scaled_dot_product_attention(                    # noqa: E731
+        qst, kct, vct, attn_mask=mask, enable_gqa=True)
+    lib = time_ms(lf, 50)
+    log_device("spec_decode_attention", sa, lf)
     live = int(torch.clamp(clen.long() + S, max=W).sum())
     pairs = int(torch.clamp(pos_q + 1, max=W).sum())
     b_ms, b_by = bound(2 * (2 * B * S * H * hd + 2 * live * K * hd) + 4 * B,
                        4 * hd * H * pairs, torch.bfloat16)
     rows["spec_decode_attention"] = dict(
         name="spec_decode_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/decode_attention.cu",
+        source="src/repro_torch/kernels/csrc/split_decode_attention.cu",
         replaces="src/repro/models/attention.py:344 (XLA spec_attention; no Pallas kernel)",
         max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
         library_ms=lib)
@@ -484,7 +545,7 @@ def spec_kernel_rows(dev, rnd):
                        4 * hd * H * pairs, torch.bfloat16)
     rows["paged_spec_decode_attention"] = dict(
         name="paged_spec_decode_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/paged_decode_attention.cu",
+        source="src/repro_torch/kernels/csrc/split_decode_attention.cu",
         replaces="src/repro/models/transformer.py:194 (XLA spec_attention over "
                  "paged_view; no Pallas kernel)",
         max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
@@ -597,9 +658,9 @@ def stateful_kernel_rows(dev):
 
 
 def multi_query_equals_steps(qs, kc, vc, clen):
-    """The multi-query kernel runs one block per query position, each the
-    one-token kernel at cache length clen + s: its output equals S
-    one-token decode calls bit for bit."""
+    """The multi-query kernels cut slots at the same absolute split
+    boundaries as the one-token call, so query s equals a one-token call at
+    cache length clen + s bit for bit."""
     import torch
     from repro_torch.kernels import decode_attention as kda
     from repro_torch.kernels import spec_decode_attention as ksda
@@ -1528,8 +1589,10 @@ def main() -> int:
     if "stateful" in phases:
         sc = stateful_phase(dev)
         launches.update(sc)
-        # recurrentgemma-9b's flash calls: hd 256, one KV head, window 2048
+        # recurrentgemma-9b's flash and ring-decode calls: hd 256, one KV
+        # head, window 2048
         launches["flash_attention_hd256"] = sc.get("flash_attention", 0)
+        launches["decode_attention_ring"] = sc.get("decode_attention", 0)
     for name, r in rows.items():
         r["launches"] = launches.get(name, 0)
     if {"serve", "spec", "stateful"} <= phases:

@@ -1,59 +1,78 @@
-// Paged decode attention for Hopper (sm_90a): split-K across SMs.
+// Decode attention for Hopper (sm_90a): split-K across SMs, one kernel pair
+// for the four decode forms of the port (dense or paged cache, one query
+// token or S of them).
 //
-// Replaces the Pallas TPU kernel src/repro/kernels/paged_decode_attention.py::
-// paged_decode_attention (one query token per row against pages
-// [P, ps, K, hd] of a shared pool addressed through a block table [B, nw];
-// position p lives in page bt[b, p / ps], valid positions p < n_valid =
-// min(cache_len + 1, nw * ps)), and, in multi-query mode, the XLA
-// spec_attention over the JAX package's paged_view
-// (src/repro/models/transformer.py, verify mode; no Pallas kernel): S queries
-// per row, query s at position cache_len[b] + s seeing positions <= its own.
+// Replaces
+//   * the Pallas TPU kernel src/repro/kernels/decode_attention.py::
+//     decode_attention: one query token per row against a dense (ring) cache
+//     [B, W, K, hd]; valid slots pos < n_valid = min(cache_len + 1, W) and,
+//     with a window, the ring-age mask of its lines 44-50:
+//     age = (cache_len % W) - pos (+ W if negative), age < min(window,
+//     n_valid + 1);
+//   * the Pallas TPU kernel src/repro/kernels/paged_decode_attention.py::
+//     paged_decode_attention: the same over pages [P, ps, K, hd] of a shared
+//     pool addressed through a block table [B, nw]; position p lives in page
+//     bt[b, p / ps], valid positions p < min(cache_len + 1, nw * ps);
+//   * in multi-query mode, the XLA spec_attention of the speculative verify
+//     step (src/repro/models/attention.py, dense; over the paged_view in
+//     src/repro/models/transformer.py; no Pallas kernel): S queries per row,
+//     query s at position cache_len[b] + s seeing positions <= its own (no
+//     window).
 //
 // What bounds it on an H100: bytes. A call reads each live K/V row once
 // (qwen2.5-3b: 2 KV heads x 128 x 2 bytes, K and V, per position and layer)
 // and does ~4·G·hd FLOPs per position, far below the card's ridge of ~295
 // FLOP/byte. The card's bandwidth is reached only with many SMs reading at
-// once; one block per (KV head, row), the design this replaces, put 8
-// blocks on 132 SMs at 4 slots.
+// once; one block per (KV head, row) put 8 blocks on 132 SMs at 4 slots
+// (recurrentgemma-9b's one KV head: 4).
 //
 // Design (two kernels, no floating-point atomics):
-//   * paged_split: grid (split, KV head + K * row, query s). A block takes
-//     the SPLIT = 128 positions [sp * SPLIT, (sp + 1) * SPLIT) ∩ [0, n_valid)
+//   * decode_split: grid (split, KV head + K * row, query s). A block takes
+//     the SPLIT = 128 slots [sp * SPLIT, (sp + 1) * SPLIT) ∩ [0, n_valid)
 //     of its query for the G = H / K query heads that share its KV head
 //     (grouped GQA: each K/V row is read once for G heads). Its 8 warps own
-//     16 positions each; the page ids of the split are staged in shared
-//     memory with q, so no table lookup sits in front of a K/V load; the
-//     lanes of a warp split a row into 16-byte
-//     loads held in registers (a warp covers 32 / lanes-per-row rows per
-//     load), batches of loads are issued before their use, and the lane
-//     reductions of 8 heads' dot products run side by side. Scores go to
-//     shared memory, one warp per head takes the softmax of the split
-//     (float32 m, l), the probabilities are rounded to the value type
-//     before P·V as in the reference, and each warp's P·V partial is
-//     reduced across rows by shuffles and across warps in shared memory in
-//     a fixed order. It writes float32 (m, l, acc[hd]) partials into
-//     scratch the wrapper allocates. A block whose split starts at or past
-//     n_valid exits at once, so only live pages are read.
-//   * paged_combine: one block per (query head, row, query s) merges the
+//     16 slots each. Paged, the page ids of the split are staged in shared
+//     memory with q, so no table lookup sits in front of a K/V load; dense,
+//     slot p of row b is cache row (b * W + p) * K + kh. The lanes of a warp
+//     split a row into 16-byte loads held in registers (a warp covers
+//     32 / lanes-per-row rows per load), batches of loads are issued before
+//     their use, and the lane reductions of 8 heads' dot products run side
+//     by side. A score is kept where its slot is below n_valid and, with a
+//     window, its ring age is below the window's limit; the rest are the
+//     reference's NEG_INF. Scores go to shared memory, one warp per head
+//     takes the softmax of the split (float32 m, l), the probabilities are
+//     rounded to the value type before P·V as in the reference, and each
+//     warp's P·V partial is reduced across rows by shuffles and across warps
+//     in shared memory in a fixed order. It writes float32 (m, l, acc[hd])
+//     partials into scratch the wrapper allocates. A block whose split
+//     starts at or past n_valid exits at once, so only live slots are read.
+//   * decode_combine: one block per (query head, row, query s) merges the
 //     partials of its live splits with the log-sum-exp rescale (the weights
 //     e^{m_j - M} once in shared memory, the sums in a fixed order); it
 //     computes n_valid itself and reads only live splits.
-// Split boundaries are absolute positions (multiples of SPLIT), independent
-// of S, of the batch and of the other rows, and both kernels depend only on
+// A split whose slots the window masks entirely scores NEG_INF everywhere:
+// NEG_INF is the finite -1e30, so it writes m = -1e30 with l = SPLIT and a
+// finite acc (every p = e^0 = 1). That is harmless only because the combine
+// weights split j by e^{m_j - M} and M is finite: the newest slot
+// (cache_len % W, age 0) is always kept, so e^{-1e30 - M} = 0.
+// Split boundaries are absolute slots (multiples of SPLIT), independent of S,
+// of the batch and of the other rows, and both kernels depend only on
 // (row, cache_len[b] + s): the block of query s computes exactly what a
 // one-token call at cache length cache_len[b] + s computes, so the verify
 // step equals S decode steps bit for bit, and two calls on the same inputs
 // give the same bits.
+#include <climits>
+
 #include "common.cuh"
 
 namespace {
 
 using repro::kNegInf;
 
-constexpr int SPLIT = 128;  // positions per split (8 pages of 16)
+constexpr int SPLIT = 128;  // slots per split (8 pages of 16)
 constexpr int NT = 256;     // threads per block
 constexpr int NW = NT / 32; // warps
-constexpr int PPW = SPLIT / NW;  // warp w owns positions [PPW w, PPW (w + 1)) of the split
+constexpr int PPW = SPLIT / NW;  // warp w owns slots [PPW w, PPW (w + 1)) of the split
 constexpr int GT = 8;       // query heads per pass of the scores and of P·V (registers)
 constexpr int MAX_G = 64;   // shared-memory plan below (sQ: G x hd floats)
 
@@ -86,28 +105,50 @@ struct Plan {
   static constexpr int LPR = CH < 32 ? CH : 32;  // lanes per row
   static constexpr int CPL = CH / LPR;           // loads per lane and row
   static constexpr int RPW = 32 / LPR;           // rows a warp covers per step
-  static constexpr int STEPS = PPW / RPW;        // steps over a warp's positions
+  static constexpr int STEPS = PPW / RPW;        // steps over a warp's slots
   static constexpr int UNR = (8 / CPL) < STEPS ? (8 / CPL) : STEPS;  // steps per load batch
   static_assert(HD % VN == 0 && 32 % LPR == 0 && PPW % RPW == 0 && STEPS % UNR == 0,
                 "plan");
 };
 
-template <typename T, int HD>
+// One launch's operands. Dense: bt == nullptr, n_pos = W, ps = nw = 0.
+// Paged: n_pos = nw * ps, window = 0.
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  const int* bt;
+  const int* cache_len;
+  float* part_acc;
+  float* part_ml;
+  void* o;
+  int B, S, K, G, n_pos, ps, nw, window, nsplit;
+};
+
+template <typename T, int HD, bool PAGED>
 __global__ void __launch_bounds__(NT)
-paged_split(const T* __restrict__ q, const T* __restrict__ kp, const T* __restrict__ vp,
-            const int* __restrict__ bt, const int* __restrict__ cache_len,
-            float* __restrict__ part_acc, float* __restrict__ part_ml, int S, int K, int G,
-            int ps, int nw, int nsplit, float scale) {
+decode_split(const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
+             const int* __restrict__ bt, const int* __restrict__ cache_len,
+             float* __restrict__ part_acc, float* __restrict__ part_ml, int S, int K, int G,
+             int n_pos, int ps, int nw, int window, int nsplit, float scale) {
   using P = Plan<T, HD>;
   const int sp = blockIdx.x, kh = blockIdx.y % K, b = blockIdx.y / K, sq = blockIdx.z;
   const int clen = cache_len[b] + sq;
-  const int n_valid = min(clen + 1, nw * ps);
+  const int n_valid = min(clen + 1, n_pos);
   const int start = sp * SPLIT;
   if (start >= n_valid) return;  // the combine reads only splits below n_valid
   const int end = min(start + SPLIT, n_valid);
+  // the ring's head (the newest token's slot) and the window's age limit;
+  // with no window every age passes. The mask below has no branch on the
+  // window, and the paged form's is n_valid alone at compile time: a
+  // loop-invariant branch there made the compiler keep two copies of the
+  // score loop, and the larger code ran 1.4x slower inside a decode step,
+  // where the instruction cache is cold.
+  const int head = clen % n_pos;
+  const int win_lim = window > 0 ? min(window, n_valid + 1) : INT_MAX;
 
   extern __shared__ float smem[];
-  __shared__ int sPage[SPLIT + 1];   // the pages the split spans
+  __shared__ int sPage[PAGED ? SPLIT + 1 : 1];  // the pages the split spans
   float* sQ = smem;                  // [G][HD]
   float* sS = sQ + G * HD;           // [G][SPLIT] scores, then rounded probabilities
   float* sRed = sS + G * SPLIT;      // [NW][GT][HD] per-warp P·V partials
@@ -119,15 +160,26 @@ paged_split(const T* __restrict__ q, const T* __restrict__ kp, const T* __restri
     const uint4 r = *reinterpret_cast<const uint4*>(qb + i * P::VN);
     Raw<T>::widen(r, sQ + i * P::VN);
   }
-  const int page0 = start / ps;
-  for (int i = tid; i <= (end - 1) / ps - page0; i += NT)
-    sPage[i] = bt[(size_t)b * nw + page0 + i];
+  const int page0 = PAGED ? start / ps : 0;
+  if constexpr (PAGED) {
+    for (int i = tid; i <= (end - 1) / ps - page0; i += NT)
+      sPage[i] = bt[(size_t)b * nw + page0 + i];
+  }
   __syncthreads();
 
   const int row = lane / P::LPR, lr = lane % P::LPR;
-  // element offset of position pos's K/V row of head kh in the pool
+  // element offset of slot pos's K/V row of head kh
   auto row_off = [&](int pos) -> size_t {
-    return (((size_t)sPage[pos / ps - page0] * ps + pos % ps) * K + kh) * HD;
+    if constexpr (PAGED)
+      return (((size_t)sPage[pos / ps - page0] * ps + pos % ps) * K + kh) * HD;
+    else
+      return (((size_t)b * n_pos + pos) * K + kh) * HD;
+  };
+  auto kept = [&](int pos) -> bool {
+    if constexpr (PAGED) return pos < end;
+    int age = head - pos;
+    age += age < 0 ? n_pos : 0;
+    return pos < end && age < win_lim;
   };
 
   // ---- scores: s[g][pos] = q_g · k_pos * scale ------------------------------
@@ -137,7 +189,7 @@ paged_split(const T* __restrict__ q, const T* __restrict__ kp, const T* __restri
     for (int u = 0; u < P::UNR; ++u) {
       const int pos = start + PPW * warp + (s0 + u) * P::RPW + row;
       if (pos < end) {
-        const T* kr = kp + row_off(pos);
+        const T* kr = kc + row_off(pos);
 #pragma unroll
         for (int c = 0; c < P::CPL; ++c)
           raw[u][c] = *reinterpret_cast<const uint4*>(kr + (lr + c * P::LPR) * P::VN);
@@ -177,10 +229,10 @@ paged_split(const T* __restrict__ q, const T* __restrict__ kp, const T* __restri
 #pragma unroll
           for (int gg = 0; gg < GT; ++gg) a[gg] += __shfl_xor_sync(0xffffffffu, a[gg], o);
         if (lr == 0) {
+          const bool keep = kept(start + loc);
 #pragma unroll
           for (int gg = 0; gg < GT; ++gg)
-            if (g0 + gg < G)
-              sS[(g0 + gg) * SPLIT + loc] = start + loc < end ? a[gg] * scale : kNegInf;
+            if (g0 + gg < G) sS[(g0 + gg) * SPLIT + loc] = keep ? a[gg] * scale : kNegInf;
         }
       }
     }
@@ -227,7 +279,7 @@ paged_split(const T* __restrict__ q, const T* __restrict__ kp, const T* __restri
       for (int u = 0; u < P::UNR; ++u) {
         const int pos = start + PPW * warp + (s0 + u) * P::RPW + row;
         if (pos < end) {
-          const T* vr = vp + row_off(pos);
+          const T* vr = vc + row_off(pos);
 #pragma unroll
           for (int c = 0; c < P::CPL; ++c)
             raw[u][c] = *reinterpret_cast<const uint4*>(vr + (lr + c * P::LPR) * P::VN);
@@ -287,9 +339,9 @@ paged_split(const T* __restrict__ q, const T* __restrict__ kp, const T* __restri
 // o[d] = Σ_j acc_j[d] e^{m_j - M} / Σ_j l_j e^{m_j - M} over the live splits j
 template <typename T, int HD>
 __global__ void __launch_bounds__(NT)
-paged_combine(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
-              const int* __restrict__ cache_len, T* __restrict__ o, int S, int H,
-              int n_pos, int nsplit) {
+decode_combine(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
+               const int* __restrict__ cache_len, T* __restrict__ o, int S, int H,
+               int n_pos, int nsplit) {
   extern __shared__ float sW[];  // [nsplit] e^{m_j - M}
   __shared__ float sL;           // Σ_j l_j e^{m_j - M}
   const int h = blockIdx.x, b = blockIdx.y, sq = blockIdx.z;
@@ -304,7 +356,7 @@ paged_combine(const float* __restrict__ part_acc, const float* __restrict__ part
     m = repro::warp_max(m);
     float l = 0.f;
     for (int j = lane; j < nsp; j += 32) {
-      const float w = expf(ml[2 * j] - m);
+      const float w = expf(ml[2 * j] - m);  // 0 for a split the window masks whole
       sW[j] = w;
       l = fmaf(ml[2 * j + 1], w, l);
     }
@@ -322,37 +374,40 @@ paged_combine(const float* __restrict__ part_acc, const float* __restrict__ part
   }
 }
 
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, const int* bt, const int* clen,
-           float* part_acc, float* part_ml, void* o, int B, int S, int ps, int K, int G,
-           int nw, int nsplit, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (G * HD + G * SPLIT + NW * GT * HD);
-  auto split = paged_split<T, HD>;
+template <typename T, int HD, bool PAGED>
+int launch(const Args& a, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (a.G * HD + a.G * SPLIT + NW * GT * HD);
+  auto split = decode_split<T, HD, PAGED>;
   cudaError_t e;
   if (smem > 48 * 1024) {  // above the default: opt in (qwen2.5-3b needs 40 KB)
     e = cudaFuncSetAttribute(split, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  split<<<dim3(nsplit, K * B, S), NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bt,
-      clen, part_acc, part_ml, S, K, G, ps, nw, nsplit, 1.0f / sqrtf((float)HD));
+  split<<<dim3(a.nsplit, a.K * a.B, a.S), NT, smem, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      a.bt, a.cache_len, a.part_acc, a.part_ml, a.S, a.K, a.G, a.n_pos, a.ps, a.nw,
+      a.window, a.nsplit, 1.0f / sqrtf((float)HD));
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  paged_combine<T, HD><<<dim3(K * G, B, S), NT, sizeof(float) * nsplit, stream>>>(
-      part_acc, part_ml, clen, static_cast<T*>(o), S, K * G, nw * ps, nsplit);
+  decode_combine<T, HD><<<dim3(a.K * a.G, a.B, a.S), NT, sizeof(float) * a.nsplit, stream>>>(
+      a.part_acc, a.part_ml, a.cache_len, static_cast<T*>(a.o), a.S, a.K * a.G, a.n_pos,
+      a.nsplit);
   return (int)cudaGetLastError();
 }
 
+template <typename T, int HD>
+int dispatch_cache(const Args& a, cudaStream_t st) {
+  return a.bt != nullptr ? launch<T, HD, true>(a, st) : launch<T, HD, false>(a, st);
+}
+
 template <typename T>
-int dispatch_hd(const void* q, const void* k, const void* v, const int* bt, const int* clen,
-                float* pa, float* pm, void* o, int B, int S, int ps, int K, int G, int hd,
-                int nw, int nsplit, cudaStream_t st) {
+int dispatch_hd(const Args& a, int hd, cudaStream_t st) {
   switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, bt, clen, pa, pm, o, B, S, ps, K, G, nw, nsplit, st);
-    case 32: return launch<T, 32>(q, k, v, bt, clen, pa, pm, o, B, S, ps, K, G, nw, nsplit, st);
-    case 64: return launch<T, 64>(q, k, v, bt, clen, pa, pm, o, B, S, ps, K, G, nw, nsplit, st);
-    case 128: return launch<T, 128>(q, k, v, bt, clen, pa, pm, o, B, S, ps, K, G, nw, nsplit, st);
-    case 256: return launch<T, 256>(q, k, v, bt, clen, pa, pm, o, B, S, ps, K, G, nw, nsplit, st);
+    case 16: return dispatch_cache<T, 16>(a, st);
+    case 32: return dispatch_cache<T, 32>(a, st);
+    case 64: return dispatch_cache<T, 64>(a, st);
+    case 128: return dispatch_cache<T, 128>(a, st);
+    case 256: return dispatch_cache<T, 256>(a, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -360,25 +415,25 @@ int dispatch_hd(const void* q, const void* k, const void* v, const int* bt, cons
 }  // namespace
 
 // q, o [B, S, K*G, hd] (S = 1: one-token decode; S > 1: the verify step);
-// pools [P, ps, K, hd]; block_tables [B, nw] int32; cache_len [B] int32
-// (device); scratch part_acc float [B, S, K, G, nsplit, hd] and part_ml
-// float [B, S, K, G, nsplit, 2] with nsplit = ceil(nw * ps / SPLIT), as the
+// cache_len [B] int32 (device). Dense: block_tables == nullptr, caches
+// [B, W, K, hd] with n_pos = W, window <= 0 for none (ps, nw unused).
+// Paged: pools [P, ps, K, hd], block_tables [B, nw] int32, n_pos = nw * ps,
+// no window. Scratch part_acc float [B, S, K, G, nsplit, hd] and part_ml
+// float [B, S, K, G, nsplit, 2] with nsplit = ceil(n_pos / SPLIT), as the
 // wrapper's split_plan sizes them (its SPLIT and MAX_G are this file's; a CPU
 // test holds them equal). Returns cudaGetLastError() of the launches.
-extern "C" int paged_split_decode_attention_fwd(
+extern "C" int split_decode_attention_fwd(
     const void* q, const void* k, const void* v, const int* block_tables,
-    const int* cache_len, void* part_acc, void* part_ml, void* o, int B, int S, int ps,
-    int K, int G, int hd, int nw, int dtype, void* stream) {
+    const int* cache_len, void* part_acc, void* part_ml, void* o, int B, int S, int K,
+    int G, int hd, int n_pos, int ps, int nw, int window, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (G < 1 || G > MAX_G || S < 1) return (int)cudaErrorInvalidValue;
-  const int nsplit = (nw * ps + SPLIT - 1) / SPLIT;
-  float* pa = static_cast<float*>(part_acc);
-  float* pm = static_cast<float*>(part_ml);
-  if (dtype == repro::kF32)
-    return dispatch_hd<float>(q, k, v, block_tables, cache_len, pa, pm, o, B, S, ps, K, G,
-                              hd, nw, nsplit, st);
-  if (dtype == repro::kBF16)
-    return dispatch_hd<__nv_bfloat16>(q, k, v, block_tables, cache_len, pa, pm, o, B, S,
-                                      ps, K, G, hd, nw, nsplit, st);
+  const bool paged = block_tables != nullptr;
+  if (G < 1 || G > MAX_G || S < 1 || n_pos < 1 || (paged && (window > 0 || n_pos != nw * ps)))
+    return (int)cudaErrorInvalidValue;
+  const Args a{q, k, v, block_tables, cache_len, static_cast<float*>(part_acc),
+               static_cast<float*>(part_ml), o, B, S, K, G, n_pos, ps, nw,
+               window > 0 ? window : 0, (n_pos + SPLIT - 1) / SPLIT};
+  if (dtype == repro::kF32) return dispatch_hd<float>(a, hd, st);
+  if (dtype == repro::kBF16) return dispatch_hd<__nv_bfloat16>(a, hd, st);
   return (int)cudaErrorInvalidValue;
 }

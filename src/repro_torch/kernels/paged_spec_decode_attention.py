@@ -5,12 +5,11 @@ The JAX package gathers the whole block-table view every layer and runs
 the XLA ``spec_attention`` on it (``src/repro/models/transformer.py``,
 verify mode; no Pallas kernel). The kernels are the paged decode kernels
 with a grid dimension over the S queries of a row
-(``csrc/paged_decode_attention.cu``, entry
-``paged_split_decode_attention_fwd``, split-K): the blocks of query s read
-only the live pages it attends, where the gather copies all ``nw`` pages of
-the block table. Query s of row b sits at position ``cache_lens[b] + s``
-and sees positions ``<= cache_lens[b] + s``; the draft K/V is already
-written. Split boundaries are fixed absolute positions, so query s computes
+(``split_decode.launch_split``; source ``csrc/split_decode_attention.cu``,
+split-K): the blocks of query s read only the live pages it attends, where
+the gather copies all ``nw`` pages of the block table. Query s of row b
+sits at position ``cache_lens[b] + s`` and sees positions
+``<= cache_lens[b] + s``; the draft K/V is already written. Split boundaries are fixed absolute positions, so query s computes
 exactly what a one-token call at cache length ``cache_lens[b] + s``
 computes, bit for bit.
 
@@ -19,7 +18,7 @@ the CPU; for CUDA tensors it launches the kernel or raises.
 """
 from __future__ import annotations
 
-from repro_torch.kernels.paged_decode_attention import launch_split
+from repro_torch.kernels.split_decode import launch_split
 from repro_torch.kernels.spec_decode_attention import spec_attention_ref
 
 launches = 0            # kernel launches (never the plain version)
@@ -47,7 +46,8 @@ def paged_spec_decode_attention(q, pool_k, pool_v, block_tables, cache_lens, *,
     if q.device.type != "cuda":
         raise ValueError(f"paged_spec_decode_attention: unsupported device {q.device}")
     o = launch_split("paged_spec_decode_attention", q, pool_k, pool_v,
-                     block_tables, cache_lens, q_per_kv)
+                     cache_lens, q_per_kv, one_token=False,
+                     block_tables=block_tables)
     global launches
     launches += 1
     return o

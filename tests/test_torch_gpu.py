@@ -24,6 +24,7 @@ from repro_torch.kernels import paged_spec_decode_attention as kpsda  # noqa: E4
 from repro_torch.kernels import rglru_scan as krs  # noqa: E402
 from repro_torch.kernels import spec_decode_attention as ksda  # noqa: E402
 from repro_torch.kernels import spec_scan  # noqa: E402
+from repro_torch.kernels import split_decode as ksd  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.serving.server import EngineConfig, LLMServer, SamplingParams  # noqa: E402
 
@@ -102,7 +103,7 @@ def test_gpu_paged_split_kernel_at_split_edges(dtype, hd, G):
     dev = _need_card()
     g = torch.Generator(device=dev).manual_seed(hd + G)
     ps, nw, P = 16, 20, 120
-    split = kpda.SPLIT
+    split = ksd.SPLIT
     clen = torch.tensor([0, ps - 1, split - 1, split, nw * ps - 1], dtype=torch.int32,
                         device=dev)
     B = clen.shape[0]
@@ -146,6 +147,57 @@ def test_gpu_paged_spec_straddling_a_split_equals_steps(dtype, clen):
     torch.cuda.synchronize()
     assert torch.equal(got, torch.cat(steps, dim=1))
     want = kpsda.paged_spec_attention_ref(q, kp, vp, bt, cl, q_per_kv=8)
+    assert float((got.float() - want.float()).abs().max()) < GPU_TOL[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,G,hd", [(2, 8, 128), (1, 16, 256), (2, 2, 16),
+                                    (4, 4, 64), (1, 16, 32)])
+@pytest.mark.parametrize("window", [None, 24, 320])
+def test_gpu_dense_split_kernel_at_split_edges(dtype, K, G, hd, window):
+    """Split-K dense decode at cache lengths 0, SPLIT - 1, SPLIT, W - 1 and
+    a wrapped ring (W = 320, two and a half splits), with no window, one
+    that masks whole splits and one as wide as the ring: the plain
+    version's result, and two calls give identical bits."""
+    dev = _need_card()
+    g = torch.Generator(device=dev).manual_seed(hd + G + (window or 0))
+    W, split = 320, ksd.SPLIT
+    clen = torch.tensor([0, split - 1, split, W - 1, 3 * W + 70], dtype=torch.int32,
+                        device=dev)
+    B = clen.shape[0]
+    kc = torch.randn(B, W, K, hd, generator=g, device=dev).to(dtype)
+    vc = torch.randn(B, W, K, hd, generator=g, device=dev).to(dtype)
+    q = torch.randn(B, 1, K * G, hd, generator=g, device=dev).to(dtype)
+    before = kda.launches
+    got = kda.decode_attention(q, kc, vc, clen, q_per_kv=G, window=window)
+    again = kda.decode_attention(q, kc, vc, clen, q_per_kv=G, window=window)
+    torch.cuda.synchronize()
+    assert kda.launches == before + 2
+    want = kda.decode_attention_ref(q, kc, vc, clen, q_per_kv=G, window=window)
+    assert float((got.float() - want.float()).abs().max()) < GPU_TOL[dtype]
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("clen", [[124, 126, 127], [252, 250, 0]])
+def test_gpu_dense_spec_straddling_a_split_equals_steps(dtype, clen):
+    """The dense S = 5 verify form whose queries straddle a split boundary
+    equals 5 one-token calls bit for bit, and its plain version."""
+    dev = _need_card()
+    g = torch.Generator(device=dev).manual_seed(sum(clen) + 1)
+    S, W = 5, 320
+    kc = torch.randn(3, W, 2, 128, generator=g, device=dev).to(dtype)
+    vc = torch.randn(3, W, 2, 128, generator=g, device=dev).to(dtype)
+    q = torch.randn(3, S, 16, 128, generator=g, device=dev).to(dtype)
+    cl = torch.tensor(clen, dtype=torch.int32, device=dev)
+    got = ksda.spec_decode_attention(q, kc, vc, cl, q_per_kv=8)
+    steps = [kda.decode_attention(q[:, s:s + 1].contiguous(), kc, vc, cl + s,
+                                  q_per_kv=8) for s in range(S)]
+    torch.cuda.synchronize()
+    assert torch.equal(got, torch.cat(steps, dim=1))
+    want = ksda.spec_attention_ref(q, kc, vc, cl, q_per_kv=8)
     assert float((got.float() - want.float()).abs().max()) < GPU_TOL[dtype]
 
 

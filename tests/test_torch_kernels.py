@@ -209,8 +209,8 @@ def test_build_commands_target_sm90a():
     cmds, link, lib = build.compile_commands(Path("/tmp/out"))
     srcs = {Path(c[c.index("-c") + 1]).name for c in cmds}
     assert srcs == {"flash_attention.cu", "flash_attention_wgmma.cu",
-                    "decode_attention.cu", "paged_decode_attention.cu",
-                    "spec_scan.cu", "rglru_scan.cu", "mlstm_chunk.cu"}
+                    "split_decode_attention.cu", "spec_scan.cu",
+                    "rglru_scan.cu", "mlstm_chunk.cu"}
     for c in cmds + [link]:
         assert "arch=compute_90a,code=sm_90a" in c
     assert "-shared" in link and lib.suffix == ".so"
