@@ -19,7 +19,11 @@ no result line) on any fault:
      recurrentgemma-9b's (hd 256, one KV head, window 2048); so is the
      ring decode (``decode_attention_ring``: recurrentgemma's 2048-slot ring,
      hd 256, one KV head); the multi-query decode kernels, dense and paged,
-     equal S one-token calls bit for bit;
+     equal S one-token calls bit for bit; rglru_scan on both routes
+     (recurrentgemma-9b's prefill and verify shapes) and mlstm_chunk on
+     both (bf16 tensor cores at xlstm-350m's prefill and extend shapes;
+     float32 CUDA cores, at xlstm's chunk of 256 against the plain version
+     in float64), with their profiler device times;
   3. dense serving: ``LLMServer`` with full-width qwen2.5-3b (bf16, random
      weights from a seed, 4 slots, capacity 2048, cache_mode="dense"):
      4 concurrent requests of ~200-1500 prompt tokens, one sampled, and a
@@ -60,9 +64,10 @@ no result line) on any fault:
      forward within 1e-3.
 
 Kernel launch counts are zeroed just before each serving phase and read
-just after it; every bf16 serving phase must have launched flash only on
-its tensor-core route (``flash_attention.launches_by_route``). The line before the last is a JSON object with one entry per
-kernel; the last line is ``{"ok": true, "device": {...}}``.
+just after it; every bf16 serving phase must have launched flash and
+mlstm_chunk only on their tensor-core routes (``launches_by_route``). The
+line before the last is a JSON object with one entry per kernel; the last
+line is ``{"ok": true, "device": {...}}``.
 
 Run from the repository root:  python3 chip_smoke.py
 (``--phases`` picks a subset of kernels,serve,spec,fame,stateful.)
@@ -84,6 +89,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PEAK_BF16 = 989e12          # H100 SXM dense bf16 FLOP/s (NVIDIA data sheet)
+PEAK_TF32 = 495e12          # TF32 on the tensor cores
 PEAK_F32 = 67e12            # float32 outside the tensor cores
 HBM = 3.35e12               # bytes/s
 TOL = {"bfloat16": 2e-2, "float32": 2e-5,
@@ -109,11 +115,9 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20):
-    """Device time of one call: the self time of its kernels under
-    torch.profiler, without the host's launch and wrapper cost, which
-    ``time_ms`` includes when calls are shorter than their dispatch; None
-    where the profiler recorded no device time."""
+def device_ms_by_kernel(fn, iters: int = 20) -> dict:
+    """Device ms of one call by kernel: the self time of each kernel under
+    torch.profiler, without the host's launch and wrapper cost."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -123,9 +127,24 @@ def device_ms(fn, iters: int = 20):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA)
-    return total / 1e3 / iters if total > 0 else None
+    return {e.key: e.self_device_time_total / 1e3 / iters for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+
+
+def device_ms(fn, iters: int = 20):
+    """Device time of one call: the self time of its kernels under
+    torch.profiler, without the host's launch and wrapper cost, which
+    ``time_ms`` includes when calls are shorter than their dispatch; None
+    where the profiler recorded no device time."""
+    total = sum(device_ms_by_kernel(fn, iters).values())
+    return total if total > 0 else None
+
+
+def log_kernels(name, by_kernel: dict):
+    """One line per kernel of a call's device time (``device_ms_by_kernel``)."""
+    for key, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1]):
+        short = key.replace("void ", "").replace("(anonymous namespace)::", "")
+        log(f"[kernels] {name}: {ms:.4f} device ms  {short.split('(')[0][:70]}")
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple:
@@ -335,13 +354,15 @@ def kernel_phase(dev):
     return rows
 
 
+def fmt_ms(ms):
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
 def log_device(name, kernel, library):
     """The device time of a kernel and of its library call, beside the
     event-timed call times of the kernels line."""
-    def fmt(ms):
-        return "not measured" if ms is None else f"{ms:.4f}"
-    log(f"[kernels] {name}: device_ms={fmt(device_ms(kernel))} "
-        f"library_device_ms={fmt(device_ms(library))}")
+    log(f"[kernels] {name}: device_ms={fmt_ms(device_ms(kernel))} "
+        f"library_device_ms={fmt_ms(device_ms(library))}")
 
 
 def flash_hd256_row(dev, rnd):
@@ -565,11 +586,18 @@ def check_state(name, got, want, tol):
 
 def stateful_kernel_rows(dev):
     """rglru_scan and mlstm_chunk against their plain versions at the
-    stateful phase's largest shapes (recurrentgemma-9b's prefill bucket at
-    capacity 4096, R = 4096; xlstm-350m's at capacity 2048, H = 4,
-    hd = 512, chunk 256), plus one float32 shape each and a state-carry
-    check. Bounds as in the JAX package's tests (tests/test_kernels.py:
-    101, 139): bf16 5e-2, float32 5e-6 (scan) and 2e-5 (mLSTM)."""
+    stateful phase's shapes: recurrentgemma-9b's largest prefill bucket
+    (R = 4096, S = 4096, the chunked route) and its verify step ([4, 5,
+    4096], the sequential route); xlstm-350m's largest prefill bucket
+    (H = 4, hd = 512, chunk 256, state in) and an extend shorter than the
+    chunk (S = 130, state in) on the tensor-core route, plus float32 shapes
+    and a state-carry check on the CUDA-core route. Bounds as in the JAX
+    package's tests (tests/test_kernels.py:101, 139): bf16 5e-2, float32
+    5e-6 (scan) and 2e-5 (mLSTM; at xlstm's chunk of 256 against the plain
+    version run in float64, whose distance to the float32 plain version is
+    printed beside); the bf16 mLSTM against the plain version's float32
+    result, as there. Each route is checked by its launch count; each row
+    gains its profiler device time."""
     import torch
     from repro_torch.kernels import mlstm_chunk as kmc
     from repro_torch.kernels import rglru_scan as krs
@@ -581,9 +609,17 @@ def stateful_kernel_rows(dev):
     def rnd(*shape, dtype=f32, scale=1.0):
         return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
 
+    def routes(mod, want):
+        got = dict(mod.launches_by_route)
+        log(f"  launches_by_route={got}")
+        if got != want:
+            raise AssertionError(f"{mod.__name__}: routes {got}, expected {want}")
+
     rows = {}
     # ---- rglru_scan ---------------------------------------------------------
     log("[kernels] rglru_scan")
+    for r in krs.launches_by_route:
+        krs.launches_by_route[r] = 0
     B, S, R = 1, 4096, 4096
     # the JAX package's test inputs (tests/test_kernels.py:97): |h| stays
     # small enough that one bf16 rounding step is below the bound
@@ -593,6 +629,10 @@ def stateful_kernel_rows(dev):
     (y, h), (yw, hw) = ka(), kr()
     err = check_close("bf16 out [1,4096,4096] with h0", y, yw, "bf16_state")
     err = max(err, check_close("  h_last (float32)", h, hw, "float32_scan"))
+    (y, h), (yw, hw) = krs.rglru_scan(a, bx, h0), krs.rglru_scan_ref(a, bx, h0)
+    err = max(err, check_close("f32 out [1,4096,4096] with h0", y, yw, "float32_scan"),
+              check_close("  h_last", h, hw, "float32_scan"))
+    del y, yw
     a2, bx2, h2 = torch.sigmoid(rnd(2, 150, 100)), rnd(2, 150, 100), rnd(2, 100)
     for hh in (None, h2):
         y2, hl2 = krs.rglru_scan(a2, bx2, hh)
@@ -600,7 +640,21 @@ def stateful_kernel_rows(dev):
         err = max(err, check_close(f"f32 [2,150,100] h0={hh is not None}", y2, y2w,
                                    "float32_scan"),
                   check_close("  h_last", hl2, hl2w, "float32_scan"))
+    # the verify step: all states in float32, [4, spec_len + 1, R]
+    av, bv, hv = torch.sigmoid(rnd(4, 5, R)), rnd(4, 5, R, scale=0.5), rnd(4, R)
+    kv = lambda: krs.rglru_scan(av, bv, hv)                            # noqa: E731
+    (y5, h5), (y5w, h5w) = kv(), krs.rglru_scan_ref(av, bv, hv)
+    err = max(err, check_close("f32 verify [4,5,4096] with h0", y5, y5w, "float32_scan"),
+              check_close("  h_last", h5, h5w, "float32_scan"))
+    routes(krs, {"chunked": 4, "sequential": 1})
     ms, plain = time_ms(ka, 20), time_ms(kr, 2, warmup=1)
+    by_kernel = device_ms_by_kernel(ka)
+    log_kernels("rglru_scan [1,4096,4096]", by_kernel)
+    dms = sum(by_kernel.values()) or None
+    v_ms, v_dms = time_ms(kv, 50), device_ms(kv)
+    v_bound, v_by = bound(4 * 3 * 4 * 5 * R + 4 * 2 * 4 * R, 2 * 4 * 5 * R, f32)
+    log(f"[kernels] rglru_scan verify [4,5,4096]: ms={v_ms:.4f} "
+        f"device_ms={fmt_ms(v_dms)} bound_ms={v_bound:.4f} ({v_by}) (sequential route)")
     b_ms, b_by = bound(4 * 2 * B * S * R + 2 * B * S * R + 4 * 2 * B * R,
                        2 * B * S * R, f32)
     rows["rglru_scan"] = dict(
@@ -608,11 +662,13 @@ def stateful_kernel_rows(dev):
         source="src/repro_torch/kernels/csrc/rglru_scan.cu",
         replaces="src/repro/kernels/rglru_scan.py:42",
         max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None)
-    del a, bx, y, yw
+        library_ms=None, device_ms=dms)
+    del a, bx, h0
 
     # ---- mlstm_chunk --------------------------------------------------------
     log("[kernels] mlstm_chunk")
+    for r in kmc.launches_by_route:
+        kmc.launches_by_route[r] = 0
     B, S, H, hd, L = 1, 2048, 4, 512, 256
     # scales of the JAX package's test (tests/test_kernels.py:130-134)
     q, k = (rnd(B, S, H, hd, dtype=bf16, scale=0.5) for _ in range(2))
@@ -623,9 +679,27 @@ def stateful_kernel_rows(dev):
                                  fg[:, :300], chunk=L)
     ma = lambda: kmc.mlstm_chunk(q, k, v, ig, fg, st0, chunk=L)       # noqa: E731
     mr = lambda: kmc.mlstm_chunk_ref(q, k, v, ig, fg, st0, chunk=L)   # noqa: E731
-    (hk, sk), (hr, sr) = ma(), mr()
+    # the bf16 kernel against the plain version's float32 result (inputs
+    # widened, h not rounded), as tests/test_kernels.py:139 holds the bf16
+    # kernel to a float32 reference: two bf16 roundings of one value differ
+    # by an ulp, 0.0625 at |h| >= 8, above the bound
+    x32 = (q.float(), k.float(), v.float(), ig, fg)
+    (hk, sk), (hr, sr) = ma(), kmc.mlstm_chunk_ref(*x32, st0, chunk=L)
     err = check_close("bf16 [1,2048,4,512] chunk 256, state in", hk, hr, "bf16_state")
     err = max(err, check_state("bf16 [1,2048,4,512]", sk, sr, TOL["bf16_state"]))
+    # prefill (zero state) and an extend shorter than the chunk (L = S = 130)
+    x6 = tuple(t[:, :600].contiguous() for t in (q, k, v, ig, fg))
+    x6w = tuple(t[:, :600] for t in x32)
+    (h6, s6), (h6w, s6w) = kmc.mlstm_chunk(*x6, chunk=L), kmc.mlstm_chunk_ref(*x6w, chunk=L)
+    err = max(err, check_close("bf16 [1,600,4,512] chunk 256, zero state", h6, h6w,
+                               "bf16_state"),
+              check_state("bf16 [1,600,4,512]", s6, s6w, TOL["bf16_state"]))
+    xe = tuple(t[:, 600:730].contiguous() for t in (q, k, v, ig, fg))
+    xew = tuple(t[:, 600:730] for t in x32)
+    (he, se), (hew, sew) = (kmc.mlstm_chunk(*xe, s6w, chunk=L),
+                            kmc.mlstm_chunk_ref(*xew, s6w, chunk=L))
+    err = max(err, check_close("bf16 extend [1,130,4,512], state in", he, hew, "bf16_state"),
+              check_state("bf16 extend [1,130,4,512]", se, sew, TOL["bf16_state"]))
     q3, k3, v3 = (rnd(2, 300, 2, 64, scale=0.5) for _ in range(3))
     ig3, fg3 = rnd(2, 300, 2), rnd(2, 300, 2) + 2.0
     h3, s3 = kmc.mlstm_chunk(q3, k3, v3, ig3, fg3, chunk=64)
@@ -642,18 +716,44 @@ def stateful_kernel_rows(dev):
     err = max(err, check_close("f32 two calls (130 + 170) == one call",
                                torch.cat([ha, hb], 1), h3, "float32"),
               check_state("f32 two calls", sb, s3, TOL["float32"]))
-    ms, plain = time_ms(ma, 5, warmup=1), time_ms(mr, 3, warmup=1)
+    # float32 at xlstm's chunk of 256, state in, against the plain version in
+    # float64; the float32 plain version's own distance to it is printed
+    for shape in ((2, 300, 2, 128), (1, 300, 1, 512)):
+        x = (rnd(*shape, scale=0.5), rnd(*shape, scale=0.5), rnd(*shape),
+             rnd(*shape[:3]), rnd(*shape[:3]) + 2.0)
+        _, st = kmc.mlstm_chunk_ref(*(t[:, :17] for t in x), chunk=L)
+        hf, sf = kmc.mlstm_chunk(*x, st, chunk=L)
+        h64, s64 = kmc.mlstm_chunk_ref(*(t.double() for t in x),
+                                       tuple(t.double() for t in st), chunk=L)
+        hp, sp = kmc.mlstm_chunk_ref(*x, st, chunk=L)
+        name = f"f32 {list(shape)} chunk 256, state in, vs float64"
+        log(f"  {name}: float32 plain version vs float64 "
+            f"h={float((hp.double() - h64).abs().max()):.3e} "
+            f"C={float((sp[0].double() - s64[0]).abs().max()):.3e} |h|max="
+            f"{float(h64.abs().max()):.2f}")
+        err = max(err, check_close(name, hf.double(), h64, "float32"),
+                  check_state(name, tuple(t.double() for t in sf), s64, TOL["float32"]))
+    routes(kmc, {"wgmma": 3, "simt_f32": 5})
+    ms, plain = time_ms(ma, 20, warmup=2), time_ms(mr, 3, warmup=1)
+    by_kernel = device_ms_by_kernel(ma)
+    log_kernels("mlstm_chunk [1,2048,4,512]", by_kernel)
+    dms = sum(by_kernel.values()) or None
     nc = -(-S // L)
-    flops = B * H * nc * (2 * L * L * hd + 4 * L * hd * hd)
+    # causal q·kᵀ and w·v in bf16; q·C and the state update take a float32
+    # operand, so TF32 (495 TFLOP/s) is their fastest rate
+    ops_bf16 = B * H * nc * 2 * L * L * hd
+    ops_tf32 = B * H * nc * 4 * L * hd * hd
     nbytes = (2 * 4 * B * S * H * hd + 4 * 2 * B * S * H
               + 2 * 4 * (B * H * hd * hd + B * H * hd + B * H))
-    b_ms, b_by = bound(nbytes, flops, bf16)
+    t_ops = (ops_bf16 / PEAK_BF16 + ops_tf32 / PEAK_TF32) * 1e3
+    t_bytes = nbytes / HBM * 1e3
+    b_ms, b_by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
     rows["mlstm_chunk"] = dict(
         name="mlstm_chunk", route="cuda",
-        source="src/repro_torch/kernels/csrc/mlstm_chunk.cu",
+        source="src/repro_torch/kernels/csrc/mlstm_chunk_wgmma.cu",
         replaces="src/repro/kernels/mlstm_chunk.py:77",
         max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None)
+        library_ms=None, device_ms=dms)
     return rows
 
 
@@ -724,28 +824,37 @@ def kernel_modules():
             "rglru_scan": rglru_scan, "mlstm_chunk": mlstm_chunk}
 
 
+ROUTED = ("flash_attention", "mlstm_chunk", "rglru_scan")   # kernels with routes
+
+
 def kernel_counts():
-    """Launches by kernel, and flash's by route as ``flash_attention/<route>``."""
-    from repro_torch.kernels import flash_attention as kfa
-    counts = {name: m.launches for name, m in kernel_modules().items()}
-    counts.update({f"flash_attention/{r}": n for r, n in kfa.launches_by_route.items()})
+    """Launches by kernel, and by route as ``<kernel>/<route>`` for the
+    kernels with more than one (flash and mlstm_chunk by dtype, rglru_scan
+    by S)."""
+    mods = kernel_modules()
+    counts = {name: m.launches for name, m in mods.items()}
+    for name in ROUTED:
+        counts.update({f"{name}/{r}": n for r, n in mods[name].launches_by_route.items()})
     return counts
 
 
 def reset_counts():
-    from repro_torch.kernels import flash_attention as kfa
-    for m in kernel_modules().values():
+    mods = kernel_modules()
+    for m in mods.values():
         m.launches = 0
-    for r in kfa.launches_by_route:
-        kfa.launches_by_route[r] = 0
+    for name in ROUTED:
+        for r in mods[name].launches_by_route:
+            mods[name].launches_by_route[r] = 0
 
 
 def check_bf16_routes(name, counts):
-    """A bf16 serving phase runs flash on the tensor-core route only."""
-    wg, simt = counts["flash_attention/wgmma"], counts["flash_attention/simt_f32"]
-    if simt != 0 or wg != counts["flash_attention"]:
-        raise AssertionError(f"{name}: flash routes wgmma={wg} simt_f32={simt} of "
-                             f"{counts['flash_attention']} launches")
+    """A bf16 serving phase runs flash and mlstm_chunk on their tensor-core
+    routes only."""
+    for kern in ("flash_attention", "mlstm_chunk"):
+        wg, simt = counts[f"{kern}/wgmma"], counts[f"{kern}/simt_f32"]
+        if simt != 0 or wg != counts[kern]:
+            raise AssertionError(f"{name}: {kern} routes wgmma={wg} simt_f32={simt} "
+                                 f"of {counts[kern]} launches")
 
 
 def serve_phase(name, server, prompts, sampled_idx, session_turns, warm=None):
@@ -860,15 +969,17 @@ def profile_decode_chunk(server, prompts):
     return {"wall_ms": walls, "device_busy_ms": busy, "live_slots": live}
 
 
-def profile_prefill(server, prompt):
+def profile_prefill(server, prompt, *, reps: int = WALL_REPS, host_trace: bool = True):
     """Where one prefill's time goes: a request admitted alone, the
     engine's admission step only (prefill, first sample and its host sync:
     the TTFT path, without the decode chunk that follows): the median wall
-    time of ``WALL_REPS`` unprofiled admissions after a warm-up, then one
-    under torch.profiler: device busy time, the device's idle share, the
-    top kernels. Returns {"wall_ms": [...], "device_busy_ms",
-    "prompt_tokens"}."""
+    time of ``reps`` unprofiled admissions after a warm-up, then one under
+    torch.profiler (host operators too unless ``host_trace`` is False: the
+    sLSTM loop's tens of thousands of them): device busy time, the device's
+    idle share, the top kernels. Returns {"wall_ms": [...],
+    "device_busy_ms", "prompt_tokens", "kernel_ms": {kernel: device ms}}."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.server import SamplingParams
 
@@ -889,13 +1000,17 @@ def profile_prefill(server, prompt):
         return wall, h.request.prompt_tokens
 
     admit()                                         # warm
-    walls = [admit()[0] for _ in range(WALL_REPS)]
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    walls = [admit()[0] for _ in range(reps)]
+    acts = [ProfilerActivity.CPU] if host_trace else []
+    prof = profile(activities=acts + [ProfilerActivity.CUDA])
     _, n = admit(prof)
     busy = device_summary(
         prof, f"{server.engine.cfg.name}: admission of one {n}-token prompt alone "
         "(prefill + first token)", statistics.median(walls), 8)
-    return {"wall_ms": walls, "device_busy_ms": busy, "prompt_tokens": n}
+    kernels = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+    return {"wall_ms": walls, "device_busy_ms": busy, "prompt_tokens": n,
+            "kernel_ms": kernels}
 
 
 def teacher_forced(model, params, ids, n_prompt, *, paged: bool, dev):
@@ -1602,7 +1717,8 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(card)
-    log(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows.values()]}))
+    log(json.dumps({"kernels": [{k: r[k] for k in keys + ("device_ms",) if k in r}
+                                for r in rows.values()]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,4 +1,5 @@
-// Chunkwise stabilised mLSTM for Hopper (sm_90a).
+// Chunkwise stabilised mLSTM for Hopper (sm_90a): the C entry point, and the
+// float32 route on the CUDA cores.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/mlstm_chunk.py::
 // mlstm_chunk. Per chunk of L rows it does the math of that kernel's body
@@ -11,26 +12,24 @@
 // serves prefill and extend. Rows past S pad the last chunk with ig = -1e30,
 // fg = 30 and q = k = v = 0, as the Pallas wrapper pads.
 //
-// What makes it hard: at xlstm-350m's width hd = 512, so C is 512 x 512
-// float32 = 1 MiB per (row, head), far above a block's 227 KB of shared
-// memory. But C[:, j0:j1] and h[:, j0:j1] depend only on the value columns
-// j0:j1, while F, m, n and the weights D do not depend on the value column
-// at all. So the value dimension splits across blocks: grid (B*H, hd/BV),
-// each block keeps its hd x BV slice of C in shared memory and walks the
-// chunks in order; F, m_j, n and the scores q·kᵀ are recomputed by every
-// column block (hd/BV times the score work: the price of the split).
-// q·n_j needs no hd-wide n_j: q·n_j = inter_j (q·n) + Σ_i w_ji with
-// w = (q·kᵀ) ⊙ D.
+// Two routes, chosen by dtype in mlstm_chunk_fwd: bf16 (every served model)
+// runs the chunkwise-parallel form on the tensor cores
+// (mlstm_chunk_wgmma.cu); float32 (the parity path, held to 2e-5, which
+// TF32 cannot keep) runs the kernel below on the CUDA cores.
 //
-// What bounds it on an H100: operations. ~2·S·(L/2 + 2·hd)·hd per (row,
-// head) without the split's recomputation; this first version computes on
-// the CUDA cores in float32 (the Pallas kernel's precision, which keeps the
-// float32 path to 2e-5), tiled 32 x 32 by query and key rows with the
-// q tile resident in shared memory, and reaches a small share of the
-// tensor-core bound. B*H*hd/BV blocks (64 at one prefill row) are fewer
-// than the card has SMs. Tensor cores and a parallel intra-chunk phase are
-// later work. Every exponent and accumulation is float32; the build uses no
-// fast-math flags, so the max(|q·n_j|, exp(-m_j)) branch is the reference's.
+// The float32 kernel: at hd = 512, C is 512 x 512 float32 = 1 MiB per
+// (row, head), far above a block's 227 KB of shared memory. But
+// C[:, j0:j1] and h[:, j0:j1] depend only on the value columns j0:j1, while
+// F, m, n and the weights D do not depend on the value column at all. So the
+// value dimension splits across blocks: grid (B*H, hd/BV), each block keeps
+// its hd x BV slice of C in shared memory and walks the chunks in order; F,
+// m_j, n and the scores q·kᵀ are recomputed by every column block. q·n_j
+// needs no hd-wide n_j: q·n_j = inter_j (q·n) + Σ_i w_ji with
+// w = (q·kᵀ) ⊙ D. Its products and sums are float32 (the Pallas kernel's
+// precision) on the CUDA cores, tiled 32 x 32 by query and key rows with the
+// q tile resident in shared memory; its gates (F, m, the exponents) are
+// float64 (see log_sigmoid below). The build uses no fast-math flags, so the
+// max(|q·n_j|, exp(-m_j)) branch is the reference's.
 #include "common.cuh"
 
 namespace {
@@ -45,9 +44,14 @@ constexpr int BV = 32;     // value columns per block
 constexpr int KSTR = DS + 1;
 constexpr int WSTR = TK + 1;
 
-__device__ __forceinline__ float log_sigmoid(float x) {
+// The gates run in float64: F falls to ~-30 over a chunk of 256 rows, and
+// float32's rounding of F and of the exponents (F_j - F_i) + ig_i - m_j
+// (~4e-6 at that size) moves h by ~2e-5 where |h| reaches ~12, the size of
+// the float32 bound. In float64 the route stays within ~5e-6 of the plain
+// version run in float64; the products stay float32.
+__device__ __forceinline__ double log_sigmoid(double x) {
   // jax.nn.log_sigmoid(x) = -softplus(-x)
-  return -(fmaxf(-x, 0.f) + log1pf(expf(-fabsf(x))));
+  return -(fmax(-x, 0.0) + log1p(exp(-fabs(x))));
 }
 
 template <typename T>
@@ -65,20 +69,20 @@ mlstm_chunk_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int Lp = (L + TQ - 1) / TQ * TQ;
   const int QSTR = hd + 1;
 
-  extern __shared__ float smem[];
-  float* sC = smem;                    // [hd][BV]
+  extern __shared__ double smem[];
+  double* sF = smem;                   // [Lp] cumulative log forget gate
+  double* sMj = sF + Lp;               // [Lp] stabiliser m_j
+  float* sC = reinterpret_cast<float*>(sMj + Lp);  // [hd][BV]
   float* sN = sC + hd * BV;            // [hd]
   float* sQ = sN + hd;                 // [TQ][hd + 1], pre-scaled
   float* sK = sQ + TQ * QSTR;          // [TK][DS + 1]
   float* sV = sK + TK * KSTR;          // [TK][BV]
   float* sW = sV + TK * BV;            // [TQ][TK + 1]
-  float* sF = sW + TQ * WSTR;          // [Lp] cumulative log forget gate
-  float* sIg = sF + Lp;                // [Lp] input gate (log space)
-  float* sMj = sIg + Lp;               // [Lp] stabiliser m_j
-  float* sInter = sMj + Lp;            // [Lp] exp(F_j + m - m_j)
+  float* sIg = sW + TQ * WSTR;         // [Lp] input gate (log space)
+  float* sInter = sIg + Lp;            // [Lp] exp(F_j + m - m_j)
   float* sEmj = sInter + Lp;           // [Lp] exp(-m_j)
   float* sSc = sEmj + Lp;              // [Lp] state-update weights
-  __shared__ float sScal[2];           // m_next, decay
+  __shared__ double sScal[2];          // m_next, decay
 
   const size_t row_stride = (size_t)H * hd;  // between positions
   const T* qb = q + (size_t)b * S * row_stride + (size_t)hh * hd;
@@ -95,7 +99,7 @@ mlstm_chunk_kernel(const T* __restrict__ q, const T* __restrict__ k,
     sC[e] = C0 != nullptr ? C0[cbase + (size_t)d * hd + c0 + c] : 0.f;
   }
   for (int d = tid; d < hd; d += NT) sN[d] = n0 != nullptr ? n0[(size_t)bh * hd + d] : 0.f;
-  float m = m0 != nullptr ? m0[bh] : kNegInf;
+  double m = m0 != nullptr ? m0[bh] : kNegInf;
 
   const int nc = (S + L - 1) / L;
   for (int ci = 0; ci < nc; ++ci) {
@@ -105,24 +109,24 @@ mlstm_chunk_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = tid; j < Lp; j += NT) {
       const int p = p0 + j;
       const bool real = j < L && p < S;
-      sF[j] = j < L ? log_sigmoid(real ? fgb[(size_t)p * H] : 30.f) : 0.f;
+      sF[j] = j < L ? log_sigmoid(real ? fgb[(size_t)p * H] : 30.0) : 0.0;
       sIg[j] = real ? igb[(size_t)p * H] : kNegInf;
     }
     __syncthreads();
     if (warp == 0) {  // inclusive scan of sF[0:L) by one warp
       const int per = (L + 31) / 32, j0 = lane * per;
-      float run = 0.f;
+      double run = 0.0;
       for (int e = 0; e < per; ++e) {
         const int j = j0 + e;
         if (j < L) { run += sF[j]; sF[j] = run; }
       }
-      float incl = run;
+      double incl = run;
 #pragma unroll
       for (int o = 1; o < 32; o <<= 1) {
-        const float nb = __shfl_up_sync(0xffffffffu, incl, o);
+        const double nb = __shfl_up_sync(0xffffffffu, incl, o);
         if (lane >= o) incl += nb;
       }
-      const float excl = incl - run;
+      const double excl = incl - run;
       for (int e = 0; e < per; ++e) {
         const int j = j0 + e;
         if (j < L) sF[j] += excl;
@@ -131,14 +135,14 @@ mlstm_chunk_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
     // ---- per-row stabiliser m_j = max(F_j + m, max_{i<=j} F_j - F_i + ig_i)
     for (int j = tid; j < L; j += NT) {
-      const float Fj = sF[j];
-      float mi = kNegInf;
-      for (int i = 0; i <= j; ++i) mi = fmaxf(mi, (Fj - sF[i]) + sIg[i]);
-      const float m_inter = Fj + m;
-      const float mj = fmaxf(m_inter, mi);
+      const double Fj = sF[j];
+      double mi = kNegInf;
+      for (int i = 0; i <= j; ++i) mi = fmax(mi, (Fj - sF[i]) + sIg[i]);
+      const double m_inter = Fj + m;
+      const double mj = fmax(m_inter, mi);
       sMj[j] = mj;
-      sInter[j] = expf(m_inter - mj);
-      sEmj[j] = expf(-mj);
+      sInter[j] = (float)exp(m_inter - mj);
+      sEmj[j] = (float)exp(-mj);
     }
     __syncthreads();
 
@@ -203,8 +207,8 @@ mlstm_chunk_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const int j = j0 + rr, i = i0 + ii;
             float w = 0.f;
             if (i <= j && j < L) {
-              const float logD = (sF[j] - sF[i]) + sIg[i];
-              w = s[x][y] * expf(logD - sMj[j]);
+              const double logD = (sF[j] - sF[i]) + sIg[i];
+              w = s[x][y] * expf((float)(logD - sMj[j]));
             }
             sW[rr * WSTR + ii] = w;
           }
@@ -246,20 +250,22 @@ mlstm_chunk_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     // ---- state to the end of the chunk ------------------------------------
     __syncthreads();
-    const float FL = sF[L - 1];
+    const double FL = sF[L - 1];
     if (warp == 0) {
-      float mx = FL + m;
-      for (int i = lane; i < L; i += 32) mx = fmaxf(mx, (FL - sF[i]) + sIg[i]);
-      mx = repro::warp_max(mx);
+      double mx = FL + m;
+      for (int i = lane; i < L; i += 32) mx = fmax(mx, (FL - sF[i]) + sIg[i]);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) mx = fmax(mx, __shfl_xor_sync(0xffffffffu, mx, o));
       if (lane == 0) {
         sScal[0] = mx;
-        sScal[1] = expf((FL + m) - mx);
+        sScal[1] = exp((FL + m) - mx);
       }
     }
     __syncthreads();
-    const float m_next = sScal[0], decay = sScal[1];
+    const double m_next = sScal[0];
+    const float decay = (float)sScal[1];
     for (int i = tid; i < Lp; i += NT)
-      sSc[i] = i < L ? expf(((FL - sF[i]) + sIg[i]) - m_next) : 0.f;
+      sSc[i] = i < L ? (float)exp(((FL - sF[i]) + sIg[i]) - m_next) : 0.f;
     for (int e = tid; e < hd * BV; e += NT) sC[e] *= decay;
     for (int d = tid; d < hd; d += NT) sN[d] *= decay;
     for (int i0 = 0; i0 < Lp; i0 += TK) {
@@ -315,7 +321,7 @@ mlstm_chunk_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   if (blockIdx.y == 0) {
     for (int d = tid; d < hd; d += NT) nout[(size_t)bh * hd + d] = sN[d];
-    if (tid == 0) mout[bh] = m;
+    if (tid == 0) mout[bh] = (float)m;
   }
 }
 
@@ -324,8 +330,9 @@ int launch(const void* q, const void* k, const void* v, const void* ig, const vo
            const void* C0, const void* n0, const void* m0, void* h, void* C, void* n,
            void* m, int B, int S, int H, int hd, int L, float scale, cudaStream_t st) {
   const int Lp = (L + TQ - 1) / TQ * TQ;
-  const size_t smem = sizeof(float) * ((size_t)hd * BV + hd + TQ * (hd + 1) + TK * KSTR +
-                                       TK * BV + TQ * WSTR + 6 * Lp);
+  const size_t smem = sizeof(double) * 2 * Lp +
+                      sizeof(float) * ((size_t)hd * BV + hd + TQ * (hd + 1) + TK * KSTR +
+                                       TK * BV + TQ * WSTR + 4 * Lp);
   auto kern = mlstm_chunk_kernel<T>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -342,23 +349,42 @@ int launch(const void* q, const void* k, const void* v, const void* ig, const vo
 
 }  // namespace
 
+namespace repro {
+int mlstm_chunk_wgmma(const void* q, const void* k, const void* v, const float* ig,
+                      const float* fg, const float* C0, const float* n0, const float* m0,
+                      void* h, float* C, float* n, float* m, float* gates, float* CT,
+                      float* nS, float* mS, int B, int S, int H, int hd, int L, float scale,
+                      cudaStream_t st);
+}  // namespace repro
+
 // q, k, v, h [B, S, H, hd] in one dtype (repro::DType); ig, fg [B, S, H]
 // float32; C0/C [B, H, hd, hd], n0/n [B, H, hd], m0/m [B, H] float32 (the
 // three inputs all null for a zero start); all contiguous on the device,
-// the outputs distinct from the inputs. hd a multiple of 32 up to 512,
-// 1 <= L <= 512. Returns cudaGetLastError() of the launch.
+// the outputs distinct from the inputs. float32: hd a multiple of 32 up to
+// 512. bf16: hd a multiple of 64 up to 512, and the float32 scratch of the
+// three phases (gates [B·H, 3, nc·L], CT [B·H, nc, hd, hd], nS [B·H, nc, hd],
+// mS [B·H, nc]; the float32 route takes them null). 1 <= L <= 512.
+// Returns cudaGetLastError() of the launches.
 extern "C" int mlstm_chunk_fwd(const void* q, const void* k, const void* v,
                                const void* ig, const void* fg, const void* C0,
                                const void* n0, const void* m0, void* h, void* C,
-                               void* n, void* m, int B, int S, int H, int hd, int L,
+                               void* n, void* m, void* gates, void* CT, void* nS,
+                               void* mS, int B, int S, int H, int hd, int L,
                                float scale, int dtype, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return 0;
   if (hd % BV != 0 || hd > 512 || L < 1 || L > 512) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == repro::kF32)
     return launch<float>(q, k, v, ig, fg, C0, n0, m0, h, C, n, m, B, S, H, hd, L, scale, st);
-  if (dtype == repro::kBF16)
-    return launch<__nv_bfloat16>(q, k, v, ig, fg, C0, n0, m0, h, C, n, m, B, S, H, hd, L,
-                                 scale, st);
+  if (dtype == repro::kBF16) {
+    if (gates == nullptr || CT == nullptr || nS == nullptr || mS == nullptr)
+      return (int)cudaErrorInvalidValue;
+    auto f = [](const void* p) { return static_cast<const float*>(p); };
+    return repro::mlstm_chunk_wgmma(
+        q, k, v, f(ig), f(fg), f(C0), f(n0), f(m0), h, static_cast<float*>(C),
+        static_cast<float*>(n), static_cast<float*>(m), static_cast<float*>(gates),
+        static_cast<float*>(CT), static_cast<float*>(nS), static_cast<float*>(mS), B, S, H,
+        hd, L, scale, st);
+  }
   return (int)cudaErrorInvalidValue;
 }

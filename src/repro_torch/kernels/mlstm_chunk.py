@@ -1,7 +1,8 @@
 """Chunkwise stabilised mLSTM: the plain PyTorch version and its CUDA kernel.
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/mlstm_chunk.py::
-mlstm_chunk`` (source: ``csrc/mlstm_chunk.cu``, entry ``mlstm_chunk_fwd``).
+mlstm_chunk`` (sources: ``csrc/mlstm_chunk.cu``, entry ``mlstm_chunk_fwd``,
+and ``csrc/mlstm_chunk_wgmma.cu``).
 
 Contract: ``mlstm_chunk(q, k, v, ig, fg, state=None, *, chunk)`` with
 ``q, k, v [B, S, H, hd]`` and the log-space gate pre-activations
@@ -11,10 +12,20 @@ Pallas kernel's body; unlike that kernel it takes the state in and gives it
 out with the JAX ``mlstm_chunkwise`` semantics (``models/xlstm.py:98-103,
 137-148``; ``state=None`` starts from ``C = n = 0, m = -1e30``), so one call
 serves prefill and extend. Rows past S pad the last chunk with
-``ig = -1e30, fg = 30`` (no write, no decay). Everything is float32, ``q``
-pre-scaled by ``hd ** -0.5`` as in the Pallas kernel; the weights
-``w = (q·kᵀ) ⊙ D`` are not rounded to the value dtype before ``·v`` (the
-XLA path's ``w.astype(v.dtype)``), so the two versions agree in bf16 too.
+``ig = -1e30, fg = 30`` (no write, no decay). The plain version computes in
+float32, ``q`` pre-scaled by ``hd ** -0.5`` as in the Pallas kernel; its
+weights ``w = (q·kᵀ) ⊙ D`` are not rounded to the value dtype before ``·v``
+(the XLA path's ``w.astype(v.dtype)``).
+
+Two routes, chosen by dtype at the C entry point; ``launches_by_route``
+counts each. bf16 (``"wgmma"``) runs the chunkwise-parallel form on the
+tensor cores in three launches, gates, chunk states and outputs
+(``wgmma_plan`` gives their grids and the float32 scratch this wrapper
+allocates): bf16 products for ``q·kᵀ`` and ``w·v`` (``w`` as a bf16 value
+and its bf16 remainder, so it keeps ~16 bits), TF32 with float32
+accumulation for ``q·C`` and the state update. float32 (``"simt_f32"``)
+runs a CUDA-core kernel with the plain version's float32 products and its
+gates (F, the stabilisers, the exponents) in float64.
 
 ``mlstm_chunk`` runs the plain version only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises.
@@ -27,36 +38,65 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention import DTYPES
+from repro_torch.kernels.flash_attention import DTYPES, aligned16
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 512
 MAX_CHUNK = 512
 
+# the bf16 route's geometry (csrc/mlstm_chunk_wgmma.cu's constexpr values)
+TILE = 64           # query rows / keys of an output tile; the edge of a C tile
+MAX_BV = 128        # value columns of an output block
+
+ROUTES = {torch.bfloat16: "wgmma", torch.float32: "simt_f32"}
+
 launches = 0            # kernel launches (never the plain version)
+launches_by_route = {route: 0 for route in ROUTES.values()}
 _fn = None
 
 
-def zero_state(B, H, hd, device):
+def wgmma_plan(B: int, S: int, H: int, hd: int, chunk: int) -> dict:
+    """The bf16 route's plan for one call: the chunk length ``L``, chunk
+    count ``nc``, padded length ``Sp``, 64-row tiles a chunk ``ntile`` and
+    value columns an output block ``bv`` (phase 3 runs one block per tile,
+    chunk, row and head, and value tile), and the float32 scratch shapes
+    (gates: F, the intra-chunk stabiliser and the padded input gate of
+    every row; CT: each chunk's starting C, transposed; nS, mS: each
+    chunk's starting n and m)."""
+    L = min(chunk, S)
+    nc = -(-S // L)
+    ntile = -(-L // TILE)
+    bv = MAX_BV if hd % MAX_BV == 0 else TILE
+    BH = B * H
+    return dict(
+        L=L, nc=nc, Sp=nc * L, ntile=ntile, bv=bv,
+        scratch={"gates": (BH, 3, nc * L), "CT": (BH, nc, hd, hd),
+                 "nS": (BH, nc, hd), "mS": (BH, nc)})
+
+
+def zero_state(B, H, hd, device, dtype=torch.float32):
     """The state before the first token: C = n = 0, m = -1e30."""
-    f32 = dict(dtype=torch.float32, device=device)
-    return (torch.zeros(B, H, hd, hd, **f32), torch.zeros(B, H, hd, **f32),
-            torch.full((B, H), NEG_INF, **f32))
+    kw = dict(dtype=dtype, device=device)
+    return (torch.zeros(B, H, hd, hd, **kw), torch.zeros(B, H, hd, **kw),
+            torch.full((B, H), NEG_INF, **kw))
 
 
 def mlstm_chunk_ref(q, k, v, ig, fg, state=None, *, chunk: int = 256):
-    """Plain version: the chunkwise math of ``mlstm_chunkwise`` in float32."""
+    """Plain version: the chunkwise math of ``mlstm_chunkwise`` in float32
+    (in float64 for float64 inputs: the reference a float32 result is held
+    to where float32 rounding is the question)."""
     B, S, H, hd = q.shape
     L = min(chunk, S)
     Sp = -(-S // L) * L
-    qf = q.float() * hd ** -0.5
-    kf, vf, igf, fgf = k.float(), v.float(), ig.float(), fg.float()
+    wide = torch.float64 if q.dtype == torch.float64 else torch.float32
+    qf = q.to(wide) * hd ** -0.5
+    kf, vf, igf, fgf = k.to(wide), v.to(wide), ig.to(wide), fg.to(wide)
     if Sp != S:
         pad = Sp - S
         qf, kf, vf = (F.pad(x, (0, 0, 0, 0, 0, pad)) for x in (qf, kf, vf))
         igf = F.pad(igf, (0, 0, 0, pad), value=NEG_INF)
         fgf = F.pad(fgf, (0, 0, 0, pad), value=30.0)
-    C, n, m = zero_state(B, H, hd, q.device) if state is None else state
+    C, n, m = zero_state(B, H, hd, q.device, wide) if state is None else state
     tri = torch.tril(torch.ones(L, L, dtype=torch.bool, device=q.device))
     hs = []
     for c0 in range(0, Sp, L):
@@ -95,7 +135,7 @@ def _kernel():
     if _fn is None:
         P, I = ctypes.c_void_p, ctypes.c_int
         _fn = build.entry("mlstm_chunk_fwd",
-                          [P] * 12 + [I] * 5 + [ctypes.c_float, I, P])
+                          [P] * 16 + [I] * 5 + [ctypes.c_float, I, P])
     return _fn
 
 
@@ -115,9 +155,10 @@ def mlstm_chunk(q, k, v, ig, fg, state=None, *, chunk: int = 256):
                          f"must be [{B}, {S}, {H}]")
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"mlstm_chunk: dtypes {q.dtype}/{k.dtype}/{v.dtype}")
-    if hd % 32 or hd > MAX_HEAD_DIM:
-        raise ValueError(f"mlstm_chunk: head_dim {hd} must be a multiple of 32 "
-                         f"up to {MAX_HEAD_DIM}")
+    step = TILE if q.dtype == torch.bfloat16 else 32
+    if hd % step or hd > MAX_HEAD_DIM:
+        raise ValueError(f"mlstm_chunk: head_dim {hd} must be a multiple of {step} "
+                         f"up to {MAX_HEAD_DIM} for {q.dtype}")
     L = min(chunk, S)
     if not 1 <= chunk or L > MAX_CHUNK:
         raise ValueError(f"mlstm_chunk: chunk {chunk} (at most {MAX_CHUNK})")
@@ -132,8 +173,8 @@ def mlstm_chunk(q, k, v, ig, fg, state=None, *, chunk: int = 256):
         ins += [C0, n0, m0]
     if any(t.device != q.device for t in ins):
         raise ValueError("mlstm_chunk: tensors on different devices")
-    if not all(t.is_contiguous() for t in (q, k, v)):
-        raise ValueError("mlstm_chunk: q, k, v must be contiguous")
+    if not (all(t.is_contiguous() for t in (q, k, v)) and aligned16(q, k, v)):
+        raise ValueError("mlstm_chunk: q, k, v must be contiguous and 16-byte aligned")
     igc = ig.float().contiguous()
     fgc = fg.float().contiguous()
     st = (None, None, None) if state is None else tuple(t.contiguous() for t in state)
@@ -145,13 +186,18 @@ def mlstm_chunk(q, k, v, ig, fg, state=None, *, chunk: int = 256):
         return h, (C, n, m)
     if S == 0:
         return h, zero_state(B, H, hd, q.device) if state is None else st
+    scratch = (None,) * 4
+    if q.dtype == torch.bfloat16:
+        scratch = tuple(torch.empty(shape, dtype=torch.float32, device=q.device)
+                        for shape in wgmma_plan(B, S, H, hd, chunk)["scratch"].values())
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptr = (lambda t: None if t is None else t.data_ptr())       # noqa: E731
     err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), igc.data_ptr(),
                     fgc.data_ptr(), *map(ptr, st), h.data_ptr(), C.data_ptr(),
-                    n.data_ptr(), m.data_ptr(), B, S, H, hd, L, hd ** -0.5,
-                    DTYPES[q.dtype], stream)
+                    n.data_ptr(), m.data_ptr(), *map(ptr, scratch), B, S, H, hd, L,
+                    hd ** -0.5, DTYPES[q.dtype], stream)
     build.check(err, "mlstm_chunk")
     global launches
     launches += 1
+    launches_by_route[ROUTES[q.dtype]] += 1
     return h, (C, n, m)

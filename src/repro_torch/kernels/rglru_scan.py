@@ -13,6 +13,14 @@ scan), not its Pallas path, which rounds ``a``/``bx`` to the activation
 dtype and re-widens ``y[:, -1]``; the two agree in float32. A float32
 ``out_dtype`` makes ``y`` the all-states record of the verify step.
 
+Two routes, chosen by S at the C entry point; ``launches_by_route`` counts
+each. ``"chunked"`` (S > ``SHORT_S``: prefill and long extends) splits S
+into tiles of ``T`` steps x ``CH`` channels that compose the affine pairs
+``(a, b)`` and take their carry-in by decoupled look-back over per-tile
+flags (``scan_plan`` gives the tiles and the scratch this wrapper
+allocates); ``"sequential"`` (verify and short extends) loops over S in one
+thread per channel.
+
 ``rglru_scan`` runs the plain version only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises.
 """
@@ -25,8 +33,28 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import DTYPES
 
+# csrc/rglru_scan.cu's constexpr values
+SHORT_S = 64        # the longest S on the sequential route
+SEG = 16            # chunked route: steps of a warp's segment
+NW = 8              # segments of a tile
+T = SEG * NW        # steps of a tile
+CH = 32             # channels of a tile
+
 launches = 0            # kernel launches (never the plain version)
+launches_by_route = {"chunked": 0, "sequential": 0}
 _fn = None
+
+
+def scan_plan(B: int, S: int, R: int) -> dict:
+    """The route for ``[B, S, R]`` and, on the chunked route, its tiles and
+    scratch: int32 flags (one per tile, then the ticket counter; zeroed each
+    call) and float32 ``agg [ntiles, 3, CH]`` (a tile's aggregate pair and
+    the state after it)."""
+    if S <= SHORT_S:
+        return dict(route="sequential", ntiles=0, scratch={})
+    ntiles = B * -(-R // CH) * -(-S // T)
+    return dict(route="chunked", ntiles=ntiles,
+                scratch={"flags": (ntiles + 1,), "agg": (ntiles, 3, CH)})
 
 
 def rglru_scan_ref(a, bx, h0=None, *, out_dtype=torch.float32):
@@ -47,7 +75,7 @@ def _kernel():
     global _fn
     if _fn is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        _fn = build.entry("rglru_scan_fwd", [P, P, P, P, P, I, I, I, I, P])
+        _fn = build.entry("rglru_scan_fwd", [P] * 7 + [I, I, I, I, P])
     return _fn
 
 
@@ -80,11 +108,18 @@ def rglru_scan(a, bx, h0=None, *, out_dtype=torch.float32):
         return y, h_last
     if S == 0:
         return y, (h_last.zero_() if h0 is None else h_last.copy_(h0))
+    plan = scan_plan(B, S, R)
+    flags = agg = None
+    if plan["route"] == "chunked":
+        flags = torch.zeros(plan["scratch"]["flags"], dtype=torch.int32, device=a.device)
+        agg = torch.empty(plan["scratch"]["agg"], dtype=torch.float32, device=a.device)
+    ptr = (lambda t: None if t is None else t.data_ptr())       # noqa: E731
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    err = _kernel()(a.data_ptr(), bx.data_ptr(),
-                    None if h0 is None else h0.data_ptr(), y.data_ptr(),
-                    h_last.data_ptr(), B, S, R, DTYPES[out_dtype], stream)
+    err = _kernel()(a.data_ptr(), bx.data_ptr(), ptr(h0), y.data_ptr(),
+                    h_last.data_ptr(), ptr(flags), ptr(agg), B, S, R,
+                    DTYPES[out_dtype], stream)
     build.check(err, "rglru_scan")
     global launches
     launches += 1
+    launches_by_route[plan["route"]] += 1
     return y, h_last

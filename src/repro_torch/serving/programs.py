@@ -93,6 +93,7 @@ class EnginePrograms:
         self.watchdog_s = watchdog_s
         self.dispatch_retries = 0       # TransientFaults retried
         self.watchdog_stalls = 0        # dispatches slower than watchdog_s
+        self.decode_steps = 0           # decode steps run in decode chunks
         self._retry_rng = random.Random(0)   # backoff jitter (deterministic)
 
     # ---- guarded dispatch --------------------------------------------------
@@ -205,8 +206,15 @@ class EnginePrograms:
     # ---- chunked decode ----------------------------------------------------
     def _decode_chunk_fn(self, params, cache, last_tok, cache_lens, remaining,
                          done, temps, top_ks, keys, prompt_lens,
-                         block_tables=None):
-        """Decode ``decode_chunk`` tokens for every slot on the device.
+                         block_tables=None, steps=None):
+        """Decode up to ``decode_chunk`` tokens for every slot on the device.
+
+        ``steps`` (default ``decode_chunk``) is the number of decode steps
+        run: the scheduler passes the most tokens any live row can still
+        emit under its budget and the capacity, which it knows on the host,
+        so a chunk stops where the reference's loop stops once every row
+        has hit its budget. ``tok_buf`` / ``emit_buf`` keep their
+        ``decode_chunk`` rows; rows past ``steps`` emit nothing.
 
         Per-slot done mask (EOS / budget / capacity); finished or empty
         slots keep running in the fixed batch but stop emitting and stop
@@ -225,7 +233,9 @@ class EnginePrograms:
         tok_buf = torch.zeros((chunk, B), dtype=torch.int32, device=self.device)
         emit_buf = torch.zeros((chunk, B), dtype=torch.bool, device=self.device)
         last, clens, rem = last_tok, cache_lens, remaining
-        for i in range(chunk):
+        steps = chunk if steps is None else min(steps, chunk)
+        self.decode_steps += steps
+        for i in range(steps):
             batch = {"tokens": last[:, None].long(),
                      "positions": clens[:, None].long()}
             logits, cache = self.model.decode_step(

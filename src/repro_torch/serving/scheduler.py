@@ -1854,11 +1854,18 @@ class Scheduler:
         rem = dev([s.remaining for s in self.slots])
         # spec-handled slots sit this chunk out via the done mask (they
         # already advanced up to spec_len+1 tokens this step)
-        done = dev([i in handled or s.request is None
-                    or s.remaining <= 0
-                    or s.cache_len >= self.capacity - 1
-                    or s.generated[-1] == self.tokenizer.eos_id
-                    for i, s in enumerate(self.slots)], torch.bool)
+        done_l = [i in handled or s.request is None
+                  or s.remaining <= 0
+                  or s.cache_len >= self.capacity - 1
+                  or s.generated[-1] == self.tokenizer.eos_id
+                  for i, s in enumerate(self.slots)]
+        done = dev(done_l, torch.bool)
+        # the chunk runs no more steps than a live row can still emit: a
+        # row stops at its budget or one short of the capacity
+        steps = min(self.engine_cfg.decode_chunk,
+                    max((min(s.remaining, self.capacity - 1 - s.cache_len)
+                         for s, d in zip(self.slots, done_l) if not d),
+                        default=0))
         # static specialization: an all-greedy batch (the common agent case)
         # runs a loop body with no noise / top-k sort
         sampling = any(s.request.temperature > 0.0
@@ -1888,7 +1895,7 @@ class Scheduler:
             self.cache, tok_buf, emit_buf, clens, rem, done = \
                 self.progs.decode_chunk(self.params, self.cache, last, clens,
                                         rem, done, temps, top_ks, keys, plens,
-                                        bt)
+                                        bt, steps)
             # the ONE host sync of the chunk: pull tokens + masks + slot
             # state in a single transfer
             chunk = tok_buf.shape[0]

@@ -429,31 +429,71 @@ def test_gpu_rglru_kernel_matches_plain(out_dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype,S,H,hd,chunk", [
-    (torch.float32, 96, 2, 32, 32), (torch.float32, 100, 2, 64, 32),
-    (torch.bfloat16, 100, 2, 64, 32), (torch.bfloat16, 300, 4, 128, 256)])
-def test_gpu_mlstm_kernel_matches_plain(dtype, S, H, hd, chunk):
-    """State in and out; the bounds of tests/test_kernels.py:139 at its
-    float32 shapes (2e-5, chunks of 32) and in bf16 (5e-2) up to
-    xlstm's chunk of 256. A float32 chunk of 256 at hd 128 differs from
-    the plain version by ~4e-5 on an H100 (sums over 256 rows in another
-    order), outside the float32 bound, which is why it is not among the
-    cases."""
+@pytest.mark.parametrize("B,S,R,route", [
+    (1, 4096, 4096, "chunked"),      # recurrentgemma-9b's largest prefill bucket
+    (4, 5, 4096, "sequential"),      # its verify step (spec_len 4)
+    (2, 64, 96, "sequential"), (2, 65, 96, "chunked"),   # the route's edge
+    (3, 1000, 200, "chunked"),       # partial tiles in S and in channels
+])
+def test_gpu_rglru_routes_match_plain(B, S, R, route):
+    """Each route against the sequential plain version: float32 y and
+    h_last within 5e-6 (the chunked route composes the carries in another
+    association), bf16 y within 5e-2; ``launches_by_route`` counts the
+    route picked by S."""
     dev = _need_card()
-    q, k = (_rand(dev, 2, S, H, hd, scale=0.5, seed=s).to(dtype) for s in (4, 5))
-    v = _rand(dev, 2, S, H, hd, seed=6).to(dtype)
-    ig, fg = _rand(dev, 2, S, H, seed=7), _rand(dev, 2, S, H, seed=8) + 2.0
+    a = torch.sigmoid(_rand(dev, B, S, R, seed=11))
+    bx, h0 = _rand(dev, B, S, R, scale=0.5, seed=12), _rand(dev, B, R, seed=13)
+    before = dict(krs.launches_by_route)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        y, h = krs.rglru_scan(a, bx, h0, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        yw, hw = krs.rglru_scan_ref(a, bx, h0, out_dtype=out_dtype)
+        tol = 5e-6 if out_dtype == torch.float32 else 5e-2
+        assert float((y.float() - yw.float()).abs().max()) < tol
+        assert float((h - hw).abs().max()) < 5e-6
+    assert krs.launches_by_route == {**before, route: before[route] + 2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,B,S,H,hd,chunk", [
+    (torch.float32, 2, 96, 2, 32, 32), (torch.float32, 2, 100, 2, 64, 32),
+    (torch.bfloat16, 2, 100, 2, 64, 32), (torch.bfloat16, 2, 300, 4, 128, 256),
+    # xlstm's chunk in float32, held to the plain version run in float64
+    (torch.float32, 2, 300, 2, 128, 256), (torch.float32, 1, 300, 1, 512, 256),
+    # xlstm-350m's largest prefill bucket, and an extend shorter than the chunk
+    (torch.bfloat16, 1, 2048, 4, 512, 256), (torch.bfloat16, 1, 130, 4, 512, 256)])
+def test_gpu_mlstm_kernel_matches_plain(dtype, B, S, H, hd, chunk):
+    """State in and out, on the route of the dtype (bf16: ``"wgmma"``,
+    float32: ``"simt_f32"``); the bounds and references of
+    tests/test_kernels.py:139: bf16 5e-2 against the plain version's float32
+    result (the inputs widened, h not rounded to bf16: two bf16 roundings of
+    one value differ by an ulp, 0.0625 at |h| >= 8), up to xlstm-350m's
+    width and chunk; float32 2e-5, chunks of 32 against the float32 plain
+    version, chunks of 256 against the plain version in float64 (the float32
+    plain version's own rounding of its gates is ~2e-5 there)."""
+    dev = _need_card()
+    q, k = (_rand(dev, B, S, H, hd, scale=0.5, seed=s).to(dtype) for s in (4, 5))
+    v = _rand(dev, B, S, H, hd, seed=6).to(dtype)
+    ig, fg = _rand(dev, B, S, H, seed=7), _rand(dev, B, S, H, seed=8) + 2.0
     _, st = kmc.mlstm_chunk_ref(q[:, :17], k[:, :17], v[:, :17], ig[:, :17],
                                 fg[:, :17], chunk=chunk)
-    before = kmc.launches
+    before, by_route = kmc.launches, dict(kmc.launches_by_route)
     h, state = kmc.mlstm_chunk(q, k, v, ig, fg, st, chunk=chunk)
     torch.cuda.synchronize()
+    route = kmc.ROUTES[dtype]
     assert kmc.launches == before + 1
-    hw, state_w = kmc.mlstm_chunk_ref(q, k, v, ig, fg, st, chunk=chunk)
+    assert kmc.launches_by_route == {**by_route, route: by_route[route] + 1}
+    if dtype == torch.float32 and chunk >= 256:
+        x64 = (t.double() for t in (q, k, v, ig, fg))
+        hw, state_w = kmc.mlstm_chunk_ref(*x64, tuple(t.double() for t in st),
+                                          chunk=chunk)
+    else:
+        hw, state_w = kmc.mlstm_chunk_ref(q.float(), k.float(), v.float(), ig, fg, st,
+                                          chunk=chunk)
     tol = 2e-5 if dtype == torch.float32 else 5e-2
-    assert float((h.float() - hw.float()).abs().max()) < tol
+    assert float((h.double() - hw.double()).abs().max()) < tol
     for a, b in zip(state, state_w):
-        assert float((a - b).abs().max()) < tol
+        assert float((a.double() - b.double()).abs().max()) < tol
 
 
 @pytest.mark.gpu

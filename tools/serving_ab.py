@@ -16,7 +16,18 @@ more under torch.profiler. ``--profiles`` picks them (default
   * ``dense``: ``profile_decode_chunk`` on a dense server (decode_chunk 16)
     with 4 live slots, for qwen2.5-3b (prompts of ~200-1500 tokens,
     capacity 2048) and recurrentgemma-9b (~200-3000 tokens, capacity 4096:
-    its local-attention ring decode).
+    its local-attention ring decode);
+  * ``stateful``: ``profile_prefill`` on a dense server of each stateful
+    arch (full width, bf16, random weights from seed 0, 4 slots): admission
+    of one ~3000-token prompt in recurrentgemma-9b (capacity 4096; its
+    rglru_scan layers) and of one ~1500-token prompt in xlstm-350m
+    (capacity 2048; its mlstm_chunk layers and the sLSTM loop, whose host
+    operators are not traced), with the device ms of the scan kernels;
+  * ``scans``: the two scan kernels alone through the tree's wrappers, call
+    ms (CUDA events) and device ms: ``rglru_scan`` at recurrentgemma-9b's
+    largest prefill bucket ([1,4096,4096], h0, bf16 out) and its verify
+    step ([4,5,4096], float32 out), ``mlstm_chunk`` at xlstm-350m's
+    ([1,2048,4,512] bf16, chunk 256, state in).
 
 The profiles come from this checkout's ``chip_smoke.py``; the port they
 drive is the one under ``--src``. It prints one JSON line. Run it once per
@@ -64,14 +75,68 @@ def dense_chunk(cs, arch, capacity, prompt_tokens, dev):
     return chunk
 
 
+def stateful_admit(cs, arch, capacity, prompt_tokens, dev, reps, host_trace):
+    """``profile_prefill`` on a dense server of ``arch`` (full width, bf16,
+    random weights from seed 0, 4 slots); the device ms of the kernels
+    whose names hold "rglru" or "mlstm"."""
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import Model
+    from repro_torch.serving.server import EngineConfig, LLMServer
+    from repro_torch.serving.tokenizer import ByteTokenizer
+    cfg = ARCHS[arch]
+    model = Model(cfg, device=dev)
+    params = model.init(seed=0)
+    tok, rng = ByteTokenizer(cfg.vocab_size), random.Random(0)
+    srv = LLMServer(cfg, num_slots=4, capacity=capacity, params=params, device=dev,
+                    engine_cfg=EngineConfig(cache_mode="dense"))
+    admit = cs.profile_prefill(srv, cs.make_text(tok, rng, prompt_tokens), reps=reps,
+                               host_trace=host_trace)
+    del srv, model, params
+    torch.cuda.empty_cache()
+    scan = {k: ms for k, ms in admit["kernel_ms"].items() if "rglru" in k or "mlstm" in k}
+    return admit, scan
+
+
+def scans(cs, dev):
+    """Call and device ms of the scan kernels through the wrappers of the
+    port under ``--src`` (inputs from seed 2, the scales of
+    ``chip_smoke.stateful_kernel_rows``)."""
+    import torch
+    from repro_torch.kernels import mlstm_chunk as kmc
+    from repro_torch.kernels import rglru_scan as krs
+    g = torch.Generator(device=dev).manual_seed(2)
+
+    def rnd(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    out = {}
+    R = 4096
+    for key, B, S, out_dtype in (("rglru", 1, 4096, torch.bfloat16),
+                                 ("rglru_verify", 4, 5, torch.float32)):
+        a, bx, h0 = torch.sigmoid(rnd(B, S, R)), rnd(B, S, R, scale=0.5), rnd(B, R)
+        fn = lambda: krs.rglru_scan(a, bx, h0, out_dtype=out_dtype)  # noqa: E731
+        out[f"{key}_ms"], out[f"{key}_device_ms"] = cs.time_ms(fn, 50), cs.device_ms(fn)
+    bf16 = torch.bfloat16
+    q, k = (rnd(1, 2048, 4, 512, dtype=bf16, scale=0.5) for _ in range(2))
+    v = rnd(1, 2048, 4, 512, dtype=bf16)
+    ig, fg = rnd(1, 2048, 4), rnd(1, 2048, 4) + 2.0
+    _, st = kmc.mlstm_chunk_ref(q[:, :300], k[:, :300], v[:, :300], ig[:, :300],
+                                fg[:, :300], chunk=256)
+    fn = lambda: kmc.mlstm_chunk(q, k, v, ig, fg, st, chunk=256)  # noqa: E731
+    out["mlstm_ms"], out["mlstm_device_ms"] = cs.time_ms(fn, 20), cs.device_ms(fn)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", required=True, help="directory holding repro_torch")
     ap.add_argument("--profiles", default="admit,paged",
-                    help="comma list of admit,paged,dense (default: admit,paged)")
+                    help="comma list of admit,paged,dense,stateful,scans "
+                         "(default: admit,paged)")
     args = ap.parse_args()
     profiles = set(args.profiles.split(","))
-    if not profiles or profiles - {"admit", "paged", "dense"}:
+    if not profiles or profiles - {"admit", "paged", "dense", "stateful", "scans"}:
         ap.error(f"--profiles: {args.profiles}")
     import torch
     if not torch.cuda.is_available():
@@ -118,6 +183,18 @@ def main() -> int:
                         f"dense_{key}_chunk_median_ms": statistics.median(chunk["wall_ms"]),
                         f"dense_{key}_chunk_device_ms": chunk["device_busy_ms"],
                         f"dense_{key}_live_slots": chunk["live_slots"]})
+    if "scans" in profiles:
+        out.update(scans(cs, dev))
+    if "stateful" in profiles:
+        for key, arch, cap, n, reps, host_trace in (
+                ("rgemma", "recurrentgemma-9b", 4096, 3000, cs.WALL_REPS, True),
+                ("xlstm", "xlstm-350m", 2048, 1500, 3, False)):
+            admit, scan = stateful_admit(cs, arch, cap, n, dev, reps, host_trace)
+            out.update({f"{key}_admit_prompt_tokens": admit["prompt_tokens"],
+                        f"{key}_admit_ms": admit["wall_ms"],
+                        f"{key}_admit_median_ms": statistics.median(admit["wall_ms"]),
+                        f"{key}_admit_device_ms": admit["device_busy_ms"],
+                        f"{key}_admit_scan_kernel_ms": scan})
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
