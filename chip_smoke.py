@@ -23,28 +23,32 @@ no result line) on any fault:
      (recurrentgemma-9b's prefill and verify shapes) and mlstm_chunk on
      both (bf16 tensor cores at xlstm-350m's prefill and extend shapes;
      float32 CUDA cores, at xlstm's chunk of 256 against the plain version
-     in float64), with their profiler device times;
+     in float64), with their profiler device times, and accept_len's;
   3. dense serving: ``LLMServer`` with full-width qwen2.5-3b (bf16, random
      weights from a seed, 4 slots, capacity 2048, cache_mode="dense"):
      4 concurrent requests of ~200-1500 prompt tokens, one sampled, and a
      2-turn session; every request COMPLETED, flash and decode kernels
      launched; then torch.profiler over one decode chunk (device time by
-     kernel, the device's idle share) and over one 1503-token prefill
-     alone (recurrentgemma-9b's 3002-token one in phase 8);
+     kernel, the device's idle share), on the replayed CUDA graphs and on
+     the eager steps, and over one 1503-token prefill alone
+     (recurrentgemma-9b's 3002-token one in phase 8); then greedy ids of
+     4 requests over two decode chunks, graph against eager, from fresh
+     servers on the same weights (equal ids and launch counts);
   4. paged serving: the same server with cache_mode="paged", page_size=16,
      decode_chunk=8 (the FAME harness's setting) on prompts sharing a
      system prompt; prefix hits > 0, paged-decode kernel launched; one
-     paged decode chunk profiled as in 3;
+     paged decode chunk profiled and graph against eager as in 3;
   5. dense against paged: teacher-forced logits of both cache layouts on the
      same weights and tokens, and their greedy-token agreement;
   6. speculative decode: the same model served with spec_len=4, dense and
      paged (page_size=16, decode_chunk=8), on copy-heavy agent prompts;
      every request COMPLETED, verify steps and drafts > 0, the path's four
      kernels launched (flash, one-token decode, multi-query decode,
-     accept_len); verify logits against step-by-step decode logits of one
-     request (5e-2), greedy agreement with non-speculative serving (bf16,
-     printed), and greedy spec == non-spec token for token at full width
-     and 4 layers in float32 (asserted);
+     accept_len); one verify step profiled (graph and eager); verify
+     logits against step-by-step decode logits of one request (5e-2),
+     greedy agreement with non-speculative serving (bf16, printed), and
+     greedy spec == non-spec token for token at full width and 4 layers
+     in float32 (asserted);
   7. FAME: one log-analytics M+C session through the port's
      WorkflowServingRuntime on the paged spec_len=4 server; statuses equal
      the ScriptedOracle backend's, prefix hits > 0, session tail reused;
@@ -58,16 +62,22 @@ no result line) on any fault:
      flash / decode / accept_len (recurrentgemma) and mlstm_chunk /
      accept_len (xlstm) launched; parameter, slot-cache, arena and
      verify-staging bytes and peak memory printed, each model freed before
-     the next loads. Then one pattern period (5 / 8 layers) at full width
+     the next loads; the dense decode chunk profiled and graph against
+     eager as in 3. Then one pattern period (5 / 8 layers) at full width
      in float32: snapshot == dense and spec == non-spec greedy token for
      token, and decode-step logits after a prefill against one full
      forward within 1e-3.
 
-Kernel launch counts are zeroed just before each serving phase and read
-just after it; every bf16 serving phase must have launched flash and
-mlstm_chunk only on their tensor-core routes (``launches_by_route``). The
-line before the last is a JSON object with one entry per kernel; the last
-line is ``{"ok": true, "device": {...}}``.
+Every server runs its decode chunks and verify steps as replayed CUDA
+graphs (``serving/programs.py``); each serving phase prints its decode and
+verify steps, captures and replays, and fails unless every step was a
+replay or the warm-up step of a capture, at most one capture per variant
+and program a server. Kernel launch counts (replays included) are zeroed
+just before each serving phase and read just after it; every bf16 serving
+phase must have launched flash and mlstm_chunk only on their tensor-core
+routes (``launches_by_route``). The line before the last is a JSON object
+with one entry per kernel; the last line is ``{"ok": true, "device":
+{...}}``.
 
 Run from the repository root:  python3 chip_smoke.py
 (``--phases`` picks a subset of kernels,serve,spec,fame,stateful.)
@@ -76,6 +86,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import dataclasses
 import gc
 import json
@@ -470,8 +481,11 @@ def spec_kernel_rows(dev, rnd):
             raise AssertionError(f"accept_len B={B} S={S}: {got.tolist()} != {want.tolist()}")
         cases.append((acc, lens))
     acc, lens = cases[0]
-    ms = time_ms(lambda: spec_scan.accept_len(acc, lens), 200)
+    al = lambda: spec_scan.accept_len(acc, lens)                    # noqa: E731
+    ms = time_ms(al, 200)
     plain = time_ms(lambda: spec_scan.accept_len_ref(acc, lens), 50)
+    dms = device_ms(al, 200)
+    log(f"[kernels] accept_len: device_ms={fmt_ms(dms)}")
     B, S = acc.shape
     b_ms, b_by = bound(B * S + 4 * B + 4 * B, 2 * B * S, torch.int32)
     rows["accept_len"] = dict(
@@ -479,7 +493,7 @@ def spec_kernel_rows(dev, rnd):
         source="src/repro_torch/kernels/csrc/spec_scan.cu",
         replaces="src/repro/kernels/spec_scan.py:33",
         max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None)
+        library_ms=None, device_ms=dms)
 
     # ---- spec_decode_attention: 4 slots x capacity 2048, S = 5 -----------
     log("[kernels] spec_decode_attention")
@@ -857,6 +871,72 @@ def check_bf16_routes(name, counts):
                                  f"of {counts[kern]} launches")
 
 
+def graph_counts(server) -> dict:
+    """The decode and verify steps a server's programs ran, and their CUDA
+    graph captures and replays."""
+    p = server.engine.progs
+    return {"decode_steps": p.decode_steps, "verify_steps": p.verify_steps,
+            **{f"{prog}_{what}": n.get(prog, 0) for prog in ("decode", "verify")
+               for what, n in (("captures", p.graph_captures),
+                               ("replays", p.graph_replays))}}
+
+
+GRAPH_VARIANTS = 3      # greedy, sampled, top-k: one graph each per program
+
+
+def check_graphs(name, server, before):
+    """Every decode and verify step since ``before`` ran on the graph path:
+    as a replay, or as the warm-up step of a capture; a server captures
+    each program at most once per variant. Logs the phase's counts."""
+    now = graph_counts(server)
+    d = {k: now[k] - before[k] for k in now}
+    log(f"[{name}] graphs: decode steps={d['decode_steps']} captures="
+        f"{d['decode_captures']} replays={d['decode_replays']}; verify steps="
+        f"{d['verify_steps']} captures={d['verify_captures']} replays="
+        f"{d['verify_replays']} (server captures: decode {now['decode_captures']}, "
+        f"verify {now['verify_captures']})")
+    for prog in ("decode", "verify"):
+        if d[f"{prog}_captures"] + d[f"{prog}_replays"] != d[f"{prog}_steps"]:
+            raise AssertionError(f"{name}: {prog} steps not all on graphs: {d}")
+        if now[f"{prog}_captures"] > GRAPH_VARIANTS:
+            raise AssertionError(f"{name}: {now[f'{prog}_captures']} {prog} captures")
+
+
+def graph_matches_eager(name, cfg, params, dev, prompts, capacity, **ecfg):
+    """Greedy ids over two decode chunks of ``prompts`` (4 requests): a fresh
+    server on the graph path against a fresh one on the eager steps
+    (``progs.eager()``), on the same weights. Any difference in the ids or in
+    the kernels' launch counts fails."""
+    import torch
+    from repro_torch.serving.server import EngineConfig, LLMServer, SamplingParams
+    ids, counts = {}, {}
+    for how in ("graph", "eager"):
+        srv = LLMServer(cfg, num_slots=4, capacity=capacity, params=params,
+                        device=dev, engine_cfg=EngineConfig(**ecfg))
+        n = 1 + 2 * srv.engine.engine_cfg.decode_chunk
+        torch.cuda.synchronize()
+        reset_counts()
+        with (srv.engine.progs.eager() if how == "eager" else contextlib.nullcontext()):
+            hs = [srv.submit(p, SamplingParams(max_new_tokens=n)) for p in prompts]
+            srv.run_until_idle()
+        torch.cuda.synchronize()
+        counts[how] = kernel_counts()
+        ids[how] = [h.request.output_ids for h in hs]
+        if how == "graph":
+            check_graphs(f"{name}-graph-vs-eager", srv, dict.fromkeys(graph_counts(srv), 0))
+        del hs, srv
+        torch.cuda.empty_cache()
+    same = ids["graph"] == ids["eager"]
+    log(f"[{name}] graph == eager: greedy ids over two chunks of {len(prompts)} "
+        f"requests {same} (output tokens {[len(x) for x in ids['graph']]}), "
+        f"launches {counts['graph'] == counts['eager']}")
+    if not same:
+        raise AssertionError(f"{name}: graph ids differ from the eager steps'")
+    if counts["graph"] != counts["eager"]:
+        raise AssertionError(f"{name}: launches graph {counts['graph']} != eager "
+                             f"{counts['eager']}")
+
+
 def serve_phase(name, server, prompts, sampled_idx, session_turns, warm=None):
     """Submit ``prompts`` concurrently (+ a 2-turn session), drain, check."""
     import torch
@@ -866,6 +946,7 @@ def serve_phase(name, server, prompts, sampled_idx, session_turns, warm=None):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = server.stats()
+    gbefore = graph_counts(server)
     reset_counts()
     t0 = time.perf_counter()
     handles = []
@@ -886,6 +967,7 @@ def serve_phase(name, server, prompts, sampled_idx, session_turns, warm=None):
     wall = time.perf_counter() - t0
     counts = kernel_counts()
     check_bf16_routes(name, counts)
+    check_graphs(name, server, gbefore)
     st = server.stats()
     for h in handles:
         r = h.request
@@ -936,37 +1018,111 @@ def device_summary(prof, what: str, wall_ms: float, top: int):
     return busy
 
 
+def step_paths(server):
+    """(label, context) of each path a profile runs: the server's own (on
+    this port, replayed CUDA graphs), then, where the port has them, its
+    eager steps (``progs.eager()``). A tree without graphs has one path,
+    its eager loop."""
+    progs = server.engine.progs
+    if not hasattr(progs, "eager"):
+        return [("eager loop", contextlib.nullcontext)]
+    return [("graph", contextlib.nullcontext), ("eager", progs.eager)]
+
+
 def profile_decode_chunk(server, prompts):
-    """Where one decode chunk's time goes (the prompts' slots live): the
-    median wall time of ``WALL_REPS`` unprofiled chunks, then the next
-    chunk under torch.profiler: device time by kernel, the device's idle
-    share. Runs after the launch counts were read. Returns
-    {"wall_ms": [...], "device_busy_ms", "live_slots"}."""
+    """Where one decode chunk's time goes (the prompts' slots live), for
+    each of ``step_paths``: the median wall time of ``WALL_REPS``
+    unprofiled chunks, then the next chunk under torch.profiler: device
+    time by kernel, the device's idle share. Runs after the launch counts
+    were read. Returns the first path's {"wall_ms": [...],
+    "device_busy_ms", "live_slots"}, with the eager path's under "eager"
+    (None on a tree without graphs)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.server import SamplingParams
     ecfg = server.engine.engine_cfg
+    paths = step_paths(server)
     handles = [server.submit(p, SamplingParams(
-        max_new_tokens=ecfg.decode_chunk * (WALL_REPS + 3))) for p in prompts]
+        max_new_tokens=ecfg.decode_chunk * (len(paths) * (WALL_REPS + 1) + 2)))
+        for p in prompts]
     server.step()                                  # admission + first chunk
     torch.cuda.synchronize()
-    walls = []
-    for _ in range(WALL_REPS):                     # decode chunks, unprofiled
-        t0 = time.perf_counter()
-        server.step()
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        server.step()                              # the next chunk, profiled
-        torch.cuda.synchronize()
-    live = sum(1 for s in server.engine.slots if s.request is not None)
+    out = {}
+    for label, ctx in paths:
+        walls = []
+        with ctx():
+            for _ in range(WALL_REPS):             # decode chunks, unprofiled
+                t0 = time.perf_counter()
+                server.step()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                server.step()                      # the next chunk, profiled
+                torch.cuda.synchronize()
+        live = sum(1 for s in server.engine.slots if s.request is not None)
+        busy = device_summary(
+            prof, f"{server.engine.cfg.name}: one {ecfg.cache_mode} decode chunk "
+            f"({ecfg.decode_chunk} steps, {live} slots, {label})",
+            statistics.median(walls), 10)
+        out[label] = {"wall_ms": walls, "device_busy_ms": busy, "live_slots": live}
     server.run_until_idle()
     if not all(h.request.status == "completed" for h in handles):
         raise AssertionError("profiled requests did not complete")
-    busy = device_summary(
-        prof, f"{server.engine.cfg.name}: one {ecfg.cache_mode} decode chunk "
-        f"({ecfg.decode_chunk} steps, {live} slots)", statistics.median(walls), 10)
-    return {"wall_ms": walls, "device_busy_ms": busy, "live_slots": live}
+    return dict(out[paths[0][0]], eager=out.get("eager"))
+
+
+def profile_verify_step(server, prompts):
+    """Where one verify step's time goes (the prompts' slots live, drafting),
+    for each of ``step_paths``: the median wall time of ``WALL_REPS`` spec
+    passes that verified (the engine's drafting on the host, one verify
+    step, its one pull and the commits; a pass that drafted nothing is
+    followed by an engine step and not counted), then one more under
+    torch.profiler: device time by kernel, the device's idle share.
+    Returns the first path's {"wall_ms": [...], "device_busy_ms"}, with the
+    eager path's under "eager"."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving.server import SamplingParams
+    eng = server.engine
+    handles = [server.submit(p, SamplingParams(max_new_tokens=256)) for p in prompts]
+    eng._admit()
+    out = {}
+    for label, ctx in step_paths(server):
+        walls, prof = [], None
+        with ctx():
+            for _ in range(20 * WALL_REPS):
+                active = eng._active()
+                if not active or prof is not None:
+                    break
+                n0 = eng._verify_steps
+                p = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                     if len(walls) == WALL_REPS else None)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with (p if p is not None else contextlib.nullcontext()):
+                    eng._spec_pass(active)
+                    torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+                if eng._verify_steps == n0:
+                    server.step()                  # nothing drafted: decode on
+                elif p is None:
+                    walls.append(wall)
+                else:
+                    prof = p
+        if prof is None:
+            raise AssertionError(f"verify profile ({label}): {len(walls)} verify "
+                                 "steps, the slots stopped drafting")
+        busy = device_summary(
+            prof, f"{eng.cfg.name}: one verify step, spec_len "
+            f"{eng.engine_cfg.spec_len}, {eng.engine_cfg.cache_mode} ({label})",
+            statistics.median(walls), 10)
+        out[label] = {"wall_ms": walls, "device_busy_ms": busy}
+    server.run_until_idle()
+    if not all(h.request.status == "completed" for h in handles):
+        raise AssertionError("profiled requests did not complete")
+    first = next(iter(out))
+    return dict(out[first], eager=out.get("eager"))
 
 
 def profile_prefill(server, prompt, *, reps: int = WALL_REPS, host_trace: bool = True):
@@ -1084,6 +1240,7 @@ def serving_phases(dev, model, params, tok):
     profile_prefill(dense, prompts[3])
     del dense
     torch.cuda.empty_cache()
+    graph_matches_eager("dense", cfg, params, dev, prompts, 2048, cache_mode="dense")
 
     # ---- phase 4: paged (the FAME harness's engine setting) --------------
     paged = LLMServer(cfg, num_slots=4, capacity=2048, params=params,
@@ -1105,6 +1262,8 @@ def serving_phases(dev, model, params, tok):
     profile_decode_chunk(paged, pprompts)
     del paged
     torch.cuda.empty_cache()
+    graph_matches_eager("paged", cfg, params, dev, pprompts, 2048,
+                        cache_mode="paged", page_size=16, decode_chunk=8)
 
     # ---- phase 5: dense against paged, teacher-forced ---------------------
     r = dh[0].request                              # a greedy dense request
@@ -1214,6 +1373,7 @@ def spec_phase(dev, model, params, tok):
         serve_ids(srv, [prompts[0][:200]], 4)              # warm
         torch.cuda.synchronize()
         before = srv.stats()
+        gbefore = graph_counts(srv)
         eng = srv.engine
         rows0 = eng._verify_rows
         reset_counts()
@@ -1223,6 +1383,7 @@ def spec_phase(dev, model, params, tok):
         wall = time.perf_counter() - t0
         counts = kernel_counts()
         check_bf16_routes(f"spec-{mode}", counts)
+        check_graphs(f"spec-{mode}", srv, gbefore)
         st = srv.stats()
         d = {k: st[k] - before[k] for k in ("verify_steps", "draft_tokens",
                                             "accepted_tokens", "decode_tokens")}
@@ -1254,7 +1415,8 @@ def spec_phase(dev, model, params, tok):
         if mode == "dense":
             r = hs[1].request
             ids = tok.encode(prompts[1])[-r.prompt_tokens:] + list(r.output_ids)
-        del srv
+        profile_verify_step(srv, prompts)
+        del hs, srv
         torch.cuda.empty_cache()
 
     # verify logits against step-by-step decode logits (bf16, full depth)
@@ -1273,10 +1435,12 @@ def spec_phase(dev, model, params, tok):
     serve_ids(base, [prompts[0][:200]], 4)               # warm
     torch.cuda.synchronize()
     before = base.stats()
+    gbefore = graph_counts(base)
     t0 = time.perf_counter()
     hs = serve_ids(base, prompts)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    check_graphs("spec-base-dense", base, gbefore)
     dec = base.stats()["decode_tokens"] - before["decode_tokens"]
     log(f"[spec-base-dense] spec_len=0 on the same prompts: wall_s={wall:.3f} "
         f"decode_tok_per_s={dec / max(sum(h.request.decode_s for h in hs), 1e-9):.1f}")
@@ -1299,6 +1463,8 @@ def spec_phase(dev, model, params, tok):
     for mode, sl in (("dense", 0), ("dense", 4), ("paged", 4)):
         srv = spec_server(m4, p4, dev, mode, spec_len=sl)
         outs4[mode, sl] = [h.request.output_ids for h in serve_ids(srv, prompts)]
+        check_graphs(f"spec-f32-4-layers-{mode}-{sl}", srv,
+                     dict.fromkeys(graph_counts(srv), 0))
         st = srv.stats()
         if sl and st["verify_steps"] <= 0:
             raise AssertionError(f"f32 4-layer {mode}: no verify steps")
@@ -1429,6 +1595,7 @@ def stateful_f32_checks(name, spec, dev, tok, rng):
                    for q in quoted]
             srv.run_until_idle()
             out += [h.request.output_ids for h in hs]
+        check_graphs(f"{name}-f32", srv, dict.fromkeys(graph_counts(srv), 0))
         st = srv.stats()
         del srv
         return out, st
@@ -1505,6 +1672,8 @@ def stateful_phase(dev):
             profile_prefill(srv, prompts[-1])
         del handles, srv            # a handle keeps its server (and cache) alive
         torch.cuda.empty_cache()
+        graph_matches_eager(f"{name}-dense", cfg, params, dev, prompts, cap,
+                            cache_mode="dense")
 
         # ---- snapshot mode ----------------------------------------------------
         srv = LLMServer(cfg, num_slots=4, capacity=cap, params=params, device=dev,
@@ -1543,6 +1712,7 @@ def stateful_phase(dev):
         quoted = self_quotes(tok, rng, tok.encode(cprompts[0])[-r0.prompt_tokens:],
                              list(r0.output_ids[:24]))
         before = srv.stats()
+        gbefore = graph_counts(srv)
         reset_counts()
         t0 = time.perf_counter()
         hs = [srv.submit(p, SamplingParams(max_new_tokens=48)) for p in cprompts]
@@ -1556,6 +1726,7 @@ def stateful_phase(dev):
         torch.cuda.synchronize()
         c = kernel_counts()
         check_bf16_routes(f"{name}-spec", c)
+        check_graphs(f"{name}-spec", srv, gbefore)
         st = srv.stats()
         d = {k: st[k] - before[k] for k in ("verify_steps", "draft_tokens",
                                             "accepted_tokens", "decode_tokens")}
@@ -1611,6 +1782,7 @@ def fame_phase(dev, model, params):
     rt.deploy_mcp(la.APP.servers, la.APP.sources)
     torch.cuda.synchronize()
     before = srv.stats()
+    gbefore = graph_counts(srv)
     reset_counts()
     t0 = time.perf_counter()
     res = rt.run_session(f"fame-{query_input}", la.APP.queries(query_input))
@@ -1618,6 +1790,7 @@ def fame_phase(dev, model, params):
     wall = time.perf_counter() - t0
     counts = kernel_counts()
     check_bf16_routes("fame", counts)
+    check_graphs("fame", srv, gbefore)
     st = srv.stats()
     hits = st["prefix_hit_tokens"] - before["prefix_hit_tokens"]
     conts = meter.continuation_turns()

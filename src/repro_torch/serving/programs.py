@@ -6,11 +6,19 @@ scheduler (serving/scheduler.py) dispatches lives here — bucketed
 chunked prefill and paged suffix prefill through block tables), the
 chunked **decode** loop with on-device per-slot sampling and the batched
 speculative **verify** step (one verify forward, acceptance, commit).
-PyTorch runs eagerly, so there is no compile step: the "programs" are
-plain methods and the cache is updated in place (the JAX package donated
-it to its jits).
+Prefill and extend run eagerly and update the cache in place (the JAX
+package donated it to its jits).
 
-The decode chunk runs exactly ``decode_chunk`` steps with no host sync
+The decode step and the verify step are the port's counterpart of the
+reference's compiled decode loop and verify program: each reads and writes
+static buffers in place (its carries, its constants, its outputs at a
+device-side step index), so on the card each is one captured CUDA graph,
+replayed ``steps`` times per decode chunk and once per verify step, one
+graph per variant the reference also specializes on (greedy, sampled,
+top-k). The scheduler's inputs are staged into those buffers by one
+packed host-to-device copy. The CPU runs the same step functions eagerly.
+
+A decode chunk runs at most ``decode_chunk`` steps with no host sync
 inside (JAX exits its ``while_loop`` early once every row is done): a done
 row of a full-attention cache rewrites the same K/V at the same position
 and an empty paged row writes to trash page 0, so the extra steps change
@@ -22,12 +30,15 @@ copies whole state rows between the slot cache and the snapshot arena.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import random
 import time
 from typing import Tuple
 
 import torch
 
+from repro_torch.kernels import launch_counts
 from repro_torch.models.transformer import tree_leaves, tree_map
 from repro_torch.serving.faults import DeadLetterError, RetryPolicy, TransientFault
 from repro_torch.serving.sampler import accept_batched, sample_batched
@@ -51,6 +62,15 @@ def slot_copy(dst, dst_row: int, src, src_row: int):
                     tree_leaves(slot_extract(src, src_row))):
         d.copy_(s)                                                    # mutation
     return dst
+
+
+def _variant(temps, top_ks) -> str:
+    """The step program's variant, one graph each, as the JAX package
+    specializes its jits: "greedy" (``temps is None``: no noise, no sort),
+    "sampled", or "top_k"."""
+    if temps is None:
+        return "greedy"
+    return "sampled" if top_ks is None else "top_k"
 
 
 def auto_buckets(capacity: int, lo: int = 32) -> Tuple[int, ...]:
@@ -94,7 +114,19 @@ class EnginePrograms:
         self.dispatch_retries = 0       # TransientFaults retried
         self.watchdog_stalls = 0        # dispatches slower than watchdog_s
         self.decode_steps = 0           # decode steps run in decode chunks
+        self.verify_steps = 0           # verify steps run
         self._retry_rng = random.Random(0)   # backoff jitter (deterministic)
+        # step programs (card): static buffers by program, graphs by
+        # (program, variant), bound to one (params, cache) pair
+        self.graph_captures = collections.Counter()     # by program
+        self.graph_replays = collections.Counter()      # by program
+        self._bufs = {}
+        self._graphs = {}
+        self._bound = None
+        self._staging = None            # device side of the packed inputs
+        self._stream = None             # warm-up and capture stream
+        self._pool = None               # the graphs' shared memory pool
+        self._eager = False             # eager() on the card
 
     # ---- guarded dispatch --------------------------------------------------
     def _run(self, site: str, fn, *args, **kwargs):
@@ -203,6 +235,110 @@ class EnginePrograms:
                if sample else None)
         return pool, tok
 
+    # ---- step programs: static buffers, replayed CUDA graphs ---------------
+    @contextlib.contextmanager
+    def eager(self):
+        """Run the decode and verify steps eagerly on the card, without a
+        graph, for the calls inside: the comparison path of the card's
+        tests and chip_smoke.py. (The CPU always runs them eagerly.)"""
+        prev, self._eager = self._eager, True
+        try:
+            yield self
+        finally:
+            self._eager = prev
+
+    def _buffers(self, program: str, shapes):
+        """The static buffers of ``program`` ({name: (shape, dtype)}), made
+        anew (dropping the program's graphs, which hold their addresses)
+        when a shape changes."""
+        bufs = self._bufs.get(program)
+        if bufs is None or {k: tuple(t.shape) for k, t in bufs.items()} != \
+                {k: s[0] for k, s in shapes.items()}:
+            bufs = {k: torch.zeros(s[0], dtype=s[1], device=self.device)
+                    for k, s in shapes.items()}
+            self._bufs[program] = bufs
+            for key in [k for k in self._graphs if k[0] == program]:
+                del self._graphs[key]
+        return bufs
+
+    def _stage(self, bufs, values):
+        """Copy a step's host inputs (lists, numpy arrays, CPU tensors) into
+        its static buffers: packed into one int64 tensor (float32 by its
+        bits; pinned on the card), moved with one asynchronous copy and
+        unpacked on the device. ``None`` leaves a buffer as it is."""
+        host = [(bufs[name], torch.as_tensor(v, device="cpu").reshape(-1))
+                for name, v in values.items() if v is not None]
+        packed = torch.cat([
+            (t.float().view(torch.int32) if b.dtype == torch.float32 else t).long()
+            for b, t in host])
+        if self.device.type == "cuda":
+            packed = packed.pin_memory()
+        if self._staging is None or self._staging.numel() < packed.numel():
+            self._staging = torch.empty(packed.numel(), dtype=torch.int64,
+                                        device=self.device)
+        dev = self._staging[:packed.numel()]
+        dev.copy_(packed, non_blocking=True)
+        o = 0
+        for buf, t in host:
+            seg = dev[o:o + t.numel()].view(buf.shape)
+            o += t.numel()
+            if buf.dtype == torch.float32:
+                seg = seg.to(torch.int32).view(torch.float32)
+            buf.copy_(seg)
+
+    def _run_steps(self, program: str, variant: str, step, n: int, params, cache):
+        """Run ``step`` (one step over static buffers) ``n`` times. On the
+        CPU, or inside ``eager()``, it runs as Python. On the card the first
+        call of each (program, variant) runs one real step eagerly on a side
+        stream as the warm-up, then captures the step into a CUDA graph
+        (all of this programs object's graphs share one memory pool) and
+        replays it for the remaining steps; later calls only replay. A
+        capture that fails, or reaches a host sync, raises: there is no
+        eager fallback on the card."""
+        if n <= 0:
+            return
+        if self.device.type == "cpu" or self._eager:
+            for _ in range(n):
+                step()
+            return
+        if self._bound is None or self._bound[0] is not params \
+                or self._bound[1] is not cache:
+            self._graphs.clear()            # graphs hold the old addresses
+            self._bound = (params, cache)
+        graph = self._graphs.get((program, variant))
+        if graph is None:
+            graph = self._capture(step)
+            self._graphs[program, variant] = graph
+            self.graph_captures[program] += 1
+            n -= 1                          # the warm-up was a real step
+        for _ in range(n):
+            graph.replay()
+        self.graph_replays[program] += n
+
+    def _capture(self, step):
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        s, cur = self._stream, torch.cuda.current_stream(self.device)
+        s.wait_stream(cur)
+        with torch.cuda.stream(s):          # warm-up: builds and loads the
+            step()                          # kernels, lazy library state
+        cur.wait_stream(s)
+        graph = torch.cuda.CUDAGraph()
+        launches = {}
+        try:
+            with launch_counts.captured(launches):
+                with torch.cuda.graph(graph, pool=self._pool, stream=s,
+                                      capture_error_mode="thread_local"):
+                    step()
+        except BaseException:
+            self._pool = None               # it may still be marked as capturing
+            raise
+        finally:
+            torch.cuda.set_stream(cur)      # also when the capture failed
+        return launch_counts.Replayed(graph, launches)
+
     # ---- chunked decode ----------------------------------------------------
     def _decode_chunk_fn(self, params, cache, last_tok, cache_lens, remaining,
                          done, temps, top_ks, keys, prompt_lens,
@@ -216,47 +352,77 @@ class EnginePrograms:
         has hit its budget. ``tok_buf`` / ``emit_buf`` keep their
         ``decode_chunk`` rows; rows past ``steps`` emit nothing.
 
-        Per-slot done mask (EOS / budget / capacity); finished or empty
+        The inputs (host values or tensors) are staged into static buffers
+        and ``_decode_step`` runs ``steps`` times over them: as one CUDA
+        graph replayed per step on the card (``_run_steps``), eagerly on the
+        CPU. Per-slot done mask (EOS / budget / capacity); finished or empty
         slots keep running in the fixed batch but stop emitting and stop
-        advancing (with ``freeze_done_rows``, their state rows are left
-        bit for bit: a spec-handled slot sitting the chunk out decodes on
-        from it next step). ``keys`` [B] are per-request keys and
+        advancing (with ``freeze_done_rows``, their state rows are left bit
+        for bit: a spec-handled slot sitting the chunk out decodes on from
+        it next step). ``keys`` [B] are per-request keys and
         ``prompt_lens`` [B] each row's prompt length, so the row's next
-        token index is
-        ``cache_lens[b] - prompt_lens[b] + 1``. ``temps is None`` (an
-        all-greedy batch) draws no noise at all. Nothing here reads a value
-        back to the host; the scheduler pulls the returned tensors once.
+        token index is ``cache_lens[b] - prompt_lens[b] + 1``. ``temps is
+        None`` (an all-greedy batch) draws no noise at all. Nothing here
+        reads a value back to the host; the scheduler pulls the returned
+        static buffers (valid until the next call) once.
         """
-        chunk = self.engine_cfg.decode_chunk
-        B = self.num_slots
-        eos = self.eos_id
-        tok_buf = torch.zeros((chunk, B), dtype=torch.int32, device=self.device)
-        emit_buf = torch.zeros((chunk, B), dtype=torch.bool, device=self.device)
-        last, clens, rem = last_tok, cache_lens, remaining
+        chunk, B = self.engine_cfg.decode_chunk, self.num_slots
+        i32 = torch.int32
+        shapes = {"last": ((B,), i32), "clens": ((B,), i32), "rem": ((B,), i32),
+                  "done": ((B,), torch.bool), "temps": ((B,), torch.float32),
+                  "top_ks": ((B,), i32), "keys": ((B,), torch.int64),
+                  "plens": ((B,), i32), "tok": ((chunk, B), i32),
+                  "emit": ((chunk, B), torch.bool), "step": ((1,), torch.int64)}
+        if block_tables is not None:
+            shapes["bt"] = (tuple(block_tables.shape), i32)
+        bufs = self._buffers("decode", shapes)
+        self._stage(bufs, {"last": last_tok, "clens": cache_lens,
+                           "rem": remaining, "done": done, "temps": temps,
+                           "top_ks": top_ks, "keys": keys, "plens": prompt_lens,
+                           "bt": block_tables})
+        for k in ("tok", "emit", "step"):
+            bufs[k].zero_()
+        variant = _variant(temps, top_ks)
         steps = chunk if steps is None else min(steps, chunk)
         self.decode_steps += steps
-        for i in range(steps):
-            batch = {"tokens": last[:, None].long(),
-                     "positions": clens[:, None].long()}
-            logits, cache = self.model.decode_step(
-                params, batch, cache, clens, block_tables=block_tables,
-                keep=~done if self.freeze_done_rows else None)
-            row_keys = None
-            if temps is not None:
-                cnts = (clens - prompt_lens + 1).long()  # tokens sampled so far
-                row_keys = torch.stack([keys, cnts], dim=-1)
-            nxt = sample_batched(logits[:, 0], row_keys, temperature=temps,
-                                 top_k=top_ks, vocab_limit=self.cfg.vocab_size)
-            emit = ~done
-            step = emit.to(torch.int32)
-            last = torch.where(emit, nxt, last)
-            clens = clens + step
-            rem = rem - step
-            done = done | (emit & ((rem <= 0) | (nxt == eos)
-                                   | (clens >= self.capacity - 1)))
-            tok_buf[i] = torch.where(emit, nxt, torch.zeros_like(nxt))
-            emit_buf[i] = emit
-        return cache, tok_buf, emit_buf, clens, rem, done
+        self._run_steps("decode", variant,
+                        lambda: self._decode_step(params, cache, bufs, variant),
+                        steps, params, cache)
+        return (cache, bufs["tok"], bufs["emit"], bufs["clens"], bufs["rem"],
+                bufs["done"])
+
+    def _decode_step(self, params, cache, b, variant):
+        """One decode step over the static buffers ``b``, in place: the
+        carries ``last``, ``clens``, ``rem``, ``done`` advance, and row
+        ``b["step"]`` (a device-side index the step advances) of ``tok`` /
+        ``emit`` takes the step's tokens."""
+        last, clens, rem, done = b["last"], b["clens"], b["rem"], b["done"]
+        batch = {"tokens": last[:, None].long(),
+                 "positions": clens[:, None].long()}
+        logits, _ = self.model.decode_step(
+            params, batch, cache, clens, block_tables=b.get("bt"),
+            keep=~done if self.freeze_done_rows else None)
+        row_keys = temps = top_ks = None
+        if variant != "greedy":
+            cnts = (clens - b["plens"] + 1).long()       # tokens sampled so far
+            row_keys = torch.stack([b["keys"], cnts], dim=-1)
+            temps = b["temps"]
+            top_ks = b["top_ks"] if variant == "top_k" else None
+        nxt = sample_batched(logits[:, 0], row_keys, temperature=temps,
+                             top_k=top_ks, vocab_limit=self.cfg.vocab_size)
+        emit = ~done
+        step = emit.to(torch.int32)
+        b["tok"].index_copy_(0, b["step"],
+                             torch.where(emit, nxt, torch.zeros_like(nxt))[None])
+        b["emit"].index_copy_(0, b["step"], emit[None])
+        new_clens, new_rem = clens + step, rem - step
+        new_done = done | (emit & ((new_rem <= 0) | (nxt == self.eos_id)
+                                   | (new_clens >= self.capacity - 1)))
+        last.copy_(torch.where(emit, nxt, last))
+        clens.copy_(new_clens)
+        rem.copy_(new_rem)
+        done.copy_(new_done)
+        b["step"].add_(1)
 
     # ---- speculative decode: verify + accept + commit ----------------------
     def _verify_fn(self, params, cache, tokens, clens, lens, temps, top_ks,
@@ -273,20 +439,51 @@ class EnginePrograms:
         xLSTM and ring layers: gathers and ring splices at each row's
         accepted length).
         ``keys`` [B, 2] are the rows' (request key, token index of column
-        0) pairs, or None for an all-greedy batch. Nothing here reads back
-        to the host; the scheduler pulls (out_tok, out_len) once.
+        0) pairs, or None for an all-greedy batch. The inputs are staged
+        into static buffers and ``_verify_step`` runs over them, as a
+        replayed CUDA graph on the card (``_run_steps``). Nothing here reads
+        back to the host; the scheduler pulls the returned static buffers
+        (out_tok, out_len) once.
         """
+        B, S = self.num_slots, tokens.shape[1]
+        i32 = torch.int32
+        shapes = {"tokens": ((B, S), i32), "clens": ((B,), i32),
+                  "lens": ((B,), i32), "temps": ((B,), torch.float32),
+                  "top_ks": ((B,), i32), "keys": ((B, 2), torch.int64),
+                  "out_tok": ((B, S), i32), "out_len": ((B,), i32)}
+        if block_tables is not None:
+            shapes["bt"] = (tuple(block_tables.shape), i32)
+        bufs = self._buffers("verify", shapes)
+        self._stage(bufs, {"tokens": tokens, "clens": clens, "lens": lens,
+                           "temps": temps, "top_ks": top_ks, "keys": keys,
+                           "bt": block_tables})
+        variant = _variant(temps, top_ks)
+        self.verify_steps += 1
+        self._run_steps("verify", variant,
+                        lambda: self._verify_step(params, cache, bufs, variant),
+                        1, params, cache)
+        return cache, bufs["out_tok"], bufs["out_len"]
+
+    def _verify_step(self, params, cache, b, variant):
+        """One verify step over the static buffers ``b``: forward, accept,
+        commit; ``out_tok`` / ``out_len`` take the result."""
+        tokens, clens, lens = b["tokens"], b["clens"], b["lens"]
         S = tokens.shape[1]
         positions = clens[:, None].long() + torch.arange(
             S, device=self.device)[None, :]
         batch = {"tokens": tokens.long(), "positions": positions}
         logits, staged = self.model.verify(params, batch, cache, clens,
-                                           lens=lens, block_tables=block_tables)
+                                           lens=lens, block_tables=b.get("bt"))
+        greedy = variant == "greedy"
         out_tok, out_len = accept_batched(
-            logits, tokens, torch.clamp(lens - 1, min=0), keys,
-            temperature=temps, top_k=top_ks, vocab_limit=self.cfg.vocab_size)
-        cache = self.model.verify_commit(staged, clens, out_len, lens)
-        return cache, out_tok, out_len
+            logits, tokens, torch.clamp(lens - 1, min=0),
+            None if greedy else b["keys"],
+            temperature=None if greedy else b["temps"],
+            top_k=b["top_ks"] if variant == "top_k" else None,
+            vocab_limit=self.cfg.vocab_size)
+        self.model.verify_commit(staged, clens, out_len, lens)
+        b["out_tok"].copy_(out_tok)
+        b["out_len"].copy_(out_len)
 
     # ---- per-prefix snapshot copies (snapshot mode) ------------------------
     def _snap_capture_fn(self, arena, cache, sid, slot):

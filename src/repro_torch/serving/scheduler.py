@@ -441,7 +441,7 @@ class Scheduler:
             self.kvpool = kvpool.PagePool(n_pages)
             self.kvpool.injector = injector
             self.radix = RadixTree(ps)
-            self._bt_device = None      # cached decode block table (device)
+            self._bt_host = None        # cached decode block table (host)
         else:
             self.cache = self.model.init_cache(num_slots, capacity)
             self.kvpool = None
@@ -517,7 +517,7 @@ class Scheduler:
             num_slots=num_slots, eos_id=self.tokenizer.eos_id,
             freeze_done_rows=self._freeze_done_rows, injector=injector,
             retry=self.retry, watchdog_s=watchdog_s)
-        self._slot_consts = None        # cached (keys, prompt_lens) device
+        self._slot_consts = None        # cached (keys, prompt_lens) host
                                         # arrays; rebuilt on membership change
 
     # ---- public API --------------------------------------------------------
@@ -698,7 +698,7 @@ class Scheduler:
                 priv.remove(slot.sess_tail_page)
             self.kvpool.free(priv)
             self.radix.release(slot.node)
-            self._bt_device = None
+            self._bt_host = None
         elif self.snapshots:
             self.radix.release(slot.node)
         self.slots[si] = _Slot()
@@ -1318,7 +1318,7 @@ class Scheduler:
         slot.pages_shared = shared
         slot.pages_priv = priv
         slot.node = node
-        self._bt_device = None          # slot membership changed
+        self._bt_host = None            # slot membership changed
         self._group_queue(ids, req)
         return True
 
@@ -1607,7 +1607,7 @@ class Scheduler:
             else:
                 self.kvpool.free(rejected + bt_pages[n_complete:])
                 self.radix.release(slot.node)
-            self._bt_device = None      # slot membership changed
+            self._bt_host = None        # slot membership changed
         elif self.snapshots:
             # prefix snapshots were adopted into the trie at admission; a
             # session turn additionally captures the end-of-generation state
@@ -1712,25 +1712,25 @@ class Scheduler:
             row = [s.generated[-1]] + drafts[i]
             lens[i] = len(row)
             tok_rows[i][:len(row)] = row
-        dev = self._tensor
-        tokens = dev(tok_rows)
-        lens_a = dev(lens)
-        clens = dev([s.cache_len for s in self.slots])
+        host = self._host
+        tokens = host(tok_rows)
+        lens_a = host(lens)
+        clens = host([s.cache_len for s in self.slots])
         # the same greedy/temps/top-k static specialization as the decode loop
         sampling = any(self.slots[i].request.temperature > 0.0 for i in live)
-        temps = (dev([s.request.temperature if s.request else 0.0
-                      for s in self.slots], torch.float32)
+        temps = (host([s.request.temperature if s.request else 0.0
+                       for s in self.slots], torch.float32)
                  if sampling else None)
-        top_ks = (dev([s.request.top_k if s.request else 0
-                       for s in self.slots])
+        top_ks = (host([s.request.top_k if s.request else 0
+                        for s in self.slots])
                   if sampling and any(self.slots[i].request.top_k > 0
                                       for i in live)
                   else None)
         # column 0 judges the token at index cache_len - prompt_len + 1, the
         # index the decode loop would give it
-        keys = (dev([[s.request._key if s.request else 0,
-                      s.cache_len - s.prompt_len + 1] for s in self.slots],
-                    torch.int64)
+        keys = (host([[s.request._key if s.request else 0,
+                       s.cache_len - s.prompt_len + 1] for s in self.slots],
+                     torch.int64)
                 if sampling else None)
         bt = self._decode_block_tables()
         self.cache, out_tok, out_len = self.progs.verify(
@@ -1787,21 +1787,24 @@ class Scheduler:
             self._finalize(si)
 
     # ---- engine step --------------------------------------------------------
-    def _tensor(self, values, dtype=torch.int32):
-        """Host values as a tensor on the scheduler's device."""
-        return torch.tensor(values, dtype=dtype, device=self.device)
+    @staticmethod
+    def _host(values, dtype=torch.int32):
+        """Host values as a CPU tensor: the programs stage a dispatch's
+        inputs into their static device buffers in one packed copy."""
+        return torch.tensor(values, dtype=dtype)
 
     def _decode_block_tables(self):
-        """Per-slot block tables for the decode/verify jits (paged mode):
-        the table only changes when slot membership does — cached on device
-        between chunks; empty slots point at the trash page."""
+        """Per-slot block tables for the decode/verify steps (paged mode):
+        the table only changes when slot membership does — cached on the
+        host between chunks and copied into the step's static buffer with
+        its other inputs; empty slots point at the trash page."""
         if not self.paged:
             return None
-        if self._bt_device is None:
-            self._bt_device = kvpool.block_table_array(
+        if self._bt_host is None:
+            self._bt_host = kvpool.block_table_array(
                 [(s.pages_shared + s.pages_priv) if s.request else []
-                 for s in self.slots], self._bt_width, self.device)
-        return self._bt_device
+                 for s in self.slots], self._bt_width, "cpu")
+        return self._bt_host
 
     def _fail_slots(self, indices, exc: BaseException):
         """Failure isolation: terminate the requests in these slots FAILED,
@@ -1848,10 +1851,10 @@ class Scheduler:
         if not rest:
             return True
         t0 = time.perf_counter()
-        dev = self._tensor
-        last = dev([s.generated[-1] if s.request else 0 for s in self.slots])
-        clens = dev([s.cache_len for s in self.slots])
-        rem = dev([s.remaining for s in self.slots])
+        host = self._host
+        last = host([s.generated[-1] if s.request else 0 for s in self.slots])
+        clens = host([s.cache_len for s in self.slots])
+        rem = host([s.remaining for s in self.slots])
         # spec-handled slots sit this chunk out via the done mask (they
         # already advanced up to spec_len+1 tokens this step)
         done_l = [i in handled or s.request is None
@@ -1859,7 +1862,7 @@ class Scheduler:
                   or s.cache_len >= self.capacity - 1
                   or s.generated[-1] == self.tokenizer.eos_id
                   for i, s in enumerate(self.slots)]
-        done = dev(done_l, torch.bool)
+        done = host(done_l, torch.bool)
         # the chunk runs no more steps than a live row can still emit: a
         # row stops at its budget or one short of the capacity
         steps = min(self.engine_cfg.decode_chunk,
@@ -1870,11 +1873,11 @@ class Scheduler:
         # runs a loop body with no noise / top-k sort
         sampling = any(s.request.temperature > 0.0
                        for s in self.slots if s.request)
-        temps = (dev([s.request.temperature if s.request else 0.0
-                      for s in self.slots], torch.float32)
+        temps = (host([s.request.temperature if s.request else 0.0
+                       for s in self.slots], torch.float32)
                  if sampling else None)
-        top_ks = (dev([s.request.top_k if s.request else 0
-                       for s in self.slots])
+        top_ks = (host([s.request.top_k if s.request else 0
+                        for s in self.slots])
                   if sampling and any(s.request.top_k > 0
                                       for s in self.slots if s.request)
                   else None)
@@ -1882,12 +1885,12 @@ class Scheduler:
         # pair (keys[b], t), t derived on the device from cache_lens and the
         # prompt length — reproducible per request whatever the batch
         # composition. keys/prompt_lens only change with slot membership,
-        # so they stay on the device between chunks.
+        # so they are cached on the host between chunks.
         if self._slot_consts is None:
             self._slot_consts = (
-                dev([s.request._key if s.request else 0 for s in self.slots],
-                    torch.int64),
-                dev([s.prompt_len for s in self.slots]))
+                host([s.request._key if s.request else 0 for s in self.slots],
+                     torch.int64),
+                host([s.prompt_len for s in self.slots]))
         keys, plens = self._slot_consts
         bt = self._decode_block_tables()
 

@@ -2,9 +2,10 @@
 
 Each kernel against its plain PyTorch version at the tolerances of
 tests/test_kernels.py (float32 2e-5, bf16 2e-2; the stateful kernels 5e-6 /
-2e-5 / 5e-2), and the port's model and server (speculative decode and the
+2e-5 / 5e-2), the port's model and server (speculative decode and the
 stateful archs' snapshot mode included) on the card against the same code
-on the CPU (plain versions). This
+on the CPU (plain versions), and the decode and verify steps as replayed
+CUDA graphs against the same steps run eagerly on the card. This
 file imports no JAX, so it also runs on a machine with a card and no JAX:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
@@ -15,9 +16,13 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import contextlib  # noqa: E402
+import threading  # noqa: E402
+
 from repro_torch.configs.registry import ARCHS  # noqa: E402
 from repro_torch.kernels import decode_attention as kda  # noqa: E402
 from repro_torch.kernels import flash_attention as kfa  # noqa: E402
+from repro_torch.kernels import launch_counts  # noqa: E402
 from repro_torch.kernels import mlstm_chunk as kmc  # noqa: E402
 from repro_torch.kernels import paged_decode_attention as kpda  # noqa: E402
 from repro_torch.kernels import paged_spec_decode_attention as kpsda  # noqa: E402
@@ -26,6 +31,8 @@ from repro_torch.kernels import spec_decode_attention as ksda  # noqa: E402
 from repro_torch.kernels import spec_scan  # noqa: E402
 from repro_torch.kernels import split_decode as ksd  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
+from repro_torch.models import transformer as ttfm  # noqa: E402
+from repro_torch.serving import kvpool  # noqa: E402
 from repro_torch.serving.server import EngineConfig, LLMServer, SamplingParams  # noqa: E402
 
 
@@ -536,3 +543,185 @@ def test_gpu_stateful_server_greedy_matches_cpu(arch, mode, spec_len):
             assert kern.launches > before
     assert all(len(x) == 16 for x in ids["cpu"])
     assert ids[str(dev)] == ids["cpu"]
+
+
+# ---------------------------------------------------------------------------
+# the decode and verify steps as replayed CUDA graphs against eager steps
+# ---------------------------------------------------------------------------
+
+GRAPH_CASES = {
+    "qwen-dense": ("qwen2.5-3b", dict(cache_mode="dense")),
+    "qwen-paged": ("qwen2.5-3b", dict(cache_mode="paged")),
+    "rgemma-dense": ("recurrentgemma-9b", dict(cache_mode="dense")),
+    "rgemma-snapshot": ("recurrentgemma-9b", dict(cache_mode="paged")),
+    "xlstm-dense": ("xlstm-350m", dict(cache_mode="dense")),
+    "xlstm-snapshot": ("xlstm-350m", dict(cache_mode="paged")),
+    "qwen-spec-dense": ("qwen2.5-3b", dict(cache_mode="dense", spec_len=4)),
+    "qwen-spec-paged": ("qwen2.5-3b", dict(cache_mode="paged", spec_len=4)),
+    "rgemma-spec-ring": ("recurrentgemma-9b", dict(cache_mode="dense", spec_len=4)),
+}
+GRAPH_PROMPTS = ["System: cooperating agents share this conversation. [planner] plan",
+                 "Tool result: ERROR 429 rate limit exceeded. " * 2,
+                 "log: a=1 b=2; log: a=1 b=2; log: a=1 b=3; what changed?",
+                 "a fourth prompt, admitted when a slot frees"]
+GRAPH_PARAMS = [dict(max_new_tokens=14), dict(max_new_tokens=11),
+                dict(max_new_tokens=9, temperature=0.9, seed=1),
+                dict(max_new_tokens=10, temperature=1.1, top_k=5, seed=2)]
+
+
+def _guarded_weights(cfg, seed=1):
+    sd = Model(cfg, device="cpu").init(seed=seed).state_dict()
+    if cfg.tie_embeddings:                               # EOS guard
+        sd["embed.table"][cfg.vocab_size - 1] = 0.0
+    else:
+        sd["unembed.table"][:, cfg.vocab_size - 1] = 0.0
+    return sd
+
+
+def _graph_server(cfg, sd, dev, pump=False, **ecfg):
+    return LLMServer(cfg, num_slots=3, capacity=128, device=dev, pump=pump,
+                     params={k: v.to(dev) for k, v in sd.items()},
+                     engine_cfg=EngineConfig(page_size=16, decode_chunk=4,
+                                             spec_ngram_min=1, **ecfg))
+
+
+def _run_traced(srv, eager: bool):
+    """Serve GRAPH_PROMPTS to the end through the engine's steps; returns
+    (ids, the slots' carries after every step, launches by counter)."""
+    eng = srv.engine
+    before = launch_counts.snapshot()
+    hs = [srv.submit(p, SamplingParams(**kw))
+          for p, kw in zip(GRAPH_PROMPTS, GRAPH_PARAMS)]
+    trace = []
+    with (eng.progs.eager() if eager else contextlib.nullcontext()):
+        while eng.step() or eng._queue:
+            trace.append([(s.cache_len, s.remaining, list(s.generated or ()))
+                          for s in eng.slots])
+    torch.cuda.synchronize()
+    after = launch_counts.snapshot()
+    assert all(h.request.status == "completed" for h in hs)
+    return ([h.request.output_ids for h in hs], trace,
+            {k: after[k] - before[k] for k in after if after[k] != before[k]})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(GRAPH_CASES))
+def test_gpu_graph_steps_match_eager(case):
+    """Greedy, sampled and top-k requests, a fourth admitted when a slot
+    frees: the graph path's ids and per-step carries equal the eager
+    steps', the caches agree within 1e-5 and so do the logits of one more
+    decode step on them (float32); the kernels count the same launches;
+    every decode (verify) step ran as a replay or as the warm-up of one
+    capture per variant."""
+    dev = _need_card()
+    arch, ecfg = GRAPH_CASES[case]
+    cfg = ARCHS[arch].reduced(dtype="float32", param_dtype="float32",
+                              vocab_size=512)
+    sd = _guarded_weights(cfg)
+    out, srvs = {}, {}
+    for how in ("eager", "graph"):
+        srvs[how] = _graph_server(cfg, sd, dev, **ecfg)
+        out[how] = _run_traced(srvs[how], eager=how == "eager")
+    assert out["graph"][0] == out["eager"][0]
+    assert out["graph"][1] == out["eager"][1]
+    assert out["graph"][2] == out["eager"][2]
+    # a paged pool's trash page takes the writes of masked rows, several to
+    # one place in one step (which one lands is not fixed): it is never read
+    first = kvpool.TRASH_PAGE + 1 if srvs["graph"].engine.paged else 0
+    caches = [[t.narrow(1 if k == "scan" else 0, first,
+                        t.shape[1 if k == "scan" else 0] - first)
+               for k in sorted(c) for t in ttfm.tree_leaves(c[k])]
+              for c in (srvs[h].engine.cache for h in ("graph", "eager"))]
+    for a, b in zip(*caches):
+        assert float((a.double() - b.double()).abs().max()) < 1e-5
+    if ecfg["cache_mode"] == "dense":           # logits on the caches
+        model = srvs["graph"].engine.model
+        batch = {"tokens": torch.tensor([[5], [6], [7]], device=dev),
+                 "positions": torch.tensor([[40], [41], [42]], device=dev)}
+        clen = torch.tensor([40, 41, 42], dtype=torch.int32, device=dev)
+        lg = [model.decode_step(srvs[h].engine.params, batch,
+                                ttfm.tree_map(lambda t: t.clone(), srvs[h].engine.cache),
+                                clen)[0] for h in ("graph", "eager")]
+        assert float((lg[0] - lg[1]).abs().max()) < 1e-5
+    g, e = srvs["graph"].engine.progs, srvs["eager"].engine.progs
+    assert sum(e.graph_captures.values()) == sum(e.graph_replays.values()) == 0
+    assert 1 <= g.graph_captures["decode"] <= 3
+    assert g.graph_captures["decode"] + g.graph_replays["decode"] == g.decode_steps
+    assert g.decode_steps == e.decode_steps
+    if ecfg.get("spec_len"):
+        assert g.verify_steps == e.verify_steps > 0
+        assert 1 <= g.graph_captures["verify"] <= 3
+        assert g.graph_captures["verify"] + g.graph_replays["verify"] == g.verify_steps
+
+
+@pytest.mark.gpu
+def test_gpu_host_sync_in_captured_step_raises():
+    """A host sync inside the captured step: the chunk raises (the capture
+    fails) instead of running the steps eagerly, no graph is kept, and the
+    server fails the chunk's requests instead of completing them."""
+    dev = _need_card()
+    cfg = _qwen()
+    srv = _graph_server(cfg, _guarded_weights(cfg), dev, cache_mode="dense")
+    progs = srv.engine.progs
+    decode_step = progs.model.decode_step
+
+    def syncing(*a, **kw):
+        logits, cache = decode_step(*a, **kw)
+        if float(logits.abs().max()) < 0:           # a host sync
+            raise AssertionError
+        return logits, cache
+
+    progs.model.decode_step = syncing
+    h = srv.submit(GRAPH_PROMPTS[0], SamplingParams(max_new_tokens=9))
+    srv.run_until_idle()
+    assert h.request.status == "failed"
+    assert isinstance(h.request.error, RuntimeError)
+    assert progs.graph_captures["decode"] == 0 and not progs._graphs
+    eng = srv.engine
+    B = eng.num_slots
+    z = torch.zeros(B, dtype=torch.int32)
+    with pytest.raises(RuntimeError):
+        progs.decode_chunk(eng.params, eng.cache, z, z + 3, z + 5,
+                           torch.zeros(B, dtype=torch.bool), None, None, None, z, None, 4)
+    assert progs.graph_captures["decode"] == 0 and not progs._graphs
+    progs.model.decode_step = decode_step           # the card still works
+    h = srv.submit(GRAPH_PROMPTS[1], SamplingParams(max_new_tokens=9))
+    srv.run_until_idle()
+    assert h.request.status == "completed" and progs.graph_captures["decode"] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["dense", "paged"])
+def test_gpu_graph_steps_under_the_background_pump(mode):
+    """The background pump owns the step loop, so it captures and replays
+    the graphs on its own thread: ids (spec_len=4, decode and verify
+    graphs) equal the cooperative graph server's and the eager steps'."""
+    dev = _need_card()
+    cfg = _qwen()
+    sd = _guarded_weights(cfg)
+    ids = {}
+    for how in ("pump", "cooperative", "eager"):
+        srv = _graph_server(cfg, sd, dev, cache_mode=mode, spec_len=4,
+                            pump=how == "pump")
+        progs = srv.engine.progs
+        threads = []
+        capture = progs._capture
+
+        def spy(step, capture=capture, threads=threads):
+            threads.append(threading.get_ident())
+            return capture(step)
+
+        progs._capture = spy            # before any work reaches the pump
+        with (progs.eager() if how == "eager" else contextlib.nullcontext()):
+            hs = [srv.submit(p, SamplingParams(**kw))
+                  for p, kw in zip(GRAPH_PROMPTS, GRAPH_PARAMS)]
+            for h in hs:
+                h.result()
+        ids[how] = [h.request.output_ids for h in hs]
+        if how == "eager":
+            assert not threads
+        else:
+            assert progs.graph_captures["decode"] >= 1 and threads
+            assert (threading.get_ident() in threads) == (how == "cooperative")
+        srv.close()
+    assert ids["pump"] == ids["cooperative"] == ids["eager"]

@@ -23,6 +23,9 @@ more under torch.profiler. ``--profiles`` picks them (default
     rglru_scan layers) and of one ~1500-token prompt in xlstm-350m
     (capacity 2048; its mlstm_chunk layers and the sLSTM loop, whose host
     operators are not traced), with the device ms of the scan kernels;
+  * ``spec``: ``profile_verify_step`` of qwen2.5-3b on a dense server with
+    spec_len=4 (4 slots, capacity 2048, ``chip_smoke.copy_prompts``): one
+    verify step, drafting and commit included;
   * ``scans``: the two scan kernels alone through the tree's wrappers, call
     ms (CUDA events) and device ms: ``rglru_scan`` at recurrentgemma-9b's
     largest prefill bucket ([1,4096,4096], h0, bf16 out) and its verify
@@ -30,7 +33,9 @@ more under torch.profiler. ``--profiles`` picks them (default
     ([1,2048,4,512] bf16, chunk 256, state in).
 
 The profiles come from this checkout's ``chip_smoke.py``; the port they
-drive is the one under ``--src``. It prints one JSON line. Run it once per
+drive is the one under ``--src``. On a tree whose decode and verify steps
+are replayed CUDA graphs, the decode and verify profiles also run its eager
+steps (``progs.eager()``) on the same slots, reported under ``*_eager_*``. It prints one JSON line. Run it once per
 tree and alternate trees inside one machine session to compare two commits
 on one card, e.g. with the parent unpacked under build/parent:
 
@@ -73,6 +78,19 @@ def dense_chunk(cs, arch, capacity, prompt_tokens, dev):
     del srv, model, params
     torch.cuda.empty_cache()
     return chunk
+
+
+def chunk_fields(key, chunk) -> dict:
+    """The JSON fields of one ``profile_decode_chunk`` result."""
+    out = {f"{key}_ms": chunk["wall_ms"],
+           f"{key}_median_ms": statistics.median(chunk["wall_ms"]),
+           f"{key}_device_ms": chunk["device_busy_ms"]}
+    if chunk.get("eager"):
+        e = chunk["eager"]
+        out.update({f"{key}_eager_ms": e["wall_ms"],
+                    f"{key}_eager_median_ms": statistics.median(e["wall_ms"]),
+                    f"{key}_eager_device_ms": e["device_busy_ms"]})
+    return out
 
 
 def stateful_admit(cs, arch, capacity, prompt_tokens, dev, reps, host_trace):
@@ -132,11 +150,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", required=True, help="directory holding repro_torch")
     ap.add_argument("--profiles", default="admit,paged",
-                    help="comma list of admit,paged,dense,stateful,scans "
+                    help="comma list of admit,paged,dense,spec,stateful,scans "
                          "(default: admit,paged)")
     args = ap.parse_args()
     profiles = set(args.profiles.split(","))
-    if not profiles or profiles - {"admit", "paged", "dense", "stateful", "scans"}:
+    if not profiles or profiles - {"admit", "paged", "dense", "spec", "stateful",
+                                   "scans"}:
         ap.error(f"--profiles: {args.profiles}")
     import torch
     if not torch.cuda.is_available():
@@ -148,7 +167,7 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     out = {"src": args.src}
-    if profiles & {"admit", "paged"}:
+    if profiles & {"admit", "paged", "spec"}:
         model, params, tok = cs.full_model(dev)
         rng = random.Random(0)
     if "admit" in profiles:
@@ -167,11 +186,16 @@ def main() -> int:
         chunk = cs.profile_decode_chunk(
             srv, [cs.make_text(tok, rng, n) for n in (672, 869, 1173, 1470)])
         del srv
-        out.update(paged_chunk_ms=chunk["wall_ms"],
-                   paged_chunk_median_ms=statistics.median(chunk["wall_ms"]),
-                   paged_chunk_device_ms=chunk["device_busy_ms"],
+        out.update(chunk_fields("paged_chunk", chunk),
                    paged_live_slots=chunk["live_slots"])
-    if profiles & {"admit", "paged"}:
+    if "spec" in profiles:
+        srv = LLMServer(model.cfg, num_slots=4, capacity=2048, params=params,
+                        device=dev, engine_cfg=EngineConfig(cache_mode="dense",
+                                                            spec_len=4))
+        verify = cs.profile_verify_step(srv, cs.copy_prompts(tok, random.Random(1)))
+        del srv
+        out.update(chunk_fields("spec_verify", verify))
+    if profiles & {"admit", "paged", "spec"}:
         del model, params
         torch.cuda.empty_cache()
     if "dense" in profiles:
@@ -179,10 +203,8 @@ def main() -> int:
                 ("qwen", "qwen2.5-3b", 2048, (200, 600, 1000, 1500)),
                 ("rgemma", "recurrentgemma-9b", 4096, (200, 800, 1500, 3000))):
             chunk = dense_chunk(cs, arch, cap, lens, dev)
-            out.update({f"dense_{key}_chunk_ms": chunk["wall_ms"],
-                        f"dense_{key}_chunk_median_ms": statistics.median(chunk["wall_ms"]),
-                        f"dense_{key}_chunk_device_ms": chunk["device_busy_ms"],
-                        f"dense_{key}_live_slots": chunk["live_slots"]})
+            out.update(chunk_fields(f"dense_{key}_chunk", chunk))
+            out[f"dense_{key}_live_slots"] = chunk["live_slots"]
     if "scans" in profiles:
         out.update(scans(cs, dev))
     if "stateful" in profiles:
