@@ -15,11 +15,14 @@ no result line) on any fault:
      (``scaled_dot_product_attention``, a yardstick the port never calls)
      times, profiler device times of the attention kernels, and the least
      time the card could take for the work. Flash is timed at qwen2.5-3b's
-     prefill and, as a row of its own (``flash_attention_hd256``), at
-     recurrentgemma-9b's (hd 256, one KV head, window 2048); so is the
-     ring decode (``decode_attention_ring``: recurrentgemma's 2048-slot ring,
-     hd 256, one KV head); the multi-query decode kernels, dense and paged,
-     equal S one-token calls bit for bit; rglru_scan on both routes
+     prefill and, as rows of their own, at recurrentgemma-9b's
+     (``flash_attention_hd256``: hd 256, one KV head, window 2048) and at
+     mixtral-8x22b's (``flash_attention_swa``: q [1,8192,48,128], 8 KV
+     heads, G = 6, window 4096); so is the ring decode
+     (``decode_attention_ring``: recurrentgemma's 2048-slot ring, hd 256,
+     one KV head; ``decode_attention_swa_ring``: mixtral's 4096-slot ring,
+     hd 128, G = 6, cache lengths across the wrap); the multi-query
+     decode kernels, dense and paged, equal S one-token calls bit for bit; rglru_scan on both routes
      (recurrentgemma-9b's prefill and verify shapes) and mlstm_chunk on
      both (bf16 tensor cores at xlstm-350m's prefill and extend shapes;
      float32 CUDA cores, at xlstm's chunk of 256 against the plain version
@@ -66,7 +69,25 @@ no result line) on any fault:
      eager as in 3. Then one pattern period (5 / 8 layers) at full width
      in float32: snapshot == dense and spec == non-spec greedy token for
      token, and decode-step logits after a prefill against one full
-     forward within 1e-3.
+     forward within 1e-3;
+  9. MoE archs: mixtral-8x22b (8 of 56 layers, capacity 8192; a ~6000-token
+     prompt wraps the 4096-slot sliding-window ring) and dbrx-132b (6 of 40
+     layers, capacity 2048), every width the published one, bf16, random
+     weights from seed 0, 4 slots, each model freed before the next loads:
+     dense serving with a 2-turn session, mixtral's state snapshots
+     (cache_mode="paged", explicit num_snapshots / snap_stride) and dbrx's
+     KV pages (page_size 16, decode_chunk 8) with prefix hits > 0, and
+     spec_len=4 (mixtral dense, dbrx paged); every request COMPLETED, flash,
+     ring decode, paged decode and accept_len launched; the dense decode
+     chunk profiled on graphs and eagerly, the longest prompt's admission
+     profiled, graph against eager ids; the share of (token, choice) pairs
+     a prefill drops at the published capacity factor and the MoE layer's
+     share of a decode step beside its bytes bound printed; dbrx's dense
+     against paged teacher-forced logits (5e-2). Then one mixtral layer at
+     full width in float32, drop-free (capacity factor 4 = E / k): snapshot
+     == dense and spec == non-spec greedy, and decode-step logits after a
+     4200-token prefill (past the window) against one full forward within
+     1e-3.
 
 Every server runs its decode chunks and verify steps as replayed CUDA
 graphs (``serving/programs.py``); each serving phase prints its decode and
@@ -80,7 +101,7 @@ with one entry per kernel; the last line is ``{"ok": true, "device":
 {...}}``.
 
 Run from the repository root:  python3 chip_smoke.py
-(``--phases`` picks a subset of kernels,serve,spec,fame,stateful.)
+(``--phases`` picks a subset of kernels,serve,spec,fame,stateful,moe.)
 """
 from __future__ import annotations
 
@@ -354,8 +375,17 @@ def kernel_phase(dev):
             kfa.flash_attention_ref(ql, kl, vl, q_per_kv=16, window=2048),
             "bfloat16"))
     del ql, kl, vl
-    rows["flash_attention_hd256"] = flash_hd256_row(dev, rnd)
-    rows["decode_attention_ring"] = decode_ring_row(dev, rnd)
+    rows["flash_attention_hd256"] = flash_window_row(
+        dev, rnd, "flash_attention_hd256", S=4096, H=16, K=1, hd=256, win=2048)
+    rows["decode_attention_ring"] = decode_ring_row(
+        dev, rnd, "decode_attention_ring", W=2048, H=16, K=1, hd=256, win=2048,
+        clens=[2999, 100, 2047, 4095])
+    # mixtral-8x22b's sliding window: G = 6, window 4096 at hd 128
+    rows["flash_attention_swa"] = flash_window_row(
+        dev, rnd, "flash_attention_swa", S=8192, H=48, K=8, hd=128, win=4096)
+    rows["decode_attention_swa_ring"] = decode_ring_row(
+        dev, rnd, "decode_attention_swa_ring", W=4096, H=48, K=8, hd=128,
+        win=4096, clens=[300, 4095, 4097, 8000])
     rows.update(stateful_kernel_rows(dev))
     for r in rows.values():
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
@@ -371,23 +401,29 @@ def fmt_ms(ms):
 
 def log_device(name, kernel, library):
     """The device time of a kernel and of its library call, beside the
-    event-timed call times of the kernels line."""
-    log(f"[kernels] {name}: device_ms={fmt_ms(device_ms(kernel))} "
+    event-timed call times of the kernels line; returns the kernel's."""
+    dms = device_ms(kernel)
+    log(f"[kernels] {name}: device_ms={fmt_ms(dms)} "
         f"library_device_ms={fmt_ms(device_ms(library))}")
+    return dms
 
 
-def flash_hd256_row(dev, rnd):
-    """Flash at recurrentgemma-9b's prefill bucket: q [1,4096,16,256], one
-    KV head, window 2048, bf16. The bound counts only the causal pairs
-    inside the window; the library call is SDPA with that mask."""
+def flash_window_row(dev, rnd, name, S, H, K, hd, win):
+    """Flash over one sequence of S positions with a sliding window, bf16:
+    ``flash_attention_hd256`` at recurrentgemma-9b's prefill bucket (q
+    [1,4096,16,256], one KV head, window 2048), ``flash_attention_swa`` at
+    mixtral-8x22b's largest prefill bucket (q [1,8192,48,128], 8 KV heads,
+    G = 6, window 4096). The bound counts only the causal pairs inside the
+    window; the library call is SDPA with that mask."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as kfa
-    S, H, K, hd, win = 4096, 16, 1, 256, 2048
+    log(f"[kernels] {name}")
     q, k, v = rnd(1, S, H, hd), rnd(1, S, K, hd), rnd(1, S, K, hd)
     fa = lambda: kfa.flash_attention(q, k, v, q_per_kv=H // K, window=win)      # noqa: E731
     fr = lambda: kfa.flash_attention_ref(q, k, v, q_per_kv=H // K, window=win)  # noqa: E731
-    err = check_close("bf16 [1,4096,16,256] K=1 window=2048", fa(), fr(), "bfloat16")
+    err = check_close(f"bf16 [1,{S},{H},{hd}] K={K} window={win}", fa(), fr(),
+                      "bfloat16")
     ms, plain = time_ms(fa, 20), time_ms(fr, 2, warmup=1)
     pos = torch.arange(S, device=dev)
     mask = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < win)
@@ -395,36 +431,38 @@ def flash_hd256_row(dev, rnd):
     lf = lambda: F.scaled_dot_product_attention(                    # noqa: E731
         qt, kt, vt, attn_mask=mask, enable_gqa=True)
     lib = time_ms(lf, 20)
-    log_device("flash_attention_hd256", fa, lf)
+    dms = log_device(name, fa, lf)
     pairs = sum(min(i + 1, win) for i in range(S))
     b_ms, b_by = bound(2 * (2 * S * H * hd + 2 * S * K * hd), 4 * hd * H * pairs,
                        torch.bfloat16)
     return dict(
-        name="flash_attention_hd256", route="cuda",
+        name=name, route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
         replaces="src/repro/kernels/flash_attention.py:63",
         max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-        library_ms=lib)
+        library_ms=lib, device_ms=dms)
 
 
-def decode_ring_row(dev, rnd):
-    """Decode at recurrentgemma-9b's local attention: the ring cache of
-    4 slots x window 2048, one KV head, hd 256, bf16, with wrapped cache
-    lengths. The bound counts the slots the ring-age mask keeps; the
-    library call is SDPA with that slot mask."""
+def decode_ring_row(dev, rnd, name, W, H, K, hd, win, clens):
+    """Decode of 4 slots over a ring cache of W slots with window ``win``,
+    bf16, cache lengths spread across the wrap: ``decode_attention_ring``
+    at recurrentgemma-9b's local attention (ring 2048, one KV head, hd
+    256), ``decode_attention_swa_ring`` at mixtral-8x22b's sliding window
+    (ring 4096, 8 KV heads, G = 6, hd 128). The bound counts the slots the
+    ring-age mask keeps; the library call is SDPA with that slot mask."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as kda
-    log("[kernels] decode_attention_ring")
-    B, W, H, K, hd, win = 4, 2048, 16, 1, 256, 2048
+    log(f"[kernels] {name}")
+    B = len(clens)
     q, kc, vc = rnd(B, 1, H, hd), rnd(B, W, K, hd), rnd(B, W, K, hd)
-    clen = torch.tensor([2999, 100, 2047, 4095], dtype=torch.int32, device=dev)
+    clen = torch.tensor(clens, dtype=torch.int32, device=dev)
     da = lambda: kda.decode_attention(q, kc, vc, clen, q_per_kv=H // K,      # noqa: E731
                                       window=win)
     dr = lambda: kda.decode_attention_ref(q, kc, vc, clen, q_per_kv=H // K,  # noqa: E731
                                           window=win)
-    err = check_close("bf16 ring [4,2048,1,256] window=2048 clen=[2999,100,2047,4095]",
-                      da(), dr(), "bfloat16")
+    err = check_close(f"bf16 ring [{B},{W},{K},{hd}] G={H // K} window={win} "
+                      f"clen={clens}", da(), dr(), "bfloat16")
     ms, plain = time_ms(da, 50), time_ms(dr, 10)
     c = clen.long()[:, None]
     pos = torch.arange(W, device=dev)[None, :]
@@ -436,16 +474,16 @@ def decode_ring_row(dev, rnd):
     lf = lambda: F.scaled_dot_product_attention(                    # noqa: E731
         qt, kt, vt, attn_mask=mask, enable_gqa=True)
     lib = time_ms(lf, 50)
-    log_device("decode_attention_ring", da, lf)
+    dms = log_device(name, da, lf)
     live = int(kept.sum())
     b_ms, b_by = bound(2 * (2 * B * H * hd + 2 * live * K * hd) + 4 * B,
                        4 * hd * H * live, torch.bfloat16)
     return dict(
-        name="decode_attention_ring", route="cuda",
+        name=name, route="cuda",
         source="src/repro_torch/kernels/csrc/split_decode_attention.cu",
         replaces="src/repro/kernels/decode_attention.py:71",
         max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-        library_ms=lib)
+        library_ms=lib, device_ms=dms)
 
 
 def spec_kernel_rows(dev, rnd):
@@ -1243,22 +1281,9 @@ def serving_phases(dev, model, params, tok):
     graph_matches_eager("dense", cfg, params, dev, prompts, 2048, cache_mode="dense")
 
     # ---- phase 4: paged (the FAME harness's engine setting) --------------
-    paged = LLMServer(cfg, num_slots=4, capacity=2048, params=params,
-                      engine_cfg=EngineConfig(cache_mode="paged", page_size=16,
-                                              decode_chunk=8), device=dev)
-    system = ("System: you are one agent of a Planner/Actor/Evaluator "
-              "workflow; tools are MCP functions. " + make_text(tok, rng, 500))
-    warm = system + "planner: plan the task."
-    pprompts = [system + f"{role}: " + make_text(tok, rng, n)
-                for role, n in (("planner", 100), ("actor", 300),
-                                ("evaluator", 600), ("actor", 900))]
-    pturns = [system + "planner: " + make_text(tok, rng, 80),
-              " tool: " + make_text(tok, rng, 120)]
-    ph, pcounts, pst = serve_phase("paged", paged, pprompts, 1, pturns, warm=warm)
+    paged, pprompts, pcounts = prefix_run("paged", cfg, params, dev, tok, rng, 2048)
     if pcounts["flash_attention"] <= 0 or pcounts["paged_decode_attention"] <= 0:
         raise AssertionError(f"paged: kernels not launched: {pcounts}")
-    if pst["prefix_hit_tokens"] <= 0:
-        raise AssertionError("paged: no prefix hits")
     profile_decode_chunk(paged, pprompts)
     del paged
     torch.cuda.empty_cache()
@@ -1487,14 +1512,18 @@ def spec_phase(dev, model, params, tok):
 # longest wraps its 2048-position local-attention ring), the snapshot
 # arena's rows and stride (set explicitly: the default arena,
 # 1 + slots * (capacity / 16 + 2) rows, would hold ~46 GB of xlstm state),
-# the kernels its path must launch, and the float32 one-period depth
+# the kernels its path must launch, the float32 checks' config (one pattern
+# period) and the prefill before their decode-vs-forward steps (past
+# recurrentgemma's 2048-position ring)
 STATEFUL = {
     "recurrentgemma-9b": dict(capacity=4096, prompts=(200, 800, 1500, 3000),
-                              num_snapshots=48, snap_stride=8, f32_layers=5,
+                              num_snapshots=48, snap_stride=8,
+                              f32=dict(num_layers=5), f32_prefill=2100,
                               kernels=("rglru_scan", "flash_attention",
                                        "decode_attention", "accept_len")),
     "xlstm-350m": dict(capacity=2048, prompts=(200, 600, 1000, 1500),
-                       num_snapshots=16, snap_stride=8, f32_layers=8,
+                       num_snapshots=16, snap_stride=8,
+                       f32=dict(num_layers=8), f32_prefill=300,
                        kernels=("mlstm_chunk", "accept_len")),
 }
 
@@ -1503,15 +1532,19 @@ def gb(n: float) -> str:
     return f"{n / 1e9:.3f}"
 
 
-def stateful_memory(name, cfg, params, spec):
-    """Parameters, slot cache (4 slots) and snapshot arena bytes."""
+def memory_report(name, cfg, params, spec):
+    """Parameters (the MoE layers' share), slot cache (4 slots), snapshot
+    arena and verify staging bytes."""
     from repro_torch.models import transformer as tfm
-    cap = spec["capacity"]
     p_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
-    row = tfm.cache_bytes(cfg, 1, cap)
-    log(f"[{name}] memory: params_GB={gb(p_bytes)} state_row_MB={row / 1e6:.2f} "
-        f"slot_cache_GB(4 slots)={gb(4 * row)} arena_GB({spec['num_snapshots']} "
-        f"rows)={gb(spec['num_snapshots'] * row)} verify_staging_GB(B=4,S=5)="
+    moe = sum(p.numel() * p.element_size() for n, p in params.named_parameters()
+              if ".moe." in n)
+    row = tfm.cache_bytes(cfg, 1, spec["capacity"])
+    arena = (f" arena_GB({spec['num_snapshots']} rows)="
+             f"{gb(spec['num_snapshots'] * row)}" if "num_snapshots" in spec else "")
+    log(f"[{name}] memory: params_GB={gb(p_bytes)}"
+        f"{f' (MoE {gb(moe)})' if moe else ''} state_row_MB={row / 1e6:.2f} "
+        f"slot_cache_GB(4 slots)={gb(4 * row)}{arena} verify_staging_GB(B=4,S=5)="
         f"{gb(verify_staging_bytes(cfg, 4, 5))}")
 
 
@@ -1567,15 +1600,16 @@ def self_quotes(tok, rng, prompt_ids, out):
 
 
 def stateful_f32_checks(name, spec, dev, tok, rng):
-    """Full width, one pattern period, float32: snapshot == dense and
-    spec == non-spec greedy token for token; decode-step logits against a
-    full forward within 1e-3."""
+    """Full width, float32, the depth (and for MoE the capacity factor) of
+    ``spec["f32"]``: snapshot == dense and spec == non-spec greedy token for
+    token; decode-step logits after a ``spec["f32_prefill"]``-token prefill
+    against a full forward within 1e-3."""
     import torch
     from repro_torch.configs.registry import ARCHS
     from repro_torch.models import Model
     from repro_torch.serving.server import EngineConfig, LLMServer, SamplingParams
-    cfg = dataclasses.replace(ARCHS[name], num_layers=spec["f32_layers"],
-                              dtype="float32", param_dtype="float32")
+    cfg = dataclasses.replace(ARCHS[name], dtype="float32", param_dtype="float32",
+                              **spec["f32"])
     model = Model(cfg, device=dev)
     params = model.init(seed=1)
     cap = 2560
@@ -1616,8 +1650,7 @@ def stateful_f32_checks(name, spec, dev, tok, rng):
     if not (ok_snap and ok_spec):
         raise AssertionError(f"{name} float32: snapshot==dense {ok_snap}, "
                              f"spec==non-spec {ok_spec}")
-    # long enough that recurrentgemma's decode steps run on a wrapped ring
-    n = 2100 if name.startswith("recurrentgemma") else 300
+    n = spec["f32_prefill"]
     ids = tok.encode(make_text(tok, rng, n + 8))[:n + 8]
     n = len(ids) - 8
     diff, scale = logits_decode_vs_forward(model, params, ids, n, dev)
@@ -1630,6 +1663,62 @@ def stateful_f32_checks(name, spec, dev, tok, rng):
     torch.cuda.empty_cache()
 
 
+def dense_run(name, cfg, params, dev, tok, rng, spec, profile_admission=True):
+    """Dense serving of ``spec["prompts"]`` (4 slots, capacity
+    ``spec["capacity"]``) and a 2-turn session, then one decode chunk
+    profiled (graph and eager) and the longest prompt's admission.
+    Returns (prompts, launches, the chunk profile)."""
+    import torch
+    from repro_torch.serving.server import EngineConfig, LLMServer
+    srv = LLMServer(cfg, num_slots=4, capacity=spec["capacity"], params=params,
+                    device=dev, engine_cfg=EngineConfig(cache_mode="dense"))
+    prompts = [make_text(tok, rng, n) for n in spec["prompts"]]
+    turns = [make_text(tok, rng, 300), " user: " + make_text(tok, rng, 100)]
+    handles, counts, _ = serve_phase(f"{name}-dense", srv, prompts, 1, turns,
+                                     warm=make_text(tok, rng, 40))
+    prof = profile_decode_chunk(srv, prompts)
+    prof["decode_chunk"] = srv.engine.engine_cfg.decode_chunk
+    if profile_admission:
+        profile_prefill(srv, prompts[-1])
+    del handles, srv            # a handle keeps its server (and cache) alive
+    gc.collect()
+    torch.cuda.empty_cache()
+    return prompts, counts, prof
+
+
+def prefix_run(label, cfg, params, dev, tok, rng, cap, **ecfg):
+    """Prompts sharing a ~500-token system prompt and a 2-turn session on a
+    prefix-sharing server (cache_mode="paged", page_size 16, decode_chunk 8:
+    KV pages, or state snapshots on archs with per-slot state); fails
+    without prefix hits. Returns (server, prompts, launches)."""
+    from repro_torch.serving.server import EngineConfig, LLMServer
+    srv = LLMServer(cfg, num_slots=4, capacity=cap, params=params, device=dev,
+                    engine_cfg=EngineConfig(cache_mode="paged", page_size=16,
+                                            decode_chunk=8, **ecfg))
+    system = ("System: you are one agent of a Planner/Actor/Evaluator "
+              "workflow; tools are MCP functions. " + make_text(tok, rng, 500))
+    prompts = [system + f"{role}: " + make_text(tok, rng, n)
+               for role, n in (("planner", 100), ("actor", 300),
+                               ("evaluator", 600), ("actor", 900))]
+    turns = [system + "planner: " + make_text(tok, rng, 80),
+             " tool: " + make_text(tok, rng, 120)]
+    before = srv.stats()
+    handles, counts, st = serve_phase(label, srv, prompts, 1, turns,
+                                      warm=system + "planner: plan the task.")
+    if srv.engine.snapshots:
+        hits = st["snapshot_hits"] - before["snapshot_hits"]
+        log(f"[{label}] snapshot_hits={hits} snapshot_captures="
+            f"{st['snapshot_captures']} snapshot_evictions="
+            f"{st['snapshot_evictions']} turn_prefix_hits={st['turn_prefix_hits']}")
+    else:
+        hits = st["prefix_hit_tokens"] - before["prefix_hit_tokens"]
+        log(f"[{label}] prefix_hit_tokens={hits}")
+    if hits <= 0:
+        raise AssertionError(f"{label}: no prefix hits")
+    del handles
+    return srv, prompts, counts
+
+
 def stateful_phase(dev):
     """Both stateful archs at full width (bf16, random weights from seed 0,
     4 slots): dense, snapshot (cache_mode="paged") and spec_len=4 serving,
@@ -1638,7 +1727,6 @@ def stateful_phase(dev):
     import torch
     from repro_torch.configs.registry import ARCHS
     from repro_torch.models import Model
-    from repro_torch.serving.server import EngineConfig, LLMServer, SamplingParams
     from repro_torch.serving.tokenizer import ByteTokenizer
 
     counts_all = collections.Counter()
@@ -1655,89 +1743,23 @@ def stateful_phase(dev):
             f"{cfg.d_model} heads={cfg.num_heads}/{cfg.num_kv_heads} vocab="
             f"{cfg.vocab_size} params={model.param_count() / 1e9:.3f}B init_s="
             f"{time.perf_counter() - t0:.2f}")
-        stateful_memory(name, cfg, params, spec)
+        memory_report(name, cfg, params, spec)
         cap = spec["capacity"]
         counts = collections.Counter()
-
-        # ---- dense ----------------------------------------------------------
-        srv = LLMServer(cfg, num_slots=4, capacity=cap, params=params, device=dev,
-                        engine_cfg=EngineConfig(cache_mode="dense"))
-        prompts = [make_text(tok, rng, n) for n in spec["prompts"]]
-        turns = [make_text(tok, rng, 300), " user: " + make_text(tok, rng, 100)]
-        handles, c, _ = serve_phase(f"{name}-dense", srv, prompts, 1, turns,
-                                    warm=make_text(tok, rng, 40))
+        # the sLSTM loop's admission is not traced
+        prompts, c, _ = dense_run(name, cfg, params, dev, tok, rng, spec,
+                                  "flash_attention" in spec["kernels"])
         counts.update(c)
-        profile_decode_chunk(srv, prompts)
-        if "flash_attention" in spec["kernels"]:    # the sLSTM loop is not traced
-            profile_prefill(srv, prompts[-1])
-        del handles, srv            # a handle keeps its server (and cache) alive
-        torch.cuda.empty_cache()
         graph_matches_eager(f"{name}-dense", cfg, params, dev, prompts, cap,
                             cache_mode="dense")
-
-        # ---- snapshot mode ----------------------------------------------------
-        srv = LLMServer(cfg, num_slots=4, capacity=cap, params=params, device=dev,
-                        engine_cfg=EngineConfig(
-                            cache_mode="paged", page_size=16, decode_chunk=8,
-                            num_snapshots=spec["num_snapshots"],
-                            snap_stride=spec["snap_stride"]))
-        system = ("System: you are one agent of a Planner/Actor/Evaluator "
-                  "workflow; tools are MCP functions. " + make_text(tok, rng, 500))
-        sprompts = [system + f"{role}: " + make_text(tok, rng, n)
-                    for role, n in (("planner", 100), ("actor", 300),
-                                    ("evaluator", 600), ("actor", 900))]
-        sturns = [system + "planner: " + make_text(tok, rng, 80),
-                  " tool: " + make_text(tok, rng, 120)]
-        before = srv.stats()
-        handles, c, st = serve_phase(f"{name}-snapshot", srv, sprompts, 1, sturns,
-                                     warm=system + "planner: plan the task.")
+        srv, _, c = prefix_run(f"{name}-snapshot", cfg, params, dev, tok, rng, cap,
+                               num_snapshots=spec["num_snapshots"],
+                               snap_stride=spec["snap_stride"])
         counts.update(c)
-        hits = st["snapshot_hits"] - before["snapshot_hits"]
-        log(f"[{name}-snapshot] snapshot_hits={hits} snapshot_captures="
-            f"{st['snapshot_captures']} snapshot_evictions="
-            f"{st['snapshot_evictions']} turn_prefix_hits={st['turn_prefix_hits']}")
-        if hits <= 0:
-            raise AssertionError(f"{name}: no snapshot hits")
-        del handles, srv
+        del srv
         torch.cuda.empty_cache()
-
-        # ---- speculative decode -------------------------------------------------
-        # unigram drafts, and requests quoting the model's own greedy
-        # continuation back to it (self_quotes)
-        srv = LLMServer(cfg, num_slots=4, capacity=cap, params=params, device=dev,
-                        engine_cfg=EngineConfig(cache_mode="dense", spec_len=4,
-                                                spec_ngram_min=1))
-        cprompts = copy_prompts(tok, rng)
-        r0 = serve_ids(srv, cprompts[:1])[0].request            # also the warm-up
-        quoted = self_quotes(tok, rng, tok.encode(cprompts[0])[-r0.prompt_tokens:],
-                             list(r0.output_ids[:24]))
-        before = srv.stats()
-        gbefore = graph_counts(srv)
-        reset_counts()
-        t0 = time.perf_counter()
-        hs = [srv.submit(p, SamplingParams(max_new_tokens=48)) for p in cprompts]
-        hs += [srv.submit("", SamplingParams(max_new_tokens=48), token_ids=q)
-               for q in quoted]
-        srv.run_until_idle()
-        for h in hs:
-            if h.request.status != "completed" or not h.request.output_ids:
-                raise AssertionError(f"{name}-spec: rid={h.request.rid} "
-                                     f"status={h.request.status}")
-        torch.cuda.synchronize()
-        c = kernel_counts()
-        check_bf16_routes(f"{name}-spec", c)
-        check_graphs(f"{name}-spec", srv, gbefore)
-        st = srv.stats()
-        d = {k: st[k] - before[k] for k in ("verify_steps", "draft_tokens",
-                                            "accepted_tokens", "decode_tokens")}
-        log(f"[{name}-spec] requests={len(hs)} wall_s={time.perf_counter() - t0:.3f} "
-            f"output_tokens={[h.request.output_tokens for h in hs]} {d} "
-            f"peak_GB={gb(torch.cuda.max_memory_allocated())}")
-        log(f"[{name}-spec] launches={c}")
-        if d["verify_steps"] <= 0 or d["draft_tokens"] <= 0:
-            raise AssertionError(f"{name}-spec: no verify steps / drafts: {d}")
-        counts.update(c)
-        del h, hs, srv, model, params   # a handle keeps its server alive
+        counts.update(spec_run(name, cfg, params, dev, tok, rng, cap))
+        del model, params
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -1749,6 +1771,271 @@ def stateful_phase(dev):
         counts_all.update(counts)
         stateful_f32_checks(name, spec, dev, tok, rng)
     return dict(counts_all)
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the MoE archs (mixtral-8x22b, dbrx-132b)
+# ---------------------------------------------------------------------------
+
+# per arch: the depth cut (every width is the published one), capacity,
+# prompt lengths of the dense run (mixtral's longest wraps its 4096-slot
+# sliding-window ring), the cache mode that shares prefixes (mixtral's ring
+# K/V goes to state snapshots, sized explicitly: one arena row is the ring
+# K/V of every layer, 134 MB, and the default arena, 1 + slots * (capacity
+# / 16 + 2) rows, would hold ~276 GB; dbrx goes to KV pages), the kernels
+# its path must launch, and mixtral's float32 drop-free checks: one layer
+# with the capacity factor at E / k = 4, so that C >= G in every group, and
+# a prefill past the window before the decode-vs-forward steps
+MOE = {
+    "mixtral-8x22b": dict(num_layers=8, capacity=8192, prompts=(200, 1500, 3000, 6000),
+                          num_snapshots=16, snap_stride=8,
+                          f32=dict(num_layers=1, capacity_factor=4.0),
+                          f32_prefill=4200,
+                          kernels=("flash_attention", "decode_attention",
+                                   "accept_len")),
+    "dbrx-132b": dict(num_layers=6, capacity=2048, prompts=(200, 600, 1000, 1500),
+                      kernels=("flash_attention", "decode_attention",
+                               "paged_decode_attention", "paged_spec_decode_attention",
+                               "accept_len")),
+}
+
+
+@contextlib.contextmanager
+def routed_groups(out: list):
+    """Collects (router weights, grouped tokens, dispatch mask) of every
+    call of the port's ``moe.route`` inside the block (``apply_moe`` looks
+    ``route`` up in its module at each call)."""
+    from repro_torch.models import moe
+    route = moe.route
+
+    def counted(router_w, x, cfg):
+        d, c, aux = route(router_w, x, cfg)
+        out.append((router_w, x, d))
+        return d, c, aux
+
+    moe.route = counted
+    try:
+        yield
+    finally:
+        moe.route = route
+
+
+def prefill_drop_share(name, model, params, ids, dev):
+    """The share of (token, choice) pairs a prefill of ``ids`` (exact length,
+    no bucket padding: only the last group's zero rows pad) dropped, per
+    layer and in all, from the port's ``route``: the real tokens' kept
+    dispatch entries against tokens x k; and per layer the share of the
+    tokens whose first choice is the busiest expert (1 / E if balanced)."""
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.models.layers import matmul_f32
+    cfg = model.cfg
+    T, k = len(ids), cfg.experts_per_token
+    masks = []
+    cache = model.init_cache(1, T + 16)
+    with routed_groups(masks):
+        model.prefill(params, model.make_batch(torch.tensor([ids], device=dev)),
+                      cache, length=T, with_logits=False)
+    kept, busiest = [], []
+    for w, x, d in masks:
+        kept.append(int(d.reshape(-1, d.shape[2] * d.shape[3])[:T].float().sum()))
+        top1 = matmul_f32(x.reshape(-1, x.shape[-1])[:T], w).argmax(-1)
+        busiest.append(float(torch.bincount(top1, minlength=cfg.num_experts).max()) / T)
+    shares = [1 - n / (T * k) for n in kept]
+    G = masks[0][1].shape[1]
+    log(f"[{name}] prefill of {T} tokens: groups of {G}, capacity "
+        f"{moe.capacity(cfg, G)} a group and expert (capacity_factor "
+        f"{cfg.capacity_factor}); dropped (token, choice) share per layer "
+        f"{[round(x, 4) for x in shares]}, all layers "
+        f"{1 - sum(kept) / (len(kept) * T * k):.4f}; first choices on the "
+        f"busiest expert per layer {[round(x, 3) for x in busiest]} "
+        f"(1/E = {1 / cfg.num_experts:.3f})")
+    return shares
+
+
+def moe_decode_share(name, model, params, chunk_prof, dev):
+    """One MoE layer at the decode step's shape (4 rows, one token each):
+    its device time, times the depth, against the decode chunk's device
+    busy time per step (graph path), and its bytes bound: the reference's
+    dense dispatch reads every expert's matrices in every step."""
+    import torch
+    from repro_torch.models import moe
+    cfg = model.cfg
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    x = torch.randn(4, 1, cfg.d_model, generator=g, device=dev).to(torch.bfloat16)
+    layer = params.blocks[0].moe
+    fn = lambda: moe.apply_moe(layer, x, cfg)                       # noqa: E731
+    ms, dms = time_ms(fn, 20), device_ms(fn)
+    nbytes = sum(p.numel() * p.element_size() for p in layer.parameters())
+    b_ms = nbytes / HBM * 1e3
+    step = None
+    if chunk_prof.get("device_busy_ms"):
+        step = chunk_prof["device_busy_ms"] / chunk_prof["decode_chunk"]
+    share = dms * cfg.num_layers / step if (dms and step) else None
+    log(f"[{name}] MoE layer at the decode shape [4,1,{cfg.d_model}]: call_ms="
+        f"{ms:.4f} device_ms={fmt_ms(dms)} bytes_bound_ms={b_ms:.4f} "
+        f"({nbytes / 1e9:.3f} GB of router and expert weights); x{cfg.num_layers} "
+        f"layers: device_ms={fmt_ms(dms * cfg.num_layers if dms else None)} of a "
+        f"decode step's device_busy_ms={fmt_ms(step)} (share "
+        f"{'not measured' if share is None else f'{share:.3f}'}), bytes_bound_ms="
+        f"{b_ms * cfg.num_layers:.3f}")
+
+
+def spec_run(name, cfg, params, dev, tok, rng, cap, **ecfg):
+    """spec_len=4 on copy-heavy prompts plus requests quoting the model's
+    own greedy continuation (``self_quotes``), so that its drafts do not
+    hang on a random model copying text; unigram drafts; every request
+    COMPLETED, verify steps and drafts > 0, every verify step on the graph
+    path. Returns the launches."""
+    import torch
+    from repro_torch.serving.server import EngineConfig, LLMServer, SamplingParams
+    srv = LLMServer(cfg, num_slots=4, capacity=cap, params=params, device=dev,
+                    engine_cfg=EngineConfig(spec_len=4, spec_ngram_min=1, **ecfg))
+    label = f"{name}-spec-{ecfg.get('cache_mode', 'dense')}"
+    cprompts = copy_prompts(tok, rng)
+    r0 = serve_ids(srv, cprompts[:1])[0].request                # also the warm-up
+    quoted = self_quotes(tok, rng, tok.encode(cprompts[0])[-r0.prompt_tokens:],
+                         list(r0.output_ids[:24]))
+    before = srv.stats()
+    gbefore = graph_counts(srv)
+    reset_counts()
+    t0 = time.perf_counter()
+    hs = [srv.submit(p, SamplingParams(max_new_tokens=48)) for p in cprompts]
+    hs += [srv.submit("", SamplingParams(max_new_tokens=48), token_ids=q)
+           for q in quoted]
+    srv.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for h in hs:
+        if h.request.status != "completed" or not h.request.output_ids:
+            raise AssertionError(f"{label}: rid={h.request.rid} status={h.request.status}")
+    c = kernel_counts()
+    check_bf16_routes(label, c)
+    check_graphs(label, srv, gbefore)
+    st = srv.stats()
+    d = {k: st[k] - before[k] for k in ("verify_steps", "draft_tokens",
+                                        "accepted_tokens", "decode_tokens")}
+    dec_s = sum(h.request.decode_s for h in hs)
+    log(f"[{label}] requests={len(hs)} wall_s={wall:.3f} ttft_s="
+        f"{[round(h.request.first_token_s, 4) for h in hs]} decode_tok_per_s="
+        f"{d['decode_tokens'] / max(dec_s, 1e-9):.1f} output_tokens="
+        f"{[h.request.output_tokens for h in hs]} {d} "
+        f"peak_GB={gb(torch.cuda.max_memory_allocated())}")
+    log(f"[{label}] launches={c}")
+    if d["verify_steps"] <= 0 or d["draft_tokens"] <= 0:
+        raise AssertionError(f"{label}: no verify steps / drafts: {d}")
+    del h, hs, srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return c
+
+
+def moe_phase(dev):
+    """Both MoE archs at their published widths and a cut depth (bf16,
+    random weights from seed 0, 4 slots): dense serving with a 2-turn
+    session, the prefix-sharing mode (mixtral: state snapshots of its ring;
+    dbrx: KV pages) and spec_len=4, every request COMPLETED and every
+    decode / verify step on the graph path; one decode chunk profiled on
+    graphs and eagerly, the longest prompt's admission profiled, graph ids
+    against eager ids; the prefill's dropped share and the MoE layer's
+    share of a decode step printed; dbrx's dense against paged
+    teacher-forced logits; then mixtral's float32 drop-free checks. Each
+    model is freed before the next loads. Returns the launches by arch."""
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import Model
+    from repro_torch.models import moe
+    from repro_torch.serving.server import LLMServer
+    from repro_torch.serving.tokenizer import ByteTokenizer
+
+    out = {}
+    for name, spec in MOE.items():
+        full = ARCHS[name]
+        cfg = dataclasses.replace(full, num_layers=spec["num_layers"])
+        tok = ByteTokenizer(cfg.vocab_size)
+        rng = random.Random(4)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = Model(cfg, device=dev)
+        params = model.init(seed=0)
+        torch.cuda.synchronize()
+        log(f"[{name}] reduced: num_layers {full.num_layers} -> {cfg.num_layers}; "
+            f"published widths: d_model={cfg.d_model} heads={cfg.num_heads}/"
+            f"{cfg.num_kv_heads} hd={cfg.head_dim} d_ff={cfg.d_ff} experts="
+            f"{cfg.num_experts} top-{cfg.experts_per_token} window="
+            f"{cfg.sliding_window} norm={cfg.norm_type} vocab={cfg.vocab_size} "
+            f"capacity_factor={cfg.capacity_factor} group={cfg.moe_group_size} "
+            f"dtype={cfg.dtype}; params={model.param_count() / 1e9:.3f}B init_s="
+            f"{time.perf_counter() - t0:.2f}")
+        memory_report(name, cfg, params, spec)
+        cap = spec["capacity"]
+        counts = collections.Counter()
+
+        prompts, c, prof = dense_run(name, cfg, params, dev, tok, rng, spec)
+        counts.update(c)
+        moe_decode_share(name, model, params, prof, dev)
+        prefill_drop_share(name, model, params, tok.encode(prompts[-1])[:cap - 64], dev)
+        torch.cuda.empty_cache()
+        graph_matches_eager(f"{name}-dense", cfg, params, dev, prompts, cap,
+                            cache_mode="dense")
+
+        # prefix sharing: state snapshots of mixtral's ring, KV pages for dbrx
+        snaps = {k: spec[k] for k in ("num_snapshots", "snap_stride") if k in spec}
+        label = f"{name}-{'snapshot' if snaps else 'paged'}"
+        srv, sprompts, c = prefix_run(label, cfg, params, dev, tok, rng, cap, **snaps)
+        counts.update(c)
+        if srv.engine.snapshots != bool(snaps):
+            raise AssertionError(f"{label}: cache_mode='paged' chose "
+                                 f"{'snapshots' if srv.engine.snapshots else 'pages'}")
+        if not snaps:
+            profile_decode_chunk(srv, sprompts)
+        del srv
+        gc.collect()
+        torch.cuda.empty_cache()
+        if not snaps:
+            graph_matches_eager(label, cfg, params, dev, sprompts, cap,
+                                cache_mode="paged", page_size=16, decode_chunk=8)
+
+        # speculative decode: dense on mixtral's ring, paged for dbrx
+        paged = {} if snaps else dict(cache_mode="paged", page_size=16, decode_chunk=8)
+        counts.update(spec_run(name, cfg, params, dev, tok, rng, cap, **paged))
+
+        if not snaps:                   # dbrx: dense against paged, teacher-forced
+            srv = LLMServer(cfg, num_slots=4, capacity=cap, params=params, device=dev)
+            r = serve_ids(srv, prompts[:1])[0].request
+            ids = tok.encode(prompts[0])[-r.prompt_tokens:] + list(r.output_ids)
+            n_prompt = r.prompt_tokens
+            del r, srv
+            ld = teacher_forced(model, params, ids, n_prompt, paged=False, dev=dev)
+            lp = teacher_forced(model, params, ids, n_prompt, paged=True, dev=dev)
+            diff = float((ld - lp).abs().max())
+            agree = float((ld.argmax(-1) == lp.argmax(-1)).float().mean())
+            log(f"[{name}-dense-vs-paged] steps={ld.shape[0]} max_abs_logit_diff="
+                f"{diff:.3e} (|logit| max {float(ld.abs().max()):.3f}, tol 5e-2) "
+                f"greedy_agreement={agree:.4f}")
+            if not math.isfinite(diff) or diff > 5e-2:
+                raise AssertionError(f"{name}: dense vs paged logits differ by {diff}")
+
+        missing = [k for k in spec["kernels"] if counts[k] <= 0]
+        log(f"[{name}] launches={dict(counts)} peak_memory_GB="
+            f"{gb(torch.cuda.max_memory_allocated())}")
+        if missing:
+            raise AssertionError(f"{name}: kernels not launched: {missing}")
+        out[name] = counts
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        if "f32" in spec:
+            f32cfg = dataclasses.replace(full, **spec["f32"])
+            G = f32cfg.moe_group_size
+            C = moe.capacity(f32cfg, G)
+            log(f"[{name}-f32] drop-free: capacity_factor={f32cfg.capacity_factor} "
+                f"(E / k), capacity {C} >= group {G}, and 8 >= a decode step's 4 rows")
+            if C < G:
+                raise AssertionError(f"{name}: the float32 checks are not drop-free")
+            stateful_f32_checks(name, spec, dev, tok, rng)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1819,8 +2106,8 @@ def fame_phase(dev, model, params):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernels,serve,spec,fame,stateful",
-                    help="comma list of kernels,serve,spec,fame,stateful "
+    ap.add_argument("--phases", default="kernels,serve,spec,fame,stateful,moe",
+                    help="comma list of kernels,serve,spec,fame,stateful,moe "
                          "(default: all)")
     args = ap.parse_args()
     try:
@@ -1881,9 +2168,16 @@ def main() -> int:
         # head, window 2048
         launches["flash_attention_hd256"] = sc.get("flash_attention", 0)
         launches["decode_attention_ring"] = sc.get("decode_attention", 0)
+    if "moe" in phases:
+        mc = moe_phase(dev)
+        for counts in mc.values():
+            launches.update(counts)
+        # mixtral-8x22b's flash and ring-decode calls: G = 6, window 4096
+        launches["flash_attention_swa"] = mc["mixtral-8x22b"]["flash_attention"]
+        launches["decode_attention_swa_ring"] = mc["mixtral-8x22b"]["decode_attention"]
     for name, r in rows.items():
         r["launches"] = launches.get(name, 0)
-    if {"serve", "spec", "stateful"} <= phases:
+    if {"serve", "spec", "stateful", "moe"} <= phases:
         idle = [name for name, r in rows.items() if r["launches"] <= 0]
         if idle:
             raise AssertionError(f"kernels never launched on the main path: {idle}")

@@ -9,13 +9,28 @@ back to the activation dtype, logits come out in float32.
 from __future__ import annotations
 
 import math
+from typing import Dict
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 # ---------------------------------------------------------------------------
-# Initialisation (the rules of repro.models.layers._init_one)
+# Parameters and their initialisation (the rules of
+# repro.models.layers._init_one)
 # ---------------------------------------------------------------------------
+
+
+def param(*shape, device, dtype):
+    return nn.Parameter(torch.empty(shape, device=device, dtype=dtype),
+                        requires_grad=False)
+
+
+class Params(nn.Module):
+    """A module of leaves named after the JAX tree. ``INIT`` maps a leaf to
+    its JAX ``ParamDef`` init rule; leaves not named there are "scaled"."""
+
+    INIT: Dict[str, str] = {}
 
 
 def init_(t: torch.Tensor, init: str, gen: torch.Generator, *,

@@ -1,6 +1,8 @@
 """Block assembly, the layer stack and the train/prefill/decode/extend/
-verify entry points of the port: full attention (ATTN), local attention on
-a ring cache (LOCAL_ATTN), RG-LRU (RECURRENT), mLSTM and sLSTM blocks.
+verify entry points of the port: full attention (ATTN, sliding-window on a
+ring cache when ``cfg.sliding_window`` is set), attention + MoE (ATTN_MOE),
+local attention on a ring cache (LOCAL_ATTN), RG-LRU (RECURRENT), mLSTM
+and sLSTM blocks.
 
 Counterpart of ``repro.models.transformer``. Parameters are an
 ``nn.Module`` tree whose state-dict names follow the JAX tree
@@ -19,7 +21,8 @@ prefill, train and extend attention through ``flash_attention`` (with
 ``decode_attention`` / ``paged_decode_attention``, the verify step through
 ``spec_decode_attention`` / ``paged_spec_decode_attention``, the RG-LRU
 scan through ``rglru_scan`` and the mLSTM prefill / extend through
-``mlstm_chunk``.
+``mlstm_chunk``. The MoE FFN (``models/moe.py``) is one-hot dispatch and
+combine around batched expert matmuls, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -37,26 +40,28 @@ from repro_torch.kernels.paged_spec_decode_attention import \
     paged_spec_decode_attention
 from repro_torch.kernels.spec_decode_attention import spec_decode_attention
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import xlstm as xlstm_mod
-from repro_torch.models.layers import (apply_mlp, apply_norm, embed_tokens,
-                                       init_, unembed)
+from repro_torch.models.layers import (Params, apply_mlp, apply_norm,
+                                       embed_tokens, init_, unembed)
+from repro_torch.models.layers import param as _p
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
+ATTN_KINDS = (cfgbase.ATTN, cfgbase.ATTN_MOE, cfgbase.LOCAL_ATTN)
+
+
+def attn_window(kind, cfg):
+    """The attention window of a block (the JAX ``_attn_mixer``'s rule):
+    ``local_window`` for LOCAL_ATTN, ``sliding_window`` (None: full
+    attention) for ATTN and ATTN_MOE."""
+    return cfg.local_window if kind == cfgbase.LOCAL_ATTN else cfg.sliding_window
 
 
 def check_supported(cfg):
-    """Raise for what the port does not carry yet; each message names the
+    """Raise for what the port does not carry yet; the message names the
     ROADMAP.md item that ports it."""
-    if cfgbase.ATTN_MOE in cfg.layer_kinds:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE blocks are not ported yet (ROADMAP.md queue 1, "
-            "item 8)")
-    if cfg.sliding_window is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: sliding-window attention is not ported yet "
-            "(ROADMAP.md queue 1, item 8)")
     if cfg.modality == "audio_frames" or cfg.pos_emb == "sinusoidal":
         # vlm_tokens are plain token ids in the JAX model too; only the
         # frame-embedding stub (musicgen, the one sinusoidal arch) has
@@ -69,18 +74,6 @@ def check_supported(cfg):
 # ---------------------------------------------------------------------------
 # Parameters
 # ---------------------------------------------------------------------------
-
-
-def _p(*shape, device, dtype):
-    return nn.Parameter(torch.empty(shape, device=device, dtype=dtype),
-                        requires_grad=False)
-
-
-class Params(nn.Module):
-    """A module of leaves named after the JAX tree. ``INIT`` maps a leaf to
-    its JAX ``ParamDef`` init rule; leaves not named there are "scaled"."""
-
-    INIT: Dict[str, str] = {}
 
 
 class Norm(Params):
@@ -188,13 +181,13 @@ class SLSTM(Params):
 
 class Block(nn.Module):
     """One residual block of ``kind``, named as the JAX ``block_defs``:
-    ATTN / LOCAL_ATTN {attn, norm2, mlp}, RECURRENT {rec, norm2, mlp},
-    MLSTM {mlstm}, SLSTM {slstm}."""
+    ATTN / LOCAL_ATTN {attn, norm2, mlp}, ATTN_MOE {attn, norm2, moe},
+    RECURRENT {rec, norm2, mlp}, MLSTM {mlstm}, SLSTM {slstm}."""
 
     def __init__(self, cfg, kind, *, device, dtype):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
-        if kind in (cfgbase.ATTN, cfgbase.LOCAL_ATTN):
+        if kind in ATTN_KINDS:
             self.attn = Attention(cfg, **kw)
         elif kind == cfgbase.RECURRENT:
             self.rec = Recurrent(cfg, **kw)
@@ -204,8 +197,11 @@ class Block(nn.Module):
             self.slstm = SLSTM(cfg, **kw)
         else:
             raise ValueError(kind)
-        if kind in (cfgbase.ATTN, cfgbase.LOCAL_ATTN, cfgbase.RECURRENT):
+        if kind in ATTN_KINDS + (cfgbase.RECURRENT,):
             self.norm2 = Norm(cfg, cfg.d_model, **kw)
+        if kind == cfgbase.ATTN_MOE:
+            self.moe = moe_mod.MoE(cfg, **kw)
+        elif kind in (cfgbase.ATTN, cfgbase.LOCAL_ATTN, cfgbase.RECURRENT):
             self.mlp = MLP(cfg, **kw)
 
 
@@ -285,10 +281,8 @@ def block_cache_spec(kind, cfg, batch: int, capacity: int):
     F2 = int(cfg.mlstm_proj_factor * cfg.d_model)
     W = cfg.conv1d_width
     dt, f32 = DTYPES[cfg.dtype], torch.float32
-    if kind in (cfgbase.ATTN, cfgbase.LOCAL_ATTN):
-        cap = capacity
-        if kind == cfgbase.LOCAL_ATTN:
-            cap = min(capacity, cfg.local_window or capacity)
+    if kind in ATTN_KINDS:
+        cap = min(capacity, attn_window(kind, cfg) or capacity)
         return {"k": ((batch, cap, K, hd), dt), "v": ((batch, cap, K, hd), dt)}
     if kind == cfgbase.RECURRENT:
         return {"h": ((batch, R), f32), "conv": ((batch, W - 1, R), dt)}
@@ -350,7 +344,8 @@ def _attn_mixer(p, x, cfg, *, kind, positions, mode, cache, cache_len,
                 block_tables=None, lens=None, prefill_len=None, keep=None):
     """Attention temporal mixer (the JAX ``_attn_mixer``). Returns
     (out, record); record is the verify step's staged draft K/V of a ring
-    cache, None otherwise.
+    cache, None otherwise. The window is ``attn_window``'s: a windowed
+    block keeps its K/V in a ring of min(capacity, window) slots.
 
     ``mode == "extend"`` continues a partially filled cache: a chunk at
     positions [cache_len, cache_len+S) attends to the cached prefix plus
@@ -359,12 +354,12 @@ def _attn_mixer(p, x, cfg, *, kind, positions, mode, cache, cache_len,
     cache_len[b]+S), the first ``lens[b]`` of them valid: the linear cache
     is written ahead (padded-tail writes dropped, or sent to trash page 0
     when paged) and needs no rollback, since later reads mask by position;
-    a ring (LOCAL_ATTN) cache cannot be written ahead, so verify attends to
-    its position-ordered view plus the chunk and stages the chunk for
+    a ring cache cannot be written ahead, so verify attends to its
+    position-ordered view plus the chunk and stages the chunk for
     ``verify_commit``. ``prefill_len`` is the valid prompt length of a
     right-padded prefill or extend chunk; ``keep`` freezes decode rows."""
     G = cfg.q_per_kv
-    window = cfg.local_window if kind == cfgbase.LOCAL_ATTN else None
+    window = attn_window(kind, cfg)
     q, k, v = attn.qkv_proj(p, x, cfg, positions)
     record = None
     if mode == "decode" and block_tables is not None:
@@ -463,7 +458,8 @@ def _attn_mixer(p, x, cfg, *, kind, positions, mode, cache, cache_len,
 def apply_block(kind, p, x, cfg, *, positions, mode, cache, cache_len,
                 block_tables=None, lens=None, prefill_len=None,
                 prefill_mask=None, keep=None):
-    """One residual block. Returns (x', record); the cache is updated in
+    """One residual block. Returns (x', record, aux): aux is the MoE
+    router's loss (None for blocks without one); the cache is updated in
     place. In ``mode="verify"`` the blocks with state (recurrent, mLSTM,
     sLSTM, ring attention) leave their cache as it is and return a record
     that ``verify_commit`` resolves once the accept step has picked each
@@ -471,33 +467,38 @@ def apply_block(kind, p, x, cfg, *, positions, mode, cache, cache_len,
     rec_mode = mode if mode in ("decode", "extend", "verify") else "full"
     rec_len = prefill_len if mode in ("prefill", "extend") else None
     rec_mask = prefill_mask if mode in ("prefill", "extend", "verify") else None
-    if kind in (cfgbase.ATTN, cfgbase.LOCAL_ATTN):
+    if kind in ATTN_KINDS:
         h = apply_norm(p.attn.norm, x, cfg)
         o, record = _attn_mixer(p.attn, h, cfg, kind=kind, positions=positions,
                                 mode=mode, cache=cache, cache_len=cache_len,
                                 block_tables=block_tables, lens=lens,
                                 prefill_len=rec_len, keep=keep)
         x = x + o
-        return x + apply_mlp(p.mlp, apply_norm(p.norm2, x, cfg), cfg), record
+        h2 = apply_norm(p.norm2, x, cfg)
+        if kind == cfgbase.ATTN_MOE:
+            y, aux = moe_mod.apply_moe(p.moe, h2, cfg)
+            return x + y, record, aux
+        return x + apply_mlp(p.mlp, h2, cfg), record, None
     if kind == cfgbase.RECURRENT:
         h = apply_norm(p.rec.norm, x, cfg)
         o, record = rglru_mod.apply_recurrent_mixer(
             p.rec, h, cfg, cache=cache, mode=rec_mode, length=rec_len,
             mask=rec_mask, keep=keep)
         x = x + o
-        return x + apply_mlp(p.mlp, apply_norm(p.norm2, x, cfg), cfg), record
+        y = apply_mlp(p.mlp, apply_norm(p.norm2, x, cfg), cfg)
+        return x + y, record, None
     if kind == cfgbase.MLSTM:
         h = apply_norm(p.mlstm.norm, x, cfg)
         o, record = xlstm_mod.apply_mlstm(p.mlstm, h, cfg, cache=cache,
                                           mode=rec_mode, length=rec_len,
                                           mask=rec_mask, keep=keep)
-        return x + o, record
+        return x + o, record, None
     if kind == cfgbase.SLSTM:
         h = apply_norm(p.slstm.norm, x, cfg)
         o, record = xlstm_mod.apply_slstm(p.slstm, h, cfg, cache=cache,
                                           mode=rec_mode, length=rec_len,
                                           mask=rec_mask, keep=keep)
-        return x + o, record
+        return x + o, record, None
     raise ValueError(kind)
 
 
@@ -505,18 +506,22 @@ def apply_stack(params, x, cfg, *, positions, mode, cache=None,
                 cache_len=None, block_tables=None, lens=None,
                 prefill_len=None, prefill_mask=None, keep=None):
     """Run all layers (a Python loop over layers stands in for the JAX
-    scan). Returns (x, records): the verify records by layer index."""
+    scan). Returns (x, records, aux): the verify records by layer index and
+    the MoE aux losses summed over the layers (float32, 0 without MoE)."""
     records = {}
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer, (kind, blk) in enumerate(zip(cfg.layer_kinds, params.blocks)):
         lc = layer_cache(cache, cfg, layer) if cache is not None else None
-        x, rec = apply_block(kind, blk, x, cfg, positions=positions, mode=mode,
-                             cache=lc, cache_len=cache_len,
-                             block_tables=block_tables, lens=lens,
-                             prefill_len=prefill_len, prefill_mask=prefill_mask,
-                             keep=keep)
+        x, rec, a = apply_block(kind, blk, x, cfg, positions=positions,
+                                mode=mode, cache=lc, cache_len=cache_len,
+                                block_tables=block_tables, lens=lens,
+                                prefill_len=prefill_len,
+                                prefill_mask=prefill_mask, keep=keep)
         if rec is not None:
             records[layer] = rec
-    return x, records
+        if a is not None:
+            aux = aux + a
+    return x, records, aux
 
 
 # ---------------------------------------------------------------------------
@@ -534,10 +539,10 @@ def forward_logits(params, batch, cfg, *, mode="train", cache=None,
     marks the valid prefix of a right-padded prefill / extend chunk and
     ``lens`` [B] the valid inputs of each verify row: both become the
     ``prefill_mask`` that stops recurrent, conv and xLSTM state at the
-    last real token. Returns (logits, cache, aux) with aux = 0 (no MoE in
-    the port yet); in ``mode="verify"`` the "cache" is the staged record
-    ``{"cache", "records"}`` that ``verify_commit`` resolves, as in the
-    JAX package."""
+    last real token. Returns (logits, cache, aux) with aux the MoE router
+    losses summed over the layers (0 without MoE); in ``mode="verify"`` the
+    "cache" is the staged record ``{"cache", "records"}`` that
+    ``verify_commit`` resolves, as in the JAX package."""
     x = embed_tokens(params, batch["tokens"], cfg)
     B, S = x.shape[:2]
     n = lens if mode == "verify" else prefill_len
@@ -545,12 +550,11 @@ def forward_logits(params, batch, cfg, *, mode="train", cache=None,
     if n is not None:
         n = torch.as_tensor(n, device=x.device).reshape(-1, 1)
         prefill_mask = (torch.arange(S, device=x.device)[None, :] < n).expand(B, S)
-    x, records = apply_stack(params, x, cfg, positions=batch["positions"],
-                             mode=mode, cache=cache, cache_len=cache_len,
-                             block_tables=block_tables, lens=lens,
-                             prefill_len=prefill_len, prefill_mask=prefill_mask,
-                             keep=keep)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x, records, aux = apply_stack(params, x, cfg, positions=batch["positions"],
+                                  mode=mode, cache=cache, cache_len=cache_len,
+                                  block_tables=block_tables, lens=lens,
+                                  prefill_len=prefill_len,
+                                  prefill_mask=prefill_mask, keep=keep)
     out = {"cache": cache, "records": records} if mode == "verify" else cache
     if not with_logits:
         return None, out, aux
@@ -637,7 +641,7 @@ def verify_commit(cfg, staged, cache_lens, ns, lens):
     for layer, rec in staged["records"].items():
         kind = cfg.layer_kinds[layer]
         lc = layer_cache(cache, cfg, layer)
-        if kind in (cfgbase.ATTN, cfgbase.LOCAL_ATTN):
+        if kind in ATTN_KINDS:
             attn.ring_verify_commit(rec, lc, clens, ns, valid)
         elif kind == cfgbase.RECURRENT:
             rglru_mod.verify_commit(rec, lc, ns, valid)

@@ -227,6 +227,51 @@ def test_gpu_decode_kernel_matches_plain(dtype, window):
 
 
 @pytest.mark.gpu
+def test_gpu_flash_swa_at_mixtral_prefill_matches_plain():
+    """mixtral-8x22b's largest prefill bucket: q [1,8192,48,128], 8 KV heads
+    (G = 6), window 4096, bf16. The plain version runs by blocks of 1024
+    queries over the keys their window can reach (the same rows; a whole
+    [48, 8192, 8192] score matrix would take ~13 GB)."""
+    dev = _need_card()
+    g = torch.Generator(device=dev).manual_seed(4)
+    S, H, K, hd, win, n = 8192, 48, 8, 128, 4096, 1024
+    q = torch.randn(1, S, H, hd, generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn(1, S, K, hd, generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn(1, S, K, hd, generator=g, device=dev).to(torch.bfloat16)
+    before = kfa.launches_by_route["wgmma"]
+    got = kfa.flash_attention(q, k, v, q_per_kv=H // K, window=win)
+    torch.cuda.synchronize()
+    assert kfa.launches_by_route["wgmma"] == before + 1
+    err = 0.0
+    for i in range(0, S, n):
+        lo = max(0, i - win + 1)
+        want = kfa.flash_attention_ref(q[:, i:i + n], k[:, lo:i + n], v[:, lo:i + n],
+                                       q_per_kv=H // K, window=win, q_start=i - lo)
+        err = max(err, float((got[:, i:i + n].float() - want.float()).abs().max()))
+    assert err < GPU_TOL[torch.bfloat16]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_decode_swa_ring_at_mixtral_decode_matches_plain(dtype):
+    """mixtral-8x22b's decode step: q [4,1,48,128] over a ring of 4096 slots
+    [4,4096,8,128] (G = 6), window 4096, cache lengths before, at and past
+    the wrap."""
+    dev = _need_card()
+    g = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn(4, 1, 48, 128, generator=g, device=dev).to(dtype)
+    kc = torch.randn(4, 4096, 8, 128, generator=g, device=dev).to(dtype)
+    vc = torch.randn(4, 4096, 8, 128, generator=g, device=dev).to(dtype)
+    clen = torch.tensor([300, 4095, 4097, 8000], dtype=torch.int32, device=dev)
+    before = kda.launches
+    got = kda.decode_attention(q, kc, vc, clen, q_per_kv=6, window=4096)
+    torch.cuda.synchronize()
+    assert kda.launches == before + 1
+    want = kda.decode_attention_ref(q, kc, vc, clen, q_per_kv=6, window=4096)
+    assert float((got.float() - want.float()).abs().max()) < GPU_TOL[dtype]
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gpu_paged_kernel_matches_plain(dtype):
     dev = _need_card()
@@ -559,6 +604,13 @@ GRAPH_CASES = {
     "qwen-spec-dense": ("qwen2.5-3b", dict(cache_mode="dense", spec_len=4)),
     "qwen-spec-paged": ("qwen2.5-3b", dict(cache_mode="paged", spec_len=4)),
     "rgemma-spec-ring": ("recurrentgemma-9b", dict(cache_mode="dense", spec_len=4)),
+    # MoE: routing with no host sync inside the captured steps
+    "mixtral-dense": ("mixtral-8x22b", dict(cache_mode="dense")),
+    "mixtral-snapshot": ("mixtral-8x22b", dict(cache_mode="paged")),
+    "mixtral-spec-ring": ("mixtral-8x22b", dict(cache_mode="dense", spec_len=4)),
+    "dbrx-dense": ("dbrx-132b", dict(cache_mode="dense")),
+    "dbrx-paged": ("dbrx-132b", dict(cache_mode="paged")),
+    "dbrx-spec-paged": ("dbrx-132b", dict(cache_mode="paged", spec_len=4)),
 }
 GRAPH_PROMPTS = ["System: cooperating agents share this conversation. [planner] plan",
                  "Tool result: ERROR 429 rate limit exceeded. " * 2,
@@ -612,7 +664,8 @@ def test_gpu_graph_steps_match_eager(case):
     steps', the caches agree within 1e-5 and so do the logits of one more
     decode step on them (float32); the kernels count the same launches;
     every decode (verify) step ran as a replay or as the warm-up of one
-    capture per variant."""
+    capture per variant (a host sync in a captured step fails its capture,
+    so the MoE cases show that routing syncs with nothing)."""
     dev = _need_card()
     arch, ecfg = GRAPH_CASES[case]
     cfg = ARCHS[arch].reduced(dtype="float32", param_dtype="float32",

@@ -1,19 +1,29 @@
-"""The port's stateful archs (xlstm-350m, recurrentgemma-9b) against
+"""The port's stateful archs (xlstm-350m, recurrentgemma-9b, and
+mixtral-8x22b, whose sliding window keeps its K/V in a ring) against
 repro.models on the CPU.
 
 Reduced configs: xlstm-350m at 8 layers (one 7 mLSTM + 1 sLSTM period),
-recurrentgemma-9b at 5 layers (R R A scanned + an R R tail), float32, the
-JAX init carried over by ``convert.params_from_jax``. Same numpy inputs
-through both packages, in every mode: train, right-padded prefill (logits
-and every cache leaf: RG-LRU h, conv windows, mLSTM (C, n, m), sLSTM state,
-ring K/V), decode, dense extend past the local window (the ring wraps), and
-verify followed by ``verify_commit`` at per-row accepted lengths.
+recurrentgemma-9b at 5 layers (R R A scanned + an R R tail), mixtral at 2
+MoE layers with a 16-slot window (drop-free capacity factor 4.0, so the
+verify and decode-step comparisons hold whatever the token grouping),
+float32, the JAX init carried over by ``convert.params_from_jax``. Same
+numpy inputs through both packages, in every mode: train, right-padded
+prefill (logits and every cache leaf: RG-LRU h, conv windows, mLSTM (C, n,
+m), sLSTM state, ring K/V), decode, dense extend past the window (the ring
+wraps), and verify followed by ``verify_commit`` at per-row accepted
+lengths.
 
 Bounds: logits 3e-4 absolute (the JAX package's kernel-vs-XLA model bound
 is 3e-3, tests/test_kernels.py:196; float32 allows ten times tighter),
 cache leaves 1e-4 relative to the leaf's largest magnitude (sLSTM's
 normaliser and stabiliser grow to ~10-20 and move by ~1e-6 relative per
-step under another reduction order).
+step under another reduction order). mixtral: 2e-3 for both, the JAX
+package's own bound for its ring decode (tests/test_arch_smoke.py:
+test_swa_ring_cache_decode). The reference rounds the MoE input to bf16
+even in float32 (``repro.models.moe``, ``xg.astype(bfloat16)``), so the
+~1e-6 float32 difference of the two packages' reduction orders flips one
+bf16 rounding now and then (one element of 128 in the decode test), and a
+flip moves the next layer's input by ~3e-4.
 """
 import dataclasses
 
@@ -35,7 +45,8 @@ from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.serving.programs import slot_extract  # noqa: E402
 
 LOGIT_BOUND, LEAF_BOUND = 3e-4, 1e-4
-ARCHS_UNDER_TEST = ["xlstm-350m", "recurrentgemma-9b"]
+MOE_BOUND = 2e-3
+ARCHS_UNDER_TEST = ["xlstm-350m", "recurrentgemma-9b", "mixtral-8x22b"]
 KW = dict(dtype="float32", param_dtype="float32", vocab_size=512)
 
 
@@ -54,6 +65,9 @@ class Pair:
         self.tm = Model(self.cfg, device="cpu")
         self.tp = self.tm.load(params_from_jax(jax.tree.map(np.asarray, self.jp),
                                                self.cfg))
+        moe = self.cfg.num_experts > 0
+        self.logit_bound = MOE_BOUND if moe else LOGIT_BOUND
+        self.leaf_bound = MOE_BOUND if moe else LEAF_BOUND
 
     def jbatch(self, toks, start=0):
         return self.jm.make_batch(jnp.asarray(toks), start=start)
@@ -86,7 +100,7 @@ def _toks(seed, *shape):
     return np.random.RandomState(seed).randint(0, 500, shape).astype(np.int32)
 
 
-def _check_leaves(jc, tc):
+def _check_leaves(pair, jc, tc):
     """Every cache leaf, in ``jax.tree.leaves`` order."""
     jl, tl = jax.tree.leaves(jc), ttfm.tree_leaves(tc)
     assert len(jl) == len(tl)
@@ -94,7 +108,7 @@ def _check_leaves(jc, tc):
         a, b = np.asarray(a, np.float32), b.numpy()
         assert a.shape == b.shape
         scale = max(1.0, float(np.abs(a).max()))
-        assert _err(a, b) / scale < LEAF_BOUND, (a.shape, _err(a, b), scale)
+        assert _err(a, b) / scale < pair.leaf_bound, (a.shape, _err(a, b), scale)
 
 
 def _rows(cache, row):
@@ -135,6 +149,10 @@ def test_params_from_jax_names_and_layouts(pair):
         assert np.array_equal(sd["blocks.3.mlstm.wq"].numpy(), w[0])
         r = np.asarray(pair.jp["scan"]["sub7"]["slstm"]["r_gates"])
         assert np.array_equal(sd["blocks.7.slstm.r_gates"].numpy(), r[0])
+    elif pair.cfg.name.startswith("mixtral"):
+        for leaf in ("router", "wi", "wg", "wo"):
+            w = np.asarray(pair.jp["scan"]["sub0"]["moe"][leaf])
+            assert np.array_equal(sd[f"blocks.1.moe.{leaf}"].numpy(), w[1])
     else:
         a = np.asarray(pair.jp["scan"]["sub1"]["rec"]["a_param"])
         assert np.array_equal(sd["blocks.1.rec.a_param"].numpy(), a[0])
@@ -211,7 +229,7 @@ def test_train_logits(pair):
     tl, _, _ = ttfm.forward_logits(pair.tp, pair.tbatch(toks), pair.cfg,
                                    mode="train")
     assert tl.shape == jl.shape
-    assert _err(tl, jl) < LOGIT_BOUND
+    assert _err(tl, jl) < pair.logit_bound
 
 
 @pytest.mark.parametrize("S,length", [(40, 29), (16, 11)])
@@ -222,8 +240,8 @@ def test_prefill_padded_logits_and_every_cache_leaf(pair, S, length):
     toks = _toks(2, 1, S)
     jl, jc, tl, tc = _prefill_both(pair, toks, length)
     assert tl.shape == jl.shape == (1, 1, pair.cfg.padded_vocab)
-    assert _err(tl, jl) < LOGIT_BOUND
-    _check_leaves(jc, tc)
+    assert _err(tl, jl) < pair.logit_bound
+    _check_leaves(pair, jc, tc)
 
 
 def test_prefill_starts_from_zero_state(pair):
@@ -258,9 +276,9 @@ def test_decode_steps(pair):
         tb = {"tokens": torch.from_numpy(nxt).long(),
               "positions": torch.from_numpy(clen[:, None]).long()}
         tl, tc = pair.tm.decode_step(pair.tp, tb, tc, torch.from_numpy(clen))
-        assert _err(tl, jl) < LOGIT_BOUND
+        assert _err(tl, jl) < pair.logit_bound
         clen = clen + 1
-    _check_leaves(jc, tc)
+    _check_leaves(pair, jc, tc)
 
 
 @pytest.mark.parametrize("with_logits", ["all", "last"])
@@ -281,11 +299,11 @@ def test_dense_extend_wraps_the_ring(pair, with_logits):
                                 start, length=n_real, with_logits=with_logits)
         assert tl.shape == jl.shape
         if with_logits == "all":
-            assert _err(tl[:, :n_real], jl[:, :n_real]) < LOGIT_BOUND
+            assert _err(tl[:, :n_real], jl[:, :n_real]) < pair.logit_bound
         else:
-            assert _err(tl, jl) < LOGIT_BOUND
+            assert _err(tl, jl) < pair.logit_bound
         start += n_real
-    _check_leaves(jc, tc)
+    _check_leaves(pair, jc, tc)
 
 
 def test_verify_then_commit_at_per_row_lengths(pair):
@@ -314,10 +332,10 @@ def test_verify_then_commit_at_per_row_lengths(pair):
                                  tc, torch.from_numpy(clens),
                                  lens=torch.from_numpy(lens))
     for b in range(2):                              # rows with valid inputs
-        assert _err(tl[b, :lens[b]], jl[b, :lens[b]]) < LOGIT_BOUND
+        assert _err(tl[b, :lens[b]], jl[b, :lens[b]]) < pair.logit_bound
     tc = pair.tm.verify_commit(tstaged, torch.from_numpy(clens),
                                torch.from_numpy(ns), torch.from_numpy(lens))
-    _check_leaves(jc, tc)
+    _check_leaves(pair, jc, tc)
     for t, old in zip(_rows(tc, 2), before):
         assert torch.equal(t, old)
 
@@ -347,9 +365,9 @@ def test_verify_commit_equals_decode_steps(pair):
                 steps.append(li)
             lg = torch.cat(steps, 1)
         out.append((lg, ttfm.tree_leaves(tc)))
-    assert _err(out[0][0], out[1][0]) < LOGIT_BOUND
+    assert _err(out[0][0], out[1][0]) < pair.logit_bound
     for a, b in zip(out[0][1], out[1][1]):
-        assert _err(a, b) / max(1.0, float(b.abs().max())) < LEAF_BOUND
+        assert _err(a, b) / max(1.0, float(b.abs().max())) < pair.leaf_bound
 
 
 def test_decode_keep_freezes_rows(pair):

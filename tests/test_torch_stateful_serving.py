@@ -1,5 +1,6 @@
 """The port's serving stack on the stateful archs (xlstm-350m,
-recurrentgemma-9b) against repro.serving, and its own invariants.
+recurrentgemma-9b, and mixtral-8x22b: MoE with a sliding-window ring)
+against repro.serving, and its own invariants.
 
 * ``LLMServer`` greedy output ids equal the JAX package's on the same
   weights, in dense mode and in ``cache_mode="paged"``, which on these
@@ -10,9 +11,12 @@ recurrentgemma-9b) against repro.serving, and its own invariants.
   row; a done row's state stays bit for bit across a decode chunk.
 
 EOS guard (ROADMAP.md queue 3): the EOS logit is pinned at 0 (xlstm ties
-its embeddings: the EOS row of the table is zeroed; recurrentgemma is
-untied: the EOS column of ``unembed``), and every parity test asserts the
-reference emitted its whole budget. Small capacities and fixed
+its embeddings: the EOS row of the table is zeroed; recurrentgemma and
+mixtral are untied: the EOS column of ``unembed``), and every parity test
+asserts the reference emitted its whole budget. mixtral's reduced config
+routes drop-free (capacity factor 4.0): snapshot == dense, spec ==
+non-spec and session reuse == fresh prefill group the tokens otherwise,
+and hold only without drops. Small capacities and fixed
 ``prefill_buckets`` keep the JAX side to a few compiled programs.
 """
 import numpy as np
@@ -36,7 +40,7 @@ from repro_torch.serving.server import (EngineConfig, LLMServer,  # noqa: E402
                                         SamplingParams)
 
 KW = dict(dtype="float32", param_dtype="float32", vocab_size=512)
-ARCHS_UNDER_TEST = ["xlstm-350m", "recurrentgemma-9b"]
+ARCHS_UNDER_TEST = ["xlstm-350m", "recurrentgemma-9b", "mixtral-8x22b"]
 SYS = "System: cooperating agents share this conversation verbatim. "
 PROMPTS = [SYS + "[planner] plan the next step",
            SYS + "[actor] act: call the search tool now and report back",
