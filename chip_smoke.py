@@ -55,6 +55,29 @@ no result line) on any fault:
   7. FAME: one log-analytics M+C session through the port's
      WorkflowServingRuntime on the paged spec_len=4 server; statuses equal
      the ScriptedOracle backend's, prefix hits > 0, session tail reused;
+  7b. fleet: the same qwen2.5-3b weights behind ``FleetServer`` (2 replicas,
+     4 slots each, capacity 2048, paged, page_size 16, decode_chunk 8, a
+     background pump per replica capturing and replaying its own graphs);
+     the replicas share one set of weight tensors (data_ptr) and peak
+     memory is printed beside 1x weights + 2x (page pool + graph pool);
+     replica 1 admits a request while replica 0's first decode capture is
+     held open (the capture records one paged decode a layer, its own);
+     8 two-turn sessions in two ~500-token prefix families from 4 threads:
+     every turn COMPLETED, affinity hits > 0, both replicas placed work,
+     every decode step of each replica a replay or a capture's warm-up,
+     and paged-decode launches == layers x decode steps (the counts of two
+     pumps stay exact); one FAME M+C session on the fleet (the oracle's
+     statuses); replica 1's pump crashed mid-traffic, its sessions
+     migrated and their next turns COMPLETED on replica 0; add_replica()
+     then drain(0): the new replica shares the weights, captures its own
+     graphs and takes every session; the same sessions on one 8-slot
+     server (aggregate output tok/s printed beside the fleet's); priority
+     preemption on graph servers, dense and paged (preemptions and resumes
+     >= 1); journal restore into a fresh server; in bf16 the teacher-forced
+     logits after a re-prefill (resume, migration) within 5e-2 of the
+     decode-built ones, token agreement printed; then at full width, 4
+     layers, float32: migration, preempt-resume (one request sampled) and
+     journal restore equal the uninterrupted server token for token;
   8. stateful archs: recurrentgemma-9b (capacity 4096; a ~3000-token prompt
      wraps the 2048-position local-attention ring) and xlstm-350m
      (capacity 2048) at full width, bf16, random weights from seed 0,
@@ -101,7 +124,7 @@ with one entry per kernel; the last line is ``{"ok": true, "device":
 {...}}``.
 
 Run from the repository root:  python3 chip_smoke.py
-(``--phases`` picks a subset of kernels,serve,spec,fame,stateful,moe.)
+(``--phases`` picks a subset of kernels,serve,spec,fame,fleet,stateful,moe.)
 """
 from __future__ import annotations
 
@@ -891,12 +914,8 @@ def kernel_counts():
 
 
 def reset_counts():
-    mods = kernel_modules()
-    for m in mods.values():
-        m.launches = 0
-    for name in ROUTED:
-        for r in mods[name].launches_by_route:
-            mods[name].launches_by_route[r] = 0
+    from repro_torch.kernels import launch_counts
+    launch_counts.reset()
 
 
 def check_bf16_routes(name, counts):
@@ -2104,11 +2123,576 @@ def fame_phase(dev, model, params):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the replica fleet and the robustness layers
+# ---------------------------------------------------------------------------
+
+FLEET_ECFG = dict(cache_mode="paged", page_size=16, decode_chunk=8)  # FAME's engine
+
+
+def tensor_bytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def graph_pool_bytes():
+    """Bytes the caching allocator holds in CUDA graph pools (segments of any
+    pool but the default one), from its snapshot; None where the snapshot
+    does not name the pools."""
+    import torch
+    segs = torch.cuda.memory._snapshot()["segments"]
+    if any("segment_pool_id" not in s for s in segs):
+        return None
+    return sum(s["total_size"] for s in segs if tuple(s["segment_pool_id"]) != (0, 0))
+
+
+def session_plan(tok, rng):
+    """8 sessions in two prefix families (two ~500-token system prompts):
+    per session its first turn and the deltas of turns 2-4."""
+    systems = [f"Family {f} system prompt: agents of a FaaS workflow; tools are "
+               "MCP functions. " + make_text(tok, rng, 500) for f in "AB"]
+    return [(systems[i % 2] + f"[session {i}] user: " + make_text(tok, rng, 60),
+             [" user: " + make_text(tok, rng, 40) for _ in range(3)])
+            for i in range(8)]
+
+
+def run_sessions(front, plan, turns, sessions=None, order=None, threads=4,
+                 max_new=32):
+    """Drive ``turns`` (indices: 0 = the first turn, k = delta k) of the
+    sessions in ``plan`` on ``front`` (a server or a fleet): sessions 0 and 1
+    (one per family) alone first when they are opened here, then the rest
+    from ``threads`` client threads. Returns (sessions, handles by session),
+    every handle completed."""
+    import threading
+    from repro_torch.serving.server import SamplingParams
+    sp = SamplingParams(max_new_tokens=max_new)
+    order = list(range(len(plan))) if order is None else order
+    sessions = dict(sessions or {})
+    out = {i: [] for i in order}
+    errs = []
+
+    def run(i):
+        if i not in sessions:
+            sessions[i] = front.open_session()
+        s = sessions[i]
+        for t in turns:
+            h = s.submit(plan[i][0] if t == 0 else s.text + plan[i][1][t - 1], sp)
+            h.result()
+            if h.request.status != "completed":
+                raise AssertionError(f"session {i} turn {t}: {h.request.status}")
+            out[i].append(h)
+
+    def worker(idx):
+        try:
+            for i in idx:
+                run(i)
+        except BaseException as e:      # raised in the main thread below
+            errs.append(e)
+
+    first = [i for i in order[:2] if i not in sessions]
+    for i in first:
+        run(i)
+    rest = [i for i in order if i not in first]
+    ts = [threading.Thread(target=worker, args=(rest[k::threads],))
+          for k in range(threads)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(600)
+    if errs:
+        raise errs[0]
+    if any(t.is_alive() for t in ts):
+        raise AssertionError("a client thread did not finish")
+    return sessions, out
+
+
+def capture_beside_admission(fleet, prompts):
+    """Replica 0 captures its decode graph while replica 1 admits a request
+    eagerly: replica 0's decode step, called under capture, waits until
+    replica 1's request has been admitted (prefilled, first token pulled).
+    Returns (replica 0's graph record, both handles)."""
+    import threading
+    import torch
+    from repro_torch.serving.server import SamplingParams
+    a, b = fleet.replicas[0].server, fleet.replicas[1].server
+    model = a.engine.progs.model
+    step = model.decode_step
+    capturing, admitted = threading.Event(), threading.Event()
+
+    def held(*args, **kw):
+        if torch.cuda.is_current_stream_capturing() and not capturing.is_set():
+            capturing.set()
+            if not admitted.wait(120):
+                raise RuntimeError("replica 1 admitted nothing during the capture")
+        return step(*args, **kw)
+
+    model.decode_step = held
+    sp = SamplingParams(max_new_tokens=24)
+    try:
+        ha = a.submit(prompts[0], sp)
+        if not capturing.wait(120):
+            raise AssertionError("replica 0 did not capture")
+        hb = b.submit(prompts[1], sp)
+        t0 = time.perf_counter()
+        while hb.request.status == "queued" and time.perf_counter() - t0 < 120:
+            time.sleep(0.002)
+        admitted.set()
+        ha.result()
+        hb.result()
+    finally:
+        model.decode_step = step
+    return dict(a.engine.progs._graphs["decode", "greedy"].launches), (ha, hb)
+
+
+def crash_pump(server, what: str):
+    """Kill a replica's pump the way tests/test_fleet.py does: its next loop
+    iteration raises."""
+    def boom():
+        raise RuntimeError(f"injected crash: {what}")
+    server._step_impl = boom
+    t0 = time.perf_counter()
+    while server.pumping and time.perf_counter() - t0 < 60:
+        time.sleep(0.01)
+    if server.pumping:
+        raise AssertionError(f"{what}: the pump did not die")
+
+
+def tail_vs_prefill(model, params, ids, n_decoded, n_prefilled, dev, paged):
+    """Logits of ids[n_prefilled:] two ways: with the cache built by decode
+    steps from ``n_decoded`` (a tail the server built token by token) and
+    with ids[:n_prefilled] prefilled at once (a re-prefill: preempt-resume,
+    journal replay). Returns (max abs difference, argmax agreement)."""
+    a = teacher_forced(model, params, ids, n_decoded, paged=paged, dev=dev)
+    b = teacher_forced(model, params, ids, n_prefilled, paged=paged, dev=dev)
+    a = a[n_prefilled - n_decoded:]
+    return (float((a.float() - b.float()).abs().max()),
+            float((a.argmax(-1) == b.argmax(-1)).float().mean()))
+
+
+def agreement(outs, refs):
+    same = sum(x == y for o, r in zip(outs, refs) for x, y in zip(o, r))
+    return f"{same}/{sum(len(r) for r in refs)} tokens, identical " \
+           f"{sum(o == r for o, r in zip(outs, refs))}/{len(refs)}"
+
+
+def preempt_run(cfg, params, dev, prompts, sps, mode, preempt: bool):
+    """Low-priority requests on a cooperative graph server with a slot each;
+    with ``preempt`` a priority-5 arrival once they all decode. Returns (output
+    ids by request, victims [(request index, tokens generated when
+    preempted)], server stats)."""
+    from repro_torch.serving.server import (EngineConfig, LLMServer,
+                                            OverloadPolicy, SamplingParams)
+    srv = LLMServer(cfg, num_slots=len(prompts), capacity=2048, params=params,
+                    device=dev, overload=OverloadPolicy(preempt=True),
+                    engine_cfg=EngineConfig(**dict(FLEET_ECFG, cache_mode=mode)))
+    victims = []
+    preempt_slot = srv.engine._preempt_slot
+
+    def spy(si):
+        slot = srv.engine.slots[si]
+        victims.append((rids.index(slot.request.rid), len(slot.generated)))
+        preempt_slot(si)
+
+    srv.engine._preempt_slot = spy
+    hs = [srv.submit(p, sp) for p, sp in zip(prompts, sps)]
+    rids = [h.request.rid for h in hs]
+    if preempt:
+        while any(h.request.status != "running" for h in hs):
+            srv.step()
+        srv.step()
+        hi = srv.submit("urgent: " + prompts[0][:200],
+                        SamplingParams(max_new_tokens=16, priority=5))
+        hs.append(hi)
+    srv.run_until_idle()
+    for h in hs:
+        if h.request.status != "completed":
+            raise AssertionError(f"preempt {mode}: rid={h.request.rid} "
+                                 f"{h.request.status}")
+    check_graphs(f"preempt-{mode}{'' if preempt else '-ref'}", srv,
+                 dict.fromkeys(graph_counts(srv), 0))
+    st = srv.stats()
+    if preempt and (st["preemptions"] < 1 or st["preempt_resumes"] < 1):
+        raise AssertionError(f"preempt {mode}: preemptions={st['preemptions']} "
+                             f"resumes={st['preempt_resumes']}")
+    out = [list(h.request.output_ids) for h in hs[:len(prompts)]]
+    del srv
+    return out, victims, st
+
+
+def fleet_f32_checks(cfg, dev, plan):
+    """Full width, 4 layers, float32: migration by journal replay after a
+    crash, preempt-resume (dense and paged, one request sampled) and journal
+    restore into a fresh server each give exactly the uninterrupted
+    server's tokens."""
+    import torch
+    from repro_torch.models import Model
+    from repro_torch.serving.fleet import FleetServer
+    from repro_torch.serving.server import EngineConfig, LLMServer, SamplingParams
+    cfg4 = dataclasses.replace(cfg, num_layers=4, dtype="float32",
+                               param_dtype="float32")
+    m4 = Model(cfg4, device=dev)
+    p4 = m4.init(seed=1)
+    sp = SamplingParams(max_new_tokens=32)
+    ecfg = EngineConfig(**FLEET_ECFG)
+
+    def turns(s, i, n):
+        out = []
+        for t in range(n):
+            h = s.submit(plan[i][0] if t == 0 else s.text + plan[i][1][t - 1], sp)
+            h.result()
+            out.append(list(h.request.output_ids))
+        return out
+
+    # uninterrupted: sessions 0 and 1 (one per family), three turns, alone
+    ref = LLMServer(cfg4, num_slots=4, capacity=2048, params=p4, device=dev,
+                    engine_cfg=ecfg)
+    want = [turns(ref.open_session(), i, 3) for i in (0, 1)]
+    del ref
+
+    # migration: the fleet pins session 0 to replica 0 and 1 to replica 1;
+    # replica 1's pump dies after turn 1, turns 2-3 of session 1 migrate
+    fleet = FleetServer(cfg4, num_replicas=2, num_slots=4, capacity=2048,
+                        params=p4, device=dev, pump=True, engine_cfg=ecfg)
+    ss = [fleet.open_session() for _ in range(2)]
+    got = [[], []]
+    for i in (0, 1):
+        got[i] += turns(ss[i], i, 1)
+    if [s.replica_index for s in ss] != [0, 1]:
+        raise AssertionError(f"f32 fleet placement {[s.replica_index for s in ss]}")
+    crash_pump(fleet.replicas[1].server, "f32 replica 1")
+    for i in (0, 1):
+        for t in (1, 2):
+            h = ss[i].submit(ss[i].text + plan[i][1][t - 1], sp)
+            h.result()
+            got[i].append(list(h.request.output_ids))
+    st = fleet.stats()
+    for r in fleet.replicas:
+        check_graphs(f"fleet-f32-replica{r.idx}", r.server,
+                     dict.fromkeys(graph_counts(r.server), 0))
+    fleet.close()
+    del fleet
+    migrated = st["migrated_sessions"] == 1 and ss[1].replica_index == 0
+    log(f"[fleet-f32-4-layers] migration: migrated={st['migrated_sessions']} "
+        f"session 1 on replica {ss[1].replica_index}; tokens == uninterrupted "
+        f"{got == want} (output tokens {[[len(t) for t in g] for g in got]})")
+    if not migrated or got != want:
+        raise AssertionError("float32 migration differs from the uninterrupted server")
+
+    # preempt-resume, dense and paged; the victim (request 0: the first
+    # slot among equals) samples, so its RNG chain resumes mid-stream
+    prompts = [plan[i][0] for i in range(2)]
+    sps = [SamplingParams(max_new_tokens=48, temperature=0.7, seed=5),
+           SamplingParams(max_new_tokens=48)]
+    for mode in ("dense", "paged"):
+        base, _, _ = preempt_run(cfg4, p4, dev, prompts, sps, mode, False)
+        res, victims, st = preempt_run(cfg4, p4, dev, prompts, sps, mode, True)
+        same = base == res
+        log(f"[fleet-f32-4-layers] preempt-{mode}: victims (request, tokens) "
+            f"{victims} preemptions={st['preemptions']} resumes="
+            f"{st['preempt_resumes']}; tokens == uninterrupted {same}")
+        if not same:
+            raise AssertionError(f"float32 preempt-resume ({mode}) differs")
+
+    # journal restore into a fresh server
+    path = ROOT / "build" / "fleet_f32_journal.json"
+    path.parent.mkdir(exist_ok=True)
+    a = LLMServer(cfg4, num_slots=4, capacity=2048, params=p4, device=dev,
+                  engine_cfg=ecfg, journal_path=str(path))
+    sa = a.open_session()
+    first = turns(sa, 0, 1)
+    a.close()
+    del a
+    b = LLMServer(cfg4, num_slots=4, capacity=2048, params=p4, device=dev,
+                  engine_cfg=ecfg)
+    sb = b.restore_sessions(str(path))[sa.sid]
+    h = sb.submit(sb.text + plan[0][1][0], sp)
+    h.result()
+    check_graphs("restore-f32", b, dict.fromkeys(graph_counts(b), 0))
+    ok = first[0] == want[0][0] and list(h.request.output_ids) == want[0][1]
+    log(f"[fleet-f32-4-layers] journal restore: turn 2 == uninterrupted {ok} "
+        f"(turn_prefix_hits {b.stats()['turn_prefix_hits']})")
+    if not ok:
+        raise AssertionError("float32 journal restore differs from the uninterrupted server")
+    del b, m4, p4
+    torch.cuda.empty_cache()
+
+
+def fleet_phase(dev, model, params, tok):
+    """The port's replica fleet on one card (two replicas, a pump and CUDA
+    graphs each) with the robustness layers: traffic, the FAME session,
+    failover, elasticity, preemption, journal restore, then float32
+    identity. Returns the launches."""
+    import threading
+    import torch
+    from repro_torch.apps import log_analytics as la
+    from repro_torch.core.config import CONFIGS
+    from repro_torch.core.runtime import FameRuntime
+    from repro_torch.fame import ServingMeter, WorkflowServingRuntime
+    from repro_torch.models.transformer import tree_leaves
+    from repro_torch.serving.fleet import FleetServer
+    from repro_torch.serving.server import EngineConfig, LLMServer, SamplingParams
+
+    cfg = model.cfg
+    rng = random.Random(10)
+    t_phase = time.perf_counter()
+    plan = session_plan(tok, rng)
+    weights = tensor_bytes(params.parameters())
+
+    # ---- 1. the fleet: two replicas on one set of weight tensors ---------
+    gc.collect()                        # servers of earlier phases, in cycles
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()            # the weights included
+    fleet = FleetServer(cfg, num_replicas=2, num_slots=4, capacity=2048,
+                        params=params, device=dev, pump=True,
+                        engine_cfg=EngineConfig(**FLEET_ECFG))
+    reps = fleet.replicas
+    ptrs = [[t.data_ptr() for t in r.server.params.parameters()] for r in reps]
+    shared = all(r.server.params is params for r in reps) and ptrs[0] == ptrs[1]
+    pool = tensor_bytes(tree_leaves(reps[0].server.engine.cache))
+    log(f"[fleet] 2 replicas: weights shared (same tensors, data_ptr) {shared}; "
+        f"weights_GB={gb(weights)} page_pool_GB={gb(pool)} per replica")
+    if not shared:
+        raise AssertionError("fleet: replicas do not share the weight tensors")
+
+    # replica 1 admits eagerly while replica 0's capture is open: the capture
+    # holds and records replica 0's launches alone
+    reset_counts()
+    record, pair = capture_beside_admission(
+        fleet, [make_text(tok, rng, 300), make_text(tok, rng, 700)])
+    counts = kernel_counts()
+    want_rec = {("paged_decode_attention", ""): cfg.num_layers}
+    steps = [graph_counts(r.server)["decode_steps"] for r in reps]
+    log(f"[fleet] replica 1 admitted {pair[1].request.prompt_tokens} tokens while "
+        f"replica 0 captured: replica 0's graph record {record} (its own decode "
+        f"step alone), both requests {[h.request.status for h in pair]}; "
+        f"paged_decode launches {counts['paged_decode_attention']} == layers x "
+        f"decode steps {cfg.num_layers * sum(steps)}")
+    if (record != want_rec or any(h.request.status != "completed" for h in pair)
+            or counts["paged_decode_attention"] != cfg.num_layers * sum(steps)
+            or counts["flash_attention"] <= 0):
+        raise AssertionError("fleet: an admission beside a capture leaked or broke it")
+
+    # ---- 2. traffic: 8 sessions, two prefix families, 2 turns, 4 threads --
+    gb0 = [graph_counts(r.server) for r in reps]
+    reset_counts()
+    t0 = time.perf_counter()
+    sessions, hs = run_sessions(fleet, plan, (0, 1))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernel_counts()
+    st = fleet.stats()
+    steps = [graph_counts(r.server)["decode_steps"] - g["decode_steps"]
+             for r, g in zip(reps, gb0)]
+    for r, g in zip(reps, gb0):
+        check_graphs(f"fleet-replica{r.idx}", r.server, g)
+    check_bf16_routes("fleet", counts)
+    dec = sum(h.request.output_tokens for v in hs.values() for h in v)
+    placed = [r.routed for r in reps]
+    log(f"[fleet] traffic: 16 turns wall_s={wall:.3f} output_tokens={dec} "
+        f"output_tok_per_s_wall={dec / wall:.1f} routed={st['routed_requests']} "
+        f"affinity_hits={st['affinity_hits']} spilled={st['spilled_admissions']} "
+        f"per replica routed={placed} decode_steps={steps}")
+    log(f"[fleet] launches={counts}")
+    want_pd = cfg.num_layers * sum(steps)
+    log(f"[fleet] two pumps: paged_decode launches {counts['paged_decode_attention']} "
+        f"== layers x decode steps {want_pd}")
+    if counts["paged_decode_attention"] != want_pd:
+        raise AssertionError("fleet: launch counts inconsistent under two pumps")
+    if st["affinity_hits"] <= 0 or min(placed) <= 0:
+        raise AssertionError(f"fleet: affinity {st['affinity_hits']} placed {placed}")
+    if counts["flash_attention"] <= 0 or counts["paged_decode_attention"] <= 0:
+        raise AssertionError(f"fleet: kernels not launched: {counts}")
+    graph = graph_pool_bytes()
+    peak = torch.cuda.max_memory_allocated()
+    caches = 2 * pool + (graph or 0)
+    log(f"[fleet] peak_memory_GB={gb(peak)}: {gb(base)} allocated before the fleet "
+        f"(1x weights {gb(weights)} included) + {gb(peak - base)} for the fleet, "
+        f"against 2x (page pool + graph pool) = {gb(caches)} (graph pools "
+        f"{'not measured' if graph is None else gb(graph)} GB in all)")
+    if peak - base > caches + weights / 2:
+        raise AssertionError("fleet: peak memory holds a second copy of the weights")
+
+    # ---- 8. one FAME M+C session on the fleet ------------------------------
+    query = la.APP.inputs[0]
+    oracle_rt = FameRuntime(config=CONFIGS["M+C"])
+    for role, oracle in la.build_oracles().items():
+        oracle_rt.set_llm(role, oracle)
+    oracle_rt.deploy_mcp(la.APP.servers, la.APP.sources)
+    want = oracle_rt.run_session(f"fame-{query}", la.APP.queries(query)).statuses
+    meter = ServingMeter(fleet)
+    rt = WorkflowServingRuntime(config=CONFIGS["M+C"], server=fleet, meter=meter,
+                                params=SamplingParams(max_new_tokens=8))
+    for role, oracle in la.build_oracles().items():
+        rt.set_llm(role, oracle)
+    rt.deploy_mcp(la.APP.servers, la.APP.sources)
+    t0 = time.perf_counter()
+    res = rt.run_session(f"fame-{query}", la.APP.queries(query))
+    log(f"[fleet-fame] log_analytics M+C on the fleet: statuses={res.statuses} "
+        f"(oracle {want}) wall_s={time.perf_counter() - t0:.3f} "
+        f"turns={len(meter.turns())} continuation_turns="
+        f"{len(meter.continuation_turns())}")
+    if res.statuses != want or not meter.all_terminal():
+        raise AssertionError(f"fleet-fame: statuses {res.statuses} != {want}")
+
+    # ---- 3. failover: replica 1's pump dies mid-traffic --------------------
+    on1 = sorted(i for i, s in sessions.items() if s.replica_index == 1)
+    on0 = sorted(i for i, s in sessions.items() if s.replica_index == 0)
+    pinned1 = sum(1 for fs in list(fleet._sessions.values()) if fs.replica_index == 1)
+    box = {}
+    busy = threading.Thread(target=lambda: box.update(run=run_sessions(
+        fleet, plan, (2,), sessions, on0)))
+    busy.start()
+    crash_pump(reps[1].server, "replica 1")
+    busy.join(600)
+    _, moved = run_sessions(fleet, plan, (2,), sessions, on1)
+    if busy.is_alive() or "run" not in box:
+        raise AssertionError("fleet: traffic on replica 0 did not finish")
+    st = fleet.stats()
+    where = {i: sessions[i].replica_index for i in on1}
+    log(f"[fleet] failover: replica 1 died under {len(on1)} sessions; "
+        f"migrated={st['migrated_sessions']} replicas_failed={st['replicas_failed']} "
+        f"now on {where}; turn 3 completed on all")
+    if st["migrated_sessions"] != pinned1 or set(where.values()) != {0}:
+        raise AssertionError(f"fleet: failover migrated {st['migrated_sessions']} "
+                             f"of {len(on1)} sessions: {where}")
+
+    # ---- 4. elasticity: a new replica takes the load, replica 0 drains ----
+    new = fleet.add_replica()
+    g_new = graph_counts(fleet.replicas[new].server)
+    fleet.drain(0)
+    _, later = run_sessions(fleet, plan, (3,), sessions, sorted(sessions))
+    fresh = fleet.submit(plan[0][0][:300] + " a fresh request",
+                         SamplingParams(max_new_tokens=16))
+    fresh.result()
+    rn = fleet.replicas[new]
+    check_graphs(f"fleet-replica{new}", rn.server, g_new)
+    gc_new = graph_counts(rn.server)
+    st = fleet.stats()
+    log(f"[fleet] elastic: add_replica -> {new} (weights shared "
+        f"{rn.server.params is params}), drain(0): drained={st['replicas_drained']} "
+        f"migrated={st['migrated_sessions']}; replica {new} ran turn 4 of "
+        f"{len(later)} sessions and a fresh request, decode captures "
+        f"{gc_new['decode_captures']} replays {gc_new['decode_replays']}")
+    if (rn.server.params is not params or gc_new["decode_captures"] < 1
+            or fresh.request.status != "completed"
+            or any(s.replica_index != new for s in sessions.values())):
+        raise AssertionError("fleet: the added replica did not take the traffic")
+
+    # bf16 migration against the uninterrupted 8-slot server (below) and the
+    # teacher-forced logits of a re-prefilled tail against a decoded one
+    mig = on1[0]
+    fleet_turns = {i: [list(h.request.output_ids) for h in hs[i]]
+                   + [list(box["run"][1][i][0].request.output_ids) if i in on0
+                      else list(moved[i][0].request.output_ids)]
+                   for i in sessions}
+    agg_fleet = dict(wall=wall, tokens=dec)
+    fleet_stats = fleet.stats()
+    fleet.close()
+    del fleet, reps, rn, sessions, hs, moved, later, box, rt, meter
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 9. one server with 8 slots on the same sessions -------------------
+    single = LLMServer(cfg, num_slots=8, capacity=2048, params=params,
+                       device=dev, pump=True, engine_cfg=EngineConfig(**FLEET_ECFG))
+    t0 = time.perf_counter()
+    ss, shs = run_sessions(single, plan, (0, 1))
+    torch.cuda.synchronize()
+    swall = time.perf_counter() - t0
+    sdec = sum(h.request.output_tokens for v in shs.values() for h in v)
+    _, s3 = run_sessions(single, plan, (2,), ss, sorted(ss))
+    single_turns = {i: [list(h.request.output_ids) for h in shs[i]]
+                    + [list(s3[i][0].request.output_ids)] for i in ss}
+    conv = list(single.engine._sessions[ss[mig].sid].all_tokens)
+    single.close()
+    log(f"[fleet] aggregate decode: fleet of 2 x 4 slots "
+        f"{agg_fleet['tokens'] / agg_fleet['wall']:.1f} output tok/s "
+        f"({agg_fleet['tokens']} tokens in {agg_fleet['wall']:.3f} s) against one "
+        f"8-slot server {sdec / swall:.1f} ({sdec} tokens in {swall:.3f} s), "
+        f"same 16 turns")
+    same12 = [i for i in ss if fleet_turns[i][:2] == single_turns[i][:2]]
+    log(f"[fleet] bf16 turns 1-2 equal to the 8-slot server's in "
+        f"{len(same12)}/8 sessions (co-batched neighbours differ); turn 3 of the "
+        f"migrated sessions among them: "
+        f"{agreement([fleet_turns[i][2] for i in on1 if i in same12], [single_turns[i][2] for i in on1 if i in same12])}")
+    # teacher-forced: session `mig`'s conversation through turn 3 (on the
+    # 8-slot server), its turn-3 tokens with a decode-built tail against a
+    # re-prefilled one (what the journal replay rebuilt)
+    d, agree = tail_vs_prefill(model, params, conv, shs[mig][0].request.prompt_tokens,
+                               s3[mig][0].request.prompt_tokens, dev, paged=True)
+    log(f"[fleet] bf16 migration, teacher-forced: turn-3 logits on a replayed "
+        f"tail against a decoded one max_abs_diff={d:.3e} (tol 5e-2) "
+        f"greedy_agreement={agree:.4f}")
+    if not math.isfinite(d) or d > 5e-2:
+        raise AssertionError(f"fleet: replayed-tail logits differ by {d}")
+    del single, ss, shs, s3
+    torch.cuda.empty_cache()
+
+    # ---- 5. priority preemption on graph servers, dense and paged ---------
+    prompts = [plan[i][0] for i in range(4)]
+    sps = [SamplingParams(max_new_tokens=64) for _ in range(3)] + [
+        SamplingParams(max_new_tokens=64, temperature=0.8, top_k=50, seed=7)]
+    for mode in ("dense", "paged"):
+        base, _, _ = preempt_run(cfg, params, dev, prompts, sps, mode, False)
+        res, victims, pst = preempt_run(cfg, params, dev, prompts, sps, mode, True)
+        vi, k = victims[0]
+        vprompt = tok.encode(prompts[vi])
+        plen = len(vprompt)
+        seq = vprompt + base[vi]
+        d, agree = tail_vs_prefill(model, params, seq, plen, plen + k, dev,
+                                   paged=mode == "paged")
+        log(f"[preempt-{mode}] bf16: victims (request, tokens) {victims} "
+            f"preemptions={pst['preemptions']} resumes={pst['preempt_resumes']}; "
+            f"agreement with the uninterrupted run "
+            f"{agreement(res, base)}; teacher-forced "
+            f"logits after a re-prefill at token {k} against decode max_abs_diff="
+            f"{d:.3e} (tol 5e-2) greedy_agreement={agree:.4f}")
+        if not math.isfinite(d) or d > 5e-2:
+            raise AssertionError(f"preempt-{mode}: re-prefilled logits differ by {d}")
+        torch.cuda.empty_cache()
+
+    # ---- 6. journal restore into a fresh server ----------------------------
+    path = ROOT / "build" / "fleet_journal.json"
+    path.parent.mkdir(exist_ok=True)
+    a = LLMServer(cfg, num_slots=4, capacity=2048, params=params, device=dev,
+                  engine_cfg=EngineConfig(**FLEET_ECFG), journal_path=str(path))
+    sa = a.open_session()
+    sa.submit(plan[2][0], SamplingParams(max_new_tokens=32)).result()
+    text = sa.text
+    a.close()
+    del a
+    b = LLMServer(cfg, num_slots=4, capacity=2048, params=params, device=dev,
+                  engine_cfg=EngineConfig(**FLEET_ECFG))
+    sb = b.restore_sessions(str(path))[sa.sid]
+    h = sb.submit(sb.text + plan[2][1][0], SamplingParams(max_new_tokens=32))
+    h.result()
+    check_graphs("restore", b, dict.fromkeys(graph_counts(b), 0))
+    bst = b.stats()
+    log(f"[restore] journal {path.name}: restored text equal {sb.text.startswith(text)}, "
+        f"turn 2 {h.request.status} output_tokens={h.request.output_tokens} "
+        f"turn_prefix_hits={bst['turn_prefix_hits']}")
+    if h.request.status != "completed" or not sb.text.startswith(text):
+        raise AssertionError("restore: the next turn did not complete")
+    del b
+    torch.cuda.empty_cache()
+
+    # ---- 7. float32, full width, 4 layers: token identity ------------------
+    fleet_f32_checks(cfg, dev, plan)
+
+    counts = kernel_counts()
+    log(f"[fleet] phase wall_s={time.perf_counter() - t_phase:.3f} "
+        f"fleet gauges: routed={fleet_stats['routed_requests']} affinity="
+        f"{fleet_stats['affinity_hits']} spilled={fleet_stats['spilled_admissions']} "
+        f"migrated={fleet_stats['migrated_sessions']} per_replica_decode_tokens="
+        f"{[p['decode_tokens'] if p else None for p in fleet_stats['per_replica']]}")
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernels,serve,spec,fame,stateful,moe",
-                    help="comma list of kernels,serve,spec,fame,stateful,moe "
-                         "(default: all)")
+    ap.add_argument("--phases", default="kernels,serve,spec,fame,fleet,stateful,moe",
+                    help="comma list of kernels,serve,spec,fame,fleet,stateful,"
+                         "moe (default: all)")
     args = ap.parse_args()
     try:
         import torch
@@ -2151,7 +2735,7 @@ def main() -> int:
     phases = set(args.phases.split(","))
     rows = kernel_phase(dev) if "kernels" in phases else {}
     launches = collections.Counter()
-    if phases & {"serve", "spec", "fame"}:
+    if phases & {"serve", "spec", "fame", "fleet"}:
         model, params, tok = full_model(dev)
         if "serve" in phases:
             launches.update(serving_phases(dev, model, params, tok))
@@ -2159,6 +2743,8 @@ def main() -> int:
             launches.update(spec_phase(dev, model, params, tok))
         if "fame" in phases:
             launches.update(fame_phase(dev, model, params))
+        if "fleet" in phases:
+            launches.update(fleet_phase(dev, model, params, tok))
         del model, params
         torch.cuda.empty_cache()
     if "stateful" in phases:

@@ -18,6 +18,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import launch_counts
 from repro_torch.kernels.flash_attention import NEG_INF
 from repro_torch.kernels.split_decode import launch_split
 
@@ -58,6 +59,5 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, q_per_kv: int,
         raise ValueError(f"decode_attention: unsupported device {q.device}")
     o = launch_split("decode_attention", q, k_cache, v_cache, cache_len,
                      q_per_kv, one_token=True, window=window)
-    global launches
-    launches += 1
+    launch_counts.count(__name__)
     return o

@@ -24,7 +24,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, launch_counts
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -108,7 +108,5 @@ def flash_attention(q, k, v, *, q_per_kv: int, window: Optional[int] = None,
                     B, S, T, H, K, hd, int(q_start), window or 0,
                     DTYPES[q.dtype], stream)
     build.check(err, "flash_attention")
-    global launches
-    launches += 1
-    launches_by_route[ROUTES[q.dtype]] += 1
+    launch_counts.count(__name__, ROUTES[q.dtype])
     return o

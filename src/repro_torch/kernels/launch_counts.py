@@ -1,65 +1,99 @@
-"""Kernel launch counts across CUDA graph replays.
+"""Kernel launch counts, by thread and across CUDA graph replays.
 
-Every wrapper adds one to its module's ``launches`` (and, where it has
-routes, to ``launches_by_route``) when it launches its kernel. A captured
-CUDA graph runs the wrappers' Python code once, at capture, and launches
-the kernels on the device at every replay, with no Python in between. So
-``captured`` counts what the wrappers launched while a graph was captured
-and rolls the counters back (nothing ran on the device then), and
-``Replayed.replay`` adds those launches at every replay: the counters keep
-meaning launches on the device, graph or eager.
+Every wrapper calls ``count(__name__, route)`` where it launches its
+kernel: one more in its module's ``launches`` and, where the kernel has
+routes, in ``launches_by_route[route]``. Every change of a counter takes
+one lock, so pumps of several servers on one card lose no increment.
+
+A captured CUDA graph runs the wrappers' Python code once, at capture, and
+launches the kernels on the device at every replay, with no Python in
+between. So while a thread captures (``captured``), that thread's counts go
+into the capture's record and not into the counters (nothing ran on the
+device then), and ``Replayed.replay`` adds the record at every replay: the
+counters keep meaning launches on the device, graph or eager. The record
+is the capturing thread's own: launches that other threads make during the
+capture (another server's eager admission) count as they happen and never
+enter the graph's record.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Tuple
+import importlib
+import threading
+from typing import Dict, Optional, Tuple
 
-from repro_torch.kernels import (decode_attention, flash_attention, mlstm_chunk,
-                                 paged_decode_attention,
-                                 paged_spec_decode_attention, rglru_scan,
-                                 spec_decode_attention, spec_scan)
-
-MODULES = {m.__name__.rsplit(".", 1)[1]: m for m in (
-    flash_attention, decode_attention, paged_decode_attention,
-    spec_decode_attention, paged_spec_decode_attention, spec_scan, rglru_scan,
-    mlstm_chunk)}
+NAMES = ("flash_attention", "decode_attention", "paged_decode_attention",
+         "spec_decode_attention", "paged_spec_decode_attention", "spec_scan",
+         "rglru_scan", "mlstm_chunk")
 
 Key = Tuple[str, str]          # (module, "" for ``launches`` or the route)
+
+_lock = threading.Lock()
+_local = threading.local()     # ``record``: the open capture's counts
+
+
+def _module(name: str):
+    return importlib.import_module(f"repro_torch.kernels.{name}")
+
+
+def count(module: str, route: Optional[str] = None):
+    """One launch of the kernel of ``module`` (a wrapper's ``__name__``)
+    on ``route``: into the calling thread's open capture record, or else
+    into the counters."""
+    name = module.rsplit(".", 1)[-1]
+    keys = [(name, "")] + ([(name, route)] if route is not None else [])
+    rec = getattr(_local, "record", None)
+    if rec is not None:
+        for k in keys:
+            rec[k] = rec.get(k, 0) + 1
+        return
+    add(dict.fromkeys(keys, 1))
 
 
 def snapshot() -> Dict[Key, int]:
     """Every counter: ``(module, "")`` for ``launches``, ``(module, route)``
     for each entry of ``launches_by_route``."""
     out = {}
-    for name, m in MODULES.items():
-        out[name, ""] = m.launches
-        for route, n in getattr(m, "launches_by_route", {}).items():
-            out[name, route] = n
+    with _lock:
+        for name in NAMES:
+            m = _module(name)
+            out[name, ""] = m.launches
+            for route, n in getattr(m, "launches_by_route", {}).items():
+                out[name, route] = n
     return out
 
 
 def add(counts: Dict[Key, int], sign: int = 1):
-    """Add ``counts`` (a difference of two snapshots) to the counters."""
-    for (name, route), n in counts.items():
-        m = MODULES[name]
-        if route:
-            m.launches_by_route[route] += sign * n
-        else:
-            m.launches += sign * n
+    """Add ``counts`` (e.g. a difference of two snapshots) to the counters."""
+    with _lock:
+        for (name, route), n in counts.items():
+            m = _module(name)
+            if route:
+                m.launches_by_route[route] += sign * n
+            else:
+                m.launches += sign * n
+
+
+def reset():
+    """Every counter to 0."""
+    with _lock:
+        for name in NAMES:
+            m = _module(name)
+            m.launches = 0
+            for route in getattr(m, "launches_by_route", {}):
+                m.launches_by_route[route] = 0
 
 
 @contextlib.contextmanager
 def captured(out: Dict[Key, int]):
-    """Around a graph capture: fills ``out`` with the launches the wrappers
-    counted inside, then takes them off the counters again."""
-    before = snapshot()
+    """Around a graph capture: the calling thread's launches inside go into
+    ``out`` instead of the counters. Other threads count as before."""
+    prev = getattr(_local, "record", None)
+    _local.record = out
     try:
         yield out
     finally:
-        after = snapshot()
-        out.update({k: after[k] - before[k] for k in after
-                    if after[k] != before[k]})
-        add(out, -1)
+        _local.record = prev
 
 
 class Replayed:

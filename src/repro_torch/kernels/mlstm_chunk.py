@@ -37,7 +37,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, launch_counts
 from repro_torch.kernels.flash_attention import DTYPES, aligned16
 
 NEG_INF = -1e30
@@ -197,7 +197,5 @@ def mlstm_chunk(q, k, v, ig, fg, state=None, *, chunk: int = 256):
                     n.data_ptr(), m.data_ptr(), *map(ptr, scratch), B, S, H, hd, L,
                     hd ** -0.5, DTYPES[q.dtype], stream)
     build.check(err, "mlstm_chunk")
-    global launches
-    launches += 1
-    launches_by_route[ROUTES[q.dtype]] += 1
+    launch_counts.count(__name__, ROUTES[q.dtype])
     return h, (C, n, m)

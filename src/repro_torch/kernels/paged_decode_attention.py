@@ -15,6 +15,7 @@ CPU; for CUDA tensors it launches the kernel or raises.
 """
 from __future__ import annotations
 
+from repro_torch.kernels import launch_counts
 from repro_torch.kernels.decode_attention import decode_attention_ref
 from repro_torch.kernels.split_decode import launch_split
 
@@ -44,6 +45,5 @@ def paged_decode_attention(q, pool_k, pool_v, block_tables, cache_len, *,
         raise ValueError(f"paged_decode_attention: unsupported device {q.device}")
     o = launch_split("paged_decode_attention", q, pool_k, pool_v, cache_len,
                      q_per_kv, one_token=True, block_tables=block_tables)
-    global launches
-    launches += 1
+    launch_counts.count(__name__)
     return o

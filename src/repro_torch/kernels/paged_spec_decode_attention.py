@@ -18,6 +18,7 @@ the CPU; for CUDA tensors it launches the kernel or raises.
 """
 from __future__ import annotations
 
+from repro_torch.kernels import launch_counts
 from repro_torch.kernels.split_decode import launch_split
 from repro_torch.kernels.spec_decode_attention import spec_attention_ref
 
@@ -48,6 +49,5 @@ def paged_spec_decode_attention(q, pool_k, pool_v, block_tables, cache_lens, *,
     o = launch_split("paged_spec_decode_attention", q, pool_k, pool_v,
                      cache_lens, q_per_kv, one_token=False,
                      block_tables=block_tables)
-    global launches
-    launches += 1
+    launch_counts.count(__name__)
     return o

@@ -30,7 +30,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, launch_counts
 from repro_torch.kernels.flash_attention import DTYPES
 
 # csrc/rglru_scan.cu's constexpr values
@@ -119,7 +119,5 @@ def rglru_scan(a, bx, h0=None, *, out_dtype=torch.float32):
                     h_last.data_ptr(), ptr(flags), ptr(agg), B, S, R,
                     DTYPES[out_dtype], stream)
     build.check(err, "rglru_scan")
-    global launches
-    launches += 1
-    launches_by_route[plan["route"]] += 1
+    launch_counts.count(__name__, plan["route"])
     return y, h_last

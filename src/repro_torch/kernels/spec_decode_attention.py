@@ -19,6 +19,7 @@ import math
 
 import torch
 
+from repro_torch.kernels import launch_counts
 from repro_torch.kernels.flash_attention import NEG_INF
 from repro_torch.kernels.split_decode import launch_split
 
@@ -52,6 +53,5 @@ def spec_decode_attention(q, k_cache, v_cache, cache_lens, *, q_per_kv: int):
         raise ValueError(f"spec_decode_attention: unsupported device {q.device}")
     o = launch_split("spec_decode_attention", q, k_cache, v_cache, cache_lens,
                      q_per_kv, one_token=False)
-    global launches
-    launches += 1
+    launch_counts.count(__name__)
     return o

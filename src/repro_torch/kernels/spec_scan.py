@@ -15,7 +15,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, launch_counts
 
 launches = 0            # kernel launches (never the plain version)
 _fn = None
@@ -61,6 +61,5 @@ def accept_len(accept, draft_lens):
     stream = torch.cuda.current_stream(accept.device).cuda_stream
     err = _kernel()(acc.data_ptr(), lens.data_ptr(), out.data_ptr(), B, S, stream)
     build.check(err, "accept_len")
-    global launches
-    launches += 1
+    launch_counts.count(__name__)
     return out

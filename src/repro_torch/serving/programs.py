@@ -33,6 +33,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import random
+import threading
 import time
 from typing import Tuple
 
@@ -42,6 +43,15 @@ from repro_torch.kernels import launch_counts
 from repro_torch.models.transformer import tree_leaves, tree_map
 from repro_torch.serving.faults import DeadLetterError, RetryPolicy, TransientFault
 from repro_torch.serving.sampler import accept_batched, sample_batched
+
+# One capture at a time in the process. ``torch.cuda.graph`` synchronizes the
+# device and empties the caching allocator's cache as it begins, which must
+# not happen while another thread's capture is open; so the programs of
+# several servers (the replicas of a fleet, each captured on its own pump
+# thread) take turns to capture. Eager work and replays of other threads go
+# on during a capture: each capture is thread-local, on its own stream and
+# memory pool.
+_CAPTURE_LOCK = threading.Lock()
 
 
 def slot_extract(cache, slot: int):
@@ -328,7 +338,7 @@ class EnginePrograms:
         graph = torch.cuda.CUDAGraph()
         launches = {}
         try:
-            with launch_counts.captured(launches):
+            with _CAPTURE_LOCK, launch_counts.captured(launches):
                 with torch.cuda.graph(graph, pool=self._pool, stream=s,
                                       capture_error_mode="thread_local"):
                     step()

@@ -244,6 +244,7 @@ def test_port_imports_no_jax():
         if hit:
             bad[path.relative_to(ROOT).as_posix()] = hit
     assert len(_port_files()) > 50
+    assert ROOT / "src" / "repro_torch" / "serving" / "fleet.py" in _port_files()
     assert not bad, bad
 
 

@@ -4,8 +4,10 @@ Each kernel against its plain PyTorch version at the tolerances of
 tests/test_kernels.py (float32 2e-5, bf16 2e-2; the stateful kernels 5e-6 /
 2e-5 / 5e-2), the port's model and server (speculative decode and the
 stateful archs' snapshot mode included) on the card against the same code
-on the CPU (plain versions), and the decode and verify steps as replayed
-CUDA graphs against the same steps run eagerly on the card. This
+on the CPU (plain versions), the decode and verify steps as replayed CUDA graphs
+against the same steps run eagerly on the card, and the robustness layers
+on graphs: a two-replica fleet with a pump per replica, preempt-resume,
+journal restore, and a transient fault ahead of the first capture. This
 file imports no JAX, so it also runs on a machine with a card and no JAX:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
@@ -32,7 +34,11 @@ from repro_torch.kernels import spec_scan  # noqa: E402
 from repro_torch.kernels import split_decode as ksd  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.models import transformer as ttfm  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
 from repro_torch.serving import kvpool  # noqa: E402
+from repro_torch.serving.faults import FaultInjector, TransientFault  # noqa: E402
+from repro_torch.serving.fleet import FleetServer  # noqa: E402
+from repro_torch.serving.scheduler import OverloadPolicy  # noqa: E402
 from repro_torch.serving.server import EngineConfig, LLMServer, SamplingParams  # noqa: E402
 
 
@@ -778,3 +784,228 @@ def test_gpu_graph_steps_under_the_background_pump(mode):
             assert (threading.get_ident() in threads) == (how == "cooperative")
         srv.close()
     assert ids["pump"] == ids["cooperative"] == ids["eager"]
+
+
+# ---------------------------------------------------------------------------
+# the fleet and the robustness layers on graphs
+# ---------------------------------------------------------------------------
+
+
+def _graph_counts(progs):
+    return (progs.decode_steps, progs.graph_captures["decode"],
+            progs.graph_replays["decode"])
+
+
+@pytest.mark.gpu
+def test_gpu_fleet_two_pumps_share_weights_and_count_launches():
+    """Two replicas on one card, each with its pump thread capturing and
+    replaying its own decode graphs while four client threads submit: the
+    replicas hold the same weight tensors, every decode step of each was a
+    replay or a capture's warm-up, both served, and the paged-decode kernel
+    counted exactly one launch per layer per decode step (a capture's own
+    launches only, whatever the other pump launched meanwhile)."""
+    dev = _need_card()
+    build.library()                     # build before any pump starts
+    cfg = _qwen()
+    fleet = FleetServer(cfg, num_replicas=2, num_slots=3, capacity=128,
+                        params={k: v.to(dev) for k, v in _guarded_weights(cfg).items()},
+                        device=dev, pump=True,
+                        engine_cfg=EngineConfig(cache_mode="paged", page_size=16,
+                                                decode_chunk=4))
+    with fleet:
+        ptrs = [{t.data_ptr() for t in r.server.params.parameters()}
+                for r in fleet.replicas]
+        assert fleet.replicas[1].server.params is fleet.replicas[0].server.params
+        assert ptrs[0] == ptrs[1]
+        torch.cuda.synchronize()
+        before = launch_counts.snapshot()
+        prompts = [f"{i} client {i} asks about topic {i % 3}: " * 2 for i in range(8)]
+        out, errs = {}, []
+
+        def client(shard):
+            try:
+                for p in shard:
+                    h = fleet.submit(p, SamplingParams(max_new_tokens=12))
+                    h.result()
+                    out[p] = h.request
+            except BaseException as e:  # surfaced below
+                errs.append(e)
+
+        ts = [threading.Thread(target=client, args=(prompts[i::4],)) for i in range(4)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(300.0)
+        assert not errs and not any(t.is_alive() for t in ts)
+        fleet.run_until_idle()
+        torch.cuda.synchronize()
+        after = launch_counts.snapshot()
+        assert all(r.status == "completed" for r in out.values()) and len(out) == 8
+        steps = 0
+        for r in fleet.replicas:
+            n, caps, reps = _graph_counts(r.server.engine.progs)
+            assert n > 0 and caps + reps == n and 1 <= caps <= 3, (r.idx, n, caps, reps)
+            steps += n
+        key = ("paged_decode_attention", "")
+        assert after[key] - before[key] == cfg.num_layers * steps
+        assert after["flash_attention", ""] > before["flash_attention", ""]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["dense", "paged"])
+def test_gpu_preempt_resume_on_graphs(mode):
+    """Priority preemption on a graph server (float32): the victim (the
+    sampled request, first among equals) resumes to exactly its
+    uninterrupted output (its RNG chain continues in the sampled decode
+    graph's staged keys), and every decode step ran on the graphs."""
+    dev = _need_card()
+    cfg = _qwen()
+    sd = _guarded_weights(cfg)
+    lows = [SamplingParams(max_new_tokens=24, temperature=0.7, seed=5),
+            SamplingParams(max_new_tokens=24)]
+    prompts = ["a long low priority ramble ", "another long low priority job "]
+    ids = {}
+    for how in ("uninterrupted", "preempted"):
+        srv = LLMServer(cfg, num_slots=2, capacity=128, device=dev, seed=7,
+                        params={k: v.to(dev) for k, v in sd.items()},
+                        engine_cfg=EngineConfig(cache_mode=mode, page_size=8,
+                                                decode_chunk=2),
+                        overload=OverloadPolicy(preempt=True))
+        hs = [srv.submit(p, sp) for p, sp in zip(prompts, lows)]
+        if how == "preempted":
+            while any(h.request.status != "running" for h in hs):
+                srv.step()
+            srv.step()
+            hi = srv.submit("urgent", SamplingParams(max_new_tokens=6, priority=5))
+        srv.run_until_idle()
+        ids[how] = [h.request.output_ids for h in hs]
+        progs = srv.engine.progs
+        n, caps, reps = _graph_counts(progs)
+        assert caps + reps == n > 0
+        if how == "preempted":
+            st = srv.stats()
+            assert hi.request.status == "completed"
+            assert st["preemptions"] >= 1 and st["preempt_resumes"] >= 1
+    assert all(len(x) == 24 for x in ids["uninterrupted"])
+    assert ids["preempted"] == ids["uninterrupted"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,mode", [("qwen2.5-3b", "dense"),
+                                       ("qwen2.5-3b", "paged"),
+                                       ("recurrentgemma-9b", "paged")])
+def test_gpu_journal_restore_on_graphs(arch, mode, tmp_path):
+    """A server on the card spills its journal after turn 1 and is closed;
+    a fresh one restores it and its turn 2 equals the uninterrupted
+    server's (float32; paged KV pages and recurrentgemma's snapshots)."""
+    dev = _need_card()
+    cfg = ARCHS[arch].reduced(dtype="float32", param_dtype="float32",
+                              vocab_size=512)
+    sd = _guarded_weights(cfg)
+    t1, t2 = "user: hello there assistant:", " user: and what else? assistant:"
+    sp = SamplingParams(max_new_tokens=12)
+    path = str(tmp_path / "journal.json")
+
+    def server(**kw):
+        return LLMServer(cfg, num_slots=2, capacity=192, device=dev,
+                         params={k: v.to(dev) for k, v in sd.items()},
+                         engine_cfg=EngineConfig(cache_mode=mode, page_size=16,
+                                                 decode_chunk=4), **kw)
+
+    ref = server()
+    s = ref.open_session()
+    s.submit(t1, sp).result()
+    want = s.submit(s.text + t2, sp)
+    want.result()
+    a = server(journal_path=path)
+    sa = a.open_session()
+    sa.submit(t1, sp).result()
+    a.close()
+    b = server()
+    sb = b.restore_sessions(path)[sa.sid]
+    h = sb.submit(sb.text + t2, sp)
+    h.result()
+    assert len(want.request.output_ids) == 12
+    assert h.request.output_ids == want.request.output_ids
+    n, caps, reps = _graph_counts(b.engine.progs)
+    assert caps + reps == n > 0
+
+
+@pytest.mark.gpu
+def test_gpu_transient_fault_before_first_capture():
+    """A TransientFault at the first decode dispatch fires before the
+    capture: the retry captures once, the graph pool stays usable, and the
+    output equals a fault-free server's."""
+    dev = _need_card()
+    cfg = _qwen()
+    sd = _guarded_weights(cfg)
+    ids = []
+    for faulty in (False, True):
+        inj = FaultInjector(seed=0)
+        srv = LLMServer(cfg, num_slots=3, capacity=128, device=dev, injector=inj,
+                        params={k: v.to(dev) for k, v in sd.items()},
+                        engine_cfg=EngineConfig(cache_mode="paged", page_size=16,
+                                                decode_chunk=4))
+        if faulty:
+            inj.fail_next("decode", 1, exc=TransientFault)
+        h = srv.submit(GRAPH_PROMPTS[0], SamplingParams(max_new_tokens=13))
+        srv.run_until_idle()
+        assert h.request.status == "completed"
+        progs = srv.engine.progs
+        assert progs.graph_captures["decode"] == 1 and progs._pool is not None
+        assert progs.dispatch_retries == int(faulty)
+        ids.append(h.request.output_ids)
+    assert ids[0] == ids[1] and len(ids[0]) == 13
+
+
+@pytest.mark.gpu
+def test_gpu_admission_beside_a_capture():
+    """Replica 1 admits a request eagerly (prefill, first-token pull) while
+    replica 0's decode capture is held open: the capture succeeds, records
+    replica 0's own launches alone (one paged decode a layer), replica 1's
+    launches count once, and both requests equal a single server's."""
+    dev = _need_card()
+    build.library()
+    cfg = _qwen()
+    sd = {k: v.to(dev) for k, v in _guarded_weights(cfg).items()}
+    ecfg = EngineConfig(cache_mode="paged", page_size=16, decode_chunk=4)
+    prompts, sp = GRAPH_PROMPTS[:2], SamplingParams(max_new_tokens=12)
+    ref = LLMServer(cfg, num_slots=3, capacity=128, device=dev, params=sd,
+                    engine_cfg=ecfg)
+    want = []
+    for p in prompts:
+        h = ref.submit(p, sp)
+        h.result()
+        want.append(h.request.output_ids)
+    with FleetServer(cfg, num_replicas=2, num_slots=3, capacity=128, params=sd,
+                     device=dev, pump=True, engine_cfg=ecfg) as fleet:
+        a, b = (r.server for r in fleet.replicas)
+        model = a.engine.progs.model
+        step = model.decode_step
+        capturing, admitted = threading.Event(), threading.Event()
+
+        def held(*args, **kw):
+            if torch.cuda.is_current_stream_capturing() and not capturing.is_set():
+                capturing.set()
+                assert admitted.wait(120)
+            return step(*args, **kw)
+
+        model.decode_step = held
+        before = launch_counts.snapshot()
+        ha = a.submit(prompts[0], sp)
+        assert capturing.wait(120)
+        hb = b.submit(prompts[1], sp)
+        while hb.request.status == "queued":
+            threading.Event().wait(0.002)
+        assert a.engine.progs.graph_captures["decode"] == 0   # still capturing
+        admitted.set()
+        ha.result()
+        hb.result()
+        torch.cuda.synchronize()
+        after = launch_counts.snapshot()
+        record = a.engine.progs._graphs["decode", "greedy"].launches
+        assert record == {("paged_decode_attention", ""): cfg.num_layers}
+        steps = sum(r.server.engine.progs.decode_steps for r in fleet.replicas)
+        key = ("paged_decode_attention", "")
+        assert after[key] - before[key] == cfg.num_layers * steps
+        assert [ha.request.output_ids, hb.request.output_ids] == want
