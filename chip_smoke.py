@@ -110,7 +110,34 @@ no result line) on any fault:
      full width in float32, drop-free (capacity factor 4 = E / k): snapshot
      == dense and spec == non-spec greedy, and decode-step logits after a
      4200-token prefill (past the window) against one full forward within
-     1e-3.
+     1e-3;
+  10. modality archs: musicgen-large (48 layers, MHA 32 heads at hd 64,
+     sinusoidal positions; its inputs are the frame-embedding stub
+     one_hot(id % d_model), built on the device) and chameleon-34b (48
+     layers, d_model 8192, 64 / 8 heads, qk-norm, early-fusion token ids;
+     68.59 GB of bf16 weights), published widths and depth, bf16, random
+     weights from seed 0, 4 slots, capacity 2048, each model freed before
+     the next loads: dense serving with a 2-turn session, then KV pages
+     (page_size 16, decode_chunk 8) on prompts sharing a ~500-token system
+     prompt; every request COMPLETED, flash launches == layers x prefill /
+     extend forwards and decode (dense or paged) launches == layers x
+     decode steps; one dense decode chunk profiled (graph and eager) and
+     the longest prompt's admission; graph ids == eager ids, dense and
+     paged; teacher-forced logits of the dense cache and the page pool
+     within 5e-2 of each other, and each against one forward over the same
+     tokens (printed; bf16 rounding in other GEMM shapes); peak memory;
+     then 4 layers at the published widths in float32: the decode-built
+     logits within 1e-3 of one forward. The kernels phase
+     times flash, dense and paged decode at musicgen's shapes and flash at
+     chameleon's (rows ``*_musicgen``, ``flash_attention_chameleon``, with
+     SDPA's device time);
+  11. checkpoint: musicgen-large at full width and 4 of 48 layers, bf16:
+     its params saved in the reference's format by the port's
+     ``AsyncCheckpointer`` into a directory under build/ while a server on
+     the same params serves 4 requests, restored onto the card by
+     ``Model.restore``: every tensor bit-identical, a server on the restored
+     params gives the same greedy ids; save / restore seconds and bytes
+     printed, the directory deleted.
 
 Every server runs its decode chunks and verify steps as replayed CUDA
 graphs (``serving/programs.py``); each serving phase prints its decode and
@@ -124,7 +151,8 @@ with one entry per kernel; the last line is ``{"ok": true, "device":
 {...}}``.
 
 Run from the repository root:  python3 chip_smoke.py
-(``--phases`` picks a subset of kernels,serve,spec,fame,fleet,stateful,moe.)
+(``--phases`` picks a subset of
+kernels,serve,spec,fame,fleet,stateful,moe,modality,checkpoint.)
 """
 from __future__ import annotations
 
@@ -409,6 +437,14 @@ def kernel_phase(dev):
     rows["decode_attention_swa_ring"] = decode_ring_row(
         dev, rnd, "decode_attention_swa_ring", W=4096, H=48, K=8, hd=128,
         win=4096, clens=[300, 4095, 4097, 8000])
+    # the modality archs: musicgen-large is MHA at hd 64 (G = 1),
+    # chameleon-34b the widest attention of the registry (64 / 8 heads)
+    rows["flash_attention_musicgen"] = flash_window_row(
+        dev, rnd, "flash_attention_musicgen", S=2048, H=32, K=32, hd=64, win=None)
+    rows.update(mha_decode_rows(dev, rnd, "musicgen", W=2048, H=32, hd=64,
+                                clens=[1500, 200, 2047, 700]))
+    rows["flash_attention_chameleon"] = flash_window_row(
+        dev, rnd, "flash_attention_chameleon", S=2048, H=64, K=8, hd=128, win=None)
     rows.update(stateful_kernel_rows(dev))
     for r in rows.values():
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
@@ -422,22 +458,30 @@ def fmt_ms(ms):
     return "not measured" if ms is None else f"{ms:.4f}"
 
 
+def device_times(name, kernel, library):
+    """The device times of a kernel and of its library call, beside the
+    event-timed call times of the kernels line: (kernel's, library's)."""
+    dms, lib = device_ms(kernel), device_ms(library)
+    log(f"[kernels] {name}: device_ms={fmt_ms(dms)} library_device_ms={fmt_ms(lib)}")
+    return dms, lib
+
+
 def log_device(name, kernel, library):
-    """The device time of a kernel and of its library call, beside the
-    event-timed call times of the kernels line; returns the kernel's."""
-    dms = device_ms(kernel)
-    log(f"[kernels] {name}: device_ms={fmt_ms(dms)} "
-        f"library_device_ms={fmt_ms(device_ms(library))}")
-    return dms
+    """``device_times``; returns the kernel's."""
+    return device_times(name, kernel, library)[0]
 
 
 def flash_window_row(dev, rnd, name, S, H, K, hd, win):
-    """Flash over one sequence of S positions with a sliding window, bf16:
-    ``flash_attention_hd256`` at recurrentgemma-9b's prefill bucket (q
-    [1,4096,16,256], one KV head, window 2048), ``flash_attention_swa`` at
-    mixtral-8x22b's largest prefill bucket (q [1,8192,48,128], 8 KV heads,
-    G = 6, window 4096). The bound counts only the causal pairs inside the
-    window; the library call is SDPA with that mask."""
+    """Flash over one sequence of S positions with a sliding window (None:
+    causal only), bf16: ``flash_attention_hd256`` at recurrentgemma-9b's
+    prefill bucket (q [1,4096,16,256], one KV head, window 2048),
+    ``flash_attention_swa`` at mixtral-8x22b's largest prefill bucket (q
+    [1,8192,48,128], 8 KV heads, G = 6, window 4096),
+    ``flash_attention_musicgen`` (q, k, v [1,2048,32,64], MHA at hd 64) and
+    ``flash_attention_chameleon`` (q [1,2048,64,128], 8 KV heads) at their
+    largest bucket. The bound counts only the causal pairs inside the
+    window; the library call is SDPA with that mask (``is_causal`` without
+    a window)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as kfa
@@ -448,14 +492,18 @@ def flash_window_row(dev, rnd, name, S, H, K, hd, win):
     err = check_close(f"bf16 [1,{S},{H},{hd}] K={K} window={win}", fa(), fr(),
                       "bfloat16")
     ms, plain = time_ms(fa, 20), time_ms(fr, 2, warmup=1)
-    pos = torch.arange(S, device=dev)
-    mask = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < win)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    lf = lambda: F.scaled_dot_product_attention(                    # noqa: E731
-        qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    if win is None:
+        lf = lambda: F.scaled_dot_product_attention(                # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+    else:
+        pos = torch.arange(S, device=dev)
+        mask = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < win)
+        lf = lambda: F.scaled_dot_product_attention(                # noqa: E731
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)
     lib = time_ms(lf, 20)
-    dms = log_device(name, fa, lf)
-    pairs = sum(min(i + 1, win) for i in range(S))
+    dms, lib_dms = device_times(name, fa, lf)
+    pairs = sum(min(i + 1, win or S) for i in range(S))
     b_ms, b_by = bound(2 * (2 * S * H * hd + 2 * S * K * hd), 4 * hd * H * pairs,
                        torch.bfloat16)
     return dict(
@@ -463,7 +511,78 @@ def flash_window_row(dev, rnd, name, S, H, K, hd, win):
         source="src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
         replaces="src/repro/kernels/flash_attention.py:63",
         max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-        library_ms=lib, device_ms=dms)
+        library_ms=lib, device_ms=dms, library_device_ms=lib_dms)
+
+
+def mha_decode_rows(dev, rnd, name, W, H, hd, clens):
+    """Split-K decode at an MHA geometry (G = 1: one query row per KV head),
+    bf16, dense and paged: ``decode_attention_<name>`` (q [B,1,H,hd] over
+    caches [B,W,H,hd]) and ``paged_decode_attention_<name>`` (the same
+    positions in a pool of 16-token pages, trash page past the live ones),
+    each also at float32 against the plain version. The bound reads the
+    live positions' K/V once; the library call is SDPA with the length
+    mask (over the pre-gathered view, paged)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as kda
+    from repro_torch.kernels import paged_decode_attention as kpda
+    B, ps = len(clens), 16
+    nw = W // ps
+    q, kc, vc = rnd(B, 1, H, hd), rnd(B, W, H, hd), rnd(B, W, H, hd)
+    clen = torch.tensor(clens, dtype=torch.int32, device=dev)
+    P = B * nw + 1
+    kp, vp = rnd(P, ps, H, hd), rnd(P, ps, H, hd)
+    g = torch.Generator(device=dev)
+    g.manual_seed(W + H)
+    bt = (torch.randperm(P - 1, generator=g, device=dev)[:B * nw] + 1).reshape(B, nw)
+    bt = bt.to(torch.int32)
+    for b, c in enumerate(clens):                 # trash page past the live ones
+        bt[b, -(-(c + 1) // ps):] = 0
+    forms = {
+        f"decode_attention_{name}": (
+            "src/repro/kernels/decode_attention.py:71",
+            lambda q_, k_, v_: kda.decode_attention(q_, k_, v_, clen, q_per_kv=1),
+            lambda q_, k_, v_: kda.decode_attention_ref(q_, k_, v_, clen, q_per_kv=1),
+            kc, vc, lambda t: t),
+        f"paged_decode_attention_{name}": (
+            "src/repro/kernels/paged_decode_attention.py:70",
+            lambda q_, k_, v_: kpda.paged_decode_attention(q_, k_, v_, bt, clen,
+                                                           q_per_kv=1),
+            lambda q_, k_, v_: kpda.paged_decode_attention_ref(q_, k_, v_, bt, clen,
+                                                               q_per_kv=1),
+            kp, vp, lambda t: t[bt.long()].reshape(B, nw * ps, H, hd)),
+    }
+    live = sum(min(c + 1, W) for c in clens)
+    pages = sum(-(-(c + 1) // ps) for c in clens)
+    mask = (torch.arange(W, device=dev)[None, :]
+            <= clen[:, None].long())[:, None, None, :]
+    rows = {}
+    for row, (replaces, kern, plain, k, v, view) in forms.items():
+        log(f"[kernels] {row}")
+        paged = row.startswith("paged")
+        err = check_close(f"bf16 q [{B},1,{H},{hd}] G=1 clen={clens}",
+                          kern(q, k, v), plain(q, k, v), "bfloat16")
+        q32, k32, v32 = q.float(), k.float(), v.float()
+        err = max(err, check_close(f"f32 q [{B},1,{H},{hd}] G=1", kern(q32, k32, v32),
+                                   plain(q32, k32, v32), "float32"))
+        del q32, k32, v32
+        fn = lambda: kern(q, k, v)                                  # noqa: E731
+        ms, plain_ms = time_ms(fn, 50), time_ms(lambda: plain(q, k, v), 10)
+        qt, kt, vt = q.transpose(1, 2), view(k).transpose(1, 2), view(v).transpose(1, 2)
+        lf = lambda: F.scaled_dot_product_attention(                # noqa: E731
+            qt, kt, vt, attn_mask=mask)
+        lib = time_ms(lf, 50)
+        dms, lib_dms = device_times(row, fn, lf)
+        b_ms, b_by = bound(2 * (2 * B * H * hd + 2 * live * H * hd)
+                           + 4 * (B + (pages if paged else 0)),
+                           4 * hd * H * live, torch.bfloat16)
+        rows[row] = dict(
+            name=row, route="cuda",
+            source="src/repro_torch/kernels/csrc/split_decode_attention.cu",
+            replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib, device_ms=dms,
+            library_device_ms=lib_dms)
+    return rows
 
 
 def decode_ring_row(dev, rnd, name, W, H, K, hd, win, clens):
@@ -1231,10 +1350,11 @@ def teacher_forced(model, params, ids, n_prompt, *, paged: bool, dev):
     ids[n_prompt:] one token at a time (dense cache, or a page pool)."""
     import torch
     from repro_torch.serving import kvpool
+    from repro_torch.serving.programs import model_inputs
     cap, ps = 2048, 16
     out = []
     tok = torch.tensor([ids[:n_prompt]], device=dev)
-    batch = model.make_batch(tok)
+    batch = model_inputs(model.cfg, tok, torch.arange(n_prompt, device=dev)[None])
     if paged:
         n_pages = cap // ps
         cache = kvpool.init_paged_cache(model.cfg, 1 + n_pages, ps, dev)
@@ -1249,8 +1369,8 @@ def teacher_forced(model, params, ids, n_prompt, *, paged: bool, dev):
     out.append(logits[:, 0])
     for t, x in enumerate(ids[n_prompt:-1]):
         pos = n_prompt + t
-        b = {"tokens": torch.tensor([[x]], device=dev),
-             "positions": torch.tensor([[pos]], device=dev)}
+        b = model_inputs(model.cfg, torch.tensor([[x]], device=dev),
+                         torch.tensor([[pos]], device=dev))
         clen = torch.tensor([pos], dtype=torch.int32, device=dev)
         logits, _ = model.decode_step(params, b, cache, clen, block_tables=bt)
         out.append(logits[:, 0])
@@ -1705,6 +1825,19 @@ def dense_run(name, cfg, params, dev, tok, rng, spec, profile_admission=True):
     return prompts, counts, prof
 
 
+def prefix_prompts(tok, rng):
+    """(warm-up prompt, prompts, session turns) sharing a ~500-token system
+    prompt."""
+    system = ("System: you are one agent of a Planner/Actor/Evaluator "
+              "workflow; tools are MCP functions. " + make_text(tok, rng, 500))
+    prompts = [system + f"{role}: " + make_text(tok, rng, n)
+               for role, n in (("planner", 100), ("actor", 300),
+                               ("evaluator", 600), ("actor", 900))]
+    turns = [system + "planner: " + make_text(tok, rng, 80),
+             " tool: " + make_text(tok, rng, 120)]
+    return system + "planner: plan the task.", prompts, turns
+
+
 def prefix_run(label, cfg, params, dev, tok, rng, cap, **ecfg):
     """Prompts sharing a ~500-token system prompt and a 2-turn session on a
     prefix-sharing server (cache_mode="paged", page_size 16, decode_chunk 8:
@@ -1714,16 +1847,9 @@ def prefix_run(label, cfg, params, dev, tok, rng, cap, **ecfg):
     srv = LLMServer(cfg, num_slots=4, capacity=cap, params=params, device=dev,
                     engine_cfg=EngineConfig(cache_mode="paged", page_size=16,
                                             decode_chunk=8, **ecfg))
-    system = ("System: you are one agent of a Planner/Actor/Evaluator "
-              "workflow; tools are MCP functions. " + make_text(tok, rng, 500))
-    prompts = [system + f"{role}: " + make_text(tok, rng, n)
-               for role, n in (("planner", 100), ("actor", 300),
-                               ("evaluator", 600), ("actor", 900))]
-    turns = [system + "planner: " + make_text(tok, rng, 80),
-             " tool: " + make_text(tok, rng, 120)]
+    warm, prompts, turns = prefix_prompts(tok, rng)
     before = srv.stats()
-    handles, counts, st = serve_phase(label, srv, prompts, 1, turns,
-                                      warm=system + "planner: plan the task.")
+    handles, counts, st = serve_phase(label, srv, prompts, 1, turns, warm=warm)
     if srv.engine.snapshots:
         hits = st["snapshot_hits"] - before["snapshot_hits"]
         log(f"[{label}] snapshot_hits={hits} snapshot_captures="
@@ -2055,6 +2181,276 @@ def moe_phase(dev):
                 raise AssertionError(f"{name}: the float32 checks are not drop-free")
             stateful_f32_checks(name, spec, dev, tok, rng)
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the modality archs (musicgen-large, chameleon-34b)
+# ---------------------------------------------------------------------------
+
+# per arch: the depth (None: the published one), capacity and the dense
+# run's prompt lengths (the qwen cells')
+MODALITY = {
+    "musicgen-large": dict(num_layers=None, capacity=2048,
+                           prompts=(200, 600, 1000, 1500)),
+    "chameleon-34b": dict(num_layers=None, capacity=2048,
+                          prompts=(200, 600, 1000, 1500)),
+}
+
+
+@contextlib.contextmanager
+def counted_forwards(server):
+    """Counts the prefill and extend calls of ``server``'s programs inside
+    the block; each runs every layer once."""
+    progs = server.engine.progs
+    n = collections.Counter()
+    names = ("_prefill_fn", "_extend_fn", "_extend_paged_fn")
+    for attr in names:
+        def counted(*a, _fn=getattr(progs, attr), **kw):
+            n["forwards"] += 1
+            return _fn(*a, **kw)
+        setattr(progs, attr, counted)
+    try:
+        yield n
+    finally:
+        for attr in names:
+            delattr(progs, attr)
+
+
+def counted_serve(label, srv, prompts, turns, warm):
+    """``serve_phase`` after a warm-up request; fails unless flash launches
+    == layers x prefill / extend forwards and (paged-)decode launches ==
+    layers x decode steps. Returns what ``serve_phase`` returns."""
+    from repro_torch.serving.server import SamplingParams
+    srv.submit(warm, SamplingParams(max_new_tokens=4)).result()
+    steps0 = srv.engine.progs.decode_steps
+    with counted_forwards(srv) as n:
+        handles, counts, st = serve_phase(label, srv, prompts, 1, turns)
+    steps = srv.engine.progs.decode_steps - steps0
+    L = srv.engine.cfg.num_layers
+    dec = "paged_decode_attention" if srv.engine.paged else "decode_attention"
+    log(f"[{label}] flash launches {counts['flash_attention']} == layers x "
+        f"forwards {L * n['forwards']} ({n['forwards']}); {dec} launches "
+        f"{counts[dec]} == layers x decode steps {L * steps} ({steps})")
+    if counts["flash_attention"] != L * n["forwards"] or counts[dec] != L * steps \
+            or n["forwards"] <= 0 or steps <= 0:
+        raise AssertionError(f"{label}: launches {counts} against {n['forwards']} "
+                             f"forwards and {steps} decode steps of {L} layers")
+    return handles, counts, st
+
+
+def logits_against_forward(name, model, params, ids, n_prompt, dev, tol):
+    """Teacher-forced logits of ids[n_prompt:] built by decode steps on a
+    dense cache and on a page pool (``teacher_forced``): the two within
+    ``tol`` of each other, and each against one forward over ids[:-1]
+    (the same math in other GEMM shapes and reduction orders); returns
+    the largest difference from the forward and logs each with the argmax
+    agreement. Fails past ``tol`` between the two layouts."""
+    import torch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving.programs import model_inputs
+    n = len(ids) - 1
+    full, _, _ = tfm.forward_logits(params, model_inputs(
+        model.cfg, torch.tensor([ids[:-1]], device=dev),
+        torch.arange(n, device=dev)[None]), model.cfg, mode="train")
+    want = full[0, n_prompt - 1:]
+    got = {paged: teacher_forced(model, params, ids, n_prompt, paged=paged, dev=dev)
+           for paged in (False, True)}
+    layouts = float((got[False] - got[True]).abs().max())
+    worst = 0.0
+    for paged, lg in got.items():
+        diff = float((lg - want).abs().max())
+        worst = max(worst, diff)
+        agree = float((lg.argmax(-1) == want.argmax(-1)).float().mean())
+        log(f"[{name}-{'paged' if paged else 'dense'}-vs-forward] steps="
+            f"{lg.shape[0]} max_abs_logit_diff={diff:.3e} (|logit| max "
+            f"{float(want.abs().max()):.3f}) argmax_agreement={agree:.4f}")
+    log(f"[{name}-dense-vs-paged] teacher-forced max_abs_logit_diff={layouts:.3e} "
+        f"(tol {tol})")
+    if not math.isfinite(layouts) or not math.isfinite(worst) or layouts > tol:
+        raise AssertionError(f"{name}: dense vs paged teacher-forced logits differ "
+                             f"by {layouts}")
+    return worst
+
+
+def modality_f32_check(name, dev, tok, rng):
+    """The same arch at its published widths, 4 layers, float32: the
+    decode-built logits (dense and paged) within 1e-3 of one forward, so
+    the bf16 gap between the two is rounding, not a different result."""
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import Model
+    cfg = dataclasses.replace(ARCHS[name], dtype="float32", param_dtype="float32",
+                              num_layers=4)
+    model = Model(cfg, device=dev)
+    params = model.init(seed=1)
+    ids = tok.encode(make_text(tok, rng, 300))[:308]
+    worst = logits_against_forward(f"{name}-f32-4-layers", model, params, ids,
+                                   len(ids) - 32, dev, 1e-3)
+    if worst > 1e-3:
+        raise AssertionError(f"{name} float32: decode-built logits differ from one "
+                             f"forward by {worst}")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def modality_phase(dev):
+    """Both modality archs at their published widths (bf16, random weights
+    from seed 0, 4 slots, capacity 2048; musicgen's inputs are the frame
+    stub one_hot(id % d_model), chameleon's early-fusion token ids): dense
+    serving with a 2-turn session, then KV pages (page_size 16,
+    decode_chunk 8) on prompts sharing a system prompt, every request
+    COMPLETED and flash / decode launches == layers x forwards / steps; one
+    dense decode chunk (graph and eager) and the longest prompt's admission
+    profiled; graph ids against eager ids, dense and paged; teacher-forced
+    logits of the two cache layouts within 5e-2, and each against one
+    forward (printed); then 4 layers in float32, decode-built logits
+    within 1e-3 of one forward. Each model is freed before the next loads.
+    Returns the launches by arch."""
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import Model
+    from repro_torch.serving.server import EngineConfig, LLMServer
+    from repro_torch.serving.tokenizer import ByteTokenizer
+
+    out = {}
+    for name, spec in MODALITY.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        full = ARCHS[name]
+        cfg = full if spec["num_layers"] is None else dataclasses.replace(
+            full, num_layers=spec["num_layers"])
+        tok = ByteTokenizer(cfg.vocab_size)
+        rng = random.Random(5)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = Model(cfg, device=dev)
+        params = model.init(seed=0)
+        torch.cuda.synchronize()
+        log(f"[{name}] layers={cfg.num_layers} of {full.num_layers} d_model="
+            f"{cfg.d_model} heads={cfg.num_heads}/{cfg.num_kv_heads} hd="
+            f"{cfg.head_dim} d_ff={cfg.d_ff} vocab={cfg.vocab_size} modality="
+            f"{cfg.modality} pos_emb={cfg.pos_emb} dtype={cfg.dtype}; params="
+            f"{model.param_count() / 1e9:.3f}B init_s={time.perf_counter() - t0:.2f}")
+        memory_report(name, cfg, params, spec)
+        cap = spec["capacity"]
+        counts = collections.Counter()
+        peak = 0
+
+        srv = LLMServer(cfg, num_slots=4, capacity=cap, params=params, device=dev,
+                        engine_cfg=EngineConfig(cache_mode="dense"))
+        prompts = [make_text(tok, rng, n) for n in spec["prompts"]]
+        turns = [make_text(tok, rng, 300), " user: " + make_text(tok, rng, 100)]
+        hs, c, _ = counted_serve(f"{name}-dense", srv, prompts, turns,
+                                 make_text(tok, rng, 40))
+        counts.update(c)
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        profile_decode_chunk(srv, prompts)
+        profile_prefill(srv, prompts[-1])
+        r = hs[0].request                           # a greedy request
+        ids = tok.encode(prompts[0])[-r.prompt_tokens:] + list(r.output_ids)
+        n_prompt = r.prompt_tokens
+        del r, hs, srv              # a handle keeps its server (and cache) alive
+        gc.collect()
+        torch.cuda.empty_cache()
+        graph_matches_eager(f"{name}-dense", cfg, params, dev, prompts, cap,
+                            cache_mode="dense")
+
+        paged = dict(cache_mode="paged", page_size=16, decode_chunk=8)
+        srv = LLMServer(cfg, num_slots=4, capacity=cap, params=params, device=dev,
+                        engine_cfg=EngineConfig(**paged))
+        warm, pprompts, pturns = prefix_prompts(tok, rng)
+        hs, c, st = counted_serve(f"{name}-paged", srv, pprompts, pturns, warm)
+        counts.update(c)
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        log(f"[{name}-paged] prefix_hit_tokens={st['prefix_hit_tokens']}")
+        if st["prefix_hit_tokens"] <= 0:
+            raise AssertionError(f"{name}-paged: no prefix hits")
+        del hs, srv
+        gc.collect()
+        torch.cuda.empty_cache()
+        graph_matches_eager(f"{name}-paged", cfg, params, dev, pprompts, cap, **paged)
+
+        logits_against_forward(name, model, params, ids, n_prompt, dev, 5e-2)
+        log(f"[{name}] launches={dict(counts)} peak_memory_GB={gb(peak)}")
+        out[name] = counts
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        modality_f32_check(name, dev, tok, rng)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 11: a checkpoint in the reference's format, written and restored
+# ---------------------------------------------------------------------------
+
+
+def checkpoint_phase(dev):
+    """musicgen-large at its published widths and 4 of 48 layers (bf16,
+    random weights from seed 0): its params saved by the port's
+    ``AsyncCheckpointer`` (the reference's format) into a directory under
+    build/ while a server on the same params serves 4 requests, restored
+    onto the card by ``Model.restore``; every tensor bit-identical and a
+    fresh server on the restored params gives the same greedy ids. Prints
+    save and restore seconds and bytes; the directory is deleted."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import AsyncCheckpointer
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import Model, convert
+    from repro_torch.serving.server import LLMServer
+    from repro_torch.serving.tokenizer import ByteTokenizer
+
+    cfg = dataclasses.replace(ARCHS["musicgen-large"], num_layers=4)
+    model = Model(cfg, device=dev)
+    params = model.init(seed=0)
+    tok = ByteTokenizer(cfg.vocab_size)
+    rng = random.Random(6)
+    prompts = [make_text(tok, rng, n) for n in (200, 600, 1000, 1500)]
+    (ROOT / "build").mkdir(exist_ok=True)
+    d = tempfile.mkdtemp(prefix="ckpt-", dir=ROOT / "build")
+    try:
+        srv = LLMServer(cfg, num_slots=4, capacity=2048, params=params, device=dev)
+        ck = AsyncCheckpointer(d)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.save(1, convert.params_to_jax(params.state_dict(), cfg))
+        host_s = time.perf_counter() - t0           # the copy to the host
+        ids_mem = [h.request.output_ids for h in serve_ids(srv, prompts)]
+        serve_s = time.perf_counter() - t0
+        ck.wait()
+        save_s = time.perf_counter() - t0
+        files = [f for f in Path(d).rglob("*") if f.is_file()]
+        nbytes = sum(f.stat().st_size for f in files)
+        del srv
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored, step = Model(cfg, device=dev).restore(d)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        sd0, sd1 = params.state_dict(), restored.state_dict()
+        same = sorted(sd0) == sorted(sd1) and all(
+            sd0[k].dtype == sd1[k].dtype and torch.equal(
+                sd0[k].view(torch.int16), sd1[k].view(torch.int16)) for k in sd0)
+        srv = LLMServer(cfg, num_slots=4, capacity=2048, params=restored, device=dev)
+        ids_rest = [h.request.output_ids for h in serve_ids(srv, prompts)]
+        del srv
+        log(f"[checkpoint] {cfg.name} {cfg.num_layers} of 48 layers, bf16: "
+            f"{len(files)} files, {nbytes} bytes ({gb(nbytes)} GB); save_s="
+            f"{save_s:.3f} (host copy {host_s:.3f}, a server served 4 requests "
+            f"for {serve_s - host_s:.3f} s meanwhile) restore_s={restore_s:.3f} "
+            f"step={step}; {len(sd0)} tensors bit-identical: {same}; restored "
+            f"ids == in-memory ids: {ids_rest == ids_mem} (output tokens "
+            f"{[len(x) for x in ids_mem]})")
+        if not same or step != 1 or ids_rest != ids_mem:
+            raise AssertionError("checkpoint: the restored params or ids differ")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    del model, params, restored
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -2690,9 +3086,11 @@ def fleet_phase(dev, model, params, tok):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="kernels,serve,spec,fame,fleet,stateful,moe",
+    ap.add_argument("--phases",
+                    default="kernels,serve,spec,fame,fleet,stateful,moe,modality,"
+                            "checkpoint",
                     help="comma list of kernels,serve,spec,fame,fleet,stateful,"
-                         "moe (default: all)")
+                         "moe,modality,checkpoint (default: all)")
     args = ap.parse_args()
     try:
         import torch
@@ -2761,16 +3159,28 @@ def main() -> int:
         # mixtral-8x22b's flash and ring-decode calls: G = 6, window 4096
         launches["flash_attention_swa"] = mc["mixtral-8x22b"]["flash_attention"]
         launches["decode_attention_swa_ring"] = mc["mixtral-8x22b"]["decode_attention"]
+    if "modality" in phases:
+        mo = modality_phase(dev)
+        for counts in mo.values():
+            launches.update(counts)
+        # musicgen-large's calls (MHA at hd 64) and chameleon-34b's flash
+        mg = mo["musicgen-large"]
+        for k in ("flash_attention", "decode_attention", "paged_decode_attention"):
+            launches[f"{k}_musicgen"] = mg[k]
+        launches["flash_attention_chameleon"] = mo["chameleon-34b"]["flash_attention"]
+    if "checkpoint" in phases:
+        checkpoint_phase(dev)
     for name, r in rows.items():
         r["launches"] = launches.get(name, 0)
-    if {"serve", "spec", "stateful", "moe"} <= phases:
+    if {"serve", "spec", "stateful", "moe", "modality"} <= phases:
         idle = [name for name, r in rows.items() if r["launches"] <= 0]
         if idle:
             raise AssertionError(f"kernels never launched on the main path: {idle}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(card)
-    log(json.dumps({"kernels": [{k: r[k] for k in keys + ("device_ms",) if k in r}
+    log(json.dumps({"kernels": [{k: r[k] for k in keys + ("device_ms", "library_device_ms")
+                                 if k in r}
                                 for r in rows.values()]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -146,6 +146,16 @@ def rotary_embed(x, positions, theta: float, rotary_pct: float = 1.0):
     return torch.cat([out.to(x.dtype), x_pass], dim=-1)
 
 
+def sinusoidal_pos(positions, d_model: int, dtype):
+    """Classic transformer sinusoidal positional encoding, [B, S, D]:
+    computed in float32, ``[sin, cos]`` concatenated, then cast."""
+    half = d_model // 2
+    freqs = torch.exp(-math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
+
 # ---------------------------------------------------------------------------
 # Embedding / unembedding
 # ---------------------------------------------------------------------------

@@ -2,9 +2,10 @@
 
 Counterpart of ``repro.models.model.Model``. The JAX handle is stateless
 and takes a params pytree; this one is bound to a device and builds the
-params ``nn.Module`` (``init`` from a seeded generator on the device, or
-``load`` from a state dict such as ``convert.params_from_jax``'s), which
-every entry point then takes as ``params``.
+params ``nn.Module`` (``init`` from a seeded generator on the device,
+``load`` from a state dict such as ``convert.params_from_jax``'s, or
+``restore`` from a checkpoint directory in the JAX package's format),
+which every entry point then takes as ``params``.
 """
 from __future__ import annotations
 
@@ -12,7 +13,9 @@ from typing import Mapping
 
 import torch
 
+from repro_torch import checkpoint as ckpt
 from repro_torch.device import resolve_device
+from repro_torch.models import convert
 from repro_torch.models import transformer as tfm
 
 
@@ -20,7 +23,6 @@ class Model:
     """Model handle for one ModelConfig on one device (default: the card)."""
 
     def __init__(self, cfg, device="cuda"):
-        tfm.check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
 
@@ -41,6 +43,17 @@ class Model:
         params = self._empty()
         params.load_state_dict(dict(state_dict), strict=True)
         return params
+
+    def restore(self, ckpt_dir: str):
+        """Params from the newest checkpoint under ``ckpt_dir`` in the JAX
+        package's format (``checkpoint.save``, ``examples/train_lm.py``):
+        the params tree alone or the ``(params, OptState)`` pair, whose
+        params are taken. Each leaf is cast to ``cfg.param_dtype`` on the
+        device. Returns (params, step)."""
+        like = convert.nest((path, torch.empty(shape, device="meta"))
+                            for path, shape in convert.jax_layout(self.cfg))
+        tree, step = ckpt.restore_params(ckpt_dir, like)
+        return self.load(convert.params_from_jax(tree, self.cfg)), step
 
     def param_count(self) -> int:
         return sum(p.numel() for p in tfm.TransformerParams(
@@ -76,9 +89,14 @@ class Model:
         return tfm.verify_commit(self.cfg, staged, cache_lens, ns, lens)
 
     # ---- input construction ------------------------------------------------
-    def make_batch(self, tokens, *, positions=None, start: int = 0):
-        B, S = tokens.shape[0], tokens.shape[1]
+    def make_batch(self, tokens_or_frames, *, positions=None, start: int = 0):
+        """Token ids [B, S], or frame embeddings [B, S, d_model] under
+        ``"frames"`` for ``audio_frames`` configs, at positions [start,
+        start+S) unless given."""
+        key = "frames" if self.cfg.modality == "audio_frames" else "tokens"
+        arr = tokens_or_frames
+        B, S = arr.shape[0], arr.shape[1]
         if positions is None:
-            positions = (start + torch.arange(S, device=tokens.device)
+            positions = (start + torch.arange(S, device=arr.device)
                          )[None, :].expand(B, S)
-        return {"tokens": tokens, "positions": positions}
+        return {key: arr, "positions": positions}

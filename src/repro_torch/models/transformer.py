@@ -44,7 +44,8 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import (Params, apply_mlp, apply_norm,
-                                       embed_tokens, init_, unembed)
+                                       embed_tokens, init_, sinusoidal_pos,
+                                       unembed)
 from repro_torch.models.layers import param as _p
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -57,18 +58,6 @@ def attn_window(kind, cfg):
     ``local_window`` for LOCAL_ATTN, ``sliding_window`` (None: full
     attention) for ATTN and ATTN_MOE."""
     return cfg.local_window if kind == cfgbase.LOCAL_ATTN else cfg.sliding_window
-
-
-def check_supported(cfg):
-    """Raise for what the port does not carry yet; the message names the
-    ROADMAP.md item that ports it."""
-    if cfg.modality == "audio_frames" or cfg.pos_emb == "sinusoidal":
-        # vlm_tokens are plain token ids in the JAX model too; only the
-        # frame-embedding stub (musicgen, the one sinusoidal arch) has
-        # another input path
-        raise NotImplementedError(
-            f"{cfg.name}: modality {cfg.modality!r} is not ported yet "
-            "(ROADMAP.md queue 1, item 13: modality stubs)")
 
 
 # ---------------------------------------------------------------------------
@@ -217,7 +206,6 @@ class TransformerParams(nn.Module):
 
     def __init__(self, cfg, *, device, dtype):
         super().__init__()
-        check_supported(cfg)
         kw = dict(device=device, dtype=dtype)
         self.embed = Table(cfg.padded_vocab, cfg.d_model, init="normal", **kw)
         if not cfg.tie_embeddings:
@@ -529,6 +517,20 @@ def apply_stack(params, x, cfg, *, positions, mode, cache=None,
 # ---------------------------------------------------------------------------
 
 
+def _inputs_to_x(params, batch, cfg):
+    """Token ids or precomputed frame embeddings (the modality stub):
+    ``audio_frames`` configs take ``batch["frames"]`` [B, S, d_model] in
+    ``cfg.dtype``, the others embed ``batch["tokens"]``; sinusoidal
+    positions are added where ``cfg.pos_emb`` asks for them."""
+    if cfg.modality == "audio_frames":
+        x = batch["frames"].to(DTYPES[cfg.dtype])
+    else:
+        x = embed_tokens(params, batch["tokens"], cfg)
+    if cfg.pos_emb == "sinusoidal":
+        x = x + sinusoidal_pos(batch["positions"], cfg.d_model, x.dtype)
+    return x
+
+
 @torch.no_grad()
 def forward_logits(params, batch, cfg, *, mode="train", cache=None,
                    cache_len=None, prefill_len=None, block_tables=None,
@@ -543,7 +545,7 @@ def forward_logits(params, batch, cfg, *, mode="train", cache=None,
     losses summed over the layers (0 without MoE); in ``mode="verify"`` the
     "cache" is the staged record ``{"cache", "records"}`` that
     ``verify_commit`` resolves, as in the JAX package."""
-    x = embed_tokens(params, batch["tokens"], cfg)
+    x = _inputs_to_x(params, batch, cfg)
     B, S = x.shape[:2]
     n = lens if mode == "verify" else prefill_len
     prefill_mask = None

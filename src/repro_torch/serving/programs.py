@@ -40,7 +40,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import launch_counts
-from repro_torch.models.transformer import tree_leaves, tree_map
+from repro_torch.models.transformer import DTYPES, tree_leaves, tree_map
 from repro_torch.serving.faults import DeadLetterError, RetryPolicy, TransientFault
 from repro_torch.serving.sampler import accept_batched, sample_batched
 
@@ -72,6 +72,20 @@ def slot_copy(dst, dst_row: int, src, src_row: int):
                     tree_leaves(slot_extract(src, src_row))):
         d.copy_(s)                                                    # mutation
     return dst
+
+
+def model_inputs(cfg, tokens, positions):
+    """The model's inputs for token ids [B, S]. An ``audio_frames`` config
+    gets the reference's frame-embedding stub instead, ``one_hot(ids %
+    d_model, d_model)`` in ``cfg.dtype``, made on the ids' device (inside
+    the decode step's graph too), so the scheduler, its staged inputs and
+    the radix tree keep working on token ids."""
+    if cfg.modality != "audio_frames":
+        return {"tokens": tokens, "positions": positions}
+    D = cfg.d_model
+    cls = torch.arange(D, device=tokens.device)
+    frames = ((tokens % D)[..., None] == cls).to(DTYPES[cfg.dtype])
+    return {"frames": frames, "positions": positions}
 
 
 def _variant(temps, top_ks) -> str:
@@ -200,7 +214,7 @@ class EnginePrograms:
         directly gives the same results without a capacity-sized
         allocation per call.)"""
         logits, _ = self.model.prefill(
-            params, {"tokens": tokens, "positions": positions},
+            params, model_inputs(self.cfg, tokens, positions),
             slot_extract(cache, slot), length=length, with_logits="last")
         return cache, self._sample_last(logits, key, temperature, top_k)
 
@@ -225,7 +239,7 @@ class EnginePrograms:
         itself. ``sample=True`` (the prompt's final chunk) also unembeds
         and samples at the last valid position; other chunks skip it."""
         logits, _ = self.model.extend(
-            params, {"tokens": tokens, "positions": positions},
+            params, model_inputs(self.cfg, tokens, positions),
             slot_extract(cache, slot), start, length=length,
             with_logits="last" if sample else False)
         tok = (self._sample_last(logits, key, temperature, top_k)
@@ -238,7 +252,7 @@ class EnginePrograms:
         attend to its block-table view (shared prefix pages included — the
         radix-matched prefix is never recomputed)."""
         logits, pool = self.model.extend(
-            params, {"tokens": tokens, "positions": positions}, pool, start,
+            params, model_inputs(self.cfg, tokens, positions), pool, start,
             length=length, block_tables=bt,
             with_logits="last" if sample else False)
         tok = (self._sample_last(logits, key, temperature, top_k)
@@ -407,8 +421,7 @@ class EnginePrograms:
         ``b["step"]`` (a device-side index the step advances) of ``tok`` /
         ``emit`` takes the step's tokens."""
         last, clens, rem, done = b["last"], b["clens"], b["rem"], b["done"]
-        batch = {"tokens": last[:, None].long(),
-                 "positions": clens[:, None].long()}
+        batch = model_inputs(self.cfg, last[:, None].long(), clens[:, None].long())
         logits, _ = self.model.decode_step(
             params, batch, cache, clens, block_tables=b.get("bt"),
             keep=~done if self.freeze_done_rows else None)

@@ -362,10 +362,6 @@ class Scheduler:
             raise NotImplementedError(
                 "EngineConfig.mesh: multi-device serving is not ported yet "
                 "(ROADMAP.md queue 1, item 11)")
-        if cfg.modality != "text":
-            raise NotImplementedError(
-                f"serving modality {cfg.modality!r} is not ported yet "
-                "(ROADMAP.md queue 1, item 13: modality stubs)")
         # fault-tolerance layer (serving/faults.py): bounded retry of
         # transient dispatch faults, deadline default, chaos hooks, and the
         # crash-safe session journal (serving/journal.py)
@@ -402,6 +398,11 @@ class Scheduler:
             raise ValueError(
                 f"spec_len must be >= 0, got {self.engine_cfg.spec_len}")
         self.spec = self.engine_cfg.spec_len > 0
+        if self.spec and cfg.modality != "text":
+            raise ValueError(
+                "speculative decoding needs token-id inputs; "
+                f"modality={cfg.modality!r} has no n-gram stream to draft "
+                "from")
         # pure full-attention caches tolerate done-row decode writes (same
         # position, same value — idempotent); every other cache family keeps
         # real state that must be frozen for rows sitting a chunk out

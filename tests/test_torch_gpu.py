@@ -7,7 +7,8 @@ stateful archs' snapshot mode included) on the card against the same code
 on the CPU (plain versions), the decode and verify steps as replayed CUDA graphs
 against the same steps run eagerly on the card, and the robustness layers
 on graphs: a two-replica fleet with a pump per replica, preempt-resume,
-journal restore, and a transient fault ahead of the first capture. This
+journal restore, and a transient fault ahead of the first capture; the
+modality archs' kernel geometries (MHA at head dim 64) and servers. This
 file imports no JAX, so it also runs on a machine with a card and no JAX:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
@@ -233,6 +234,74 @@ def test_gpu_decode_kernel_matches_plain(dtype, window):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", ["dense", "paged"])
+def test_gpu_mha_split_decode_at_musicgen_heads(dtype, form):
+    """musicgen-large's decode geometry: MHA (G = 1, 32 query heads over 32
+    KV heads) at head dim 64, at cache lengths 0, SPLIT - 1, SPLIT, a page
+    edge and the capacity edge: the plain version's result, and two calls
+    give identical bits."""
+    dev = _need_card()
+    g = torch.Generator(device=dev).manual_seed(64 + (form == "paged"))
+    H, hd, ps, T, split = 32, 64, 16, 4 * ksd.SPLIT, ksd.SPLIT
+    clen = torch.tensor([0, split - 1, split, 3 * ps - 1, T - 1], dtype=torch.int32,
+                        device=dev)
+    B = clen.shape[0]
+    q = torch.randn(B, 1, H, hd, generator=g, device=dev).to(dtype)
+    if form == "dense":
+        kc = torch.randn(B, T, H, hd, generator=g, device=dev).to(dtype)
+        vc = torch.randn(B, T, H, hd, generator=g, device=dev).to(dtype)
+        before = kda.launches
+        got = kda.decode_attention(q, kc, vc, clen, q_per_kv=1)
+        again = kda.decode_attention(q, kc, vc, clen, q_per_kv=1)
+        torch.cuda.synchronize()
+        assert kda.launches == before + 2
+        want = kda.decode_attention_ref(q, kc, vc, clen, q_per_kv=1)
+    else:
+        nw = T // ps
+        P = B * nw + 1
+        kp = torch.randn(P, ps, H, hd, generator=g, device=dev).to(dtype)
+        vp = torch.randn(P, ps, H, hd, generator=g, device=dev).to(dtype)
+        bt = torch.randperm(P - 1, generator=g, device=dev)[:B * nw].add(1)
+        bt = bt.reshape(B, nw).to(torch.int32)
+        for b, c in enumerate(clen.tolist()):       # trash-page padding
+            bt[b, -(-(c + 1) // ps):] = 0
+        before = kpda.launches
+        got = kpda.paged_decode_attention(q, kp, vp, bt, clen, q_per_kv=1)
+        again = kpda.paged_decode_attention(q, kp, vp, bt, clen, q_per_kv=1)
+        torch.cuda.synchronize()
+        assert kpda.launches == before + 2
+        want = kpda.paged_decode_attention_ref(q, kp, vp, bt, clen, q_per_kv=1)
+    assert float((got.float() - want.float()).abs().max()) < GPU_TOL[dtype]
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,T,q_start", [(300, 300, 0), (77, 333, 256),
+                                         (2048, 2048, 0)])
+def test_gpu_flash_wgmma_at_hd64_mha(S, T, q_start):
+    """The bf16 wgmma route at musicgen-large's prefill geometry, H = K =
+    32 at head dim 64 (one column block of the Geo<64> tile), prefill and
+    extend, against the plain version (2e-2); the float32 route at the
+    same shapes against it at 2e-5."""
+    dev = _need_card()
+    g = torch.Generator(device=dev).manual_seed(S + T)
+    q = torch.randn(1, S, 32, 64, generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn(1, T, 32, 64, generator=g, device=dev).to(torch.bfloat16)
+    v = torch.randn(1, T, 32, 64, generator=g, device=dev).to(torch.bfloat16)
+    before = dict(kfa.launches_by_route)
+    got = kfa.flash_attention(q, k, v, q_per_kv=1, q_start=q_start)
+    torch.cuda.synchronize()
+    assert kfa.launches_by_route == {**before, "wgmma": before["wgmma"] + 1}
+    want = kfa.flash_attention_ref(q, k, v, q_per_kv=1, q_start=q_start)
+    assert float((got.float() - want.float()).abs().max()) < GPU_TOL[torch.bfloat16]
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    got32 = kfa.flash_attention(q32, k32, v32, q_per_kv=1, q_start=q_start)
+    want32 = kfa.flash_attention_ref(q32, k32, v32, q_per_kv=1, q_start=q_start)
+    assert float((got32 - want32).abs().max()) < GPU_TOL[torch.float32]
+
+
+@pytest.mark.gpu
 def test_gpu_flash_swa_at_mixtral_prefill_matches_plain():
     """mixtral-8x22b's largest prefill bucket: q [1,8192,48,128], 8 KV heads
     (G = 6), window 4096, bf16. The plain version runs by blocks of 1024
@@ -425,6 +494,33 @@ def test_gpu_server_greedy_matches_cpu(mode):
             assert kfa.launches > before[0]
             assert (kpda.launches if mode == "paged" else kda.launches) > \
                 before[2 if mode == "paged" else 1]
+    assert all(len(x) == 10 for x in ids["cpu"])
+    assert ids[str(dev)] == ids["cpu"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["musicgen-large", "chameleon-34b"])
+@pytest.mark.parametrize("mode", ["dense", "paged"])
+def test_gpu_modality_server_greedy_matches_cpu(arch, mode):
+    """The modality archs' LLMServer on the card (musicgen's frame stub
+    built inside the decode graph) gives the CPU server's greedy ids
+    (float32, same weights, the EOS column of the unembed zeroed)."""
+    dev = _need_card()
+    cfg = ARCHS[arch].reduced(dtype="float32", param_dtype="float32",
+                              vocab_size=512)
+    sd = Model(cfg, device="cpu").init(seed=2).state_dict()
+    sd["unembed.table"][:, cfg.vocab_size - 1] = 0.0  # EOS guard
+    prompts = ["alpha prompt for slot one", "third prompt",
+               "a rather longer second prompt that crosses a bucket boundary"]
+    ids = {}
+    for d in ("cpu", dev):
+        srv = LLMServer(cfg, num_slots=3, capacity=128, device=d,
+                        params={k: v.to(d) for k, v in sd.items()},
+                        engine_cfg=EngineConfig(cache_mode=mode, page_size=16,
+                                                decode_chunk=4))
+        hs = [srv.submit(p, SamplingParams(max_new_tokens=10)) for p in prompts]
+        srv.run_until_idle()
+        ids[str(d)] = [h.request.output_ids for h in hs]
     assert all(len(x) == 10 for x in ids["cpu"])
     assert ids[str(dev)] == ids["cpu"]
 

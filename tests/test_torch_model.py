@@ -235,15 +235,8 @@ def test_paged_extend_then_decode(pair):
 
 
 # ---------------------------------------------------------------------------
-# what the slice refuses, and where it runs
+# where the model runs
 # ---------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("arch,item", [("musicgen-large", "item 13")])
-def test_unported_archs_raise_naming_roadmap_item(arch, item):
-    _, cfg = _cfgs(arch)
-    with pytest.raises(NotImplementedError, match=item):
-        Model(cfg, device="cpu")
 
 
 def test_model_runs_on_the_card_unless_asked_for_cpu():
