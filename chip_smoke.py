@@ -137,7 +137,25 @@ no result line) on any fault:
      the same params serves 4 requests, restored onto the card by
      ``Model.restore``: every tensor bit-identical, a server on the restored
      params gives the same greedy ids; save / restore seconds and bytes
-     printed, the directory deleted.
+     printed, the directory deleted;
+  12. train: qwen2.5-3b at its published width and depth (36 layers, bf16,
+     random weights from seed 0, remat full), trained through the port's
+     ``make_train_step``: SyntheticLM batches of 4 x 2048 tokens in 2
+     microbatches, AdamW (lr 1e-4), 16 steps; the loss falls by >= 1.5,
+     flash forward launches == 2 x 36 x 2 x 16 (each layer's forward and
+     its recompute)
+     and no other kernel; per-step loss, grad norm, lr, wall and tokens/s,
+     peak memory, the split of a step into forward + backward and
+     optimizer, one profiled step (the written-out flash backward's device
+     ms and share) and the 8·N·T share of the bf16 peak. Then the flash
+     kernel at the train shape (row ``flash_attention_train``: forward
+     against plain, the autograd.Function's gradients against plain
+     autograd, the backward's time beside SDPA's), one step's gradients
+     through the kernel path against plain autograd at reduced float32 and
+     bf16 configs (GQA, causal and windowed), and 2 of 36 layers trained 3
+     steps, saved, restored into fresh params and resumed against the
+     uninterrupted run (save / restore seconds and bytes; the directory
+     deleted).
 
 Every server runs its decode chunks and verify steps as replayed CUDA
 graphs (``serving/programs.py``); each serving phase prints its decode and
@@ -152,7 +170,7 @@ with one entry per kernel; the last line is ``{"ok": true, "device":
 
 Run from the repository root:  python3 chip_smoke.py
 (``--phases`` picks a subset of
-kernels,serve,spec,fame,fleet,stateful,moe,modality,checkpoint.)
+kernels,serve,spec,fame,fleet,stateful,moe,modality,checkpoint,train.)
 """
 from __future__ import annotations
 
@@ -3084,13 +3102,383 @@ def fleet_phase(dev, model, params, tok):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 12: training on the card
+# ---------------------------------------------------------------------------
+
+
+TRAIN_STEPS = 16
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM = 4, 2048, 2
+TRAIN_LOSS_DROP = 1.5       # the loss must fall by this over the steps
+# lr 1e-4: at 1e-3 the first AdamW steps of the random 3 B init throw the
+# loss from 6.94 to 11.2 and it settles at ~5.7, the uniform guess over the
+# 256 data tokens, by step 11 (1.25 below its start)
+TRAIN_LR = 1e-4
+
+
+def train_data(cfg, dev):
+    from repro_torch.training import data as tdata
+    return tdata.SyntheticLM(tdata.DataConfig(global_batch=TRAIN_BATCH,
+                                              seq_len=TRAIN_SEQ, vocab_size=256),
+                             cfg, device=dev)
+
+
+def train_step_fn(cfg):
+    from repro_torch.training import optimizer as topt
+    from repro_torch.training import train_step as tts
+    opt_cfg = topt.AdamWConfig(lr=TRAIN_LR, warmup_steps=3, total_steps=20)
+    return opt_cfg, tts.make_train_step(cfg, tts.TrainConfig(
+        opt=opt_cfg, accum_steps=TRAIN_ACCUM))
+
+
+def flash_train_row(dev, mb):
+    """The flash kernel at the train step's shape (q [mb,2048,16,128], k/v
+    [mb,2048,2,128], bf16, causal): its forward against the plain version
+    (bf16 2e-2), and the autograd.Function's gradients against autograd of
+    the plain version (2e-2 relative to each gradient's largest value where
+    that exceeds 1); forward, plain, SDPA and bound times, and the written-
+    out backward's time beside SDPA's backward."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as kfa
+    g = torch.Generator(device=dev).manual_seed(12)
+    H, K, hd, S = 16, 2, 128, TRAIN_SEQ
+    q, k, v, do = (torch.randn(*s, generator=g, device=dev).to(torch.bfloat16)
+                   for s in ((mb, S, H, hd), (mb, S, K, hd), (mb, S, K, hd), (mb, S, H, hd)))
+    kw = dict(q_per_kv=H // K)
+    fa = lambda: kfa.flash_attention(q, k, v, **kw)                 # noqa: E731
+    fr = lambda: kfa.flash_attention_ref(q, k, v, **kw)             # noqa: E731
+    err = check_close(f"train flash fwd bf16 [{mb},{S},{H},{hd}]", fa(), fr(), "bfloat16")
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    got = torch.autograd.grad(kfa.flash_attention(qg, kg, vg, **kw), (qg, kg, vg), do)
+    want = torch.autograd.grad(kfa.flash_attention_ref(qg, kg, vg, **kw), (qg, kg, vg), do)
+    for name, a, w in zip("qkv", got, want):
+        scale = max(1.0, float(w.float().abs().max()))
+        check_close(f"train flash d{name} (scaled by {scale:.3g})", a.float() / scale,
+                    w.float() / scale, "bfloat16")
+    del got, want, qg, kg, vg
+    ms, plain = time_ms(fa, 20), time_ms(fr, 3, warmup=1)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lf = lambda: F.scaled_dot_product_attention(                    # noqa: E731
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    lib = time_ms(lf, 20)
+    dms, lib_dms = device_times("flash_attention_train", fa, lf)
+    o = fa()
+    bwd = lambda: kfa.flash_attention_bwd(q, k, v, o, do, **kw)     # noqa: E731
+    bwd_ms = time_ms(bwd, 5, warmup=1)
+    qs, ks, vs = (t.detach().clone().transpose(1, 2).requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+    dot = do.transpose(1, 2)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), dot,
+                                                  retain_graph=True), 10)
+    pairs = S * (S + 1) // 2
+    b_ms, b_by = bound(2 * mb * (2 * S * H * hd + 2 * S * K * hd),
+                       4 * hd * H * pairs * mb, torch.bfloat16)
+    # the backward's least time: 2.5x the forward's products (dS·K, dSᵀ·Q,
+    # Pᵀ·dO, dO·Vᵀ and the recomputed Q·Kᵀ), reading q, k, v, o, dO once and
+    # writing dq, dk, dv once, at the float32 rate it runs at
+    bb_ms, bb_by = bound(2 * mb * (4 * S * H * hd + 4 * S * K * hd),
+                         10 * hd * H * pairs * mb, torch.float32)
+    log(f"[train] flash_attention_bwd (written-out PyTorch, float32 products, "
+        f"query blocks of 128) at [{mb},{S},{H},{hd}]: {bwd_ms:.4f} ms (its bound "
+        f"{bb_ms:.4f} by {bb_by} at the float32 rate); SDPA backward {lib_bwd:.4f} ms")
+    return dict(
+        name="flash_attention_train", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
+        replaces="src/repro/kernels/flash_attention.py:63",
+        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+        library_ms=lib, device_ms=dms, library_device_ms=lib_dms,
+        backward_ms=bwd_ms, backward_bound_ms=bb_ms, library_backward_ms=lib_bwd)
+
+
+def profile_train_step(step, params, opt, batch):
+    """One train step under torch.profiler. Returns (params, opt, a dict):
+    ``wall_ms`` of the profiled step; ``kernel_ms``, every kernel's self
+    time; ``bwd_busy_ms``, the kernels the written-out flash backward
+    launched (its ``flash_attention_bwd`` ranges); ``bwd_span_ms``, the
+    device timeline those ranges span, idle gaps included; ``fwd_ms``, the
+    flash forward kernels; ``top``, the heaviest kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt, _ = step(params, opt, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    ev = prof.key_averages()
+    rng = "flash_attention_bwd"
+    kernels = [e for e in ev if e.device_type == DeviceType.CUDA and e.key != rng]
+    out = dict(
+        wall_ms=wall,
+        kernel_ms=sum(e.self_device_time_total for e in kernels) / 1e3,
+        bwd_busy_ms=sum(e.device_time_total for e in ev
+                        if e.key == rng and e.device_type == DeviceType.CPU) / 1e3,
+        bwd_span_ms=sum(e.self_device_time_total for e in ev
+                        if e.key == rng and e.device_type == DeviceType.CUDA) / 1e3,
+        fwd_ms=sum(e.self_device_time_total for e in kernels
+                   if "flash_wgmma" in e.key) / 1e3,
+        top=[(e.key.split("(")[0][:60], e.self_device_time_total / 1e3, e.count)
+             for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]])
+    return params, opt, out
+
+
+def train_grad_checks(dev):
+    """Reduced qwen configs (4 layers, d_model 256, 4 / 2 heads of 64), one
+    step's loss and gradients through the kernel path against the same
+    step with the model's attention replaced by the plain version under
+    autograd, on the card: float32 (2e-5 on the loss, 1e-4 relative to
+    each gradient leaf's largest value, the CPU tests' bounds) and bf16
+    (2e-2 on both); GQA causal and a sliding window of 48."""
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.models import Model
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training import data as tdata
+    from repro_torch.training import train_step as tts
+    tols = {"float32": (1e-4, 2e-5), "bfloat16": (2e-2, 2e-2)}   # (grads, loss)
+    for window in (None, 48):
+        for dt in ("float32", "bfloat16"):
+            cfg = ARCHS["qwen2.5-3b"].reduced(
+                dtype=dt, param_dtype=dt, vocab_size=512, num_layers=4, d_model=256,
+                num_heads=4, num_kv_heads=2, head_dim=64, d_ff=512,
+                sliding_window=window)
+            params = Model(cfg, device=dev).init(seed=3, trainable=True)
+            batch = tdata.SyntheticLM(tdata.DataConfig(global_batch=2, seq_len=256,
+                                                       vocab_size=cfg.vocab_size),
+                                      cfg, device=dev).batch_at(1)
+            before = kfa.launches
+            loss, _, grads = tts.loss_and_grads(params, batch, cfg)
+            grads = {n: g.float().clone() for n, g in grads.items()}
+            launched = kfa.launches - before
+            real = tfm.flash_attention
+            tfm.flash_attention = kfa.flash_attention_ref
+            try:
+                loss_p, _, grads_p = tts.loss_and_grads(params, batch, cfg)
+            finally:
+                tfm.flash_attention = real
+            tol, loss_tol = tols[dt]
+            worst = max(float((grads[n] - g.float()).abs().max())
+                        / max(float(g.float().abs().max()), 1e-30)
+                        for n, g in grads_p.items())
+            dl = abs(float(loss) - float(loss_p)) / abs(float(loss_p))
+            log(f"[train] kernel path vs plain autograd, {dt}, window={window}, GQA "
+                f"4/2: flash launches {launched} (2 x {cfg.num_layers} layers), loss "
+                f"rel diff {dl:.3e} (tol {loss_tol}), worst grad leaf rel diff "
+                f"{worst:.3e} (tol {tol})")
+            if launched != 2 * cfg.num_layers or not dl <= loss_tol or not worst <= tol:
+                raise AssertionError(f"train: kernel-path grads differ ({dt}, "
+                                     f"window={window})")
+            del params, grads, grads_p
+
+
+def train_resume_check(dev):
+    """qwen2.5-3b at its published widths and 2 of 36 layers (the cut keeps
+    the checkpoint small: at 36 layers (params, OptState) is ~31 GB), bf16:
+    3 steps, an async save of (params, OptState) under build/, 3 more
+    steps; then fresh params restored from the checkpoint run the same 3
+    steps. Losses and params against the uninterrupted run; the loss falls
+    over the 6 steps. Save / restore seconds and bytes printed, the
+    directory deleted. Returns the ledger of the run."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import AsyncCheckpointer, restore
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import Model
+    from repro_torch.training import optimizer as topt
+    from repro_torch.training import train_step as tts
+
+    cfg = dataclasses.replace(ARCHS["qwen2.5-3b"], num_layers=2)
+    data = train_data(cfg, dev)
+    _, step = train_step_fn(cfg)
+    params = Model(cfg, device=dev).init(seed=0, trainable=True)
+    opt = topt.init_opt_state(params)
+    losses = []
+    for i in range(3):
+        params, opt, m = step(params, opt, data.batch_at(i))
+        losses.append(float(m["loss"]))
+    (ROOT / "build").mkdir(exist_ok=True)
+    d = tempfile.mkdtemp(prefix="train-ckpt-", dir=ROOT / "build")
+    try:
+        ck = AsyncCheckpointer(d)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.save(3, tts.state_to_jax(params, opt, cfg))
+        host_s = time.perf_counter() - t0
+        for i in range(3, 6):
+            params, opt, m = step(params, opt, data.batch_at(i))
+            losses.append(float(m["loss"]))
+        ck.wait()
+        save_s = time.perf_counter() - t0
+        files = [f for f in Path(d).rglob("*") if f.is_file()]
+        nbytes = sum(f.stat().st_size for f in files)
+        want = {n: p.detach().clone() for n, p in params.named_parameters()}
+        del params, opt
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fresh = Model(cfg, device=dev).init(seed=1, trainable=True)
+        tree, at = restore(d, tts.state_to_jax(fresh, topt.init_opt_state(fresh), cfg))
+        params, opt = tts.state_from_jax(tree, fresh, cfg)
+        del tree
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        resumed = []
+        for i in range(3, 6):
+            params, opt, m = step(params, opt, data.batch_at(i))
+            resumed.append(float(m["loss"]))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    same = all(torch.equal(p.detach(), want[n]) for n, p in params.named_parameters())
+    dparam = max(float((p.detach().float() - want[n].float()).abs().max())
+                 for n, p in params.named_parameters())
+    dloss = max(abs(a - b) / abs(b) for a, b in zip(resumed, losses[3:]))
+    log(f"[train-resume] {cfg.name} 2 of 36 layers, bf16: {len(files)} files, "
+        f"{nbytes} bytes ({gb(nbytes)} GB); save_s={save_s:.3f} (host copy "
+        f"{host_s:.3f}, 3 steps ran meanwhile) restore_s={restore_s:.3f} "
+        f"(step {at}); losses {[round(x, 4) for x in losses]}, resumed "
+        f"{[round(x, 4) for x in resumed]}; bit-identical params and losses: "
+        f"{same and resumed == losses[3:]} (max param diff {dparam:.3e}, max loss "
+        f"rel diff {dloss:.3e})")
+    # bit-identical is the expectation (no atomics on the path: the embedding
+    # backward sorts); otherwise the resumed run must stay within 1e-3
+    if at != 3 or not dloss <= 1e-3 or not losses[-1] < losses[0]:
+        raise AssertionError("train: the resumed run departs from the "
+                             "uninterrupted one, or the loss did not fall")
+    del params, opt, want
+
+
+def train_phase(dev, card):
+    """qwen2.5-3b at its published width and depth (36 layers, bf16,
+    random weights from seed 0, remat full), SyntheticLM batches of 4 x
+    2048 tokens (data vocab 256), AdamW(lr 1e-4, warmup 3, total 20),
+    accumulation over 2 microbatches, 16 steps: per-step loss, grad norm,
+    lr, wall ms and tokens/s; flash launches == 2 x layers x microbatches
+    x steps (forward and recompute); the loss falls by >= 1.5; peak memory;
+    a step split into forward + backward and optimizer; one profiled step
+    (the written-out flash backward's device ms per layer and its share);
+    the 8·N·T FLOP share of the bf16 peak. Then the flash kernel at the
+    train shape, the kernel path's gradients against plain autograd at
+    reduced configs, and a save / restore / resume. Returns (the kernel
+    row, the launch counts of the training steps)."""
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import Model
+    from repro_torch.training import optimizer as topt
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = ARCHS["qwen2.5-3b"]
+    if cfg.remat_policy != "full" or cfg.dtype != "bfloat16":
+        raise AssertionError(f"train: {cfg.name} is not bf16 with remat full")
+    params = Model(cfg, device=dev).init(seed=0, trainable=True)
+    n_params = sum(p.numel() for p in params.parameters())
+    data = train_data(cfg, dev)
+    opt_cfg, step = train_step_fn(cfg)
+    opt = topt.init_opt_state(params)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"[train] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size} (padded {cfg.padded_vocab}), tied={cfg.tie_embeddings}, "
+        f"{n_params} params, bf16, remat {cfg.remat_policy}; batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens in {TRAIN_ACCUM} microbatches, {TRAIN_STEPS} steps")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, walls = [], []
+    for i in range(TRAIN_STEPS):
+        batch = data.batch_at(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        losses.append(loss)
+        walls.append(wall)
+        log(f"[train] step {i:2d} loss={loss:.4f} grad_norm={float(m['grad_norm']):.4f} "
+            f"lr={float(m['lr']):.3e} wall_ms={wall:.2f} tok/s={tokens / wall * 1e3:.1f}")
+    counts = kernel_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = 2 * cfg.num_layers * TRAIN_ACCUM * TRAIN_STEPS
+    log(f"[train] flash forward launches {counts['flash_attention']} (2 x "
+        f"{cfg.num_layers} layers x {TRAIN_ACCUM} microbatches x {TRAIN_STEPS} steps "
+        f"= {want}; wgmma {counts['flash_attention/wgmma']}); other kernels "
+        f"{ {k: n for k, n in counts.items() if n and not k.startswith('flash')} }; "
+        f"peak memory {gb(peak)} GB; loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    if counts["flash_attention"] != want or counts["flash_attention/wgmma"] != want:
+        raise AssertionError(f"train: flash launches {counts['flash_attention']} != {want}")
+    if any(n for k, n in counts.items() if not k.startswith("flash")):
+        raise AssertionError("train: a kernel other than flash launched")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] <= losses[0] - TRAIN_LOSS_DROP:
+        raise AssertionError(f"train: the loss did not fall by {TRAIN_LOSS_DROP}: "
+                             f"{losses}")
+
+    # ---- one step split: forward + backward (both microbatches), optimizer
+    from repro_torch.training.optimizer import adamw_update
+    batch = data.batch_at(TRAIN_STEPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, grads = step.loss_and_grads(params, batch)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    params, opt, _ = adamw_update(opt_cfg, params, grads, opt)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    del grads
+    fb_ms, opt_ms = (t1 - t0) * 1e3, (t2 - t1) * 1e3
+    # ---- one profiled step
+    params, opt, prof = profile_train_step(step, params, opt,
+                                           data.batch_at(TRAIN_STEPS + 1))
+    n_bwd = cfg.num_layers * TRAIN_ACCUM
+    step_s = statistics.median(walls[2:]) / 1e3
+    flops = 8 * n_params * tokens
+    log(f"[train] step split (step {TRAIN_STEPS}): forward + backward {fb_ms:.2f} ms, "
+        f"optimizer {opt_ms:.2f} ms; median step wall {step_s * 1e3:.2f} ms "
+        f"({tokens / step_s:.1f} tok/s, steps 2-{TRAIN_STEPS - 1})")
+    busy, span = prof["bwd_busy_ms"], prof["bwd_span_ms"]
+    if busy > 0:
+        share = (f"flash_attention_bwd kernels {busy:.2f} device ms = "
+                 f"{busy / n_bwd:.3f} per layer and microbatch ({n_bwd} calls), "
+                 f"{100 * busy / prof['kernel_ms']:.1f}% of the kernel time; its "
+                 f"ranges span {span:.2f} ms of the device timeline "
+                 f"({100 * span / prof['wall_ms']:.1f}% of the step's wall)")
+    else:
+        share = "flash_attention_bwd: not measured (no device time in its range)"
+    log(f"[train] profiled step: wall {prof['wall_ms']:.2f} ms, kernels "
+        f"{prof['kernel_ms']:.2f} device ms (device idle "
+        f"{100 * (1 - prof['kernel_ms'] / prof['wall_ms']):.1f}%); {share}; flash "
+        f"forward kernels {prof['fwd_ms']:.2f} device ms")
+    for name, ms, n in prof["top"]:
+        log(f"[train]   top kernel {ms:9.2f} ms / {n:5d} calls  {name}")
+    log(f"[train] 8·N·T = {flops:.4e} FLOP a step (N={n_params}, T={tokens}, remat "
+        f"full) in {step_s:.4f} s: {flops / step_s / 1e12:.1f} TFLOP/s = "
+        f"{100 * flops / step_s / PEAK_BF16:.2f}% of the 989 TFLOP/s bf16 peak; "
+        f"card {card}")
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    row = flash_train_row(dev, TRAIN_BATCH // TRAIN_ACCUM)
+    train_grad_checks(dev)
+    train_resume_check(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[train] phase wall_s={time.perf_counter() - t_phase:.3f}")
+    return row, counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="kernels,serve,spec,fame,fleet,stateful,moe,modality,"
-                            "checkpoint",
+                            "checkpoint,train",
                     help="comma list of kernels,serve,spec,fame,fleet,stateful,"
-                         "moe,modality,checkpoint (default: all)")
+                         "moe,modality,checkpoint,train (default: all)")
     args = ap.parse_args()
     try:
         import torch
@@ -3170,17 +3558,21 @@ def main() -> int:
         launches["flash_attention_chameleon"] = mo["chameleon-34b"]["flash_attention"]
     if "checkpoint" in phases:
         checkpoint_phase(dev)
+    if "train" in phases:
+        rows["flash_attention_train"], tc = train_phase(dev, card)
+        launches["flash_attention_train"] = tc["flash_attention"]
     for name, r in rows.items():
         r["launches"] = launches.get(name, 0)
-    if {"serve", "spec", "stateful", "moe", "modality"} <= phases:
+    if {"serve", "spec", "stateful", "moe", "modality", "train"} <= phases:
         idle = [name for name, r in rows.items() if r["launches"] <= 0]
         if idle:
             raise AssertionError(f"kernels never launched on the main path: {idle}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
+    extra = ("device_ms", "library_device_ms", "backward_ms", "backward_bound_ms",
+             "library_backward_ms")
     log(card)
-    log(json.dumps({"kernels": [{k: r[k] for k in keys + ("device_ms", "library_device_ms")
-                                 if k in r}
+    log(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
                                 for r in rows.values()]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

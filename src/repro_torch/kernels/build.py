@@ -8,7 +8,10 @@ The build happens at the first kernel launch, never at import: the CPU
 tests import every module on a machine without ``nvcc``.
 
 Each C entry point returns ``cudaGetLastError()`` after its launch; the
-wrappers pass it to ``check``, which raises on anything but 0.
+wrappers pass it to ``check``, which raises on anything but 0. A launch is
+forward-only: its output has no ``grad_fn``. So a wrapper whose kernel has
+no backward calls ``refuse_grad`` before it launches, and raises where a
+gradient is asked for instead of silently dropping it.
 """
 from __future__ import annotations
 
@@ -115,6 +118,18 @@ def entry(name: str, argtypes) -> ctypes._CFuncPtr:
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn
+
+
+def refuse_grad(name: str, why: str, *tensors):
+    """Raise ``NotImplementedError`` when autograd is on and an input
+    (None allowed) requires grad: the kernel's output would carry no
+    gradient back. ``why`` says where a backward comes from, if ever."""
+    import torch
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in tensors):
+        raise NotImplementedError(
+            f"{name}: the CUDA kernel has no backward ({why}); its output "
+            "would carry no gradient")
 
 
 def check(err: int, name: str):

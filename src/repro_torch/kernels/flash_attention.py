@@ -15,6 +15,16 @@ take float32 only as TF32. ``launches_by_route`` counts each.
 
 ``flash_attention`` runs the plain version only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises.
+
+Gradients: when autograd is on and an input requires grad, the call goes
+through ``FlashAttention`` (a ``torch.autograd.Function``): its forward is
+the same call (the kernel on the card, the plain version on the CPU, so
+the CPU tests run the backward the card runs) and its backward is
+``flash_attention_bwd``, written out in PyTorch. The JAX package has no
+backward kernel either: its Pallas kernels have no VJP and it trains on
+the XLA path, whose gradient is XLA's autodiff of
+``repro.models.attention.flash_attention``. A backward kernel is
+``ROADMAP.md`` queue 2 item 8.
 """
 from __future__ import annotations
 
@@ -72,10 +82,103 @@ def _kernel():
     return _fn
 
 
+def flash_attention_bwd(q, k, v, o, do, *, q_per_kv: int,
+                        window: Optional[int] = None, q_start: int = 0,
+                        block: int = 128):
+    """The gradient of ``flash_attention_ref`` at (q, k, v), given its
+    output ``o`` and the output's gradient ``do``: (dq, dk, dv) in the
+    dtypes of q, k and v.
+
+    Query blocks of ``block`` rows, each against only the keys its rows can
+    see (causal, ``window``), with the G = ``q_per_kv`` heads of a KV head
+    stacked as rows: one block holds [B, K, G*block, keys] float32 scores,
+    never [S, T]. Each block recomputes its log-sum-exp from q and k, then
+    P = exp(S - lse), dP = dO·Vᵀ, dS = P∘(dP − rowsum(dO∘O)), dQ = dS·K,
+    and adds dK += dSᵀ·Q and dV += Pᵀ·dO (P rounded to the value dtype, as
+    the forward's P·V) over the G heads of each KV head. Float32 throughout.
+    Every query row must see at least one key."""
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    G = q_per_kv
+    if window is not None and q_start + S - window >= T:
+        raise ValueError(f"flash_attention_bwd: query rows past T={T} + window "
+                         f"{window} see no key")
+    scale = 1.0 / math.sqrt(hd)
+    f32 = torch.float32
+    kf = k.to(f32).permute(0, 2, 1, 3)                       # [B, K, T, hd]
+    vf = v.to(f32).permute(0, 2, 1, 3)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    dq = torch.empty(B, S, H, hd, dtype=f32, device=q.device)
+    delta = (do.to(f32) * o.to(f32)).sum(-1)                 # [B, S, H]
+
+    def rows(x):                    # [B, n, H, ...] -> [B, K, G*n, ...] float32
+        n = x.shape[1]
+        x = x.to(f32).reshape((B, n, K, G) + x.shape[3:])
+        x = x.permute((0, 2, 3, 1) + tuple(range(4, x.dim())))
+        return x.reshape((B, K, G * n) + x.shape[4:])
+
+    for s0 in range(0, S, block):
+        s1 = min(S, s0 + block)
+        n = s1 - s0
+        lo = 0 if window is None else max(0, q_start + s0 - window + 1)
+        hi = min(T, q_start + s1)
+        qb, dob = rows(q[:, s0:s1]), rows(do[:, s0:s1])
+        kb, vb = kf[:, :, lo:hi], vf[:, :, lo:hi]
+        q_pos = (q_start + torch.arange(s0, s1, device=q.device)).repeat(G)
+        k_pos = torch.arange(lo, hi, device=q.device)
+        mask = q_pos[:, None] >= k_pos[None, :]
+        if window is not None:
+            mask &= (q_pos[:, None] - k_pos[None, :]) < window
+        s = (qb @ kb.transpose(-1, -2)) * scale
+        s = s.masked_fill(~mask, NEG_INF)
+        p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
+        del s
+        ds = p * (dob @ vb.transpose(-1, -2) - rows(delta[:, s0:s1, :, None]))
+        dv[:, :, lo:hi] += p.to(v.dtype).to(f32).transpose(-1, -2) @ dob
+        dk[:, :, lo:hi] += (ds.transpose(-1, -2) @ qb) * scale
+        dqb = (ds @ kb) * scale                              # [B, K, G*n, hd]
+        dq[:, s0:s1] = dqb.reshape(B, K, G, n, hd).permute(0, 3, 1, 2, 4) \
+            .reshape(B, n, H, hd)
+    return (dq.to(q.dtype), dk.permute(0, 2, 1, 3).to(k.dtype),
+            dv.permute(0, 2, 1, 3).to(v.dtype))
+
+
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention`` with a gradient: the forward is the wrapper's
+    call (the kernel on the card), the backward ``flash_attention_bwd`` on
+    the very q, k, v the forward saw and its output."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_per_kv, window, q_start):
+        o = _forward(q, k, v, q_per_kv=q_per_kv, window=window, q_start=q_start)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.args = dict(q_per_kv=q_per_kv, window=window, q_start=q_start)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        with torch.profiler.record_function("flash_attention_bwd"):
+            dq, dk, dv = flash_attention_bwd(q, k, v, o, do.contiguous(),
+                                             **ctx.args)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, *, q_per_kv: int, window: Optional[int] = None,
                     q_start: int = 0):
     """Causal flash attention (see the module docstring); same contract as
-    ``flash_attention_ref``."""
+    ``flash_attention_ref``. Under autograd, with an input that requires
+    grad, it is ``FlashAttention`` (the same forward, with a backward)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, q_per_kv, window, q_start)
+    return _forward(q, k, v, q_per_kv=q_per_kv, window=window, q_start=q_start)
+
+
+def _forward(q, k, v, *, q_per_kv: int, window: Optional[int] = None,
+             q_start: int = 0):
+    """The kernel (CUDA tensors) or the plain version (CPU tensors)."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, q_per_kv=q_per_kv, window=window,
                                    q_start=q_start)

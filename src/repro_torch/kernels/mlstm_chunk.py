@@ -50,6 +50,10 @@ MAX_BV = 128        # value columns of an output block
 
 ROUTES = {torch.bfloat16: "wgmma", torch.float32: "simt_f32"}
 
+# Under autograd a CUDA launch raises (``build.refuse_grad``); the plain
+# version on the CPU runs under autograd as it is.
+BACKWARD = "its backward is ROADMAP.md queue 2 item 10"
+
 launches = 0            # kernel launches (never the plain version)
 launches_by_route = {route: 0 for route in ROUTES.values()}
 _fn = None
@@ -171,6 +175,7 @@ def mlstm_chunk(q, k, v, ig, fg, state=None, *, chunk: int = 256):
             raise ValueError("mlstm_chunk: state must be float32 (C [B,H,hd,hd], "
                              "n [B,H,hd], m [B,H])")
         ins += [C0, n0, m0]
+    build.refuse_grad("mlstm_chunk", BACKWARD, *ins)
     if any(t.device != q.device for t in ins):
         raise ValueError("mlstm_chunk: tensors on different devices")
     if not (all(t.is_contiguous() for t in (q, k, v)) and aligned16(q, k, v)):

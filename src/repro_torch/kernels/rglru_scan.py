@@ -40,6 +40,10 @@ NW = 8              # segments of a tile
 T = SEG * NW        # steps of a tile
 CH = 32             # channels of a tile
 
+# Under autograd a CUDA launch raises (``build.refuse_grad``); the plain
+# version on the CPU runs under autograd as it is.
+BACKWARD = "its backward, the same recurrence in reverse, is ROADMAP.md queue 2 item 9"
+
 launches = 0            # kernel launches (never the plain version)
 launches_by_route = {"chunked": 0, "sequential": 0}
 _fn = None
@@ -98,6 +102,7 @@ def rglru_scan(a, bx, h0=None, *, out_dtype=torch.float32):
     if out_dtype not in DTYPES:
         raise ValueError(f"rglru_scan: out_dtype {out_dtype}")
     tensors = (a, bx) + (() if h0 is None else (h0,))
+    build.refuse_grad("rglru_scan", BACKWARD, *tensors)
     if any(t.device != a.device for t in tensors):
         raise ValueError("rglru_scan: tensors on different devices")
     if not all(t.is_contiguous() for t in tensors):

@@ -95,6 +95,7 @@ def launch_split(name, q, k, v, cache_len, q_per_kv, *, one_token: bool,
     [P, ps, K, hd], block_tables [B, nw], no window)."""
     B, H, hd = check_decode_inputs(name, q, k, v, q_per_kv,
                                    multi_query=not one_token)
+    build.refuse_grad(name, "a serving kernel; train mode never decodes", q, k, v)
     if block_tables is None:
         if k.shape[0] != B or k.shape[1] < 1:
             raise ValueError(f"{name}: cache {tuple(k.shape)} for batch {B}")

@@ -22,6 +22,8 @@ from torch import nn
 
 
 def param(*shape, device, dtype):
+    """A leaf that serving never differentiates (``requires_grad=False``);
+    a trainer turns it on (``Model.init(..., trainable=True)``)."""
     return nn.Parameter(torch.empty(shape, device=device, dtype=dtype),
                         requires_grad=False)
 
@@ -168,6 +170,24 @@ def embed_tokens(params, tokens, cfg):
     return x
 
 
+class _MatmulF32(torch.autograd.Function):
+    """``torch.mm(a, b, out_dtype=float32)`` with a gradient (the op has no
+    derivative): the float32 output gradient is rounded to the inputs'
+    dtype and the two products run in it, so no float32 copy of a
+    vocab-sized table is made in the backward either."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        return g @ b.t(), a.t() @ g
+
+
 def matmul_f32(a, b):
     """``a @ b`` accumulated and returned in float32 — JAX's
     ``preferred_element_type=float32``. Half-precision inputs keep their
@@ -176,9 +196,12 @@ def matmul_f32(a, b):
     if a.dtype == torch.float32:
         return a @ b
     if a.is_cuda:
-        return torch.mm(a.reshape(-1, a.shape[-1]), b,
-                        out_dtype=torch.float32).reshape(
-                            a.shape[:-1] + b.shape[-1:])
+        a2 = a.reshape(-1, a.shape[-1])
+        if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+            out = _MatmulF32.apply(a2, b)
+        else:
+            out = torch.mm(a2, b, out_dtype=torch.float32)
+        return out.reshape(a.shape[:-1] + b.shape[-1:])
     return a.float() @ b.float()
 
 

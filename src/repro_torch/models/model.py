@@ -31,18 +31,22 @@ class Model:
         return tfm.TransformerParams(self.cfg, device=self.device,
                                      dtype=tfm.DTYPES[self.cfg.param_dtype])
 
-    def init(self, seed: int = 0) -> tfm.TransformerParams:
+    def init(self, seed: int = 0, *, trainable: bool = False) -> tfm.TransformerParams:
         """Random params by the JAX init rules, drawn on the device from a
-        ``torch.Generator`` seeded with ``seed`` (not JAX's bits)."""
+        ``torch.Generator`` seeded with ``seed`` (not JAX's bits).
+        ``trainable`` turns on ``requires_grad`` for the trainer; serving
+        keeps it off, so its forward and its CUDA graphs build no graph."""
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
-        return self._empty().init_(gen)
+        return self._empty().init_(gen).requires_grad_(trainable)
 
-    def load(self, state_dict: Mapping[str, torch.Tensor]) -> tfm.TransformerParams:
-        """Params from a state dict in the port's names (strict)."""
+    def load(self, state_dict: Mapping[str, torch.Tensor], *,
+             trainable: bool = False) -> tfm.TransformerParams:
+        """Params from a state dict in the port's names (strict);
+        ``trainable`` as in ``init``."""
         params = self._empty()
         params.load_state_dict(dict(state_dict), strict=True)
-        return params
+        return params.requires_grad_(trainable)
 
     def restore(self, ckpt_dir: str):
         """Params from the newest checkpoint under ``ckpt_dir`` in the JAX

@@ -114,10 +114,12 @@ def apply_moe(p, x, cfg):
     xg = xf.reshape(N, G, D)
     dispatch, combine, aux = route(p.router, xg, cfg)
     xe = torch.einsum("ngec,ngd->necd", dispatch, xg.to(torch.bfloat16))
-    xe = _promote(xe, p.wi)
-    h = torch.einsum("necd,edf->necf", xe, p.wi)
+    # promoted at each use, as jnp.einsum does: the bf16 ``xe`` then gets
+    # one rounded cotangent per use, summed in bf16, as in JAX's gradient
+    h = torch.einsum("necd,edf->necf", _promote(xe, p.wi), p.wi)
     if cfg.gated_mlp:
-        h = activation(h, cfg.act) * torch.einsum("necd,edf->necf", xe, p.wg)
+        h = activation(h, cfg.act) * torch.einsum(
+            "necd,edf->necf", _promote(xe, p.wg), p.wg)
     else:
         h = activation(h, cfg.act)
     ye = torch.einsum("necf,efd->necd", h, p.wo)

@@ -26,11 +26,13 @@ combine around batched expert matmuls, as in the JAX package.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs import base as cfgbase
 from repro_torch.kernels.decode_attention import decode_attention
@@ -490,12 +492,72 @@ def apply_block(kind, p, x, cfg, *, positions, mode, cache, cache_len,
     raise ValueError(kind)
 
 
+def _layers(params, layers, x, aux, cfg, positions):
+    """Train-mode layers (no cache) in order; returns (x, aux + their MoE
+    losses)."""
+    for layer in layers:
+        x, _, a = apply_block(cfg.layer_kinds[layer], params.blocks[layer], x,
+                              cfg, positions=positions, mode="train",
+                              cache=None, cache_len=None)
+        if a is not None:
+            aux = aux + a
+    return x, aux
+
+
+# "minimal" saves what JAX's ``dots_with_no_batch_dims_saveable`` saves: the
+# products of activations with weight matrices (``x @ w`` lowers to mm, the
+# projection einsums to a bmm of batch 1), and recomputes the rest
+_SAVED_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _minimal_policy(ctx, op, *args, **kwargs):
+    del ctx, kwargs
+    if op in _SAVED_OPS or (op == torch.ops.aten.bmm.default
+                            and args[0].shape[0] == 1):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(policy: str):
+    """How a period of layers runs under autograd (the JAX
+    ``remat_policy``): "full" saves only its input and recomputes the rest
+    in the backward (``nothing_saveable``), "minimal" also saves the matmul
+    outputs, "none" saves everything."""
+    if policy == "none":
+        return lambda fn, *args: fn(*args)
+    kw = dict(use_reentrant=False)
+    if policy == "minimal":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _minimal_policy)
+    elif policy != "full":
+        raise ValueError(f"remat_policy {policy!r}")
+    return lambda fn, *args: ckpt.checkpoint(fn, *args, **kw)
+
+
+def _train_stack(params, x, cfg, positions):
+    """Train mode: each period of the pattern (the JAX scan body) runs
+    under ``_remat(cfg.remat_policy)``; the tail layers past the last whole
+    period run plainly, as outside the JAX scan. The JAX package's
+    ``_diff_barrier`` guards against an XLA loop-invariant hoist and has no
+    counterpart here: eager PyTorch hoists nothing."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    P, G = len(cfg.pattern), cfg.num_scan_groups
+    run = _remat(cfg.remat_policy if torch.is_grad_enabled() else "none")
+    for g in range(G):
+        x, aux = run(_layers, params, range(g * P, (g + 1) * P), x, aux, cfg,
+                     positions)
+    return _layers(params, range(G * P, cfg.num_layers), x, aux, cfg, positions)
+
+
 def apply_stack(params, x, cfg, *, positions, mode, cache=None,
                 cache_len=None, block_tables=None, lens=None,
                 prefill_len=None, prefill_mask=None, keep=None):
     """Run all layers (a Python loop over layers stands in for the JAX
     scan). Returns (x, records, aux): the verify records by layer index and
     the MoE aux losses summed over the layers (float32, 0 without MoE)."""
+    if mode == "train":
+        x, aux = _train_stack(params, x, cfg, positions)
+        return x, {}, aux
     records = {}
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer, (kind, blk) in enumerate(zip(cfg.layer_kinds, params.blocks)):
@@ -531,10 +593,19 @@ def _inputs_to_x(params, batch, cfg):
     return x
 
 
-@torch.no_grad()
-def forward_logits(params, batch, cfg, *, mode="train", cache=None,
-                   cache_len=None, prefill_len=None, block_tables=None,
-                   with_logits=True, lens=None, keep=None):
+def forward_logits(params, batch, cfg, *, mode="train", **kw):
+    """The forward of every entry point. ``mode="train"`` runs with
+    autograd as the caller has it, for ``train_loss``; every serving mode
+    runs under ``torch.no_grad()``. See ``_forward``."""
+    if mode == "train":
+        return _forward(params, batch, cfg, mode=mode, **kw)
+    with torch.no_grad():
+        return _forward(params, batch, cfg, mode=mode, **kw)
+
+
+def _forward(params, batch, cfg, *, mode, cache=None, cache_len=None,
+             prefill_len=None, block_tables=None, with_logits=True, lens=None,
+             keep=None):
     """``with_logits``: False skips final-norm + unembed (None logits);
     "last" unembeds only position ``prefill_len - 1`` (or the final one),
     [B, 1, V]; "all" / True unembeds every position. ``prefill_len`` (int)
@@ -565,6 +636,24 @@ def forward_logits(params, batch, cfg, *, mode="train", cache=None,
         last = prefill_len - 1 if prefill_len is not None else x.shape[1] - 1
         x = x[:, last:last + 1]
     return unembed(params, x, cfg), out, aux
+
+
+def train_loss(params, batch, cfg):
+    """Causal LM loss (the JAX ``train_loss``): batch ``tokens`` (or
+    ``frames``), ``labels`` [B, S] and ``positions``. float32 logits over
+    the padded vocab (the log-sum-exp includes the pad columns), labels
+    outside [0, vocab_size) masked out, the mean NLL of the rest plus the
+    MoE aux loss. Returns (loss, {"nll", "aux"})."""
+    logits, _, aux = forward_logits(params, batch, cfg, mode="train")
+    labels = batch["labels"].long()
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1,
+                      labels.clamp(0, logits.shape[-1] - 1)[..., None])[..., 0]
+    mask = (labels >= 0) & (labels < cfg.vocab_size)
+    nll = torch.where(mask, lse - ll, torch.zeros_like(lse))
+    loss = nll.sum() / torch.clamp(mask.sum(), min=1)
+    return loss + aux, {"nll": loss, "aux": aux}
 
 
 def prefill(params, batch, cfg, cache, *, length=None, with_logits=True):

@@ -8,8 +8,11 @@ on the CPU (plain versions), the decode and verify steps as replayed CUDA graphs
 against the same steps run eagerly on the card, and the robustness layers
 on graphs: a two-replica fleet with a pump per replica, preempt-resume,
 journal restore, and a transient fault ahead of the first capture; the
-modality archs' kernel geometries (MHA at head dim 64) and servers. This
-file imports no JAX, so it also runs on a machine with a card and no JAX:
+modality archs' kernel geometries (MHA at head dim 64) and servers;
+training: the flash kernel's gradient (its autograd.Function) against
+plain autograd, the forward-only kernels refusing a gradient, and a train
+step on the card against the CPU. This file imports no JAX, so it also
+runs on a machine with a card and no JAX:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
@@ -1105,3 +1108,91 @@ def test_gpu_admission_beside_a_capture():
         key = ("paged_decode_attention", "")
         assert after[key] - before[key] == cfg.num_layers * steps
         assert [ha.request.output_ids, hb.request.output_ids] == want
+
+
+# ---------------------------------------------------------------------------
+# training: the flash kernel's gradient, forward-only kernels refusing one,
+# and a train step on the card against the CPU
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,K,hd,window", [(2, 300, 16, 2, 128, None),
+                                               (1, 200, 8, 4, 64, 48)])
+def test_gpu_flash_backward_through_the_kernel_matches_plain(dtype, B, S, H, K,
+                                                             hd, window):
+    """The autograd.Function on the card (forward: the kernel, launched
+    once; backward: flash_attention_bwd) against autograd of the plain
+    version on the same tensors, at the tolerances of the CPU tests (2e-5
+    float32, 2e-2 bf16, relative to the gradient's largest value where
+    that exceeds 1)."""
+    dev = _need_card()
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, k, v, do = (torch.randn(*s, generator=g, device=dev).to(dtype)
+                   for s in ((B, S, H, hd), (B, S, K, hd), (B, S, K, hd), (B, S, H, hd)))
+    kw = dict(q_per_kv=H // K, window=window)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    before = kfa.launches
+    o = kfa.flash_attention(q, k, v, **kw)
+    got = torch.autograd.grad(o, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert kfa.launches == before + 1
+    want = torch.autograd.grad(kfa.flash_attention_ref(q, k, v, **kw), (q, k, v), do)
+    tol = GPU_TOL[dtype]
+    for name, a, w in zip("qkv", got, want):
+        scale = max(1.0, float(w.float().abs().max()))
+        assert float((a.float() - w.float()).abs().max()) <= tol * scale, name
+
+
+@pytest.mark.gpu
+def test_gpu_forward_only_kernels_refuse_a_gradient():
+    """rglru_scan, mlstm_chunk and the split-K decode forms raise under
+    autograd on the card instead of returning an output without a
+    gradient; without grad (serving) they launch as before."""
+    dev = _need_card()
+    a = torch.rand(1, 70, 32, device=dev, requires_grad=True)
+    bx = torch.randn(1, 70, 32, device=dev)
+    with pytest.raises(NotImplementedError, match="queue 2 item 9"):
+        krs.rglru_scan(a, bx)
+    with torch.no_grad():
+        krs.rglru_scan(a, bx)
+    q = torch.randn(1, 64, 2, 64, device=dev, requires_grad=True)
+    kk, vv = torch.randn(1, 64, 2, 64, device=dev), torch.randn(1, 64, 2, 64, device=dev)
+    gates = torch.randn(1, 64, 2, device=dev)
+    with pytest.raises(NotImplementedError, match="queue 2 item 10"):
+        kmc.mlstm_chunk(q, kk, vv, gates, gates, chunk=32)
+    qd = torch.randn(2, 1, 8, 64, device=dev, requires_grad=True)
+    kc = torch.randn(2, 128, 2, 64, device=dev)
+    with pytest.raises(NotImplementedError, match="train mode never decodes"):
+        kda.decode_attention(qd, kc, kc, torch.tensor([5, 100], device=dev), q_per_kv=4)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_gpu_train_step_matches_cpu():
+    """One float32 train step of a reduced qwen (accumulation 2, remat
+    full) on the card equals the same step of the port on the CPU: loss
+    at 1e-4, and the kernel's forward launched twice a layer a microbatch
+    (forward and recompute)."""
+    from repro_torch.training import data as tdata
+    from repro_torch.training import optimizer as topt
+    from repro_torch.training import train_step as tts
+    dev = _need_card()
+    cfg = ARCHS["qwen2.5-3b"].reduced(dtype="float32", param_dtype="float32",
+                                      vocab_size=512, num_layers=3)
+    sd = Model(cfg, device="cpu").init(seed=0).state_dict()
+    dcfg = tdata.DataConfig(global_batch=4, seq_len=64, vocab_size=cfg.vocab_size)
+    losses = {}
+    for where in ("cpu", dev):
+        params = Model(cfg, device=where).load(sd, trainable=True)
+        step = tts.make_train_step(cfg, tts.TrainConfig(
+            opt=topt.AdamWConfig(lr=1e-3, warmup_steps=1), accum_steps=2))
+        before = kfa.launches
+        _, _, m = step(params, topt.init_opt_state(params),
+                       tdata.SyntheticLM(dcfg, cfg, device=where).batch_at(0))
+        losses[str(where)] = float(m["loss"])
+        if where != "cpu":
+            torch.cuda.synchronize()
+            assert kfa.launches - before == 2 * cfg.num_layers * 2
+    assert abs(losses[str(dev)] - losses["cpu"]) <= 1e-4 * abs(losses["cpu"])
