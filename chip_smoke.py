@@ -156,6 +156,29 @@ no result line) on any fault:
      steps, saved, restored into fresh params and resumed against the
      uninterrupted run (save / restore seconds and bytes; the directory
      deleted).
+  13. mesh: serving on a device mesh whose positions all lie on the one
+     card (``EngineConfig(mesh=make_test_mesh(shape, devices="cuda:0"))``,
+     the reference's bit-exact serve rules; it runs after the fleet phase,
+     on its qwen2.5-3b weights): (a) float32 at the published widths and a
+     cut depth: qwen2.5-3b (4 layers, a (2, 2) mesh cutting its 2 KV
+     heads), recurrentgemma-9b (3 layers, one period, (2, 2)) and
+     mixtral-8x22b (2 layers, (2, 4): experts over "model"), each dense and
+     paged (KV pages or state snapshots) with spec_len 0 and 4: the mesh
+     server's greedy ids equal the unsharded server's in every cell, every
+     step on the graph path, the decode kernel launched once a layer, step
+     and launching shard (``launch_counts.expected``), and the largest
+     teacher-forced logit difference printed; (b) bf16 qwen2.5-3b at 36
+     layers on a (1, 2) mesh beside the unsharded server (paged, the FAME
+     harness's settings): every decode step a replay, launches under the
+     rule, decode tok/s, TTFT of a 1000-token prompt, peak memory and one
+     decode chunk profiled on the graphs; (c)
+     the sequence-parallel decode at qwen's decode shape (4 shards of 512
+     slots: a partials launch each, one combine; the path's launches
+     counted alone) bit-equal to the one-launch kernel and within
+     tolerance of the plain version, timed (row ``seqpar_decode_attention``);
+     (d) a 2-layer qwen saved unsharded, restored onto a (2, 2) mesh and
+     back, every bit equal. The phase prints its seconds and fails past
+     120 s.
 
 Every server runs its decode chunks and verify steps as replayed CUDA
 graphs (``serving/programs.py``); each serving phase prints its decode and
@@ -170,7 +193,7 @@ with one entry per kernel; the last line is ``{"ok": true, "device":
 
 Run from the repository root:  python3 chip_smoke.py
 (``--phases`` picks a subset of
-kernels,serve,spec,fame,fleet,stateful,moe,modality,checkpoint,train.)
+kernels,serve,spec,fame,fleet,mesh,stateful,moe,modality,checkpoint,train.)
 """
 from __future__ import annotations
 
@@ -1028,12 +1051,14 @@ def kernel_modules():
     from repro_torch.kernels import (decode_attention, flash_attention,
                                      mlstm_chunk, paged_decode_attention,
                                      paged_spec_decode_attention, rglru_scan,
-                                     spec_decode_attention, spec_scan)
+                                     spec_decode_attention, spec_scan, split_decode)
     return {"flash_attention": flash_attention, "decode_attention": decode_attention,
             "paged_decode_attention": paged_decode_attention,
             "accept_len": spec_scan, "spec_decode_attention": spec_decode_attention,
             "paged_spec_decode_attention": paged_spec_decode_attention,
-            "rglru_scan": rglru_scan, "mlstm_chunk": mlstm_chunk}
+            "rglru_scan": rglru_scan, "mlstm_chunk": mlstm_chunk,
+            # the sequence-parallel decode's two launches (partials, combine)
+            "seqpar_decode_attention": split_decode}
 
 
 ROUTED = ("flash_attention", "mlstm_chunk", "rglru_scan")   # kernels with routes
@@ -1223,9 +1248,10 @@ def step_paths(server):
     return [("graph", contextlib.nullcontext), ("eager", progs.eager)]
 
 
-def profile_decode_chunk(server, prompts):
+def profile_decode_chunk(server, prompts, eager=True):
     """Where one decode chunk's time goes (the prompts' slots live), for
-    each of ``step_paths``: the median wall time of ``WALL_REPS``
+    each of ``step_paths`` (the first only without ``eager``): the median
+    wall time of ``WALL_REPS``
     unprofiled chunks, then the next chunk under torch.profiler: device
     time by kernel, the device's idle share. Runs after the launch counts
     were read. Returns the first path's {"wall_ms": [...],
@@ -1235,7 +1261,7 @@ def profile_decode_chunk(server, prompts):
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.server import SamplingParams
     ecfg = server.engine.engine_cfg
-    paths = step_paths(server)
+    paths = step_paths(server)[:None if eager else 1]
     handles = [server.submit(p, SamplingParams(
         max_new_tokens=ecfg.decode_chunk * (len(paths) * (WALL_REPS + 1) + 2)))
         for p in prompts]
@@ -3472,12 +3498,408 @@ def train_phase(dev, card):
     return row, counts
 
 
+# ---------------------------------------------------------------------------
+# phase 13: serving on a device mesh
+# ---------------------------------------------------------------------------
+
+# float32 at the published widths, a cut depth: (layers, mesh shape)
+MESH_F32 = {"qwen2.5-3b": (4, (2, 2)),            # its 2 KV heads over "model"
+            "recurrentgemma-9b": (3, (2, 2)),     # one pattern period
+            "mixtral-8x22b": (2, (2, 4))}         # 8 experts over "model" = 4
+MESH_PHASE_S = 120          # the phase's time budget (seconds)
+
+
+def eos_guard(cfg, params):
+    """Pin the EOS logit at 0 (random weights would stop some requests at
+    once, and equal ids would then prove little)."""
+    import torch
+    with torch.no_grad():
+        if cfg.tie_embeddings:
+            params.embed.table[cfg.vocab_size - 1] = 0
+        else:
+            params.unembed.table[:, cfg.vocab_size - 1] = 0
+    return params
+
+
+def attention_layers(cfg):
+    from repro_torch.models.transformer import ATTN_KINDS
+    return [i for i, k in enumerate(cfg.layer_kinds) if k in ATTN_KINDS]
+
+
+def mesh_serve(name, cfg, params, dev, prompts, mesh, max_new, **ecfg):
+    """Serve ``prompts`` greedily on one server (on ``mesh``, or unsharded
+    with None): every decode / verify step on the graph path, the decode
+    kernel launched ``launch_counts.expected`` times. Returns (ids, stats,
+    the decode kernel's launches)."""
+    import torch
+    from repro_torch.kernels import launch_counts
+    from repro_torch.serving.server import EngineConfig, LLMServer, SamplingParams
+    srv = LLMServer(cfg, num_slots=4, capacity=ecfg.pop("capacity", 512), params=params,
+                    device=dev, engine_cfg=EngineConfig(mesh=mesh, **ecfg))
+    before = launch_counts.snapshot()
+    gbefore = graph_counts(srv)
+    hs = [srv.submit(p, SamplingParams(max_new_tokens=max_new)) if isinstance(p, str)
+          else srv.submit("", SamplingParams(max_new_tokens=max_new), token_ids=p)
+          for p in prompts]
+    srv.run_until_idle()
+    torch.cuda.synchronize()
+    after = launch_counts.snapshot()
+    check_graphs(name, srv, gbefore)
+    for h in hs:
+        if h.request.status != "completed" or len(h.request.output_ids) != max_new:
+            raise AssertionError(f"{name}: rid={h.request.rid} {h.request.status} "
+                                 f"{len(h.request.output_ids)} tokens")
+    progs, st = srv.engine.progs, srv.stats()
+    kern = "paged_decode_attention" if srv.engine.paged else "decode_attention"
+    got = after[kern, ""] - before[kern, ""]
+    shards = [progs.launch_shards(srv.params, i) for i in attention_layers(cfg)]
+    want = launch_counts.expected(progs.decode_steps, shards)
+    log(f"[{name}] {kern} launches={got} == decode steps {progs.decode_steps} x "
+        f"shards by attention layer {sorted(set(shards))} x {len(shards)} layers "
+        f"= {want}; verify steps={progs.verify_steps}")
+    if got != want:
+        raise AssertionError(f"{name}: {kern} launched {got} times, the rule says {want}")
+    ids = [h.request.output_ids for h in hs]
+    srv.close()
+    return ids, st, got
+
+
+def mesh_logit_diff(model, params, mesh, ids, dev):
+    """The largest |logit| difference between the model on ``mesh`` and
+    unsharded: two rows prefilled with ids[:, :n], then 4 decode steps
+    teacher-forced, float32."""
+    import torch
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.serving.programs import slot_extract
+    cfg = model.cfg
+    rules = shd.rules_for(mesh, "serve")
+    placed = shd.place_params(params, rules)
+    B, n = ids.shape[0], ids.shape[1] - 4
+    out = []
+    for p in (params, placed):
+        cache = model.init_cache(B, 512)
+        if p is placed:
+            cache = shd.shard_put(cache, shd.cache_pspecs(cfg, rules), mesh)
+        lg = []
+        for b in range(B):
+            logits, _ = model.prefill(p, model.make_batch(ids[b:b + 1, :n]),
+                                      slot_extract(cache, b))
+            lg.append(logits[:, -1])
+        clen = torch.full((B,), n, dtype=torch.int32, device=dev)
+        for s in range(4):
+            batch = {"tokens": ids[:, n + s:n + s + 1], "positions": clen[:, None].long()}
+            with shd.use_rules(rules if p is placed else None):
+                logits, _ = model.decode_step(p, batch, cache, clen)
+            lg.append(logits[:, 0])
+            clen = clen + 1
+        out.append(torch.cat([x.reshape(-1) for x in lg]))
+    del placed
+    return float((out[0] - out[1]).abs().max())
+
+
+def split_product_diffs(dev, cfg, rows=(1, 4, 20), parts=2):
+    """Which float32 product gives other bits once cut over "model": for
+    ``rows`` rows, ``x @ W`` against ``x @ W[:, part]`` concatenated, at
+    the arch's mlp-up (d_model x d_ff) and vocab (d_model x vocab)
+    shapes: the largest difference by shape (0: the same bits)."""
+    import torch
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    out = {}
+    for label, n in (("mlp-up", cfg.d_ff or cfg.d_model), ("vocab", cfg.padded_vocab)):
+        w = torch.randn(cfg.d_model, n, generator=g, device=dev) / cfg.d_model ** 0.5
+        cols = [c.contiguous() for c in w.chunk(parts, 1)]
+        for m in rows:
+            x = torch.randn(m, cfg.d_model, generator=g, device=dev)
+            whole = x @ w
+            cut = torch.cat([x @ c for c in cols], 1)
+            out[f"{label} [{m},{cfg.d_model}]x[{cfg.d_model},{n}]/{parts}"] = float(
+                (whole - cut).abs().max())
+    return out
+
+
+def mesh_f32_cells(dev, tok, rng):
+    """(a) Each arch of ``MESH_F32`` at its published widths and a cut
+    depth, float32, random weights from seed 1: dense and paged (KV pages,
+    or state snapshots) with spec_len 0 and 4, the mesh server's greedy ids
+    against the unsharded server's; the largest logit difference. The
+    cells after the first add two requests quoting the first cell's greedy
+    continuation of prompt 0 (``self_quotes``), which the drafter finds."""
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.distributed.mesh import make_test_mesh
+    from repro_torch.models import Model
+    from repro_torch.serving.tokenizer import ByteTokenizer
+    tool = make_text(tok, rng, 60)
+    prompts = [f"[ToolMessage]\n{tool}\n[actor] The tool returned:\n{tool}\nQuote it "
+               f"again:\n{tool[:len(tool) // 2]}",
+               make_text(tok, rng, 40), make_text(tok, rng, 90), "[planner] next step"]
+    out = {}
+    for name, (layers, shape) in MESH_F32.items():
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(ARCHS[name], dtype="float32", param_dtype="float32",
+                                  num_layers=layers)
+        model = Model(cfg, device=dev)
+        params = eos_guard(cfg, model.init(seed=1))
+        mesh = make_test_mesh(shape, devices=dev)
+        atok = ByteTokenizer(cfg.vocab_size)        # the server's own tokenizer
+        ids = torch.tensor([atok.encode(p)[:24] for p in prompts[1:3]], device=dev)
+        diff = mesh_logit_diff(model, params, mesh, ids, dev)
+        log(f"[mesh-f32] {name} ({layers} layers, mesh {shape}): largest |logit| "
+            f"difference mesh vs unsharded, 2 prefills + 4 decode steps: {diff:.3e}")
+        if diff != 0:
+            log(f"[mesh-f32] {name}: float32 products cut by output columns "
+                f"(max |whole - cut|): {split_product_diffs(dev, cfg, parts=shape[1])}")
+        cells, verified, cell_prompts = {}, 0, list(prompts)
+        for mode in ("dense", "paged"):
+            ecfg = dict(cache_mode=mode, page_size=16, decode_chunk=4, spec_ngram_min=1)
+            if name != "qwen2.5-3b" and mode == "paged":
+                ecfg.update(num_snapshots=16, snap_stride=2)
+            for spec in (0, 4):
+                label = f"mesh-f32 {name} {mode} spec{spec}"
+                ref, _, _ = mesh_serve(label + " unsharded", cfg, params, dev,
+                                       cell_prompts, None, 16, spec_len=spec, **ecfg)
+                got, st, _ = mesh_serve(label + f" mesh{shape}", cfg, params, dev,
+                                        cell_prompts, mesh, 16, spec_len=spec, **ecfg)
+                if len(cell_prompts) == len(prompts):
+                    cell_prompts += self_quotes(atok, rng, atok.encode(prompts[0]), ref[0])
+                verified += st["verify_steps"] > 0
+                if not st["sharded"] or not st["step_graphs"]:
+                    raise AssertionError(f"{label}: stats {st['sharded']} "
+                                         f"{st['step_graphs']}")
+                cells[mode, spec] = got == ref
+                log(f"[{label}] mesh ids == unsharded ids: {got == ref} "
+                    f"(verify_steps={st['verify_steps']})")
+        if not all(cells.values()) or not verified:
+            raise AssertionError(f"mesh-f32 {name}: ids equal by cell {cells}, "
+                                 f"cells that verified {verified}")
+        out[name] = dict(logit_diff=diff, seconds=time.perf_counter() - t0)
+        del model, params
+        torch.cuda.empty_cache()
+    return out
+
+
+def admit_ms(server, prompt, reps=3):
+    """Median wall ms of admitting ``prompt`` alone (prefill + first
+    token: the TTFT path) on a warm server."""
+    import torch
+    from repro_torch.serving.server import SamplingParams
+    walls = []
+    for _ in range(reps + 1):
+        h = server.submit(prompt, SamplingParams(max_new_tokens=1))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        server.engine._admit()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        server.run_until_idle()
+        if h.request.status != "completed":
+            raise AssertionError(f"admission: status {h.request.status}")
+    return statistics.median(walls[1:])
+
+
+def mesh_full_qwen(dev, model, params, tok, rng):
+    """(b) qwen2.5-3b at its published width and depth (36 layers, bf16) on
+    a (1, 2) mesh beside the unsharded server, paged (page_size 16,
+    decode_chunk 8): every decode step a replay, the decode kernel's
+    launches under the rule, decode tok/s, TTFT of a ~1000-token prompt
+    and peak memory; one decode chunk profiled on the graphs; greedy
+    agreement printed."""
+    import torch
+    from repro_torch.distributed.mesh import make_test_mesh
+    from repro_torch.kernels import launch_counts
+    from repro_torch.serving.server import EngineConfig, LLMServer, SamplingParams
+    prompts = [make_text(tok, rng, n) for n in (200, 400, 600, 800)]
+    long_prompt = make_text(tok, rng, 1000)
+    res = {}
+    for label, mesh in (("unsharded", None), ("mesh(1,2)", make_test_mesh((1, 2), devices=dev))):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        srv = LLMServer(model.cfg, num_slots=4, capacity=2048, params=params, device=dev,
+                        engine_cfg=EngineConfig(mesh=mesh, **FLEET_ECFG))
+        srv.submit(prompts[0], SamplingParams(max_new_tokens=8)).result()   # warm
+        ttft = admit_ms(srv, long_prompt)
+        before, gbefore = launch_counts.snapshot(), graph_counts(srv)
+        st0 = srv.stats()
+        hs = [srv.submit(p, SamplingParams(max_new_tokens=64)) for p in prompts]
+        srv.run_until_idle()
+        torch.cuda.synchronize()
+        after = launch_counts.snapshot()
+        check_graphs(f"mesh-bf16 {label}", srv, gbefore)
+        st, progs = srv.stats(), srv.engine.progs
+        steps = st["decode_tokens"] - st0["decode_tokens"]
+        dec_s = sum(h.request.decode_s for h in hs)
+        got = after["paged_decode_attention", ""] - before["paged_decode_attention", ""]
+        d_steps = graph_counts(srv)["decode_steps"] - gbefore["decode_steps"]
+        shards = [progs.launch_shards(srv.params, i) for i in range(model.cfg.num_layers)]
+        want = launch_counts.expected(d_steps, shards)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        res[label] = dict(ids=[h.request.output_ids for h in hs], ttft_ms=ttft,
+                          decode_tok_s=steps / max(dec_s, 1e-9), peak_gb=peak,
+                          launches=got, decode_steps=d_steps)
+        log(f"[mesh-bf16 {label}] paged_decode_attention launches={got} == decode steps "
+            f"{d_steps} x {shards[0]} shards x {len(shards)} layers = {want}; "
+            f"decode_tok_per_s={res[label]['decode_tok_s']:.1f} "
+            f"ttft_ms(1000-token prompt, median of 3)={ttft:.2f} "
+            f"max_memory_allocated_GB={peak:.3f} graphs={progs.graphs}")
+        if got != want or not progs.graphs:
+            raise AssertionError(f"mesh-bf16 {label}: launches {got} != {want}")
+        res[label]["chunk"] = profile_decode_chunk(srv, prompts, eager=False)
+        srv.close()
+        del srv
+    a, b = res["unsharded"]["ids"], res["mesh(1,2)"]["ids"]
+    same = sum(x == y for ra, rb in zip(a, b) for x, y in zip(ra, rb))
+    log(f"[mesh-bf16] greedy tokens equal mesh vs unsharded: {same}/"
+        f"{sum(len(r) for r in a)}")
+    return res
+
+
+def seqpar_row(dev):
+    """(c) The sequence-parallel decode at qwen2.5-3b's decode shape (q
+    [4,1,16,128], caches [4,2048,2,128] cut into 4 shards of 512 slots): a
+    partials launch a shard and one combine. The path's launches are
+    counted alone; then against the one-launch kernel (bit-equal, bf16 and
+    float32, a windowed ring too) and the plain version (the reference's
+    per-shard flash decode and combine, at the bf16 / float32 tolerances),
+    and timed beside SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.distributed.collectives import (make_seqpar_decode_attention,
+                                                     seqpar_decode_ref)
+    from repro_torch.distributed.mesh import make_test_mesh
+    from repro_torch.kernels import decode_attention as kda
+    B, W, K, G, hd = 4, 2048, 2, 8, 128
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=dev).to(torch.bfloat16)  # noqa: E731
+    q, kc, vc = rnd(B, 1, K * G, hd), rnd(B, W, K, hd), rnd(B, W, K, hd)
+    clen = torch.tensor([1500, 100, 2047, 700], dtype=torch.int32, device=dev)
+    f = make_seqpar_decode_attention(make_test_mesh((1, 4), devices=dev))
+    from repro_torch.distributed.sharding import split
+    ks, vs = split(kc, 1, [dev] * 4), split(vc, 1, [dev] * 4)
+    reset_counts()
+    o = f(q, ks, vs, clen, q_per_kv=G)                  # the path
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    log(f"[seqpar] launches on the path: {counts['seqpar_decode_attention']} "
+        "(4 partials + 1 combine)")
+    if counts["seqpar_decode_attention"] != 5:
+        raise AssertionError(f"seqpar: {counts['seqpar_decode_attention']} launches")
+    err = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for window in (None, 600):
+            qd, kd, vd = q.to(dtype), kc.to(dtype), vc.to(dtype)
+            got = f(qd, kd, vd, clen, q_per_kv=G, window=window)
+            one = kda.decode_attention(qd, kd, vd, clen, q_per_kv=G, window=window)
+            if not torch.equal(got, one):
+                raise AssertionError(f"seqpar {dtype} window={window}: not bit-equal "
+                                     f"to the one-launch kernel")
+            want = seqpar_decode_ref(qd, kd.chunk(4, 1), vd.chunk(4, 1), clen,
+                                     q_per_kv=G, window=window)
+            e = check_close(f"{str(dtype)[6:]} window={window} vs plain (and == one "
+                            "launch bit for bit)", got, want,
+                            "bfloat16" if dtype == torch.bfloat16 else "float32")
+            err = max(err, e) if dtype == torch.bfloat16 else err
+    fn = lambda: f(q, ks, vs, clen, q_per_kv=G)                          # noqa: E731
+    ms = time_ms(fn, 50)
+    plain_ms = time_ms(lambda: seqpar_decode_ref(q, ks.parts, vs.parts, clen,
+                                                 q_per_kv=G), 10)
+    one_ms = time_ms(lambda: kda.decode_attention(q, kc, vc, clen, q_per_kv=G), 50)
+    mask = (torch.arange(W, device=dev)[None, :] <= clen[:, None].long())[:, None, None, :]
+    qt, kt, vt = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
+    lf = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,  # noqa: E731
+                                                enable_gqa=True)
+    lib = time_ms(lf, 50)
+    dms, lib_dms = device_times("seqpar_decode_attention", fn, lf)
+    live = int(torch.clamp(clen.long() + 1, max=W).sum())
+    b_ms, b_by = bound(2 * (2 * B * K * G * hd + 2 * live * K * hd) + 4 * B,
+                       4 * hd * K * G * live, torch.bfloat16)
+    log(f"[seqpar] ms={ms:.4f} one-launch decode_attention ms={one_ms:.4f} "
+        f"plain_ms={plain_ms:.4f} library_ms={lib:.4f} bound_ms={b_ms:.5f} ({b_by})")
+    row = dict(name="seqpar_decode_attention", route="cuda",
+               source="src/repro_torch/kernels/csrc/split_decode_attention.cu",
+               replaces="src/repro/kernels/decode_attention.py:71",
+               max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               library_ms=lib, device_ms=dms, library_device_ms=lib_dms)
+    return row, counts["seqpar_decode_attention"]
+
+
+def elastic_check(dev):
+    """(d) qwen2.5-3b at its published width and 2 of 36 layers (bf16),
+    saved unsharded in the reference's format, restored onto a (2, 2) mesh
+    (``restore(shardings=...)``, the serve specs) and back onto one device
+    (``reshard_tree``): every leaf bit-equal; the directory deleted."""
+    import shutil
+    import torch
+    from repro_torch.checkpoint.checkpoint import flatten, restore, save
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.elastic import reshard_tree
+    from repro_torch.distributed.mesh import make_host_mesh, make_test_mesh
+    from repro_torch.models import Model, convert
+    cfg = dataclasses.replace(ARCHS["qwen2.5-3b"], num_layers=2)
+    params = Model(cfg, device=dev).init(seed=2)
+    tree = convert.params_to_jax(params.state_dict(), cfg)
+    d = ROOT / "build" / "mesh_ckpt"
+    shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    save(str(d), 1, tree)
+    t_save = time.perf_counter() - t0
+    mesh = make_test_mesh((2, 2), devices=dev)
+    specs = shd.param_pspecs(shd.param_axes(cfg), shd.rules_for(mesh, "serve"))
+    shardings = shd._map(lambda s: shd.NamedSharding(mesh, s), specs,
+                         lambda x: isinstance(x, shd.P))
+    t0 = time.perf_counter()
+    got, step = restore(str(d), tree, shardings=shardings)
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    n_cut = sum(isinstance(x, shd.Shards) for x in flatten(got)[0])
+    back = reshard_tree(got, make_host_mesh(dev), specs)
+    want_leaves, back_leaves = flatten(tree)[0], flatten(back)[0]
+    equal = all(torch.equal(a, b) for a, b in zip(want_leaves, back_leaves))
+    nbytes = sum(t.numel() * t.element_size() for t in want_leaves)
+    log(f"[elastic] {len(want_leaves)} leaves ({nbytes / 1e9:.3f} GB) saved in "
+        f"{t_save:.2f}s, restored onto a (2, 2) mesh in {t_restore:.2f}s ({n_cut} "
+        f"leaves cut over 'model'), back onto one device: every bit equal: {equal}")
+    shutil.rmtree(d, ignore_errors=True)
+    if not equal or step != 1 or n_cut == 0:
+        raise AssertionError(f"elastic restore: equal={equal} step={step} cut={n_cut}")
+
+
+def mesh_phase(dev, model, params, tok):
+    """Phase 13 (see the module docstring); returns (kernel rows, launch
+    counts of the serving path, seqpar launches)."""
+    import torch
+    t0 = time.perf_counter()
+    rng = random.Random(13)
+    reset_counts()
+    f32 = mesh_f32_cells(dev, tok, rng)
+    full = mesh_full_qwen(dev, model, params, tok, rng)
+    counts = kernel_counts()
+    log(f"[mesh] launches on the serving path: {counts}")
+    idle = [k for k in ("flash_attention", "decode_attention", "paged_decode_attention",
+                        "spec_decode_attention", "paged_spec_decode_attention",
+                        "accept_len", "rglru_scan") if counts[k] <= 0]
+    if idle:
+        raise AssertionError(f"mesh: kernels never launched on its path: {idle}")
+    row, n_seqpar = seqpar_row(dev)
+    elastic_check(dev)
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    log(f"[mesh] phase seconds={secs:.1f} (budget {MESH_PHASE_S}); "
+        f"f32 cells: {{{', '.join(f'{k}: {v['seconds']:.1f}s' for k, v in f32.items())}}}")
+    if secs > MESH_PHASE_S:
+        raise AssertionError(f"mesh phase took {secs:.1f}s > {MESH_PHASE_S}s")
+    return {"seqpar_decode_attention": row}, counts, n_seqpar
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="kernels,serve,spec,fame,fleet,stateful,moe,modality,"
-                            "checkpoint,train",
-                    help="comma list of kernels,serve,spec,fame,fleet,stateful,"
+                    default="kernels,serve,spec,fame,fleet,mesh,stateful,moe,"
+                            "modality,checkpoint,train",
+                    help="comma list of kernels,serve,spec,fame,fleet,mesh,stateful,"
                          "moe,modality,checkpoint,train (default: all)")
     args = ap.parse_args()
     try:
@@ -3521,7 +3943,7 @@ def main() -> int:
     phases = set(args.phases.split(","))
     rows = kernel_phase(dev) if "kernels" in phases else {}
     launches = collections.Counter()
-    if phases & {"serve", "spec", "fame", "fleet"}:
+    if phases & {"serve", "spec", "fame", "fleet", "mesh"}:
         model, params, tok = full_model(dev)
         if "serve" in phases:
             launches.update(serving_phases(dev, model, params, tok))
@@ -3531,6 +3953,11 @@ def main() -> int:
             launches.update(fame_phase(dev, model, params))
         if "fleet" in phases:
             launches.update(fleet_phase(dev, model, params, tok))
+        if "mesh" in phases:
+            mrows, mc, n_seqpar = mesh_phase(dev, model, params, tok)
+            rows.update(mrows)
+            launches.update(mc)
+            launches["seqpar_decode_attention"] = n_seqpar
         del model, params
         torch.cuda.empty_cache()
     if "stateful" in phases:

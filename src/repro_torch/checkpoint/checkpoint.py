@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import msgpack_lite
+from repro_torch.distributed.sharding import _put, gather
 from repro_torch.models.convert import _array, _tensor
 
 
@@ -119,6 +120,7 @@ def save(ckpt_dir: str, step: int, tree, *, keep: int = 3) -> str:
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
     leaves, treedef = flatten(tree)
+    leaves = [gather(leaf) for leaf in leaves]  # a mesh's Shards, whole
     manifest = {"step": step, "treedef": treedef,
                 "leaves": [{"shape": list(leaf.shape),
                             "dtype": _dtype_name(leaf)} for leaf in leaves]}
@@ -153,7 +155,7 @@ class AsyncCheckpointer:
         self.wait()
         # snapshot to host BEFORE backgrounding so later updates don't race
         leaves, _ = flatten(tree)
-        host_tree = unflatten(tree, [leaf.detach().to("cpu", copy=True)
+        host_tree = unflatten(tree, [gather(leaf).detach().to("cpu", copy=True)
                                      for leaf in leaves])
         self._pending = self._pool.submit(save, self.ckpt_dir, step, host_tree,
                                           keep=self.keep)
@@ -196,17 +198,25 @@ def _read_leaf(step_dir: str, i: int, manifest, shape) -> torch.Tensor:
     return _tensor(arr, manifest["leaves"][i]["dtype"])
 
 
-def restore(ckpt_dir: str, like_tree) -> Tuple[Any, int]:
+def restore(ckpt_dir: str, like_tree, *, shardings=None) -> Tuple[Any, int]:
     """Restore the latest checkpoint into the structure of ``like_tree``
-    (tensors): leaf count and shapes are checked against it, and each leaf
-    is cast to its like leaf's dtype on its device. Returns (tree, step)."""
+    (tensors, or ``Shards`` of a mesh): leaf count and shapes are checked
+    against it, and each leaf is cast to its like leaf's dtype, on its
+    device. ``shardings``: a matching tree of ``sharding.NamedSharding``s
+    of the CURRENT mesh; each leaf is then laid out on it (``shard_put``:
+    an elastic restore onto another device count). Returns (tree, step)."""
     d, manifest = _latest(ckpt_dir)
     like, _ = flatten(like_tree)
     if len(like) != len(manifest["leaves"]):
         raise ValueError(f"{d}: {len(manifest['leaves'])} leaves, the tree "
                          f"has {len(like)} (tree structure changed)")
-    out = [_read_leaf(d, i, manifest, ref.shape).to(ref.device, ref.dtype)
-           for i, ref in enumerate(like)]
+    shards = flatten(shardings)[0] if shardings is not None else [None] * len(like)
+    if len(shards) != len(like):
+        raise ValueError(f"{len(shards)} shardings for {len(like)} leaves")
+    out = []
+    for i, (ref, sh) in enumerate(zip(like, shards)):
+        leaf = _read_leaf(d, i, manifest, ref.shape).to(dtype=ref.dtype)
+        out.append(leaf.to(ref.device) if sh is None else _put(leaf, sh.spec, sh.mesh))
     return unflatten(like_tree, out), manifest["step"]
 
 

@@ -5,11 +5,10 @@ Counterpart of ``repro.distributed.ft``:
 - ``FaultTolerantLoop``: checkpoint/restart supervision — run a step
   function, checkpoint every N steps (async, the port's
   ``AsyncCheckpointer``: the reference's on-disk format), and on failure
-  restore the latest checkpoint and resume. The port runs on one card, so
-  ``run`` has no ``shardings`` argument: a restore puts each leaf on the
-  device and in the dtype of the state it is given (the reference's
-  restore onto a different device count comes with multi-device serving,
-  ``ROADMAP.md`` queue 1 item 11).
+  restore the latest checkpoint and resume. A restore puts each leaf in
+  the dtype of the state it is given, on its device, or, with
+  ``run(shardings=...)``, lays it out on that tree's mesh: a restart onto
+  another mesh shape (``elastic.make_elastic_mesh``).
 - ``Heartbeat``: liveness monitor hook (wall-clock watchdog).
 - Data determinism: the data cursor lives in the state, so the skip-ahead
   on restart is automatic.
@@ -62,12 +61,13 @@ class FaultTolerantLoop:
         self.ckpt = AsyncCheckpointer(ckpt_dir)
         self.heartbeat = Heartbeat()
 
-    def run(self, state, *, start_step: int = 0, num_steps: int = 100) -> tuple:
+    def run(self, state, *, start_step: int = 0, num_steps: int = 100,
+            shardings=None) -> tuple:
         step = start_step
         restarts = 0
         steps_run = 0
         if latest_step_dir(self.ckpt_dir) is not None:
-            state, step = restore(self.ckpt_dir, state)
+            state, step = restore(self.ckpt_dir, state, shardings=shardings)
         while step < num_steps:
             try:
                 state = self.step_fn(state, step)
@@ -82,7 +82,8 @@ class FaultTolerantLoop:
                     raise
                 self.ckpt.wait()
                 if latest_step_dir(self.ckpt_dir) is not None:
-                    state, step = restore(self.ckpt_dir, state)
+                    state, step = restore(self.ckpt_dir, state,
+                                          shardings=shardings)
                 # else: restart from the initial state (step unchanged)
         self.ckpt.save(step, state)
         self.ckpt.wait()

@@ -55,6 +55,13 @@
 // finite acc (every p = e^0 = 1). That is harmless only because the combine
 // weights split j by e^{m_j - M} and M is finite: the newest slot
 // (cache_len % W, age 0) is always kept, so e^{-1e30 - M} = 0.
+// Sequence-parallel decode (distributed/collectives.py): a dense cache cut by
+// slots into shards at multiples of SPLIT runs the split kernel once per
+// shard (split_decode_partials: the shard's splits only, its first slot
+// slot0 and its slots per row row_slots; the masks still use the whole
+// cache's n_pos) into one scratch, then the combine once
+// (split_decode_combine): the same blocks compute the same partials, so the
+// result equals the one-launch call bit for bit.
 // Split boundaries are absolute slots (multiples of SPLIT), independent of S,
 // of the batch and of the other rows, and both kernels depend only on
 // (row, cache_len[b] + s): the block of query s computes exactly what a
@@ -113,6 +120,8 @@ struct Plan {
 
 // One launch's operands. Dense: bt == nullptr, n_pos = W, ps = nw = 0.
 // Paged: n_pos = nw * ps, window = 0.
+// slot0 / row_slots: the first slot and the slots per row of the dense cache
+// k / v point at (0 and n_pos but for a sequence shard's partials).
 struct Args {
   const void* q;
   const void* k;
@@ -122,7 +131,7 @@ struct Args {
   float* part_acc;
   float* part_ml;
   void* o;
-  int B, S, K, G, n_pos, ps, nw, window, nsplit;
+  int B, S, K, G, n_pos, ps, nw, window, nsplit, slot0, row_slots;
 };
 
 template <typename T, int HD, bool PAGED>
@@ -130,9 +139,11 @@ __global__ void __launch_bounds__(NT)
 decode_split(const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
              const int* __restrict__ bt, const int* __restrict__ cache_len,
              float* __restrict__ part_acc, float* __restrict__ part_ml, int S, int K, int G,
-             int n_pos, int ps, int nw, int window, int nsplit, float scale) {
+             int n_pos, int ps, int nw, int window, int nsplit, int slot0, int row_slots,
+             float scale) {
   using P = Plan<T, HD>;
-  const int sp = blockIdx.x, kh = blockIdx.y % K, b = blockIdx.y / K, sq = blockIdx.z;
+  const int sp = blockIdx.x + slot0 / SPLIT, kh = blockIdx.y % K, b = blockIdx.y / K,
+            sq = blockIdx.z;
   const int clen = cache_len[b] + sq;
   const int n_valid = min(clen + 1, n_pos);
   const int start = sp * SPLIT;
@@ -173,7 +184,7 @@ decode_split(const T* __restrict__ q, const T* __restrict__ kc, const T* __restr
     if constexpr (PAGED)
       return (((size_t)sPage[pos / ps - page0] * ps + pos % ps) * K + kh) * HD;
     else
-      return (((size_t)b * n_pos + pos) * K + kh) * HD;
+      return (((size_t)b * row_slots + (pos - slot0)) * K + kh) * HD;
   };
   auto kept = [&](int pos) -> bool {
     if constexpr (PAGED) return pos < end;
@@ -374,41 +385,58 @@ decode_combine(const float* __restrict__ part_acc, const float* __restrict__ par
   }
 }
 
+// the split kernel over the row_slots / SPLIT splits from slot0 on
 template <typename T, int HD, bool PAGED>
-int launch(const Args& a, cudaStream_t stream) {
+int launch_split(const Args& a, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (a.G * HD + a.G * SPLIT + NW * GT * HD);
   auto split = decode_split<T, HD, PAGED>;
-  cudaError_t e;
   if (smem > 48 * 1024) {  // above the default: opt in (qwen2.5-3b needs 40 KB)
-    e = cudaFuncSetAttribute(split, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t e =
+        cudaFuncSetAttribute(split, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  split<<<dim3(a.nsplit, a.K * a.B, a.S), NT, smem, stream>>>(
+  split<<<dim3((a.row_slots + SPLIT - 1) / SPLIT, a.K * a.B, a.S), NT, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       a.bt, a.cache_len, a.part_acc, a.part_ml, a.S, a.K, a.G, a.n_pos, a.ps, a.nw,
-      a.window, a.nsplit, 1.0f / sqrtf((float)HD));
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+      a.window, a.nsplit, a.slot0, a.row_slots, 1.0f / sqrtf((float)HD));
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int HD>
+int launch_combine(const Args& a, cudaStream_t stream) {
   decode_combine<T, HD><<<dim3(a.K * a.G, a.B, a.S), NT, sizeof(float) * a.nsplit, stream>>>(
       a.part_acc, a.part_ml, a.cache_len, static_cast<T*>(a.o), a.S, a.K * a.G, a.n_pos,
       a.nsplit);
   return (int)cudaGetLastError();
 }
 
+enum Stage { kBoth = 0, kPartials = 1, kCombine = 2 };
+
 template <typename T, int HD>
-int dispatch_cache(const Args& a, cudaStream_t st) {
-  return a.bt != nullptr ? launch<T, HD, true>(a, st) : launch<T, HD, false>(a, st);
+int dispatch_cache(const Args& a, Stage stage, cudaStream_t st) {
+  if (stage != kCombine) {
+    const int e = a.bt != nullptr ? launch_split<T, HD, true>(a, st)
+                                  : launch_split<T, HD, false>(a, st);
+    if (e != 0 || stage == kPartials) return e;
+  }
+  return launch_combine<T, HD>(a, st);
 }
 
 template <typename T>
-int dispatch_hd(const Args& a, int hd, cudaStream_t st) {
+int dispatch_hd(const Args& a, int hd, Stage stage, cudaStream_t st) {
   switch (hd) {
-    case 16: return dispatch_cache<T, 16>(a, st);
-    case 32: return dispatch_cache<T, 32>(a, st);
-    case 64: return dispatch_cache<T, 64>(a, st);
-    case 128: return dispatch_cache<T, 128>(a, st);
-    case 256: return dispatch_cache<T, 256>(a, st);
+    case 16: return dispatch_cache<T, 16>(a, stage, st);
+    case 32: return dispatch_cache<T, 32>(a, stage, st);
+    case 64: return dispatch_cache<T, 64>(a, stage, st);
+    case 128: return dispatch_cache<T, 128>(a, stage, st);
+    case 256: return dispatch_cache<T, 256>(a, stage, st);
   }
+  return (int)cudaErrorInvalidValue;
+}
+
+int dispatch(const Args& a, int hd, int dtype, Stage stage, cudaStream_t st) {
+  if (dtype == repro::kF32) return dispatch_hd<float>(a, hd, stage, st);
+  if (dtype == repro::kBF16) return dispatch_hd<__nv_bfloat16>(a, hd, stage, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -432,8 +460,36 @@ extern "C" int split_decode_attention_fwd(
     return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, block_tables, cache_len, static_cast<float*>(part_acc),
                static_cast<float*>(part_ml), o, B, S, K, G, n_pos, ps, nw,
-               window > 0 ? window : 0, (n_pos + SPLIT - 1) / SPLIT};
-  if (dtype == repro::kF32) return dispatch_hd<float>(a, hd, st);
-  if (dtype == repro::kBF16) return dispatch_hd<__nv_bfloat16>(a, hd, st);
-  return (int)cudaErrorInvalidValue;
+               window > 0 ? window : 0, (n_pos + SPLIT - 1) / SPLIT, 0, n_pos};
+  return dispatch(a, hd, dtype, kBoth, st);
+}
+
+// Sequence-parallel decode, dense caches only. The partials of one shard:
+// k, v [B, row_slots, K, hd] hold slots [slot0, slot0 + row_slots) of a
+// cache of n_pos slots a row (slot0 a multiple of SPLIT); its splits'
+// (m, l, acc) land at their absolute split index in the scratch of the whole
+// cache (nsplit = ceil(n_pos / SPLIT)).
+extern "C" int split_decode_partials(
+    const void* q, const void* k, const void* v, const int* cache_len, void* part_acc,
+    void* part_ml, int B, int S, int K, int G, int hd, int n_pos, int slot0, int row_slots,
+    int window, int dtype, void* stream) {
+  if (G < 1 || G > MAX_G || S < 1 || n_pos < 1 || row_slots < 1 || slot0 < 0 ||
+      slot0 % SPLIT != 0 || slot0 + row_slots > n_pos)
+    return (int)cudaErrorInvalidValue;
+  const Args a{q, k, v, nullptr, cache_len, static_cast<float*>(part_acc),
+               static_cast<float*>(part_ml), nullptr, B, S, K, G, n_pos, 0, 0,
+               window > 0 ? window : 0, (n_pos + SPLIT - 1) / SPLIT, slot0, row_slots};
+  return dispatch(a, hd, dtype, kPartials, static_cast<cudaStream_t>(stream));
+}
+
+// The combine over the partials every shard wrote: o [B, S, K*G, hd].
+extern "C" int split_decode_combine(const void* part_acc, const void* part_ml,
+                                    const int* cache_len, void* o, int B, int S, int K,
+                                    int G, int hd, int n_pos, int dtype, void* stream) {
+  if (G < 1 || G > MAX_G || S < 1 || n_pos < 1) return (int)cudaErrorInvalidValue;
+  const Args a{nullptr, nullptr, nullptr, nullptr, cache_len,
+               static_cast<float*>(const_cast<void*>(part_acc)),
+               static_cast<float*>(const_cast<void*>(part_ml)), o, B, S, K, G, n_pos, 0, 0,
+               0, (n_pos + SPLIT - 1) / SPLIT, 0, n_pos};
+  return dispatch(a, hd, dtype, kCombine, static_cast<cudaStream_t>(stream));
 }

@@ -24,7 +24,7 @@ from typing import Dict, Optional, Tuple
 
 NAMES = ("flash_attention", "decode_attention", "paged_decode_attention",
          "spec_decode_attention", "paged_spec_decode_attention", "spec_scan",
-         "rglru_scan", "mlstm_chunk")
+         "rglru_scan", "mlstm_chunk", "split_decode")
 
 Key = Tuple[str, str]          # (module, "" for ``launches`` or the route)
 
@@ -48,6 +48,15 @@ def count(module: str, route: Optional[str] = None):
             rec[k] = rec.get(k, 0) + 1
         return
     add(dict.fromkeys(keys, 1))
+
+
+def expected(steps: int, shards_by_layer) -> int:
+    """The launches of a kernel that each layer of ``shards_by_layer`` runs
+    once a step, over ``steps`` steps: ``layers x steps`` on one device;
+    on a mesh each layer launches once a step on every shard that runs it
+    (``EnginePrograms.launch_shards``: "data" shards times the "model"
+    shards of the layer's mixer), so ``steps x sum(shards_by_layer)``."""
+    return steps * sum(shards_by_layer)
 
 
 def snapshot() -> Dict[Key, int]:

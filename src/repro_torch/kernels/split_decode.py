@@ -15,6 +15,12 @@ The wrappers (``decode_attention``, ``spec_decode_attention``,
 ``paged_decode_attention``, ``paged_spec_decode_attention``) count their own
 launches and run their plain versions for CPU tensors; ``launch_split`` is
 their CUDA path only.
+
+The sequence-parallel decode (``distributed/collectives.py``) launches the
+two kernels apart: ``launch_partials`` once per sequence shard of a dense
+cache (entry ``split_decode_partials``: the shard's splits into the scratch
+of the whole cache) and ``launch_combine`` once over all of them (entry
+``split_decode_combine``). They count here, by stage.
 """
 from __future__ import annotations
 
@@ -24,14 +30,18 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, launch_counts
 from repro_torch.kernels.flash_attention import DTYPES, HEAD_DIMS, aligned16
 
 # csrc/split_decode_attention.cu's SPLIT and MAX_G (a CPU test holds them equal)
 SPLIT = 128             # slots per split: 8 pages of 16
 MAX_G = 64              # query heads per KV head the kernel's shared memory takes
 
+launches = 0            # launches_by_route's sum: the two stages apart
+launches_by_route = {"partials": 0, "combine": 0}
+
 _fn = None
+_stage_fns = {}
 
 
 def split_plan(B: int, S: int, K: int, G: int, hd: int, n_pos: int):
@@ -85,6 +95,58 @@ def _kernel():
         P, I = ctypes.c_void_p, ctypes.c_int
         _fn = build.entry("split_decode_attention_fwd", [P] * 8 + [I] * 10 + [P])
     return _fn
+
+
+def _stage_fn(name: str, argtypes):
+    if name not in _stage_fns:
+        _stage_fns[name] = build.entry(name, argtypes)
+    return _stage_fns[name]
+
+
+def split_scratch(B: int, S: int, K: int, G: int, hd: int, n_pos: int, device):
+    """(part_acc, part_ml) float32 scratch of a cache of ``n_pos`` slots a
+    row, in one 16-byte aligned allocation."""
+    _, acc_shape, ml_shape = split_plan(B, S, K, G, hd, n_pos)
+    n_acc = math.prod(acc_shape)
+    buf = torch.empty(n_acc + math.prod(ml_shape), dtype=torch.float32, device=device)
+    return buf[:n_acc].view(acc_shape), buf[n_acc:].view(ml_shape)
+
+
+def launch_partials(q, k, v, clen, part_acc, part_ml, q_per_kv: int, *,
+                    n_pos: int, slot0: int, window: Optional[int] = None):
+    """The split kernel over one sequence shard of a dense cache: k, v
+    [B, Wl, K, hd] hold slots [slot0, slot0 + Wl) of a cache of ``n_pos``
+    slots a row (``slot0`` a multiple of ``SPLIT``); its splits' partials
+    land at their absolute index in the scratch of the whole cache
+    (``split_scratch``), on the shard's device. ``clen`` [B] int32."""
+    name = "split_decode_partials"
+    B, H, hd = check_decode_inputs(name, q, k, v, q_per_kv)
+    build.refuse_grad(name, "a serving kernel; train mode never decodes", q, k, v)
+    Wl, K = k.shape[1], k.shape[2]
+    if slot0 % SPLIT or slot0 < 0 or slot0 + Wl > n_pos or k.shape[0] != B:
+        raise ValueError(f"{name}: shard [{slot0}, {slot0 + Wl}) of {n_pos} slots "
+                         f"(cut at multiples of {SPLIT}) for batch {B}")
+    P_, I = ctypes.c_void_p, ctypes.c_int
+    fn = _stage_fn(name, [P_] * 6 + [I] * 10 + [P_])
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), clen.data_ptr(),
+             part_acc.data_ptr(), part_ml.data_ptr(), B, 1, K, q_per_kv, hd,
+             n_pos, slot0, Wl, window or 0, DTYPES[q.dtype],
+             torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, name)
+    launch_counts.count(__name__, "partials")
+
+
+def launch_combine(part_acc, part_ml, clen, o, q_per_kv: int, *, n_pos: int):
+    """The combine over the partials of every shard: o [B, 1, H, hd]."""
+    name = "split_decode_combine"
+    B, _, H, hd = o.shape
+    P_, I = ctypes.c_void_p, ctypes.c_int
+    fn = _stage_fn(name, [P_] * 4 + [I] * 7 + [P_])
+    err = fn(part_acc.data_ptr(), part_ml.data_ptr(), clen.data_ptr(), o.data_ptr(),
+             B, 1, H // q_per_kv, q_per_kv, hd, n_pos, DTYPES[o.dtype],
+             torch.cuda.current_stream(o.device).cuda_stream)
+    build.check(err, name)
+    launch_counts.count(__name__, "combine")
 
 
 def launch_split(name, q, k, v, cache_len, q_per_kv, *, one_token: bool,

@@ -15,6 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed.sharding import Shards, gather
+
 # ---------------------------------------------------------------------------
 # Parameters and their initialisation (the rules of
 # repro.models.layers._init_one)
@@ -33,6 +35,7 @@ class Params(nn.Module):
     its JAX ``ParamDef`` init rule; leaves not named there are "scaled"."""
 
     INIT: Dict[str, str] = {}
+    AXES: Dict[str, tuple] = {}     # leaf -> logical axes (distributed/sharding.py)
 
 
 def init_(t: torch.Tensor, init: str, gen: torch.Generator, *,
@@ -111,14 +114,25 @@ def activation(x, kind: str):
     return F.silu(x)
 
 
-def apply_mlp(p, x, cfg):
+def _mlp_hidden(p, x, cfg):
     h = x @ p.wi
     if cfg.mlp_bias:
         h = h + p.bi
     if cfg.gated_mlp:
-        h = activation(h, cfg.act) * (x @ p.wg)
+        return activation(h, cfg.act) * (x @ p.wg)
+    return activation(h, cfg.act)
+
+
+def apply_mlp(p, x, cfg):
+    """On a mesh (``p.wi`` in ``Shards``) each "model" shard computes its
+    columns of the hidden state (mlp-up is cut by its output dim, its
+    contraction whole) and the hidden state is gathered before ``wo``, so
+    the down-projection's sum is never split (the reference's "mlp_act")."""
+    if isinstance(p.wi, Shards):
+        h = gather(Shards([_mlp_hidden(p.part(j), x.to(d), cfg)
+                           for j, d in enumerate(p.devices())], -1), x.device)
     else:
-        h = activation(h, cfg.act)
+        h = _mlp_hidden(p, x, cfg)
     y = h @ p.wo
     if cfg.mlp_bias:
         y = y + p.bo
@@ -163,8 +177,25 @@ def sinusoidal_pos(positions, d_model: int, dtype):
 # ---------------------------------------------------------------------------
 
 
+def _embed_rows(table: Shards, tokens):
+    """Rows of a table cut over "model" by vocab rows: each shard looks up
+    the ids it holds, and the rows are gathered onto the ids' device by
+    selection (copies only)."""
+    x = None
+    lo = 0
+    for part in table.parts:
+        n = part.shape[0]
+        ids = tokens.to(part.device) - lo
+        rows = part[ids.clamp(0, n - 1)].to(tokens.device)
+        mine = ((tokens >= lo) & (tokens < lo + n))[..., None]
+        x = rows if x is None else torch.where(mine, rows, x)
+        lo += n
+    return x
+
+
 def embed_tokens(params, tokens, cfg):
-    x = params.embed.table[tokens]
+    table = params.embed.table
+    x = _embed_rows(table, tokens) if isinstance(table, Shards) else table[tokens]
     if cfg.name.startswith("gemma") or cfg.family == "hybrid":
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     return x
@@ -206,10 +237,17 @@ def matmul_f32(a, b):
 
 
 def unembed(params, x, cfg):
-    if cfg.tie_embeddings:
-        logits = matmul_f32(x, params.embed.table.t())
+    """float32 logits; on a mesh each "model" shard computes its vocab
+    columns (the contraction over d_model whole) and they are gathered."""
+    w = params.embed.table if cfg.tie_embeddings else params.unembed.table
+    if isinstance(w, Shards):
+        logits = gather(Shards([
+            matmul_f32(x.to(part.device), part.t() if cfg.tie_embeddings else part)
+            for part in w.parts], -1), x.device)
+    elif cfg.tie_embeddings:
+        logits = matmul_f32(x, w.t())
     else:
-        logits = matmul_f32(x, params.unembed.table)
+        logits = matmul_f32(x, w)
     if cfg.logit_softcap:
         c = cfg.logit_softcap
         logits = torch.tanh(logits / c) * c

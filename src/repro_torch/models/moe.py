@@ -21,13 +21,18 @@ weights are bf16 even in float32 configs, and the router logits are
 float32 from any input (``layers.matmul_f32``): a bf16 router would change
 the top-k choices. The expert products are plain ``torch.einsum``
 (batched matmuls), as they are plain einsums in the JAX package.
-``sharding.constrain`` has no counterpart (one card).
+On a mesh the experts are cut over "model" (``wi`` / ``wg`` / ``wo`` in
+``Shards`` by their expert dim): each shard runs its experts' slice of the
+dispatched tokens and ``ye`` is gathered before the combine, the
+reference's expert parallelism; routing, dispatch and combine run once,
+so the drops and the slot order are those of one device.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import Shards, gather
 from repro_torch.models.layers import Params, activation, matmul_f32, param
 
 
@@ -35,6 +40,11 @@ class MoE(Params):
     """Router and expert leaves (``moe.moe_defs``): router [D, E], wi / wg
     [E, D, F], wo [E, F, D], all "scaled" (the fan-in counts E, and the
     layer axis of scanned layers)."""
+
+    AXES = {"router": ("embed", None),
+            "wi": ("experts", "moe_embed", "moe_mlp"),
+            "wg": ("experts", "moe_embed", "moe_mlp"),
+            "wo": ("experts", "moe_mlp", "moe_embed")}
 
     def __init__(self, cfg, *, device, dtype):
         super().__init__()
@@ -101,6 +111,19 @@ def _promote(a, b):
     return a.to(torch.promote_types(a.dtype, b.dtype))
 
 
+def _experts(p, xe, cfg):
+    """The expert FFNs over their dispatched tokens xe [N,E,C,D]. Inputs
+    are promoted at each use, as jnp.einsum does: the bf16 ``xe`` then gets
+    one rounded cotangent per use, summed in bf16, as in JAX's gradient."""
+    h = torch.einsum("necd,edf->necf", _promote(xe, p.wi), p.wi)
+    if cfg.gated_mlp:
+        h = activation(h, cfg.act) * torch.einsum(
+            "necd,edf->necf", _promote(xe, p.wg), p.wg)
+    else:
+        h = activation(h, cfg.act)
+    return torch.einsum("necf,efd->necd", h, p.wo)
+
+
 def apply_moe(p, x, cfg):
     """x [B,S,D] -> ([B,S,D], aux scalar)."""
     B, S, D = x.shape
@@ -114,15 +137,13 @@ def apply_moe(p, x, cfg):
     xg = xf.reshape(N, G, D)
     dispatch, combine, aux = route(p.router, xg, cfg)
     xe = torch.einsum("ngec,ngd->necd", dispatch, xg.to(torch.bfloat16))
-    # promoted at each use, as jnp.einsum does: the bf16 ``xe`` then gets
-    # one rounded cotangent per use, summed in bf16, as in JAX's gradient
-    h = torch.einsum("necd,edf->necf", _promote(xe, p.wi), p.wi)
-    if cfg.gated_mlp:
-        h = activation(h, cfg.act) * torch.einsum(
-            "necd,edf->necf", _promote(xe, p.wg), p.wg)
+    if isinstance(p.wi, Shards):
+        n_e = p.wi.parts[0].shape[0]
+        ye = gather(Shards([
+            _experts(p.part(j), xe[:, j * n_e:(j + 1) * n_e].to(d), cfg)
+            for j, d in enumerate(p.devices())], 1), x.device)
     else:
-        h = activation(h, cfg.act)
-    ye = torch.einsum("necf,efd->necd", h, p.wo)
+        ye = _experts(p, xe, cfg)
     y = torch.einsum("necd,ngec->ngd", ye, _promote(combine, ye))
     y = y.reshape(Tp, D)[:T]
     return y.reshape(B, S, D).to(x.dtype), aux

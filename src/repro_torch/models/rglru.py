@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import Shards, by_rows, gather, tree_parts
 from repro_torch.kernels.rglru_scan import rglru_scan
 from repro_torch.models.layers import assign
 
@@ -84,7 +85,38 @@ def apply_recurrent_mixer(p, x, cfg, *, cache=None, mode="full", length=None,
     after every draft position (``hh``, the kernel's float32 output) and
     the raw conv input stream (``xs``), from which ``verify_commit``
     rewinds to each row's accepted length. ``record`` is None otherwise.
+
+    On a mesh (``p.wx`` in ``Shards``) each "model" shard runs its RG-LRU
+    channels (rnn-up cut by its output dim; the recurrence is elementwise
+    per channel) over its part of the cache, and the gated output is
+    gathered before ``wo`` (the reference's "rnn_act"); the record is then
+    ``Shards`` too.
     """
+    if not isinstance(p.wx, Shards):
+        yg, record = _mixer_channels(p, x, cfg, cache=cache, mode=mode,
+                                     length=length, mask=mask, keep=keep)
+        return yg @ p.wo, record
+    outs = []
+    for j, d in enumerate(p.devices()):
+        outs.append(_mixer_channels(
+            p.part(j), x.to(d), cfg, cache=tree_parts(cache, j), mode=mode,
+            length=length, mask=None if mask is None else mask.to(d),
+            keep=None if keep is None else keep.to(d)))
+    yg = gather(Shards([y for y, _ in outs], -1), x.device)
+    record = None
+    if outs[0][1] is not None:
+        record = {k: Shards([r[k] for _, r in outs], -1) for k in outs[0][1]}
+    return yg @ p.wo, record
+
+
+def _scan(a, bx, h0, out_dtype):
+    """``rglru_scan``, launched per "data" shard over its rows on a mesh."""
+    return by_rows(lambda a_, bx_, h_: rglru_scan(a_, bx_, h_, out_dtype=out_dtype),
+                   a.shape[0], a, bx, h0)
+
+
+def _mixer_channels(p, x, cfg, *, cache, mode, length, mask, keep):
+    """The mixer up to ``wo``: (y * gate [B,S,R], record)."""
     u = x @ p.wx
     gate = F.gelu(x @ p.wy, approximate="tanh")
     record = None
@@ -95,7 +127,7 @@ def apply_recurrent_mixer(p, x, cfg, *, cache=None, mode="full", length=None,
         prev_conv = cache["conv"]
         c, _ = causal_conv1d(u, p.conv_w, p.conv_b, prev_conv)
         a, bx = _masked_gates(p, c, mask)
-        hh, _ = rglru_scan(a, bx, cache["h"].contiguous(), out_dtype=torch.float32)
+        hh, _ = _scan(a, bx, cache["h"].contiguous(), torch.float32)
         y = hh.to(c.dtype)
         record = {"hh": hh, "xs": torch.cat([prev_conv.to(u.dtype), u], dim=1)}
     else:
@@ -104,12 +136,11 @@ def apply_recurrent_mixer(p, x, cfg, *, cache=None, mode="full", length=None,
                                       cache["conv"] if extend else None,
                                       length=length)
         a, bx = _masked_gates(p, c, mask)
-        y, h = rglru_scan(a, bx, cache["h"].contiguous() if extend else None,
-                          out_dtype=c.dtype)
+        y, h = _scan(a, bx, cache["h"].contiguous() if extend else None, c.dtype)
     if cache is not None and mode != "verify":
         assign(cache["h"], h, keep)                                    # mutation
         assign(cache["conv"], conv_state, keep)                        # mutation
-    return (y * gate) @ p.wo, record
+    return y * gate, record
 
 
 def gather_conv(xs, ns, valid, width: int):

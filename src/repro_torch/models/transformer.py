@@ -35,6 +35,8 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs import base as cfgbase
+from repro_torch.distributed.sharding import (Shards, first_shards, gather,
+                                              rows_here, tree_parts)
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_decode_attention import paged_decode_attention
@@ -69,6 +71,7 @@ def attn_window(kind, cfg):
 
 class Norm(Params):
     INIT = {"scale": "ones", "bias": "zeros"}
+    AXES = {"scale": ("norm",), "bias": ("norm",)}
 
     def __init__(self, cfg, dim, *, device, dtype):
         super().__init__()
@@ -79,6 +82,14 @@ class Norm(Params):
 
 class Attention(Params):
     INIT = {"bq": "zeros", "bk": "zeros", "bv": "zeros"}
+    # wo's head dim is the contraction side of the output projection: its
+    # own axis, so serve replicates it while train shards it
+    AXES = {"wq": ("embed", "heads", "head_dim"),
+            "wk": ("embed", "kv_heads", "head_dim"),
+            "wv": ("embed", "kv_heads", "head_dim"),
+            "wo": ("heads_in", "head_dim", "embed"),
+            "bq": ("heads", "head_dim"), "bk": ("kv_heads", "head_dim"),
+            "bv": ("kv_heads", "head_dim")}
 
     def __init__(self, cfg, *, device, dtype):
         super().__init__()
@@ -97,6 +108,8 @@ class Attention(Params):
 
 class MLP(Params):
     INIT = {"bi": "zeros", "bo": "zeros"}
+    AXES = {"wi": ("embed", "mlp"), "wg": ("embed", "mlp"),
+            "wo": ("mlp_in", "embed"), "bi": ("mlp",), "bo": ("embed",)}
 
     def __init__(self, cfg, *, device, dtype):
         super().__init__()
@@ -115,6 +128,10 @@ class Recurrent(Params):
     """RG-LRU mixer leaves (``rglru.rglru_defs``)."""
     INIT = {"conv_b": "zeros", "b_rgate": "zeros", "b_igate": "zeros",
             "w_rgate": "normal", "w_igate": "normal", "a_param": "normal"}
+    AXES = {"wx": ("embed", "rnn"), "wy": ("embed", "rnn"),
+            "conv_w": ("conv", "rnn"), "wo": ("rnn_in", "embed"),
+            **dict.fromkeys(("conv_b", "w_rgate", "b_rgate", "w_igate",
+                             "b_igate", "a_param"), ("rnn",))}
 
     def __init__(self, cfg, *, device, dtype):
         super().__init__()
@@ -132,6 +149,12 @@ class Recurrent(Params):
 class MLSTM(Params):
     """mLSTM mixer leaves (``xlstm.mlstm_defs``)."""
     INIT = {"conv_b": "zeros", "b_ig": "zeros", "b_fg": "ones", "out_norm": "ones"}
+    AXES = {"w_up": ("embed", "inner"), "w_gate": ("embed", "inner"),
+            "conv_w": ("conv", "inner"), "conv_b": ("inner",),
+            "wq": ("inner", "inner_out"), "wk": ("inner", "inner_out"),
+            "wv": ("inner", "inner_out"), "w_ig": ("inner", None),
+            "b_ig": (None,), "w_fg": ("inner", None), "b_fg": (None,),
+            "out_norm": ("inner",), "w_down": ("inner", "embed")}
 
     def __init__(self, cfg, *, device, dtype):
         super().__init__()
@@ -157,6 +180,10 @@ class MLSTM(Params):
 class SLSTM(Params):
     """sLSTM mixer leaves (``xlstm.slstm_defs``)."""
     INIT = {"b_gates": "zeros", "out_norm": "ones"}
+    AXES = {"w_gates": ("embed", None, "slstm_inner"),
+            "r_gates": (None, None, None, None),
+            "b_gates": (None, "slstm_inner"), "out_norm": ("slstm_inner",),
+            "wo": ("slstm_inner", "embed")}
 
     def __init__(self, cfg, *, device, dtype):
         super().__init__()
@@ -197,9 +224,10 @@ class Block(nn.Module):
 
 
 class Table(Params):
-    def __init__(self, *shape, init, device, dtype):
+    def __init__(self, *shape, axes, init, device, dtype):
         super().__init__()
         self.INIT = {"table": init}
+        self.AXES = {"table": axes}
         self.table = _p(*shape, device=device, dtype=dtype)
 
 
@@ -209,9 +237,11 @@ class TransformerParams(nn.Module):
     def __init__(self, cfg, *, device, dtype):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
-        self.embed = Table(cfg.padded_vocab, cfg.d_model, init="normal", **kw)
+        self.embed = Table(cfg.padded_vocab, cfg.d_model, axes=("vocab", "embed"),
+                           init="normal", **kw)
         if not cfg.tie_embeddings:
-            self.unembed = Table(cfg.d_model, cfg.padded_vocab, init="scaled", **kw)
+            self.unembed = Table(cfg.d_model, cfg.padded_vocab, axes=("embed", "vocab"),
+                                 init="scaled", **kw)
         self.blocks = nn.ModuleList(Block(cfg, kind, **kw) for kind in cfg.layer_kinds)
         self.final_norm = Norm(cfg, cfg.d_model, **kw)
         self.stack = cfg.num_scan_groups
@@ -242,7 +272,11 @@ class TransformerParams(nn.Module):
 
 def tree_map(fn, tree):
     """Map over the tensor (or spec) leaves of a cache tree of dicts and
-    tuples; a spec leaf is a (shape, dtype) pair."""
+    tuples; a spec leaf is a (shape, dtype) pair. A ``Shards`` leaf (a
+    mesh's cache) maps part by part; ``fn`` may drop leading dims."""
+    if isinstance(tree, Shards):
+        parts = [fn(p) for p in tree.parts]
+        return Shards(parts, tree.dim - (tree.parts[0].dim() - parts[0].dim()))
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, tuple) and not _is_spec(tree):
@@ -251,7 +285,10 @@ def tree_map(fn, tree):
 
 
 def tree_leaves(tree):
-    """The leaves in ``jax.tree.leaves`` order (dict keys sorted)."""
+    """The leaves in ``jax.tree.leaves`` order (dict keys sorted); a
+    ``Shards`` leaf gives its parts."""
+    if isinstance(tree, Shards):
+        return list(tree.parts)
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
     if isinstance(tree, tuple) and not _is_spec(tree):
@@ -330,12 +367,91 @@ def layer_cache(cache, cfg, layer: int):
 # ---------------------------------------------------------------------------
 
 
-def _attn_mixer(p, x, cfg, *, kind, positions, mode, cache, cache_len,
-                block_tables=None, lens=None, prefill_len=None, keep=None):
-    """Attention temporal mixer (the JAX ``_attn_mixer``). Returns
-    (out, record); record is the verify step's staged draft K/V of a ring
-    cache, None otherwise. The window is ``attn_window``'s: a windowed
-    block keeps its K/V in a ring of min(capacity, window) slots.
+def _on(dev, v):
+    """``v`` on ``dev`` if it is a tensor (no copy on its own device)."""
+    return v.to(dev) if isinstance(v, torch.Tensor) else v
+
+
+def per_part(fn, tree, *args, **kw):
+    """``fn(tree, *args, **kw)``, or, for a tree holding ``Shards`` (a
+    mesh's "model" shards), ``fn`` on each shard's parts with the tensor
+    arguments moved to its device. Returns the results, one per shard."""
+    s = first_shards(tree)
+    if s is None:
+        return [fn(tree, *args, **kw)]
+    return [fn(tree_parts(tree, j), *(_on(part.device, a) for a in args),
+               **{k: _on(part.device, v) for k, v in kw.items()})
+            for j, part in enumerate(s.parts)]
+
+
+def _attn_mixer(p, x, cfg, *, kind, cache, positions, **kw):
+    """Attention temporal mixer (the JAX ``_attn_mixer``): the q / k / v
+    projections, ``_attend`` and the output projection. Returns (out,
+    record).
+
+    On a mesh (under ``sharding.use_rules``) the cache kernels launch per
+    shard: per "data" shard over its rows (views of the slot cache; the
+    page pool whole, so a shared page is readable by every shard) and, with
+    ``p.wq`` in ``Shards``, per "model" shard over its q heads and the KV
+    heads they read (cut by their output dims, the projections' sums stay
+    whole). The heads are gathered before ``wo`` (the reference's
+    "heads_act"), so the projection's sum over heads is never split; the
+    products run over all rows at once. A verify record is then ``Shards``
+    over the KV heads too."""
+    n = x.shape[0]
+    rows = rows_here(n)
+    sharded = isinstance(p.wq, Shards)
+    if not sharded and len(rows) == 1:
+        q, k, v = attn.qkv_proj(p, x, cfg, positions)
+        o, record = _attend(q, k, v, cfg, kind=kind, cache=cache, **kw)
+        return attn.out_proj(p, o), record
+    paged = kw.get("block_tables") is not None
+    parts = ([(p.part(j), tree_parts(cache, j), d) for j, d in enumerate(p.devices())]
+             if sharded else [(p, cache, x.device)])
+    outs = []
+    for pj, cj, d in parts:
+        q, k, v = attn.qkv_proj(pj, x.to(d), cfg, positions.to(d))
+        res = [_attend(q[r], k[r], v[r], cfg, kind=kind,
+                       cache=cj if paged or len(rows) == 1 else _cache_rows(cj, r),
+                       **{a: _on(d, _rows(b, r, n)) for a, b in kw.items()})
+               for r in rows]
+        o = _cat0([o for o, _ in res])
+        rec = None if res[0][1] is None else {
+            a: _cat0([rc[a] for _, rc in res]) for a in res[0][1]}
+        outs.append((o, rec))
+    if not sharded:
+        o, record = outs[0]
+        return attn.out_proj(p, o), record
+    o = gather(Shards([o for o, _ in outs], 2), x.device)
+    record = None
+    if outs[0][1] is not None:
+        record = {a: Shards([r[a] for _, r in outs], 2) for a in outs[0][1]}
+    return attn.out_proj(p, o), record
+
+
+def _rows(v, r: slice, n: int):
+    """Rows ``r`` of a per-row argument (a tensor of ``n`` rows)."""
+    if isinstance(v, torch.Tensor) and v.dim() and v.shape[0] == n:
+        return v[r]
+    return v
+
+
+def _cat0(xs):
+    return xs[0] if len(xs) == 1 else torch.cat(xs)
+
+
+def _cache_rows(cache, r: slice):
+    """Rows ``r`` of every leaf of a layer's slot cache (views)."""
+    return tree_map(lambda t: t[r], cache)
+
+
+def _attend(q, k, v, cfg, *, kind, mode, cache, cache_len, block_tables=None,
+            lens=None, prefill_len=None, keep=None):
+    """Attention of projected q [B,S,H,hd], k, v [B,S,K,hd] with the cache
+    writes. Returns (o [B,S,H,hd], record); record is the verify step's
+    staged draft K/V of a ring cache, None otherwise. The window is
+    ``attn_window``'s: a windowed block keeps its K/V in a ring of
+    min(capacity, window) slots.
 
     ``mode == "extend"`` continues a partially filled cache: a chunk at
     positions [cache_len, cache_len+S) attends to the cached prefix plus
@@ -350,7 +466,7 @@ def _attn_mixer(p, x, cfg, *, kind, positions, mode, cache, cache_len,
     right-padded prefill or extend chunk; ``keep`` freezes decode rows."""
     G = cfg.q_per_kv
     window = attn_window(kind, cfg)
-    q, k, v = attn.qkv_proj(p, x, cfg, positions)
+    dev = q.device
     record = None
     if mode == "decode" and block_tables is not None:
         ps = cache["k"].shape[1]
@@ -363,7 +479,7 @@ def _attn_mixer(p, x, cfg, *, kind, positions, mode, cache, cache_len,
         o = decode_attention(q, kc, vc, cache_len, q_per_kv=G, window=window)
     elif mode == "verify":
         S = k.shape[1]
-        clens = torch.as_tensor(cache_len, device=x.device).reshape(-1)
+        clens = torch.as_tensor(cache_len, device=dev).reshape(-1)
         clens = clens.to(torch.int32)
         if window is not None:
             kv = torch.cat([attn.ring_verify_view(cache["k"], clens),
@@ -374,8 +490,8 @@ def _attn_mixer(p, x, cfg, *, kind, positions, mode, cache, cache_len,
                                          window=window)
             record = {"k_new": k, "v_new": v}
         else:
-            n = torch.as_tensor(S if lens is None else lens, device=x.device)
-            valid = (torch.arange(S, device=x.device)[None, :]
+            n = torch.as_tensor(S if lens is None else lens, device=dev)
+            valid = (torch.arange(S, device=dev)[None, :]
                      < n.reshape(-1, 1)).expand(k.shape[0], S)
             if block_tables is not None:
                 ps = cache["k"].shape[1]
@@ -442,7 +558,7 @@ def _attn_mixer(p, x, cfg, *, kind, positions, mode, cache, cache_len,
                 for name, new in (("k", k), ("v", v)):
                     attn.ring_splice(cache[name], new, 0, length,
                                      old=torch.zeros_like(cache[name]))
-    return attn.out_proj(p, o), record
+    return o, record
 
 
 def apply_block(kind, p, x, cfg, *, positions, mode, cache, cache_len,
@@ -733,9 +849,11 @@ def verify_commit(cfg, staged, cache_lens, ns, lens):
         kind = cfg.layer_kinds[layer]
         lc = layer_cache(cache, cfg, layer)
         if kind in ATTN_KINDS:
-            attn.ring_verify_commit(rec, lc, clens, ns, valid)
+            per_part(lambda t, *a: attn.ring_verify_commit(t[0], t[1], *a),
+                     (rec, lc), clens, ns, valid)
         elif kind == cfgbase.RECURRENT:
-            rglru_mod.verify_commit(rec, lc, ns, valid)
+            per_part(lambda t, *a: rglru_mod.verify_commit(t[0], t[1], *a),
+                     (rec, lc), ns, valid)
         elif kind == cfgbase.MLSTM:
             xlstm_mod.mlstm_verify_commit(rec, lc, ns, valid)
         elif kind == cfgbase.SLSTM:

@@ -3,9 +3,9 @@ front door.
 
 A port of ``repro.serving.fleet`` with the same surface (``FleetServer``,
 ``FleetSession``, ``ReplicaRouter``). What differs: ``device=`` (the card
-by default; the CPU only when asked) is handed to every replica; per-replica
-sub-meshes (``meshes=``) are not ported and are refused, as
-``EngineConfig.mesh`` is; and on the card each replica's pump thread
+by default; the CPU only when asked) is handed to every replica, and a
+replica's sub-mesh (``meshes=`` / ``add_replica(mesh=)``) must lead on that
+device; and on the card each replica's pump thread
 captures and replays its own CUDA graphs (serving/programs.py), which take
 turns only to capture.
 
@@ -78,9 +78,6 @@ from repro_torch.serving.scheduler import (EngineConfig, OverloadPolicy,
                                            SamplingParams)
 from repro_torch.serving.server import Handle, LLMServer, Session, StepOutcome
 from repro_torch.serving.tokenizer import ByteTokenizer
-
-_NO_MESHES = ("FleetServer meshes: multi-device serving is not ported yet "
-              "(ROADMAP.md queue 1, item 11)")
 
 __all__ = ["FleetServer", "FleetSession", "ReplicaRouter"]
 
@@ -216,8 +213,8 @@ class FleetServer:
 
     Construction mirrors ``LLMServer`` (every per-engine knob, ``device``
     included, is applied to each replica) plus ``num_replicas``. ``meshes``
-    (per-replica sub-meshes in the JAX package) raises
-    ``NotImplementedError``. ``pump=True`` (default) gives every replica its
+    gives each replica its own sub-mesh (``EngineConfig.mesh``; one entry a
+    replica). ``pump=True`` (default) gives every replica its
     own background pump; ``pump=False`` builds cooperative replicas driven
     by ``FleetServer.step()`` (single-threaded determinism for tests).
 
@@ -237,10 +234,11 @@ class FleetServer:
                  pump: Union[bool, PumpConfig, None] = True,
                  meshes: Optional[list] = None,
                  digest_ttl_s: float = 0.25, device="cuda"):
-        if meshes is not None:
-            raise NotImplementedError(_NO_MESHES)
         if num_replicas < 1:
             raise ValueError(f"num_replicas must be >= 1, got {num_replicas}")
+        if meshes is not None and len(meshes) != num_replicas:
+            raise ValueError(f"meshes has {len(meshes)} entries for "
+                             f"{num_replicas} replicas")
         self.cfg = cfg
         self._engine_cfg = engine_cfg or EngineConfig()
         self._server_kw = dict(num_slots=num_slots, capacity=capacity,
@@ -267,16 +265,21 @@ class FleetServer:
         self._replicas_drained = 0
         # replica 0 initializes (or loads) the weights once; every peer
         # gets the same TransformerParams object (reads only) — 1× weight
-        # memory, bit-identical greedy
-        first = self._make_server(params)
+        # memory, bit-identical greedy; a peer on a sub-mesh lays it out on
+        # its mesh (its "model" parts are its own)
+        first = self._make_server(params, meshes[0] if meshes else None)
         self._params = first.params
         self._replicas.append(_Replica(0, first, self._pumped))
         for i in range(1, num_replicas):
-            self._replicas.append(_Replica(i, self._make_server(self._params),
-                                           self._pumped))
+            self._replicas.append(_Replica(
+                i, self._make_server(self._params, meshes[i] if meshes else None),
+                self._pumped))
 
-    def _make_server(self, params) -> LLMServer:
-        return LLMServer(self.cfg, params=params, engine_cfg=self._engine_cfg,
+    def _make_server(self, params, mesh) -> LLMServer:
+        ecfg = self._engine_cfg
+        if mesh is not None:
+            ecfg = dataclasses.replace(ecfg, mesh=mesh)
+        return LLMServer(self.cfg, params=params, engine_cfg=ecfg,
                          **self._server_kw)
 
     # ---- introspection -----------------------------------------------------
@@ -431,9 +434,7 @@ class FleetServer:
         least-loaded tie-break steers new placements toward it, its radix
         digest earns affinity traffic as its cache warms, and on the card it
         captures its own graphs at its first decode chunks."""
-        if mesh is not None:
-            raise NotImplementedError(_NO_MESHES)
-        srv = self._make_server(self._params)
+        srv = self._make_server(self._params, mesh)
         with self._lock:
             r = _Replica(len(self._replicas), srv, self._pumped)
             self._replicas.append(r)

@@ -82,6 +82,18 @@ def init_paged_cache(cfg, num_pages: int, page_size: int, device):
     return tfm.init_cache(cfg, num_pages, page_size, device)
 
 
+def shard_rows(pool, cfg, rules, mesh):
+    """Lay the page pool / snapshot arena out on a serving mesh: the
+    cache's specs (``sharding.cache_pspecs``) with the row axis over
+    "data" and the KV-head / recurrent-channel dims over "model". The rows
+    of a "data" shard are a view of one storage per "model" position, so
+    every data shard's kernel launch reads the whole pool (a radix-shared
+    page may be read by slots of both shards) and the host-side allocators
+    stay as they are. Dims that do not divide their mesh axis stay whole."""
+    from repro_torch.distributed import sharding
+    return sharding.shard_put(pool, sharding.cache_pspecs(cfg, rules), mesh)
+
+
 def supports_paged(cfg) -> tuple:
     """(ok, reason): paged mode needs every layer to be full (non-windowed)
     attention — KV of a position then depends only on the token prefix, so

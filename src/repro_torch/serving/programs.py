@@ -39,6 +39,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.distributed import sharding
 from repro_torch.kernels import launch_counts
 from repro_torch.models.transformer import DTYPES, tree_leaves, tree_map
 from repro_torch.serving.faults import DeadLetterError, RetryPolicy, TransientFault
@@ -121,7 +122,7 @@ class EnginePrograms:
     def __init__(self, model, cfg, engine_cfg, *, capacity: int,
                  num_slots: int, eos_id: int, freeze_done_rows: bool = False,
                  injector=None, retry: RetryPolicy = None,
-                 watchdog_s: float = None):
+                 watchdog_s: float = None, mesh=None, rules=None):
         self.model = model
         self.cfg = cfg
         self.engine_cfg = engine_cfg
@@ -130,6 +131,14 @@ class EnginePrograms:
         self.eos_id = eos_id
         self.freeze_done_rows = freeze_done_rows
         self.device = model.device
+        # mesh: the steps run under the serve rules, whose "data" shards
+        # (``rows``) and "model" shards the model's cache kernels launch
+        # over; on a mesh over several devices the steps run eagerly
+        self.rules = rules
+        self.rows = sharding.data_rows(num_slots, mesh, rules) if mesh else [
+            slice(0, num_slots)]
+        self.graphs = (self.device.type == "cuda"
+                       and (mesh is None or len(mesh.distinct_devices()) == 1))
         # fault layer: every public dispatch goes through _run (injector
         # hook + bounded retry of TransientFaults + watchdog accounting)
         self.injector = injector
@@ -321,7 +330,7 @@ class EnginePrograms:
         eager fallback on the card."""
         if n <= 0:
             return
-        if self.device.type == "cpu" or self._eager:
+        if not self.graphs or self._eager:
             for _ in range(n):
                 step()
             return
@@ -422,9 +431,10 @@ class EnginePrograms:
         ``emit`` takes the step's tokens."""
         last, clens, rem, done = b["last"], b["clens"], b["rem"], b["done"]
         batch = model_inputs(self.cfg, last[:, None].long(), clens[:, None].long())
-        logits, _ = self.model.decode_step(
-            params, batch, cache, clens, block_tables=b.get("bt"),
-            keep=~done if self.freeze_done_rows else None)
+        with sharding.use_rules(self.rules):
+            logits, _ = self.model.decode_step(
+                params, batch, cache, clens, block_tables=b.get("bt"),
+                keep=~done if self.freeze_done_rows else None)
         row_keys = temps = top_ks = None
         if variant != "greedy":
             cnts = (clens - b["plens"] + 1).long()       # tokens sampled so far
@@ -495,8 +505,9 @@ class EnginePrograms:
         positions = clens[:, None].long() + torch.arange(
             S, device=self.device)[None, :]
         batch = {"tokens": tokens.long(), "positions": positions}
-        logits, staged = self.model.verify(params, batch, cache, clens,
-                                           lens=lens, block_tables=b.get("bt"))
+        with sharding.use_rules(self.rules):
+            logits, staged = self.model.verify(params, batch, cache, clens, lens=lens,
+                                               block_tables=b.get("bt"))
         greedy = variant == "greedy"
         out_tok, out_len = accept_batched(
             logits, tokens, torch.clamp(lens - 1, min=0),
@@ -507,6 +518,17 @@ class EnginePrograms:
         self.model.verify_commit(staged, clens, out_len, lens)
         b["out_tok"].copy_(out_tok)
         b["out_len"].copy_(out_len)
+
+    def launch_shards(self, params, layer: int) -> int:
+        """The shards that launch layer ``layer``'s kernel in one decode or
+        verify step: one on one device; on a mesh, the "data" shards times
+        the "model" shards its mixer is cut over (1 where it stays whole,
+        as attention does when the KV heads do not divide "model")."""
+        blk = params.blocks[layer]
+        mixer = next(getattr(blk, n) for n in ("attn", "rec", "mlstm", "slstm")
+                     if hasattr(blk, n))
+        parts = mixer.devices() if isinstance(mixer, sharding.Placed) else None
+        return len(self.rows) * (len(parts) if parts else 1)
 
     # ---- per-prefix snapshot copies (snapshot mode) ------------------------
     def _snap_capture_fn(self, arena, cache, sid, slot):

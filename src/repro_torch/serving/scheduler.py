@@ -5,8 +5,10 @@ A copy of ``repro.serving.scheduler`` in which only the JAX sites changed:
 keys are the sampler's counter-hash keys, dispatch scalars are Python ints,
 inputs are torch tensors on the scheduler's device, and the decode chunk's
 outputs come back in one transfer, as do the verify step's.
-``EngineConfig.mesh`` raises ``NotImplementedError`` naming the ROADMAP.md
-item that ports it. The rest — admission, sessions and tail
+``EngineConfig.mesh`` lays the params, the slot cache, the page pool and
+the snapshot arena out on a device mesh (distributed/sharding.py, the
+bit-exact "serve" rules); the scheduler itself knows nothing of it. The
+rest — admission, sessions and tail
 pages, stop sequences, cancel, deadlines, overload, journal, counters — is
 unchanged.
 
@@ -67,6 +69,8 @@ import random
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding
+from repro_torch.distributed.mesh import canonical, make_host_mesh
 from repro_torch.models import Model
 from repro_torch.serving import kvpool
 from repro_torch.serving.faults import (DeadLetterError, DeadlineExceeded,
@@ -173,8 +177,15 @@ class EngineConfig:
                      spec_warmup drafted tokens) — unpredictable outputs
                      then pay zero verify overhead.
     spec_warmup:     drafted tokens per slot before adaptive disable engages.
-    mesh:            multi-device serving; must be None in the port (one
-                     card) until ROADMAP.md queue 1, item 11 ports it.
+    mesh:            a ``distributed.mesh.Mesh`` with ("data", "model")
+                     axes to serve on (``make_test_mesh``); None is the
+                     degenerate 1x1 mesh of the server's device. A mesh of
+                     more than one position applies the bit-exact "serve"
+                     rules (distributed/sharding.py): slot / page /
+                     snapshot rows over "data", q and KV heads, experts,
+                     mlp-up, rnn-up and vocab over "model"; greedy output
+                     equals the unsharded server's in every cache mode
+                     (tests/test_torch_mesh_serving.py).
     """
     prefill_buckets: Optional[Tuple[int, ...]] = None
     decode_chunk: int = 16
@@ -358,10 +369,18 @@ class Scheduler:
                  device="cuda"):
         self.engine_cfg = engine_cfg or EngineConfig()
         self.device = resolve_device(device)
-        if self.engine_cfg.mesh is not None:
-            raise NotImplementedError(
-                "EngineConfig.mesh: multi-device serving is not ported yet "
-                "(ROADMAP.md queue 1, item 11)")
+        # device mesh: the degenerate 1x1 mesh of the device by default, so
+        # every single-device path is unchanged; a real mesh (> 1 position)
+        # applies the bit-exact "serve" layout
+        mesh = self.engine_cfg.mesh
+        if mesh is None:
+            mesh = make_host_mesh(self.device)
+        elif mesh.lead != canonical(self.device):
+            raise ValueError(f"{mesh} leads on {mesh.lead}, the server runs "
+                             f"on {self.device}")
+        self.mesh = mesh
+        self.rules = (sharding.rules_for(mesh, "serve") if mesh.size > 1
+                      else None)
         # fault-tolerance layer (serving/faults.py): bounded retry of
         # transient dispatch faults, deadline default, chaos hooks, and the
         # crash-safe session journal (serving/journal.py)
@@ -425,6 +444,7 @@ class Scheduler:
         self.buckets: Tuple[int, ...] = (auto_buckets(capacity)
                                          if buckets is None else
                                          tuple(sorted(buckets)))
+        params = sharding.source_params(params)  # a fleet peer's placed params
         if params is None:
             params = self.model.init(seed)
         elif isinstance(params, dict):          # a state dict (convert.py)
@@ -435,6 +455,11 @@ class Scheduler:
             n_pages = self.engine_cfg.num_pages
             if n_pages is None:
                 n_pages = 1 + 2 * num_slots * self._bt_width
+                if self.rules is not None:
+                    # round the auto pool up to the mesh's "data" extent so
+                    # the page axis shards (an explicit num_pages that does
+                    # not divide keeps its page axis whole)
+                    n_pages = self._round_to_data(n_pages)
             # self.cache IS the page pool in paged mode: same pytree
             # structure, batch axis re-purposed as the page axis
             self.cache = kvpool.init_paged_cache(self.cfg, n_pages, ps,
@@ -456,12 +481,28 @@ class Scheduler:
             n_snaps = self.engine_cfg.num_snapshots
             if n_snaps is None:
                 n_snaps = 1 + num_slots * (-(-capacity // (ps * stride)) + 2)
+                if self.rules is not None:
+                    n_snaps = self._round_to_data(n_snaps)
             self.snaps = kvpool.SnapshotArena(n_snaps)
             self.snaps.injector = injector
             self.snap_arena = self.model.init_cache(n_snaps, capacity)
         else:
             self.snaps = None
             self.snap_arena = None
+        if self.rules is not None:
+            # the placement: values move, none changes; dims their mesh
+            # axes do not divide stay whole, leaf by leaf
+            self.params = sharding.place_params(self.params, self.rules)
+            if self.paged:
+                self.cache = kvpool.shard_rows(self.cache, self.cfg,
+                                               self.rules, mesh)
+            else:
+                self.cache = sharding.shard_put(
+                    self.cache, sharding.cache_pspecs(self.cfg, self.rules),
+                    mesh)
+            if self.snap_arena is not None:
+                self.snap_arena = kvpool.shard_rows(self.snap_arena, self.cfg,
+                                                    self.rules, mesh)
         self.slots = [_Slot() for _ in range(num_slots)]
         self._queue: "collections.deque[Request]" = collections.deque()
         self._req_key_base = prng_key(seed + 2)
@@ -517,7 +558,8 @@ class Scheduler:
             self.model, self.cfg, self.engine_cfg, capacity=self.capacity,
             num_slots=num_slots, eos_id=self.tokenizer.eos_id,
             freeze_done_rows=self._freeze_done_rows, injector=injector,
-            retry=self.retry, watchdog_s=watchdog_s)
+            retry=self.retry, watchdog_s=watchdog_s, mesh=mesh,
+            rules=self.rules)
         self._slot_consts = None        # cached (keys, prompt_lens) host
                                         # arrays; rebuilt on membership change
 
@@ -952,15 +994,20 @@ class Scheduler:
                                        if s.request is not None)
         return float(depth) * (self._svc_decode_tok_s or 1.0)
 
+    def _round_to_data(self, n: int) -> int:
+        d = self.mesh.extent(self.rules["batch"])
+        return -(-n // d) * d
+
     # ---- stats -------------------------------------------------------------
     def stats(self) -> dict:
         toks = max(self._decode_tokens, 1)
         out = {
             "cache_mode": self.engine_cfg.cache_mode,
-            # mesh layout keys of the JAX package: one device, unsharded
-            "mesh_devices": 1,
-            "mesh_shape": {"data": 1, "model": 1},
-            "sharded": False,
+            # mesh layout: positions and (axis, extent) pairs; "sharded" is
+            # False on the default 1x1 mesh (single-device paths)
+            "mesh_devices": int(self.mesh.size),
+            "mesh_shape": {k: int(v) for k, v in self.mesh.shape.items()},
+            "sharded": self.rules is not None,
             "prefill_compiles": len(self._prefill_shapes),
             "extend_compiles": len(self._extend_shapes),
             "prefill_buckets": list(self.buckets),
@@ -1079,6 +1126,11 @@ class Scheduler:
                 "snapshot_captures": self._snap_captures,
                 "snapshot_evictions": self.radix.evicted_snaps,
             })
+        if self.rules is not None:
+            # a mesh's decode / verify steps run as CUDA graphs on one
+            # device, eagerly across several (the only key the JAX
+            # package's stats() lacks, so only a sharded server has it)
+            out["step_graphs"] = self.progs.graphs
         return out
 
     # ---- engine loop: admission --------------------------------------------

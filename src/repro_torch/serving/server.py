@@ -330,6 +330,12 @@ class LLMServer:
         return self.engine.device
 
     @property
+    def mesh(self):
+        """The serving device mesh (``EngineConfig(mesh=...)``; by default
+        the degenerate 1x1 mesh of the server's device, unsharded)."""
+        return self.engine.mesh
+
+    @property
     def capacity(self) -> int:
         return self.engine.capacity
 

@@ -326,13 +326,26 @@ def test_drain_last_replica_with_sessions_refuses():
 
 
 def test_meshes_refused():
+    """``meshes=`` and ``add_replica(mesh=)`` are no longer refused: each
+    replica serves on its own sub-mesh from the fleet's one set of weights
+    (tests/test_torch_mesh_serving.py checks their ids); a ``meshes`` list
+    of the wrong length still raises."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.mesh import make_test_mesh
     _, _, cfg, sd = weights()
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="entries"):
         FleetServer(cfg, num_replicas=2, params=sd, device="cpu",
-                    meshes=[object(), object()])
-    with _fleet(num_replicas=1, pump=False) as fleet:
-        with pytest.raises(NotImplementedError, match="item 11"):
-            fleet.add_replica(mesh=object())
+                    meshes=[make_test_mesh((1, 2), devices="cpu")])
+    meshes = [make_test_mesh((1, 2), devices="cpu"), make_test_mesh((2, 1), devices="cpu")]
+    with _fleet(num_replicas=2, pump=False, meshes=meshes) as fleet:
+        idx = fleet.add_replica(mesh=make_test_mesh((2, 2), devices="cpu"))
+        shapes = [r.server.stats()["mesh_shape"] for r in fleet.replicas]
+        assert shapes == [{"data": 1, "model": 2}, {"data": 2, "model": 1},
+                          {"data": 2, "model": 2}] and idx == 2
+        assert all(shd.source_params(r.server.params) is shd.source_params(fleet.params)
+                   for r in fleet.replicas)
+        fs = fleet.open_session()
+        assert fs.submit(T1, SamplingParams(max_new_tokens=4)).result() is not None
 
 
 # ---- fame drivers ----------------------------------------------------------

@@ -1196,3 +1196,74 @@ def test_gpu_train_step_matches_cpu():
             torch.cuda.synchronize()
             assert kfa.launches - before == 2 * cfg.num_layers * 2
     assert abs(losses[str(dev)] - losses["cpu"]) <= 1e-4 * abs(losses["cpu"])
+
+
+# ---- the device mesh ---------------------------------------------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 600])
+def test_gpu_seqpar_decode_equals_one_launch(dtype, window):
+    """The sequence-parallel decode (a partials launch per sequence shard,
+    one combine) at qwen2.5-3b's decode shape, caches [4, 2048, 2, 128] cut
+    into 4 shards of 512 slots: bit-equal to the one-launch split-K kernel,
+    and within the tolerance of the plain version."""
+    from repro_torch.distributed.collectives import (make_seqpar_decode_attention,
+                                                     seqpar_decode_ref)
+    from repro_torch.distributed.mesh import make_test_mesh
+    dev = _need_card()
+    g = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randn(4, 1, 16, 128, generator=g, device=dev).to(dtype)
+    kc, vc = (torch.randn(4, 2048, 2, 128, generator=g, device=dev).to(dtype)
+              for _ in range(2))
+    clen = torch.tensor([0, 511, 1300, 2047], dtype=torch.int32, device=dev)
+    f = make_seqpar_decode_attention(make_test_mesh((1, 4), devices=dev))
+    before = dict(ksd.launches_by_route)
+    got = f(q, kc, vc, clen, q_per_kv=8, window=window)
+    torch.cuda.synchronize()
+    assert ksd.launches_by_route["partials"] - before["partials"] == 4
+    assert ksd.launches_by_route["combine"] - before["combine"] == 1
+    one = kda.decode_attention(q, kc, vc, clen, q_per_kv=8, window=window)
+    assert torch.equal(got, one)
+    want = seqpar_decode_ref(q, kc.chunk(4, 1), vc.chunk(4, 1), clen, q_per_kv=8,
+                             window=window)
+    assert float((got.float() - want.float()).abs().max()) < GPU_TOL[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["dense", "paged"])
+def test_gpu_mesh_server_matches_unsharded(mode):
+    """A (2, 2) mesh on the one card (float32, qwen with 4 KV heads,
+    spec_len 4): the same greedy ids as the unsharded server on the card;
+    every decode / verify step a graph replay or a capture's warm-up, and
+    the decode kernel launched once a layer, step and shard."""
+    from repro_torch.distributed.mesh import make_test_mesh
+    dev = _need_card()
+    cfg = ARCHS["qwen2.5-3b"].reduced(dtype="float32", param_dtype="float32",
+                                      vocab_size=512, num_kv_heads=4)
+    sd = Model(cfg, device="cpu").init(seed=1).state_dict()
+    sd["embed.table"][cfg.vocab_size - 1] = 0.0        # EOS guard
+    prompts = ["alpha prompt for slot one", "err 429 err 429 err 429 err 4",
+               "a rather longer second prompt", "third prompt"]
+    ids = {}
+    for mesh in (None, make_test_mesh((2, 2), devices=dev)):
+        srv = LLMServer(cfg, num_slots=4, capacity=128, device=dev,
+                        params={k: v.to(dev) for k, v in sd.items()},
+                        engine_cfg=EngineConfig(cache_mode=mode, page_size=16,
+                                                decode_chunk=4, spec_len=4, mesh=mesh))
+        kmod = kpda if mode == "paged" else kda
+        before = kmod.launches
+        hs = [srv.submit(p, SamplingParams(max_new_tokens=10)) for p in prompts]
+        srv.run_until_idle()
+        torch.cuda.synchronize()
+        ids[mesh is None] = [h.request.output_ids for h in hs]
+        progs = srv.engine.progs
+        assert progs.graphs and srv.stats().get("step_graphs", True)
+        steps = progs.decode_steps
+        assert sum(progs.graph_captures.values()) + sum(progs.graph_replays.values()) \
+            == steps + progs.verify_steps
+        shards = [progs.launch_shards(srv.params, i) for i in range(cfg.num_layers)]
+        assert kmod.launches - before == launch_counts.expected(steps, shards)
+        assert shards == [1 if mesh is None else 4] * cfg.num_layers
+        srv.close()
+    assert all(len(x) == 10 for x in ids[True])
+    assert ids[False] == ids[True]

@@ -8,6 +8,12 @@ own thread's launches: another thread's launches during the capture count
 once, when they happen, and never again at the graph's replays. The
 wrappers' calls of ``count`` are driven directly here (on the CPU a
 wrapper runs its plain version and counts nothing), around a stub graph.
+
+The rule the card's serving phases hold the counters to
+(``launch_counts.expected``): one launch a layer and step on one device,
+and on a mesh one a layer, step and shard that runs the layer's kernel.
+Its CPU test counts the calls of the decode wrappers (their plain versions
+here) on a (2, 4) mesh server.
 """
 import sys
 import threading
@@ -166,3 +172,44 @@ def test_reset_and_cpu_wrappers_count_nothing():
     assert set(launch_counts.snapshot().values()) == {0}
     launch_counts.add(saved)
     assert launch_counts.snapshot() == saved
+
+
+@pytest.mark.parametrize("mesh_shape,mode,kv,per_layer", [
+    (None, "dense", 4, 1),
+    ((2, 4), "dense", 4, 8),           # 2 "data" shards x 4 KV-head shards
+    ((2, 4), "paged", 4, 8),
+    ((2, 4), "paged", 2, 2),           # 2 KV heads on 4: attention stays whole
+    ((1, 2), "paged", 2, 2),
+])
+def test_mesh_rule_counts_each_launching_shard(monkeypatch, mesh_shape, mode, kv,
+                                               per_layer):
+    """Decode-wrapper calls over a server's decode steps equal
+    ``expected(steps, [launch_shards(layer) ...])``, which is ``layers x
+    steps x`` the shards that launch."""
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.distributed.mesh import make_test_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving.server import EngineConfig, LLMServer, SamplingParams
+
+    calls = []
+    for name in ("decode_attention", "paged_decode_attention"):
+        fn = getattr(tfm, name)
+        monkeypatch.setattr(tfm, name, lambda *a, _f=fn, **k: calls.append(1) or _f(*a, **k))
+    cfg = ARCHS["qwen2.5-3b"].reduced(dtype="float32", param_dtype="float32",
+                                      vocab_size=512, num_kv_heads=kv)
+    mesh = make_test_mesh(mesh_shape, devices="cpu") if mesh_shape else None
+    srv = LLMServer(cfg, num_slots=2, capacity=64, device="cpu",
+                    engine_cfg=EngineConfig(cache_mode=mode, page_size=8,
+                                            decode_chunk=4, mesh=mesh))
+    try:
+        for p in ("first prompt", "second one"):
+            srv.submit(p, SamplingParams(max_new_tokens=6))
+        srv.run_until_idle()
+        progs = srv.engine.progs
+        shards = [progs.launch_shards(srv.params, layer) for layer in range(cfg.num_layers)]
+        assert shards == [per_layer] * cfg.num_layers
+        assert progs.decode_steps > 0
+        assert len(calls) == launch_counts.expected(progs.decode_steps, shards)
+        assert launch_counts.expected(3, [1, 1]) == 2 * 3
+    finally:
+        srv.close()

@@ -335,12 +335,29 @@ def test_seed_reproducible_across_num_slots(cfgs, weights):
 
 
 @pytest.mark.parametrize("ecfg,item", [
-    (dict(mesh=object()), "item 11"),
+    (dict(mesh=(2, 2)), "item 11"),
 ])
 def test_unported_engine_options_raise(cfgs, weights, ecfg, item):
+    """The engine option that ROADMAP.md queue 1 ``item`` ported is no
+    longer refused: ``EngineConfig(mesh=...)`` serves on a (2, 2) CPU mesh
+    with the unsharded server's greedy ids (tests/test_torch_mesh_serving.py
+    holds the whole matrix), and only a mesh that does not lead on the
+    server's device raises."""
+    from repro_torch.distributed.mesh import make_test_mesh
     _, cfg = cfgs
-    with pytest.raises(NotImplementedError, match=item):
-        _server(cfg, weights[1], engine_cfg=EngineConfig(**ecfg))
+    mesh = make_test_mesh(ecfg["mesh"], devices="cpu")
+    outs = []
+    for m in (None, mesh):
+        srv = _server(cfg, weights[1], engine_cfg=EngineConfig(mesh=m))
+        hs = [srv.submit(p, SamplingParams(max_new_tokens=6)) for p in PROMPTS]
+        srv.run_until_idle()
+        outs.append([h.request.output_ids for h in hs])
+        assert srv.stats()["sharded"] == (m is not None)
+        srv.close()
+    assert outs[0] == outs[1]
+    mesh.devices.flat[0] = torch.device("meta")
+    with pytest.raises(ValueError, match="leads on"):
+        _server(cfg, weights[1], engine_cfg=EngineConfig(mesh=mesh))
 
 
 def test_spec_len_builds_and_serves(cfgs, weights):
