@@ -111,11 +111,11 @@ no result line) on any fault:
      == dense and spec == non-spec greedy, and decode-step logits after a
      4200-token prefill (past the window) against one full forward within
      1e-3;
-  10. modality archs: musicgen-large (48 layers, MHA 32 heads at hd 64,
+  10. modality archs: musicgen-large (24 of 48 layers, MHA 32 heads at hd 64,
      sinusoidal positions; its inputs are the frame-embedding stub
-     one_hot(id % d_model), built on the device) and chameleon-34b (48
-     layers, d_model 8192, 64 / 8 heads, qk-norm, early-fusion token ids;
-     68.59 GB of bf16 weights), published widths and depth, bf16, random
+     one_hot(id % d_model), built on the device) and chameleon-34b (24 of
+     48 layers, d_model 8192, 64 / 8 heads, qk-norm, early-fusion token
+     ids), published widths, bf16, random
      weights from seed 0, 4 slots, capacity 2048, each model freed before
      the next loads: dense serving with a 2-turn session, then KV pages
      (page_size 16, decode_chunk 8) on prompts sharing a ~500-token system
@@ -179,6 +179,30 @@ no result line) on any fault:
      (d) a 2-layer qwen saved unsharded, restored onto a (2, 2) mesh and
      back, every bit equal. The phase prints its seconds and fails past
      120 s.
+  14. stateful_train: recurrentgemma-9b at its published widths and 6 of
+     38 layers (two periods of recurrent, recurrent, local attention; 3.28 B
+     params) and xlstm-350m whole (21 mLSTM, 3 sLSTM layers), bf16, random
+     weights from seed 0, remat full, trained through ``make_train_step``:
+     SyntheticLM batches of 4 x 2048 tokens in 2 microbatches at AdamW lr
+     1e-4 for 8 steps (recurrentgemma) and 4 x 1024 in one at lr 3e-3 for 4
+     steps (xlstm; see ``STATEFUL_TRAIN``); the loss falls by >= 0.5, every
+     loss and grad norm finite; launches by the rule of
+     ``stateful_train_launches`` (rglru_scan 3 a recurrent layer,
+     microbatch and step: forward, recompute and the reverse scan of its
+     gradient, on the chunked route; mlstm_chunk 2 an mLSTM layer on the
+     wgmma route; flash 2 an attention layer; nothing else); per-step
+     loss, grad norm, wall and tokens/s, peak memory, the second-last step
+     split into forward + backward and optimizer, the last under the
+     profiler (recurrentgemma: the written-out backwards' busy ms) or with
+     the sLSTM loop timed on the host (xlstm; its device ms from one layer
+     alone, the mLSTM backward's from the row below), the 8·N·T share. Then
+     one step through the kernel path against plain autograd at reduced
+     float32 and bf16 configs of both archs (each kernel call alone on the
+     inputs and output gradient it had in the step, the loss, the param
+     leaves), and the two kernels at the train shapes (rows
+     ``rglru_scan_train``, ``mlstm_chunk_train``: forward and backward call
+     and device ms, bounds, plain and plain-autograd ms). The phase prints
+     its seconds and fails past 150 s.
 
 Every server runs its decode chunks and verify steps as replayed CUDA
 graphs (``serving/programs.py``); each serving phase prints its decode and
@@ -192,8 +216,8 @@ with one entry per kernel; the last line is ``{"ok": true, "device":
 {...}}``.
 
 Run from the repository root:  python3 chip_smoke.py
-(``--phases`` picks a subset of
-kernels,serve,spec,fame,fleet,mesh,stateful,moe,modality,checkpoint,train.)
+(``--phases`` picks a subset of kernels,serve,spec,fame,fleet,mesh,stateful,
+moe,modality,checkpoint,train,stateful_train.)
 """
 from __future__ import annotations
 
@@ -262,6 +286,32 @@ def device_ms(fn, iters: int = 20):
     where the profiler recorded no device time."""
     total = sum(device_ms_by_kernel(fn, iters).values())
     return total if total > 0 else None
+
+
+def graph_ms(fn, iters: int = 20) -> float:
+    """Device time of one call without its host cost, for calls that launch
+    only kernels a CUDA graph can hold: ``fn`` captured once, the graph
+    replayed ``iters`` times between two CUDA events (one host call a
+    replay), ms per replay."""
+    import torch
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def log_kernels(name, by_kernel: dict):
@@ -2233,10 +2283,13 @@ def moe_phase(dev):
 
 # per arch: the depth (None: the published one), capacity and the dense
 # run's prompt lengths (the qwen cells')
+# 24 of 48 layers each (chameleon 17.3 B params): the whole script must stay
+# under its 1200 s on a slow host (1122 s with both at full depth on one
+# H100 host), and this phase's cost goes with the depth
 MODALITY = {
-    "musicgen-large": dict(num_layers=None, capacity=2048,
+    "musicgen-large": dict(num_layers=24, capacity=2048,
                            prompts=(200, 600, 1000, 1500)),
-    "chameleon-34b": dict(num_layers=None, capacity=2048,
+    "chameleon-34b": dict(num_layers=24, capacity=2048,
                           prompts=(200, 600, 1000, 1500)),
 }
 
@@ -3142,19 +3195,18 @@ TRAIN_LOSS_DROP = 1.5       # the loss must fall by this over the steps
 TRAIN_LR = 1e-4
 
 
-def train_data(cfg, dev):
+def train_data(cfg, dev, batch=TRAIN_BATCH, seq=TRAIN_SEQ):
     from repro_torch.training import data as tdata
-    return tdata.SyntheticLM(tdata.DataConfig(global_batch=TRAIN_BATCH,
-                                              seq_len=TRAIN_SEQ, vocab_size=256),
-                             cfg, device=dev)
+    return tdata.SyntheticLM(tdata.DataConfig(global_batch=batch, seq_len=seq,
+                                              vocab_size=256), cfg, device=dev)
 
 
-def train_step_fn(cfg):
+def train_step_fn(cfg, lr=TRAIN_LR, accum=TRAIN_ACCUM):
     from repro_torch.training import optimizer as topt
     from repro_torch.training import train_step as tts
-    opt_cfg = topt.AdamWConfig(lr=TRAIN_LR, warmup_steps=3, total_steps=20)
+    opt_cfg = topt.AdamWConfig(lr=lr, warmup_steps=3, total_steps=20)
     return opt_cfg, tts.make_train_step(cfg, tts.TrainConfig(
-        opt=opt_cfg, accum_steps=TRAIN_ACCUM))
+        opt=opt_cfg, accum_steps=accum))
 
 
 def flash_train_row(dev, mb):
@@ -3188,7 +3240,9 @@ def flash_train_row(dev, mb):
     lf = lambda: F.scaled_dot_product_attention(                    # noqa: E731
         qt, kt, vt, is_causal=True, enable_gqa=True)
     lib = time_ms(lf, 20)
-    dms, lib_dms = device_times("flash_attention_train", fa, lf)
+    dms, lib_dms = graph_ms(fa), graph_ms(lf)
+    log(f"[kernels] flash_attention_train: device_ms={dms:.4f}, library_device_ms="
+        f"{lib_dms:.4f} (CUDA-graph replay)")
     o = fa()
     bwd = lambda: kfa.flash_attention_bwd(q, k, v, o, do, **kw)     # noqa: E731
     bwd_ms = time_ms(bwd, 5, warmup=1)
@@ -3217,36 +3271,45 @@ def flash_train_row(dev, mb):
         backward_ms=bwd_ms, backward_bound_ms=bb_ms, library_backward_ms=lib_bwd)
 
 
-def profile_train_step(step, params, opt, batch):
+def profile_train_step(step, params, opt, batch, ranges=("flash_attention_bwd",),
+                       kernels=("flash_wgmma",)):
     """One train step under torch.profiler. Returns (params, opt, a dict):
     ``wall_ms`` of the profiled step; ``kernel_ms``, every kernel's self
-    time; ``bwd_busy_ms``, the kernels the written-out flash backward
-    launched (its ``flash_attention_bwd`` ranges); ``bwd_span_ms``, the
-    device timeline those ranges span, idle gaps included; ``fwd_ms``, the
-    flash forward kernels; ``top``, the heaviest kernels."""
+    time; for each name of ``ranges`` (the ``record_function`` ranges of
+    the written-out backwards), ``busy[name]``, the kernels launched inside
+    it, ``span[name]``, the device timeline it spans, idle gaps included,
+    and ``host[name]``, its host time; ``metrics``, the step's; for each
+    substring of ``kernels``, ``by_kernel[sub]``, the
+    self time of the kernels whose name holds it; ``top``, the heaviest
+    kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        params, opt, _ = step(params, opt, batch)
+        params, opt, metrics = step(params, opt, batch)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     ev = prof.key_averages()
-    rng = "flash_attention_bwd"
-    kernels = [e for e in ev if e.device_type == DeviceType.CUDA and e.key != rng]
+    launched = [e for e in ev if e.device_type == DeviceType.CUDA and e.key not in ranges]
     out = dict(
         wall_ms=wall,
-        kernel_ms=sum(e.self_device_time_total for e in kernels) / 1e3,
-        bwd_busy_ms=sum(e.device_time_total for e in ev
-                        if e.key == rng and e.device_type == DeviceType.CPU) / 1e3,
-        bwd_span_ms=sum(e.self_device_time_total for e in ev
-                        if e.key == rng and e.device_type == DeviceType.CUDA) / 1e3,
-        fwd_ms=sum(e.self_device_time_total for e in kernels
-                   if "flash_wgmma" in e.key) / 1e3,
+        kernel_ms=sum(e.self_device_time_total for e in launched) / 1e3,
+        busy={r: sum(e.device_time_total for e in ev
+                     if e.key == r and e.device_type == DeviceType.CPU) / 1e3
+              for r in ranges},
+        span={r: sum(e.self_device_time_total for e in ev
+                     if e.key == r and e.device_type == DeviceType.CUDA) / 1e3
+              for r in ranges},
+        host={r: sum(e.cpu_time_total for e in ev
+                     if e.key == r and e.device_type == DeviceType.CPU) / 1e3
+              for r in ranges},
+        metrics=metrics,
+        by_kernel={k: sum(e.self_device_time_total for e in launched if k in e.key) / 1e3
+                   for k in kernels},
         top=[(e.key.split("(")[0][:60], e.self_device_time_total / 1e3, e.count)
-             for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]])
+             for e in sorted(launched, key=lambda e: -e.self_device_time_total)[:6]])
     return params, opt, out
 
 
@@ -3466,7 +3529,7 @@ def train_phase(dev, card):
     log(f"[train] step split (step {TRAIN_STEPS}): forward + backward {fb_ms:.2f} ms, "
         f"optimizer {opt_ms:.2f} ms; median step wall {step_s * 1e3:.2f} ms "
         f"({tokens / step_s:.1f} tok/s, steps 2-{TRAIN_STEPS - 1})")
-    busy, span = prof["bwd_busy_ms"], prof["bwd_span_ms"]
+    busy, span = prof["busy"]["flash_attention_bwd"], prof["span"]["flash_attention_bwd"]
     if busy > 0:
         share = (f"flash_attention_bwd kernels {busy:.2f} device ms = "
                  f"{busy / n_bwd:.3f} per layer and microbatch ({n_bwd} calls), "
@@ -3478,7 +3541,7 @@ def train_phase(dev, card):
     log(f"[train] profiled step: wall {prof['wall_ms']:.2f} ms, kernels "
         f"{prof['kernel_ms']:.2f} device ms (device idle "
         f"{100 * (1 - prof['kernel_ms'] / prof['wall_ms']):.1f}%); {share}; flash "
-        f"forward kernels {prof['fwd_ms']:.2f} device ms")
+        f"forward kernels {prof['by_kernel']['flash_wgmma']:.2f} device ms")
     for name, ms, n in prof["top"]:
         log(f"[train]   top kernel {ms:9.2f} ms / {n:5d} calls  {name}")
     log(f"[train] 8·N·T = {flops:.4e} FLOP a step (N={n_params}, T={tokens}, remat "
@@ -3496,6 +3559,605 @@ def train_phase(dev, card):
     torch.cuda.empty_cache()
     log(f"[train] phase wall_s={time.perf_counter() - t_phase:.3f}")
     return row, counts
+
+
+# ---------------------------------------------------------------------------
+# phase 14: training the stateful families
+# ---------------------------------------------------------------------------
+
+
+# arch: layers (None: the published depth), batch x seq tokens a step in
+# accum microbatches, AdamW lr, steps (the last two are the split step and
+# the profiled or sLSTM-timed one)
+STATEFUL_TRAIN = {
+    # 6 of 38 layers, two periods of (recurrent, recurrent, local attention):
+    # 3.28 B params, ~52 GB of params, grads, float32 accumulation and AdamW
+    # moments at 16 bytes a param, 71.3 GB at the peak on an H100 80GB
+    "recurrentgemma-9b": dict(layers=6, batch=4, seq=2048, accum=2, lr=1e-4, steps=8),
+    # whole (21 mLSTM, 3 sLSTM). lr 3e-3: at 1e-4 the loss moved 10.822 ->
+    # 10.771 in 8 steps on an H100; 8 layers at the published widths in
+    # float32 on the CPU fell by 0.06 at 1e-4, 0.86 at 1e-3 and 5.3 at 3e-3
+    # in 8 steps. The sLSTM loop runs on the host one time step at a time
+    # over all rows of a microbatch, so its cost goes with positions times
+    # microbatches: on an H100 a step took 14.5 s in one microbatch and
+    # 20-25 s in two. 4 steps: 8 do not fit the phase's budget; at 3e-3 the
+    # loss fell 10.82 -> 8.00 in 4
+    "xlstm-350m": dict(layers=None, batch=4, seq=1024, accum=1, lr=3e-3, steps=4),
+}
+STATEFUL_LOSS_DROP = 0.5
+STATEFUL_TRAIN_S = 150      # the phase's time budget (seconds)
+STATEFUL_RANGES = ("rglru_scan_bwd", "mlstm_chunk_bwd", "flash_attention_bwd")
+STATEFUL_KERNELS = ("rglru_scan", "mlstm_", "flash_wgmma")
+
+
+def stateful_train_launches(cfg, accum, steps):
+    """The launch rule of a train run under remat "full": a layer of a
+    scanned period runs its forward twice (forward and recompute), a tail
+    layer once; rglru_scan adds the reverse scan of its backward; the
+    mLSTM's and flash's backwards launch nothing. Per microbatch and step."""
+    scanned = len(cfg.pattern) * cfg.num_scan_groups
+    want = {"rglru_scan": 0, "mlstm_chunk": 0, "flash_attention": 0}
+    kernel = {"recurrent": "rglru_scan", "mlstm": "mlstm_chunk",
+              "local_attn": "flash_attention", "attn": "flash_attention"}
+    for i, kind in enumerate(cfg.layer_kinds):
+        if kind in kernel:
+            name = kernel[kind]
+            want[name] += (2 if i < scanned else 1) + (name == "rglru_scan")
+    return {k: n * accum * steps for k, n in want.items()}
+
+
+@contextlib.contextmanager
+def slstm_timed(host):
+    """The sLSTM loop (``models/xlstm.slstm_scan``) timed on the host:
+    ``host["forward"]`` adds the seconds of its forward calls (the forward
+    and the recompute), ``host["backward"]`` the seconds from the moment its
+    output's gradient arrives to the moment its input's leaves, marked by
+    identity ``autograd.Function``s on either side of the loop. Nothing else
+    of the backward runs in between: the loop's nodes come after everything
+    that reads its output and before everything that feeds its input. (A
+    profiled step of xlstm is out of reach: the loop's ~10^5 operators a
+    step take torch.profiler several minutes to collect.)"""
+    import torch
+    from repro_torch.models import xlstm as txl
+
+    class Edge(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, box, opens):
+            ctx.box, ctx.opens = box, opens
+            return x.view_as(x)
+
+        @staticmethod
+        def backward(ctx, g):
+            if ctx.opens:
+                ctx.box.append(time.perf_counter())
+            elif ctx.box:
+                host["backward"] += time.perf_counter() - ctx.box.pop()
+            return g, None, None
+
+    real = txl.slstm_scan
+
+    def timed(p, x, cfg, *a, **kw):
+        box = []
+        if torch.is_grad_enabled():
+            x = Edge.apply(x, box, False)
+        t0 = time.perf_counter()
+        y, state = real(p, x, cfg, *a, **kw)
+        host["forward"] += time.perf_counter() - t0
+        if torch.is_grad_enabled():
+            y = Edge.apply(y, box, True)
+        return y, state
+
+    txl.slstm_scan = timed
+    try:
+        yield
+    finally:
+        txl.slstm_scan = real
+
+
+def slstm_device_ms(dev, params, cfg, rows, seq):
+    """Device ms (``graph_ms``: the calls captured once in a CUDA graph and
+    replayed, no host cost) of one sLSTM layer's loop at the train
+    microbatch's shape [rows, seq, d_model], bf16, on the model's own
+    weights: its forward, and its forward + backward (the weights'
+    gradients taken too, as in a step)."""
+    import torch
+    from repro_torch.models import xlstm as txl
+    p = params.blocks[cfg.layer_kinds.index("slstm")].slstm
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(rows, seq, cfg.d_model, generator=g, device=dev).to(torch.bfloat16)
+    dy = torch.randn(rows, seq, cfg.d_model, generator=g, device=dev).to(torch.bfloat16)
+    x.requires_grad_()
+
+    def fwd():
+        with torch.no_grad():
+            txl.slstm_scan(p, x, cfg)
+
+    def fwd_bwd():
+        y, _ = txl.slstm_scan(p, x, cfg)
+        torch.autograd.grad(y, [x] + list(p.parameters()), dy, allow_unused=True)
+
+    return graph_ms(fwd, iters=3), graph_ms(fwd_bwd, iters=3)
+
+
+def stateful_train_run(dev, card, arch):
+    """One arch of ``STATEFUL_TRAIN`` trained its steps
+    (bf16, random weights from seed 0, remat full, SyntheticLM, AdamW):
+    per-step loss, grad norm, wall and tok/s; launches against
+    ``stateful_train_launches``; peak memory; the second-last step split
+    into forward + backward and optimizer; the last step under the
+    profiler (the written-out backwards' busy and host ms, the stateful
+    kernels' device ms) or, where the arch has sLSTM layers, with the
+    loop's forward and backward timed on the host (``slstm_timed``) and
+    its device ms taken from one layer alone (``slstm_device_ms``); the
+    8·N·T share. Returns the launch counts."""
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import Model
+    from repro_torch.training import optimizer as topt
+    from repro_torch.training.optimizer import adamw_update
+
+    run = STATEFUL_TRAIN[arch]
+    batch, seq, accum = run["batch"], run["seq"], run["accum"]
+    cfg = ARCHS[arch] if run["layers"] is None else dataclasses.replace(
+        ARCHS[arch], num_layers=run["layers"])
+    if cfg.remat_policy != "full" or cfg.dtype != "bfloat16":
+        raise AssertionError(f"stateful_train: {arch} is not bf16 with remat full")
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = Model(cfg, device=dev).init(seed=0, trainable=True)
+    n_params = sum(p.numel() for p in params.parameters())
+    data = train_data(cfg, dev, batch, seq)
+    opt_cfg, step = train_step_fn(cfg, run["lr"], accum)
+    opt = topt.init_opt_state(params)
+    tokens = batch * seq
+    tag = f"[stateful_train] {arch}"
+    log(f"{tag}: {cfg.num_layers} of {ARCHS[arch].num_layers} layers "
+        f"{dict(collections.Counter(cfg.layer_kinds))}, d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab_size}, {n_params} params, bf16, remat {cfg.remat_policy}; batch "
+        f"{batch} x {seq} tokens in {accum} microbatch(es), {run['steps']} "
+        f"steps, lr {run['lr']}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, norms, walls = [], [], []
+    n = run["steps"]
+    n_sl = cfg.layer_kinds.count("slstm")
+    host = {"forward": 0.0, "backward": 0.0}
+    prof = None
+    for i in range(n):
+        b = data.batch_at(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == n - 2:          # split: forward + backward, then the optimizer
+            loss, _, grads = step.loss_and_grads(params, b)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            params, opt, m = adamw_update(opt_cfg, params, grads, opt)
+            del grads
+            m["loss"] = loss
+            torch.cuda.synchronize()
+            split = ((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3)
+        elif i == n - 1 and n_sl:   # the sLSTM loop timed on the host
+            with slstm_timed(host):
+                params, opt, m = step(params, opt, b)
+        elif i == n - 1:            # under the profiler
+            params, opt, prof = profile_train_step(step, params, opt, b,
+                                                   STATEFUL_RANGES, STATEFUL_KERNELS)
+            m = prof["metrics"]
+        else:
+            params, opt, m = step(params, opt, b)
+        loss, norm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        losses.append(loss)
+        norms.append(norm)
+        walls.append(wall)
+        log(f"{tag} step {i} loss={loss:.4f} grad_norm={norm:.4f} wall_ms={wall:.2f} "
+            f"tok/s={tokens / wall * 1e3:.1f}"
+            + {n - 2: " (split)", n - 1: " (sLSTM timed)" if n_sl else " (profiled)"}
+            .get(i, ""))
+    counts = kernel_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = stateful_train_launches(cfg, accum, n)
+    log(f"{tag}: launches { {k: c for k, c in counts.items() if c} } (rule {want}); "
+        f"peak memory {gb(peak)} GB; loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    routed = {"rglru_scan": "chunked", "mlstm_chunk": "wgmma", "flash_attention": "wgmma"}
+    others = {k: c for k, c in counts.items() if c and "/" not in k and k not in want}
+    if any(counts[k] != c or counts[f"{k}/{routed[k]}"] != c for k, c in want.items()) \
+            or others:
+        raise AssertionError(f"stateful_train: {arch} launches {counts} break the "
+                             f"rule {want}")
+    if not all(math.isfinite(x) for x in losses + norms) or \
+            not losses[-1] <= losses[0] - STATEFUL_LOSS_DROP:
+        raise AssertionError(f"stateful_train: {arch} loss did not fall by "
+                             f"{STATEFUL_LOSS_DROP} (or is not finite): {losses} {norms}")
+
+    first = min(2, n - 3)       # the median over the steps before the split one
+    step_ms = statistics.median(walls[first:n - 2])
+    flops = 8 * n_params * tokens
+    log(f"{tag} step split: forward + backward {split[0]:.2f} ms, optimizer "
+        f"{split[1]:.2f} ms; median step wall {step_ms:.2f} ms ({tokens / step_ms * 1e3:.1f} "
+        f"tok/s, steps {first}-{n - 3})")
+    if prof is not None:
+        log(f"{tag} profiled step: wall {prof['wall_ms']:.2f} ms, kernels "
+            f"{prof['kernel_ms']:.2f} device ms (device idle "
+            f"{100 * (1 - prof['kernel_ms'] / prof['wall_ms']):.1f}%)")
+        per = {"rglru_scan_bwd": ("reverse scan", want["rglru_scan"] // 3),
+               "mlstm_chunk_bwd": ("mLSTM backward", want["mlstm_chunk"] // 2),
+               "flash_attention_bwd": ("flash backward", want["flash_attention"] // 2)}
+        kernel_ms = prof["kernel_ms"] or math.nan
+        for r in STATEFUL_RANGES:
+            what, calls = per[r][0], per[r][1] // n
+            if calls:
+                busy, hms = prof["busy"][r], prof["host"][r]
+                log(f"{tag}   {what} ({r}, {calls} calls): busy {busy:.3f} device ms "
+                    f"({busy / calls:.4f} a call, {100 * busy / kernel_ms:.1f}% of the "
+                    f"kernel time); host {hms:.2f} ms inside the range "
+                    f"({100 * hms / prof['wall_ms']:.1f}% of the profiled wall)")
+        for k, ms in prof["by_kernel"].items():
+            if ms:
+                log(f"{tag}   kernels '{k}*': {ms:.3f} device ms")
+        for name, ms, c in prof["top"]:
+            log(f"{tag}   top kernel {ms:9.2f} ms / {c:5d} calls  {name}")
+    if n_sl:
+        f_dms, fb_dms = slstm_device_ms(dev, params, cfg, batch // accum, seq)
+        busy = n_sl * accum * (f_dms + fb_dms)
+        total = 1e3 * (host["forward"] + host["backward"])
+        log(f"{tag} sLSTM loop in step {n - 1} ({walls[-1]:.2f} ms): forward and "
+            f"recompute {1e3 * host['forward']:.2f} ms, backward "
+            f"{1e3 * host['backward']:.2f} ms on the host, together {total:.2f} ms = "
+            f"{100 * total / walls[-1]:.1f}% of the step; device: one layer's forward "
+            f"{fmt_ms(f_dms)} ms, forward + backward {fmt_ms(fb_dms)} ms, so "
+            f"{fmt_ms(busy)} device ms a step ({n_sl} layers, the recompute included)")
+    log(f"{tag} 8·N·T = {flops:.4e} FLOP a step (N={n_params}, T={tokens}) in "
+        f"{step_ms / 1e3:.4f} s: {flops / step_ms / 1e9:.1f} TFLOP/s = "
+        f"{100 * flops / step_ms * 1e3 / PEAK_BF16:.2f}% of the 989 TFLOP/s bf16 peak; "
+        f"card {card}")
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+SPREAD_CAP = 0.1           # the most a leaf's bound may take from its spread
+
+
+@contextlib.contextmanager
+def call_records(recs):
+    """Records each ``rglru_scan`` and ``mlstm_chunk`` call of a model's
+    train step whose output the backward reaches: the kernel, its arguments
+    (tensors detached and copied) and the gradient that arrives at its
+    output, appended to ``recs`` as dicts. Calls whose output no gradient
+    reaches (a remat recompute's: the backward runs through the forward's
+    graph) are left out."""
+    import torch
+    from repro_torch.models import rglru as trg
+    from repro_torch.models import xlstm as txl
+    taps = ((trg, "rglru_scan"), (txl, "mlstm_chunk"))
+    real = [(mod, name, getattr(mod, name)) for mod, name in taps]
+
+    def tap(fn, kernel):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            if torch.is_grad_enabled() and out[0].requires_grad:
+                rec = dict(kernel=kernel, kw=kw, args=[
+                    t.detach().clone() if isinstance(t, torch.Tensor) else t for t in args])
+                out[0].register_hook(lambda g: rec.__setitem__("dout", g.detach().clone()))
+                recs.append(rec)
+            return out
+        return call
+
+    for mod, name, fn in real:
+        setattr(mod, name, tap(fn, name))
+    try:
+        yield
+    finally:
+        for mod, name, fn in real:
+            setattr(mod, name, fn)
+        recs[:] = [r for r in recs if "dout" in r]
+
+
+def call_check(rec, tol):
+    """One recorded call (``call_records``) run again alone through the
+    kernel's wrapper under autograd (the kernel forward, the Function's
+    backward) and through its plain version under autograd, on the same
+    inputs and output gradient: the largest relative difference (to the
+    plain value's largest) of the output and of each differentiable input's
+    gradient (rglru_scan: a, bx; mlstm_chunk: q, k, v, ig, fg), and those
+    past ``tol``."""
+    import torch
+    from repro_torch.kernels import mlstm_chunk as kmc
+    from repro_torch.kernels import rglru_scan as krs
+    kernel, ref, names = {
+        "rglru_scan": (krs.rglru_scan, krs.rglru_scan_ref, ("a", "bx")),
+        "mlstm_chunk": (kmc.mlstm_chunk, kmc.mlstm_chunk_ref, ("q", "k", "v", "ig", "fg")),
+    }[rec["kernel"]]
+    errs = {}
+    outs = []
+    for fn in (kernel, ref):
+        ins = [t.clone().requires_grad_() for t in rec["args"][:len(names)]]
+        out = fn(*ins, *rec["args"][len(names):], **rec["kw"])[0]
+        outs.append([out.detach()] + list(torch.autograd.grad(out, ins, rec["dout"])))
+    for name, got, want in zip(("out",) + names, *outs):
+        errs[name] = float((got.float() - want.float()).abs().max()) / max(
+            float(want.float().abs().max()), 1e-30)
+    return errs, [(rec["kernel"], n, e) for n, e in errs.items() if not e <= tol]
+
+
+def stateful_grad_checks(dev):
+    """Reduced recurrentgemma-9b (5 layers: one period and the two tail
+    recurrent layers; d_model 256, 4 heads of 64 over one KV head, window
+    48) and xlstm-350m (8 layers, d_model 128, mLSTM heads of 64, chunk
+    64), float32 and bf16: one step through the kernel path against the
+    same step with the kernels swapped for their plain versions under
+    autograd, on the card; bounds float32 1e-4 (loss 2e-5) and bf16 2e-2,
+    relative to the largest value, as ``train_grad_checks``:
+
+    * every ``rglru_scan`` and ``mlstm_chunk`` call of the kernel-path
+      step, on the inputs and output gradient it had there
+      (``call_records``, ``call_check``): its output and its inputs'
+      gradients, kernel against plain, at the bound;
+    * the loss, at its bound;
+    * each param leaf, at the bound or at 4x the plain path's own spread
+      where that is larger, as in the CPU tests
+      (tests/test_torch_training.py ``_spread``), never above
+      ``SPREAD_CAP`` (a zeroed or sign-flipped gradient is off by 1 or
+      more): in float32 the spread is the largest relative change of the
+      leaf's gradient when every param moves by a random 1e-7 of itself,
+      in bf16 its distance from the plain path run in float32 on the same
+      weights. A leaf whose spread alone reaches ``SPREAD_CAP`` is printed,
+      not held: the plain path's own bf16 gradient there is further from
+      float32 than the cap, so a comparison of two bf16 runs cannot tell a
+      fault from rounding; the call checks hold its kernels. Reduced xlstm
+      in bf16 is such a model: two bf16 steps whose first mLSTM outputs
+      differ by 7e-4 reach the seventh call with inputs 21% apart and
+      output gradients up to 108% apart, while each call alone agrees to
+      3.4e-3 (output) and 2.8e-4 (gradients) (H100)."""
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import mlstm_chunk as kmc
+    from repro_torch.kernels import rglru_scan as krs
+    from repro_torch.models import Model
+    from repro_torch.models import rglru as trg
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models import xlstm as txl
+    from repro_torch.training import train_step as tts
+    tols = {"float32": (1e-4, 2e-5), "bfloat16": (2e-2, 2e-2)}   # (grads, loss)
+    shapes = {"recurrentgemma-9b": dict(d_model=256, num_heads=4, num_kv_heads=1,
+                                        head_dim=64, d_ff=512, rglru_dim=256,
+                                        local_window=48),
+              "xlstm-350m": dict(d_model=128, mlstm_chunk=64)}
+    plain = ((tfm, "flash_attention", kfa.flash_attention_ref),
+             (trg, "rglru_scan", krs.rglru_scan_ref),
+             (txl, "mlstm_chunk", kmc.mlstm_chunk_ref))
+
+    def rel(a, w):
+        return float((a - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+
+    def worst(rows, what):      # the three worst of (err, name, bound or spread)
+        return [(n, f"{e:.3e}", f"{what} {x:.3e}")
+                for e, n, x in sorted(rows, reverse=True)[:3]]
+
+    for arch, over in shapes.items():
+        for dt in ("float32", "bfloat16"):
+            cfg = ARCHS[arch].reduced(dtype=dt, param_dtype=dt, vocab_size=512, **over)
+            params = Model(cfg, device=dev).init(seed=3, trainable=True)
+            b = train_data(cfg, dev, 2, 256).batch_at(1)
+            reset_counts()
+            recs = []
+            with call_records(recs):
+                loss, _, grads = tts.loss_and_grads(params, b, cfg)
+            grads = {n: g.float().clone() for n, g in grads.items()}
+            launched = {k: n for k, n in kernel_counts().items() if n and "/" not in k}
+            real = [(mod, name, getattr(mod, name)) for mod, name, _ in plain]
+            gen = torch.Generator(device=dev).manual_seed(1)
+            if dt == "float32":         # the plain path on params moved by 1e-7
+                mcfg, moved = cfg, {n: p.detach() * (1 + 1e-7 * torch.randn(
+                    p.shape, generator=gen, device=dev))
+                    for n, p in params.named_parameters()}
+            else:                       # the plain path in float32
+                mcfg = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+                moved = {n: p.detach().float() for n, p in params.named_parameters()}
+            moved = Model(mcfg, device=dev).load(moved, trainable=True)
+            try:
+                for mod, name, fn in plain:
+                    setattr(mod, name, fn)
+                loss_p, _, grads_p = tts.loss_and_grads(params, b, cfg)
+                grads_p = {n: g.float().clone() for n, g in grads_p.items()}
+                _, _, grads_m = tts.loss_and_grads(moved, b, mcfg)
+            finally:
+                for mod, name, fn in real:
+                    setattr(mod, name, fn)
+            tol, loss_tol = tols[dt]
+            bad, held, loose = [], [], []
+            for n, g in grads_p.items():
+                spread, err = rel(grads_m[n].float(), g), rel(grads[n], g)
+                if spread >= SPREAD_CAP:
+                    loose.append((err, n, spread))
+                    continue
+                lim = max(tol, min(4 * spread, SPREAD_CAP))
+                held.append((err, n, lim))
+                if not err <= lim:
+                    bad.append((n, err, lim))
+            calls = []
+            for rec in recs:
+                errs, past = call_check(rec, tol)
+                calls.append((max(errs.values()), rec["kernel"], errs))
+                bad += past
+            if len(recs) != sum(1 for k in cfg.layer_kinds if k in ("recurrent", "mlstm")):
+                bad.append(("calls recorded", len(recs)))
+            dl = abs(float(loss) - float(loss_p)) / abs(float(loss_p))
+            want = {k: n for k, n in stateful_train_launches(cfg, 1, 1).items() if n}
+            worst_call = max(calls, key=lambda c: c[0])
+            log(f"[stateful_train] kernel path vs plain autograd, {arch} reduced "
+                f"({cfg.num_layers} layers), {dt}: launches {launched} (rule {want}); "
+                f"{len(calls)} calls alone, worst {worst_call[0]:.3e} ({worst_call[1]}: "
+                f"{ {k: f'{e:.2e}' for k, e in worst_call[2].items()} }; tol {tol}); "
+                f"loss rel diff {dl:.3e} (tol {loss_tol}); {len(held)} grad leaves held "
+                f"(tol {tol}, or 4x the plain path's spread up to {SPREAD_CAP}), worst "
+                f"{worst(held, 'bound')}; "
+                f"{len(loose)} not held (own spread >= {SPREAD_CAP}), worst "
+                f"{worst(loose, 'spread')}; "
+                f"past their bound: {bad}")
+            if launched != want or not dl <= loss_tol or bad:
+                raise AssertionError(f"stateful_train: kernel-path grads differ "
+                                     f"({arch}, {dt})")
+            del params, moved, grads, grads_p, grads_m, recs
+
+
+def rglru_train_row(dev):
+    """rglru_scan at recurrentgemma-9b's train microbatch (a, bx [2, 2048,
+    4096] float32, bf16 y, as the model passes them) through ``RGLRUScan``:
+    the forward (one launch, float32 states saved) and the backward
+    (``rglru_scan_bwd``: the reverse scan, one launch, and its elementwise
+    products) against the plain version and autograd of it (y at 5e-2;
+    gradients at 2e-5 relative to max(1, their largest value)); call,
+    device, bound and plain ms of both."""
+    import torch
+    from repro_torch.kernels import rglru_scan as krs
+    g = torch.Generator(device=dev).manual_seed(14)
+    B, S, R = 2, 2048, 4096
+    a = torch.sigmoid(torch.randn(B, S, R, generator=g, device=dev))
+    bx = torch.randn(B, S, R, generator=g, device=dev) * 0.5
+    dy = torch.randn(B, S, R, generator=g, device=dev).to(torch.bfloat16)
+    ag, bg = a.clone().requires_grad_(), bx.clone().requires_grad_()
+    fwd = lambda: krs.rglru_scan(ag, bg, out_dtype=torch.bfloat16)   # noqa: E731
+    ref = lambda: krs.rglru_scan_ref(ag, bg, out_dtype=torch.bfloat16)  # noqa: E731
+    (y, _), (yw, _) = fwd(), ref()
+    err = check_close("train rglru_scan y bf16 [2,2048,4096]", y, yw, "bf16_state")
+    got = torch.autograd.grad(y, (ag, bg), dy)
+    want = torch.autograd.grad(yw, (ag, bg), dy, retain_graph=True)
+    for name, x, w in zip(("a", "bx"), got, want):
+        scale = max(1.0, float(w.abs().max()))
+        err = max(err, check_close(f"train rglru_scan d{name} (scaled by {scale:.3g})",
+                                   x / scale, w / scale, "float32"))
+    hh, _ = krs.rglru_scan(a, bx)
+    bwd = lambda: krs.rglru_scan_bwd(a, hh, dy)                        # noqa: E731
+    # device ms (CUDA-graph replay) of the Function's forward body, outside
+    # autograd, and of the backward
+    body = lambda: krs._forward(a, bx)[0].to(torch.bfloat16)           # noqa: E731
+    ms, dms = time_ms(fwd, 20), graph_ms(body)
+    b_ms, b_dms = time_ms(bwd, 20), graph_ms(bwd)
+    plain = time_ms(ref, 1, warmup=0)
+    plain_b = time_ms(lambda: torch.autograd.grad(yw, (ag, bg), dy, retain_graph=True),
+                      1, warmup=0)
+    n = B * S * R
+    f_bound, f_by = bound((4 + 4 + 2) * n, 2 * n, torch.float32)
+    # the backward reads a, the states and dy once and writes da and dbx
+    bb_ms, bb_by = bound((4 + 4 + 2 + 4 + 4) * n, 4 * n, torch.float32)
+    log(f"[stateful_train] rglru_scan_train [2,2048,4096]: forward {ms:.4f} ms "
+        f"({fmt_ms(dms)} device; bound {f_bound:.4f} by {f_by}; plain {plain:.2f}); "
+        f"backward {b_ms:.4f} ms ({fmt_ms(b_dms)} device; bound {bb_ms:.4f} by "
+        f"{bb_by}; plain autograd {plain_b:.2f})")
+    return dict(
+        name="rglru_scan_train", route="cuda",
+        source="src/repro_torch/kernels/csrc/rglru_scan.cu",
+        replaces="src/repro/kernels/rglru_scan.py:42",
+        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=f_bound, bound_by=f_by,
+        library_ms=None, device_ms=dms, backward_ms=b_ms, backward_device_ms=b_dms,
+        backward_bound_ms=bb_ms, plain_backward_ms=plain_b)
+
+
+def mlstm_train_row(dev):
+    """mlstm_chunk at xlstm-350m's train microbatch (q/k/v [2, 1024, 4, 512]
+    bf16, chunk 256: ``STATEFUL_TRAIN``) through ``MLSTMChunk``: the forward (the kernel,
+    ``"wgmma"`` route) against the plain version's float32 result (5e-2),
+    the gradients against autograd of the plain version (2e-2 relative to
+    max(1, their largest value)); call, device, bound and plain ms of the
+    forward and of ``mlstm_chunk_bwd`` (written-out, float32)."""
+    import torch
+    from repro_torch.kernels import mlstm_chunk as kmc
+    g = torch.Generator(device=dev).manual_seed(15)
+    xl = STATEFUL_TRAIN["xlstm-350m"]
+    B, S, H, hd, L = xl["batch"] // xl["accum"], xl["seq"], 4, 512, 256
+    shape = f"[{B},{S},{H},{hd}]"
+    bf16 = torch.bfloat16
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=g, device=dev) * scale + shift
+
+    q, k = (rnd(B, S, H, hd, scale=0.5).to(bf16) for _ in range(2))
+    v, dh = rnd(B, S, H, hd).to(bf16), rnd(B, S, H, hd).to(bf16)
+    ig, fg = rnd(B, S, H), rnd(B, S, H, shift=2.0)
+    ins = [t.clone().requires_grad_() for t in (q, k, v, ig, fg)]
+    fwd = lambda: kmc.mlstm_chunk(*ins, chunk=L)                      # noqa: E731
+    ref = lambda: kmc.mlstm_chunk_ref(*ins, chunk=L)                  # noqa: E731
+    (h, _), (hw, _) = fwd(), kmc.mlstm_chunk_ref(q.float(), k.float(), v.float(),
+                                                 ig, fg, chunk=L)
+    err = check_close(f"train mlstm_chunk h bf16 {shape}", h, hw, "bf16_state")
+    got = torch.autograd.grad(h, ins, dh)
+    hr, _ = ref()
+    want = torch.autograd.grad(hr, ins, dh, retain_graph=True)
+    for name, x, w in zip(("q", "k", "v", "ig", "fg"), got, want):
+        scale = max(1.0, float(w.float().abs().max()))
+        err = max(err, check_close(f"train mlstm_chunk d{name} (scaled by {scale:.3g})",
+                                   x.float() / scale, w.float() / scale, "bfloat16"))
+    del got, want
+    bwd = lambda: kmc.mlstm_chunk_bwd(q, k, v, ig, fg, dh, chunk=L)   # noqa: E731
+    body = lambda: kmc._forward(q, k, v, ig, fg, chunk=L)             # noqa: E731
+    ms, dms = time_ms(fwd, 20), graph_ms(body)
+    b_ms, b_dms = time_ms(bwd, 10, warmup=1), graph_ms(bwd, iters=5)
+    plain = time_ms(ref, 3, warmup=1)
+    plain_b = time_ms(lambda: torch.autograd.grad(hr, ins, dh, retain_graph=True), 3,
+                      warmup=1)
+    nc = -(-S // L)
+    pairs = L * (L + 1) // 2
+    # forward: causal q·kᵀ and w·v in bf16, q·C and the state update in TF32
+    t_ops = (B * H * nc * 2 * 2 * pairs * hd / PEAK_BF16
+             + B * H * nc * 4 * L * hd * hd / PEAK_TF32) * 1e3
+    io = 2 * 4 * B * S * H * hd + 4 * 2 * B * S * H
+    f_bound, f_by = max((t_ops, "operations"), (io / HBM * 1e3, "bytes"))
+    # backward, float32 products: nine over the causal pairs (q·kᵀ, w·v and
+    # d·k recomputed; dw, dv, dd, dk from n, dq and dk from s) and six over
+    # the state (U and q·C recomputed; dq, dC_j, and dk, dv from the state
+    # update); q, k, v, ig, fg and dh read once, the five gradients written
+    bb_ms, bb_by = bound(2 * io, B * H * nc * (9 * 2 * pairs * hd + 6 * 2 * L * hd * hd),
+                         torch.float32)
+    log(f"[stateful_train] mlstm_chunk_train {shape} chunk {L}: forward "
+        f"{ms:.4f} ms ({fmt_ms(dms)} device; bound {f_bound:.4f} by {f_by}; plain "
+        f"{plain:.2f}); backward {b_ms:.4f} ms ({fmt_ms(b_dms)} device; bound "
+        f"{bb_ms:.4f} by {bb_by} at the float32 rate; plain autograd {plain_b:.2f})")
+    return dict(
+        name="mlstm_chunk_train", route="cuda",
+        source="src/repro_torch/kernels/csrc/mlstm_chunk_wgmma.cu",
+        replaces="src/repro/kernels/mlstm_chunk.py:77",
+        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=f_bound, bound_by=f_by,
+        library_ms=None, device_ms=dms, backward_ms=b_ms, backward_device_ms=b_dms,
+        backward_bound_ms=bb_ms, plain_backward_ms=plain_b)
+
+
+def stateful_train_phase(dev, card):
+    """Phase 14 (see the module docstring); returns (kernel rows, launch
+    counts by arch). Fails past ``STATEFUL_TRAIN_S`` seconds."""
+    t_phase = time.perf_counter()
+    counts, parts = {}, {}
+    for arch in STATEFUL_TRAIN:
+        t0 = time.perf_counter()
+        counts[arch] = stateful_train_run(dev, card, arch)
+        parts[arch] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stateful_grad_checks(dev)
+    parts["gradient checks"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows = {"rglru_scan_train": rglru_train_row(dev),
+            "mlstm_chunk_train": mlstm_train_row(dev)}
+    parts["kernel rows"] = time.perf_counter() - t0
+    # xlstm's step is not profiled (``slstm_timed``): its mLSTM backward
+    # calls at the row's device time
+    xl = STATEFUL_TRAIN["xlstm-350m"]
+    calls = counts["xlstm-350m"]["mlstm_chunk"] // (2 * xl["steps"])
+    b_dms = rows["mlstm_chunk_train"]["backward_device_ms"]
+    log(f"[stateful_train] xlstm-350m mLSTM backward: {calls} calls a step x "
+        f"{fmt_ms(b_dms)} device ms = "
+        f"{fmt_ms(None if b_dms is None else calls * b_dms)} device ms a step")
+    secs = time.perf_counter() - t_phase
+    log(f"[stateful_train] phase seconds={secs:.1f} (budget {STATEFUL_TRAIN_S}): "
+        f"{ {k: round(v, 1) for k, v in parts.items()} }")
+    if secs > STATEFUL_TRAIN_S:
+        raise AssertionError(f"stateful_train: {secs:.1f} s past its budget of "
+                             f"{STATEFUL_TRAIN_S}")
+    return rows, counts
 
 
 # ---------------------------------------------------------------------------
@@ -3898,10 +4560,18 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="kernels,serve,spec,fame,fleet,mesh,stateful,moe,"
-                            "modality,checkpoint,train",
+                            "modality,checkpoint,train,stateful_train",
                     help="comma list of kernels,serve,spec,fame,fleet,mesh,stateful,"
-                         "moe,modality,checkpoint,train (default: all)")
+                         "moe,modality,checkpoint,train,stateful_train (default: all)")
     args = ap.parse_args()
+    t_start = t_lap = time.perf_counter()
+
+    def lap(what):              # each phase's seconds, for the 1200 s budget
+        nonlocal t_lap
+        now = time.perf_counter()
+        log(f"[time] {what}: {now - t_lap:.1f} s ({now - t_start:.1f} s since start)")
+        t_lap = now
+
     try:
         import torch
     except ImportError:
@@ -3940,24 +4610,31 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("[build] " + line.strip())
 
+    lap("build")
     phases = set(args.phases.split(","))
     rows = kernel_phase(dev) if "kernels" in phases else {}
+    lap("kernels")
     launches = collections.Counter()
     if phases & {"serve", "spec", "fame", "fleet", "mesh"}:
         model, params, tok = full_model(dev)
         if "serve" in phases:
             launches.update(serving_phases(dev, model, params, tok))
+            lap("serve")
         if "spec" in phases:
             launches.update(spec_phase(dev, model, params, tok))
+            lap("spec")
         if "fame" in phases:
             launches.update(fame_phase(dev, model, params))
+            lap("fame")
         if "fleet" in phases:
             launches.update(fleet_phase(dev, model, params, tok))
+            lap("fleet")
         if "mesh" in phases:
             mrows, mc, n_seqpar = mesh_phase(dev, model, params, tok)
             rows.update(mrows)
             launches.update(mc)
             launches["seqpar_decode_attention"] = n_seqpar
+            lap("mesh")
         del model, params
         torch.cuda.empty_cache()
     if "stateful" in phases:
@@ -3967,6 +4644,7 @@ def main() -> int:
         # head, window 2048
         launches["flash_attention_hd256"] = sc.get("flash_attention", 0)
         launches["decode_attention_ring"] = sc.get("decode_attention", 0)
+        lap("stateful")
     if "moe" in phases:
         mc = moe_phase(dev)
         for counts in mc.values():
@@ -3974,6 +4652,7 @@ def main() -> int:
         # mixtral-8x22b's flash and ring-decode calls: G = 6, window 4096
         launches["flash_attention_swa"] = mc["mixtral-8x22b"]["flash_attention"]
         launches["decode_attention_swa_ring"] = mc["mixtral-8x22b"]["decode_attention"]
+        lap("moe")
     if "modality" in phases:
         mo = modality_phase(dev)
         for counts in mo.values():
@@ -3983,21 +4662,31 @@ def main() -> int:
         for k in ("flash_attention", "decode_attention", "paged_decode_attention"):
             launches[f"{k}_musicgen"] = mg[k]
         launches["flash_attention_chameleon"] = mo["chameleon-34b"]["flash_attention"]
+        lap("modality")
     if "checkpoint" in phases:
         checkpoint_phase(dev)
+        lap("checkpoint")
     if "train" in phases:
         rows["flash_attention_train"], tc = train_phase(dev, card)
         launches["flash_attention_train"] = tc["flash_attention"]
+        lap("train")
+    if "stateful_train" in phases:
+        srows, sc = stateful_train_phase(dev, card)
+        rows.update(srows)
+        launches["rglru_scan_train"] = sc["recurrentgemma-9b"]["rglru_scan"]
+        launches["mlstm_chunk_train"] = sc["xlstm-350m"]["mlstm_chunk"]
+        lap("stateful_train")
     for name, r in rows.items():
         r["launches"] = launches.get(name, 0)
-    if {"serve", "spec", "stateful", "moe", "modality", "train"} <= phases:
+    if {"serve", "spec", "stateful", "moe", "modality", "train",
+            "stateful_train"} <= phases:
         idle = [name for name, r in rows.items() if r["launches"] <= 0]
         if idle:
             raise AssertionError(f"kernels never launched on the main path: {idle}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    extra = ("device_ms", "library_device_ms", "backward_ms", "backward_bound_ms",
-             "library_backward_ms")
+    extra = ("device_ms", "library_device_ms", "backward_ms", "backward_device_ms",
+             "backward_bound_ms", "plain_backward_ms", "library_backward_ms")
     log(card)
     log(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
                                 for r in rows.values()]}))

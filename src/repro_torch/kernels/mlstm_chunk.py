@@ -29,6 +29,14 @@ gates (F, the stabilisers, the exponents) in float64.
 
 ``mlstm_chunk`` runs the plain version only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises.
+
+Gradients: when autograd is on and q, k, v or a gate requires grad, the
+call goes through ``MLSTMChunk`` (a ``torch.autograd.Function``): its
+forward is the same call (the kernel on the card, on the route of the
+dtype; the plain version on the CPU, so the CPU tests run the backward the
+card runs) and its backward is ``mlstm_chunk_bwd``, written out in
+PyTorch. A state input that requires grad raises: train mode never passes
+one. The JAX package's gradient is XLA's autodiff of ``mlstm_chunkwise``.
 """
 from __future__ import annotations
 
@@ -49,10 +57,6 @@ TILE = 64           # query rows / keys of an output tile; the edge of a C tile
 MAX_BV = 128        # value columns of an output block
 
 ROUTES = {torch.bfloat16: "wgmma", torch.float32: "simt_f32"}
-
-# Under autograd a CUDA launch raises (``build.refuse_grad``); the plain
-# version on the CPU runs under autograd as it is.
-BACKWARD = "its backward is ROADMAP.md queue 2 item 10"
 
 launches = 0            # kernel launches (never the plain version)
 launches_by_route = {route: 0 for route in ROUTES.values()}
@@ -143,9 +147,243 @@ def _kernel():
     return _fn
 
 
+def mlstm_chunk_bwd(q, k, v, ig, fg, dh, state=None, dstate=None, *,
+                    chunk: int = 256):
+    """The gradient of ``mlstm_chunk_ref`` at (q, k, v, ig, fg), given the
+    gradient ``dh`` of h (None: 0) and ``dstate`` = (dC, dn) of the state
+    out (None, or either None: 0). Returns (dq, dk, dv, dig, dfg) in the
+    dtypes of the inputs; float32 throughout (float64 for float64 inputs).
+    ``state`` (C, n, m), the state in, is held constant.
+
+    The derivative is taken with every stabiliser held constant: the
+    carried ``m``, each row's ``mj`` and each chunk's ``m_next``. That is
+    exact, not an approximation. In the unstabilised values (C̃ = C·e^m,
+    ñ = n·e^m and the unshifted exponents) a row's output is
+    ``h = X / max(|q·Ñ|, 1)``: the stabilised form computes ``e^-mj·X``
+    over ``e^-mj·max(|q·Ñ|, 1)``, so h is the same function of the inputs
+    for any choice of the m's, ∂h/∂m ≡ 0, and the partials at fixed m are
+    the total gradient. The same holds for the state out as long as
+    whatever reads it is invariant to the joint shift (C e^-μ, n e^-μ, μ),
+    as the mLSTM itself is, so a gradient of m out is dropped.
+
+    The stabilisers' own gradients are zero in exact arithmetic, but in
+    float32 they carry something: a row's gradients (or a chunk's state
+    write's) sum around one dominant term of weight 1, and autograd's path
+    through the stabiliser returns the rounding of that sum to the term
+    that made it. Without that path, dig and dfg come out ~40x less
+    accurate than autograd's at input gates of scale 20. So it is carried
+    here too: each row's computed sum against its exact value R (0 on the
+    ``|q·n|`` branch, dh·h on the other) goes to the row's largest weight,
+    and each chunk's, through ``m_next``'s reverse carry, to its largest
+    write.
+
+    Shape of the computation (B rows, nc chunks of L, H heads):
+    a forward pass over the chunks gives each chunk's start state
+    (C_j, n_j, m_j): their state updates batched, then a carry of a few
+    operations a chunk; every intra-chunk term batched over all chunks at
+    once ([B, nc, L, L, H]); a reverse carry of (dC, dn) over the chunks;
+    then dig and dfg from ``logD``, ``inter``, ``sc`` and ``decay``, with
+    ``dfg = revcumsum(dF)·σ(-fg)``; a reverse carry of one number a
+    chunk for ``m_next``. Rows past S pad the last chunk as the forward
+    pads it (``ig = -1e30, fg = 30``, zero q, k, v and dh). The
+    denominator's ``|q·n|`` branch is taken by its sign; a tie with
+    ``e^-mj`` splits the gradient in half, as ``torch.maximum`` does."""
+    B, S, H, hd = q.shape
+    L = min(chunk, S)
+    nc = -(-S // L)
+    Sp = nc * L
+    wide = torch.float64 if q.dtype == torch.float64 else torch.float32
+    scale = hd ** -0.5
+    dev = q.device
+    qf = q.to(wide) * scale
+    kf, vf, igf, fgf = k.to(wide), v.to(wide), ig.to(wide), fg.to(wide)
+    dhf = (torch.zeros(B, S, H, hd, dtype=wide, device=dev) if dh is None
+           else dh.to(wide))
+    if Sp != S:
+        pad = Sp - S
+        qf, kf, vf, dhf = (F.pad(x, (0, 0, 0, 0, 0, pad)) for x in (qf, kf, vf, dhf))
+        igf = F.pad(igf, (0, 0, 0, pad), value=NEG_INF)
+        fgf = F.pad(fgf, (0, 0, 0, pad), value=30.0)
+    qc, kc, vc, dhc = (x.reshape(B, nc, L, H, hd) for x in (qf, kf, vf, dhf))
+    ic, fc = (x.reshape(B, nc, L, H) for x in (igf, fgf))
+    C0, n0, m0 = (zero_state(B, H, hd, dev, wide) if state is None
+                  else tuple(t.detach().to(wide) for t in state))
+
+    # ---- the forward's gates, stabilisers and chunk start states
+    Fc = torch.cumsum(F.logsigmoid(fc), dim=2)                   # [B,nc,L,H]
+    FL = Fc[:, :, -1]                                            # [B,nc,H]
+    tri = torch.tril(torch.ones(L, L, dtype=torch.bool, device=dev))
+    logD = Fc[:, :, :, None] - Fc[:, :, None] + ic[:, :, None]   # [B,nc,L,L,H]
+    logD = logD.masked_fill(~tri[None, None, :, :, None], NEG_INF)
+    m_intra, star = logD.max(dim=3)              # a row's largest weight: d = 1
+    top, top_at = (FL[:, :, None] - Fc + ic).max(dim=2)          # [B,nc,H]
+    ms = [m0]
+    for j in range(nc):
+        ms.append(torch.maximum(FL[:, j] + ms[-1], top[:, j]))
+    mS, mE = torch.stack(ms[:-1], dim=1), torch.stack(ms[1:], dim=1)
+    decay = torch.exp(FL + mS - mE)                              # [B,nc,H]
+    sc = torch.exp(FL[:, :, None] - Fc + ic - mE[:, :, None])    # [B,nc,L,H]
+    ksc = kc * sc[..., None]
+    U = torch.einsum("bclhd,bclhe->bchde", ksc, vc)              # [B,nc,H,hd,hd]
+    u = ksc.sum(dim=2)                                           # [B,nc,H,hd]
+    C, n, Cs, ns = C0, n0, [], []
+    for j in range(nc):
+        Cs.append(C)
+        ns.append(n)
+        C = C * decay[:, j, :, None, None] + U[:, j]
+        n = n * decay[:, j, :, None] + u[:, j]
+    CS, nS = torch.stack(Cs, dim=1), torch.stack(ns, dim=1)
+    C_end, n_end = C, n
+    del U, u, Cs, ns
+
+    # ---- each row's output, recomputed
+    m_inter = Fc + mS[:, :, None]
+    mj = torch.maximum(m_inter, m_intra)
+    d = torch.exp(logD - mj[:, :, :, None])                      # [B,nc,L,L,H]
+    del logD
+    inter = torch.exp(m_inter - mj)                              # [B,nc,L,H]
+    s = torch.einsum("bclhd,bcmhd->bclmh", qc, kc)
+    w = s * d
+    h_inter = torch.einsum("bclhd,bchde->bclhe", qc, CS)
+    h_num = h_inter * inter[..., None] + torch.einsum("bclmh,bcmhd->bclhd", w, vc)
+    n_j = nS[:, :, None] * inter[..., None] + torch.einsum("bclmh,bcmhd->bclhd", d, kc)
+    qn = (qc * n_j).sum(dim=-1)
+    lo = torch.exp(-mj)
+    denom = torch.maximum(qn.abs(), lo)
+
+    # ---- backward through the output
+    dh_num = dhc / denom[..., None]
+    ddenom = -(dhc * h_num).sum(dim=-1) / denom ** 2
+    branch = (qn.abs() > lo).to(wide) + 0.5 * (qn.abs() == lo).to(wide)
+    dqn = ddenom * branch * torch.sign(qn)
+    dn_j = dqn[..., None] * qc                                   # [B,nc,L,H,hd]
+    dh_inter = dh_num * inter[..., None]
+    dq = dqn[..., None] * n_j + torch.einsum("bclhe,bchde->bclhd", dh_inter, CS)
+    dinter = (dh_num * h_inter).sum(dim=-1) + (dn_j * nS[:, :, None]).sum(dim=-1)
+    GC = torch.einsum("bclhd,bclhe->bchde", qc, dh_inter)        # into dC_j
+    Gn = (dn_j * inter[..., None]).sum(dim=2)                    # into dn_j
+    dw = torch.einsum("bclhe,bcmhe->bclmh", dh_num, vc)
+    dv = torch.einsum("bclmh,bclhe->bcmhe", w, dh_num)
+    dd = dw * s + torch.einsum("bclhd,bcmhd->bclmh", dn_j, kc)
+    ds = dw * d
+    dk = (torch.einsum("bclmh,bclhd->bcmhd", d, dn_j)
+          + torch.einsum("bclmh,bclhd->bcmhd", ds, qc))
+    dq = dq + torch.einsum("bclmh,bcmhd->bclhd", ds, kc)
+    del s, w, dw, ds
+    dlogD = dd * d
+    del dd, d
+    colsum = dlogD.sum(dim=2)                    # by key: into ig and -F
+    # A row's weights shifted together (all its logD and log inter) leave h
+    # unchanged on the |q·n| branch and scale it on the other: their
+    # gradients sum to R exactly. The computed sum's distance from R is
+    # rounding of the row's dominant term; it goes back to the entry that
+    # carries that term (where autograd's stabiliser path sends it), so
+    # float32 keeps the accuracy of the stabilised form's own gradient.
+    lo_branch = (qn.abs() < lo).to(wide) + 0.5 * (qn.abs() == lo).to(wide)
+    R = lo_branch * (dhc * h_num).sum(dim=-1) / denom
+    resid = dlogD.sum(dim=3) + dinter * inter - R
+    del dlogD
+    fix = torch.zeros_like(colsum).scatter_add_(
+        2, star, torch.where(m_intra >= m_inter, resid, torch.zeros_like(resid)))
+    dig = colsum - fix
+    dFc = R - colsum + fix
+
+    # ---- the reverse carry of (dC, dn) over the chunks: dCE[j] is the
+    # gradient of chunk j's end state
+    dC, dn = (None, None) if dstate is None else dstate
+    dC = (torch.zeros(B, H, hd, hd, dtype=wide, device=dev) if dC is None
+          else dC.to(wide))
+    dn = (torch.zeros(B, H, hd, dtype=wide, device=dev) if dn is None
+          else dn.to(wide))
+    dCE, dnE = [None] * nc, [None] * nc
+    for j in reversed(range(nc)):
+        dCE[j], dnE[j] = dC, dn
+        dC = dC * decay[:, j, :, None, None] + GC[:, j]
+        dn = dn * decay[:, j, :, None] + Gn[:, j]
+    dCE, dnE = torch.stack(dCE, dim=1), torch.stack(dnE, dim=1)
+    del GC, Gn
+
+    # ---- backward through each chunk's state update
+    ddecay = (dCE * CS).sum(dim=(-2, -1)) + (dnE * nS).sum(dim=-1)    # [B,nc,H]
+    dCv = torch.einsum("bchde,bclhe->bclhd", dCE, vc) + dnE[:, :, None]
+    dk = dk + sc[..., None] * dCv
+    dv = dv + torch.einsum("bchde,bclhd->bclhe", dCE, ksc)
+    dlsc = (kc * dCv).sum(dim=-1) * sc                           # [B,nc,L,H]
+    # The same for each chunk's state write (its sc and decay shifted
+    # together): the rounding of the sum goes to the dominant write through
+    # m_next's carry, chunk by chunk in reverse, as autograd's does.
+    # The state out's m gets what an invariant reader gives it:
+    # Σ dC·C + Σ dn·n.
+    parts = dlsc.sum(dim=2) + ddecay * decay                     # [B,nc,H]
+    base = ((dinter * inter).sum(dim=2) + ddecay * decay + torch.where(
+        m_inter > m_intra, -resid, torch.zeros_like(resid)).sum(dim=2))
+    carried = FL + mS >= top
+    dm = (dCE[:, -1] * C_end).sum(dim=(-2, -1)) + (dnE[:, -1] * n_end).sum(dim=-1)
+    G = [None] * nc
+    for j in reversed(range(nc)):
+        G[j] = dm - parts[:, j]
+        dm = base[:, j] + torch.where(carried[:, j], G[j], torch.zeros_like(dm))
+    G = torch.stack(G, dim=1)
+    at_key = torch.zeros_like(dlsc).scatter_add_(
+        2, top_at[:, :, None], torch.where(carried, torch.zeros_like(G), G)[:, :, None])
+    dig = dig + dlsc + at_key
+    dFc = dFc - dlsc - at_key
+    dFc[:, :, -1] += parts + G
+    dfg = torch.flip(torch.cumsum(torch.flip(dFc, (2,)), dim=2), (2,)) \
+        * torch.sigmoid(-fc)
+    dq = dq * scale
+
+    def out(x, like):
+        return x.reshape((B, Sp) + x.shape[3:])[:, :S].to(like.dtype)
+
+    return out(dq, q), out(dk, k), out(dv, v), out(dig, ig), out(dfg, fg)
+
+
+class MLSTMChunk(torch.autograd.Function):
+    """``mlstm_chunk`` with a gradient: the forward is the wrapper's call
+    (the kernel on the card), the backward ``mlstm_chunk_bwd`` on the very
+    inputs the forward saw; the state in, if any, is held constant."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, ig, fg, C0, n0, m0, chunk):
+        state = None if C0 is None else (C0, n0, m0)
+        h, (C, n, m) = _forward(q, k, v, ig, fg, state, chunk=chunk)
+        ctx.save_for_backward(q, k, v, ig, fg, C0, n0, m0)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        ctx.mark_non_differentiable(m)
+        return h, C, n, m
+
+    @staticmethod
+    def backward(ctx, dh, dC, dn, dm):
+        del dm                      # the stabiliser's: see mlstm_chunk_bwd
+        q, k, v, ig, fg, C0, n0, m0 = ctx.saved_tensors
+        state = None if C0 is None else (C0, n0, m0)
+        with torch.profiler.record_function("mlstm_chunk_bwd"):
+            grads = mlstm_chunk_bwd(q, k, v, ig, fg, dh, state, (dC, dn),
+                                    chunk=ctx.chunk)
+        return grads + (None,) * 4
+
+
 def mlstm_chunk(q, k, v, ig, fg, state=None, *, chunk: int = 256):
     """Chunkwise mLSTM (see the module docstring); same contract as
-    ``mlstm_chunk_ref``."""
+    ``mlstm_chunk_ref``. Under autograd, with q, k, v or a gate that
+    requires grad, it is ``MLSTMChunk`` (the same forward, with a
+    backward); a state that requires grad raises there."""
+    if torch.is_grad_enabled():
+        if state is not None and any(t.requires_grad for t in state):
+            raise NotImplementedError(
+                "mlstm_chunk: no gradient into the state in (C, n, m); train "
+                "mode starts every sequence from the zero state")
+        if any(t.requires_grad for t in (q, k, v, ig, fg)):
+            st = (None,) * 3 if state is None else tuple(state)
+            h, C, n, m = MLSTMChunk.apply(q, k, v, ig, fg, *st, chunk)
+            return h, (C, n, m)
+    return _forward(q, k, v, ig, fg, state, chunk=chunk)
+
+
+def _forward(q, k, v, ig, fg, state=None, *, chunk: int = 256):
+    """The kernel (CUDA tensors) or the plain version (CPU tensors)."""
     if q.device.type == "cpu":
         return mlstm_chunk_ref(q, k, v, ig, fg, state, chunk=chunk)
     if q.device.type != "cuda":
@@ -175,7 +413,6 @@ def mlstm_chunk(q, k, v, ig, fg, state=None, *, chunk: int = 256):
             raise ValueError("mlstm_chunk: state must be float32 (C [B,H,hd,hd], "
                              "n [B,H,hd], m [B,H])")
         ins += [C0, n0, m0]
-    build.refuse_grad("mlstm_chunk", BACKWARD, *ins)
     if any(t.device != q.device for t in ins):
         raise ValueError("mlstm_chunk: tensors on different devices")
     if not (all(t.is_contiguous() for t in (q, k, v)) and aligned16(q, k, v)):

@@ -9,10 +9,12 @@ against the same steps run eagerly on the card, and the robustness layers
 on graphs: a two-replica fleet with a pump per replica, preempt-resume,
 journal restore, and a transient fault ahead of the first capture; the
 modality archs' kernel geometries (MHA at head dim 64) and servers;
-training: the flash kernel's gradient (its autograd.Function) against
-plain autograd, the forward-only kernels refusing a gradient, and a train
-step on the card against the CPU. This file imports no JAX, so it also
-runs on a machine with a card and no JAX:
+training: the gradients of the flash, rglru_scan and mlstm_chunk
+wrappers (their autograd.Functions: the kernel forward, a written-out
+backward; the scan's is the kernel run in reverse) against plain
+autograd, the split-K decode forms refusing a gradient, and train steps
+of qwen, recurrentgemma and xlstm on the card against the CPU. This file
+imports no JAX, so it also runs on a machine with a card and no JAX:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
@@ -1111,8 +1113,8 @@ def test_gpu_admission_beside_a_capture():
 
 
 # ---------------------------------------------------------------------------
-# training: the flash kernel's gradient, forward-only kernels refusing one,
-# and a train step on the card against the CPU
+# training: the kernels' gradients, the split-K forms refusing one, and
+# train steps on the card against the CPU
 # ---------------------------------------------------------------------------
 
 
@@ -1147,26 +1149,88 @@ def test_gpu_flash_backward_through_the_kernel_matches_plain(dtype, B, S, H, K,
 
 @pytest.mark.gpu
 def test_gpu_forward_only_kernels_refuse_a_gradient():
-    """rglru_scan, mlstm_chunk and the split-K decode forms raise under
+    """The split-K decode forms (dense and paged, one-token) raise under
     autograd on the card instead of returning an output without a
     gradient; without grad (serving) they launch as before."""
     dev = _need_card()
-    a = torch.rand(1, 70, 32, device=dev, requires_grad=True)
-    bx = torch.randn(1, 70, 32, device=dev)
-    with pytest.raises(NotImplementedError, match="queue 2 item 9"):
-        krs.rglru_scan(a, bx)
-    with torch.no_grad():
-        krs.rglru_scan(a, bx)
-    q = torch.randn(1, 64, 2, 64, device=dev, requires_grad=True)
-    kk, vv = torch.randn(1, 64, 2, 64, device=dev), torch.randn(1, 64, 2, 64, device=dev)
-    gates = torch.randn(1, 64, 2, device=dev)
-    with pytest.raises(NotImplementedError, match="queue 2 item 10"):
-        kmc.mlstm_chunk(q, kk, vv, gates, gates, chunk=32)
     qd = torch.randn(2, 1, 8, 64, device=dev, requires_grad=True)
     kc = torch.randn(2, 128, 2, 64, device=dev)
+    clen = torch.tensor([5, 100], device=dev)
     with pytest.raises(NotImplementedError, match="train mode never decodes"):
-        kda.decode_attention(qd, kc, kc, torch.tensor([5, 100], device=dev), q_per_kv=4)
+        kda.decode_attention(qd, kc, kc, clen, q_per_kv=4)
+    pool = torch.randn(9, 16, 2, 64, device=dev)
+    bt = torch.arange(8, dtype=torch.int32, device=dev).reshape(2, 4)
+    with pytest.raises(NotImplementedError, match="train mode never decodes"):
+        kpda.paged_decode_attention(qd, pool, pool, bt, clen // 2, q_per_kv=4)
+    with torch.no_grad():
+        kda.decode_attention(qd, kc, kc, clen, q_per_kv=4)
+        kpda.paged_decode_attention(qd, pool, pool, bt, clen // 2, q_per_kv=4)
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,R,route", [(4, 5, 256, "sequential"),
+                                         (2, 300, 200, "chunked"),
+                                         (2, 2048, 4096, "chunked")])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_gpu_rglru_reverse_scan_gradient_matches_plain(B, S, R, route, out_dtype):
+    """``RGLRUScan`` on the card (forward: one launch with float32 states;
+    backward: the reverse scan, one more launch on the same route) against
+    autograd of the plain version on the same tensors: a, bx and h0 at
+    2e-5 relative to max(1, the gradient's largest value); y at the
+    forward's bounds (float32 5e-6, bf16 5e-2)."""
+    dev = _need_card()
+    a = torch.sigmoid(_rand(dev, B, S, R, seed=21))
+    bx, h0 = _rand(dev, B, S, R, scale=0.5, seed=22), _rand(dev, B, R, seed=23)
+    a[:, S // 2:S // 2 + 3], bx[:, S // 2:S // 2 + 3] = 1.0, 0.0       # masked steps
+    dy = _rand(dev, B, S, R, seed=24).to(out_dtype)
+    ins = [t.clone().requires_grad_() for t in (a, bx, h0)]
+    before = dict(krs.launches_by_route)
+    y, _ = krs.rglru_scan(*ins, out_dtype=out_dtype)
+    assert type(y.grad_fn).__name__ == "RGLRUScanBackward"
+    got = torch.autograd.grad(y, ins, dy)
+    torch.cuda.synchronize()
+    assert krs.launches_by_route == {**before, route: before[route] + 2}
+    yw, _ = krs.rglru_scan_ref(*ins, out_dtype=out_dtype)
+    want = torch.autograd.grad(yw, ins, dy)
+    tol = 5e-6 if out_dtype == torch.float32 else 5e-2
+    assert float((y.float() - yw.float()).abs().max()) < tol
+    for name, g, w in zip(("a", "bx", "h0"), got, want):
+        scale = max(1.0, float(w.abs().max()))
+        assert float((g - w).abs().max()) <= 2e-5 * scale, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,B,S,H,hd,chunk", [
+    (torch.float32, 2, 100, 2, 64, 32), (torch.float32, 2, 300, 2, 128, 256),
+    (torch.bfloat16, 2, 100, 2, 64, 32),
+    (torch.bfloat16, 2, 1024, 4, 512, 256)])      # xlstm-350m's train microbatch
+def test_gpu_mlstm_function_with_the_kernel_forward_matches_plain(dtype, B, S, H, hd,
+                                                                  chunk):
+    """``MLSTMChunk`` on the card (forward: the kernel on the dtype's route,
+    launched once; backward: ``mlstm_chunk_bwd``, float32 PyTorch) against
+    autograd of the plain version on the same tensors: each gradient at
+    float32 1e-4 and bf16 2e-2 relative to max(1, its largest value)."""
+    dev = _need_card()
+    q, k = (_rand(dev, B, S, H, hd, scale=0.5, seed=s).to(dtype) for s in (31, 32))
+    v = _rand(dev, B, S, H, hd, seed=33).to(dtype)
+    ig, fg = _rand(dev, B, S, H, seed=34), _rand(dev, B, S, H, seed=35) + 2.0
+    dh = _rand(dev, B, S, H, hd, seed=36).to(dtype)
+    ins = [t.clone().requires_grad_() for t in (q, k, v, ig, fg)]
+    before = dict(kmc.launches_by_route)
+    h, _ = kmc.mlstm_chunk(*ins, chunk=chunk)
+    assert type(h.grad_fn).__name__ == "MLSTMChunkBackward"
+    got = torch.autograd.grad(h, ins, dh)
+    torch.cuda.synchronize()
+    route = kmc.ROUTES[dtype]
+    assert kmc.launches_by_route == {**before, route: before[route] + 1}
+    hw, _ = kmc.mlstm_chunk_ref(*ins, chunk=chunk)
+    want = torch.autograd.grad(hw, ins, dh)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for name, g, w in zip(("q", "k", "v", "ig", "fg"), got, want):
+        assert g.dtype == w.dtype, name
+        scale = max(1.0, float(w.float().abs().max()))
+        assert float((g.float() - w.float()).abs().max()) <= tol * scale, name
 
 
 @pytest.mark.gpu
@@ -1196,6 +1260,49 @@ def test_gpu_train_step_matches_cpu():
             torch.cuda.synchronize()
             assert kfa.launches - before == 2 * cfg.num_layers * 2
     assert abs(losses[str(dev)] - losses["cpu"]) <= 1e-4 * abs(losses["cpu"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "xlstm-350m"])
+def test_gpu_stateful_train_step_matches_cpu(arch):
+    """One float32 train step of a reduced recurrentgemma-9b / xlstm-350m
+    (accumulation 2, remat full) on the card equals the same step on the
+    CPU: loss and grad norm at 1e-4 (relative). Launches: rglru_scan 3 a recurrent layer of the
+    scanned period (forward, recompute, reverse scan) and 2 a tail layer
+    (no recompute), flash 2 an attention layer, mlstm_chunk 2 an mLSTM
+    layer, each a microbatch; no split-K launch."""
+    from repro_torch.training import data as tdata
+    from repro_torch.training import optimizer as topt
+    from repro_torch.training import train_step as tts
+    dev = _need_card()
+    cfg = ARCHS[arch].reduced(dtype="float32", param_dtype="float32", vocab_size=512)
+    sd = Model(cfg, device="cpu").init(seed=0).state_dict()
+    dcfg = tdata.DataConfig(global_batch=4, seq_len=96, vocab_size=cfg.vocab_size)
+    scanned = len(cfg.pattern) * cfg.num_scan_groups
+    want = {"rglru_scan": 0, "flash_attention": 0, "mlstm_chunk": 0, "split_decode": 0}
+    for i, kind in enumerate(cfg.layer_kinds):
+        runs = 2 if i < scanned else 1
+        key = {"recurrent": "rglru_scan", "local_attn": "flash_attention",
+               "mlstm": "mlstm_chunk"}.get(kind)
+        if key:
+            want[key] += 2 * (runs + (key == "rglru_scan"))
+    out = {}
+    for where in ("cpu", dev):
+        params = Model(cfg, device=where).load(sd, trainable=True)
+        step = tts.make_train_step(cfg, tts.TrainConfig(
+            opt=topt.AdamWConfig(lr=1e-3, warmup_steps=1), accum_steps=2))
+        launch_counts.reset()
+        _, _, m = step(params, topt.init_opt_state(params),
+                       tdata.SyntheticLM(dcfg, cfg, device=where).batch_at(0))
+        out[str(where)] = (float(m["loss"]), float(m["grad_norm"]))
+        if where != "cpu":
+            torch.cuda.synchronize()
+            snap = launch_counts.snapshot()
+            got = {k: snap[k, ""] for k in want}
+            assert got == want
+    for i, what in enumerate(("loss", "grad_norm")):
+        want_v, got_v = out["cpu"][i], out[str(dev)][i]
+        assert abs(got_v - want_v) <= 1e-4 * abs(want_v), (what, got_v, want_v)
 
 
 # ---- the device mesh ---------------------------------------------------

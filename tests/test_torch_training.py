@@ -25,7 +25,14 @@ backward, remat) against the JAX package on the CPU.
 * remat "full", "minimal" and "none" give equal gradients, and under
   "full" each attention layer runs its forward twice (the recompute);
 * train mode reaches no decode kernel wrapper, and ``build.refuse_grad``
-  (which the forward-only CUDA wrappers call) raises under autograd.
+  (which the split-K decode wrappers, forward-only, call) raises under
+  autograd.
+
+The recurrent and mLSTM layers' gradients come from the written-out
+backwards of ``RGLRUScan`` and ``MLSTMChunk`` (the stateful kernels'
+``autograd.Function``s; tests/test_torch_stateful_training.py holds them
+to autograd of the plain versions), so the recurrentgemma-9b and
+xlstm-350m cases here hold those backwards to ``jax.value_and_grad``.
 """
 import dataclasses
 
@@ -464,11 +471,12 @@ def test_train_mode_reaches_no_decode_kernel(monkeypatch, arch):
 
 def test_refuse_grad_raises_only_under_autograd():
     x = torch.zeros(3, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="queue 2 item 9"):
-        build.refuse_grad("rglru_scan", "ROADMAP.md queue 2 item 9", None, x)
+    why = "a serving kernel; train mode never decodes"
+    with pytest.raises(NotImplementedError, match="train mode never decodes"):
+        build.refuse_grad("decode_attention", why, None, x)
     with torch.no_grad():
-        build.refuse_grad("rglru_scan", "-", x)
-    build.refuse_grad("rglru_scan", "-", x.detach())
+        build.refuse_grad("decode_attention", why, x)
+    build.refuse_grad("decode_attention", why, x.detach())
 
 
 def test_serving_forward_builds_no_graph():
