@@ -93,8 +93,8 @@ no result line) on any fault:
      in float32: snapshot == dense and spec == non-spec greedy token for
      token, and decode-step logits after a prefill against one full
      forward within 1e-3;
-  9. MoE archs: mixtral-8x22b (8 of 56 layers, capacity 8192; a ~6000-token
-     prompt wraps the 4096-slot sliding-window ring) and dbrx-132b (6 of 40
+  9. MoE archs: mixtral-8x22b (4 of 56 layers, capacity 8192; a ~6000-token
+     prompt wraps the 4096-slot sliding-window ring) and dbrx-132b (3 of 40
      layers, capacity 2048), every width the published one, bf16, random
      weights from seed 0, 4 slots, each model freed before the next loads:
      dense serving with a 2-turn session, mixtral's state snapshots
@@ -111,9 +111,9 @@ no result line) on any fault:
      == dense and spec == non-spec greedy, and decode-step logits after a
      4200-token prefill (past the window) against one full forward within
      1e-3;
-  10. modality archs: musicgen-large (24 of 48 layers, MHA 32 heads at hd 64,
+  10. modality archs: musicgen-large (12 of 48 layers, MHA 32 heads at hd 64,
      sinusoidal positions; its inputs are the frame-embedding stub
-     one_hot(id % d_model), built on the device) and chameleon-34b (24 of
+     one_hot(id % d_model), built on the device) and chameleon-34b (12 of
      48 layers, d_model 8192, 64 / 8 heads, qk-norm, early-fusion token
      ids), published widths, bf16, random
      weights from seed 0, 4 slots, capacity 2048, each model freed before
@@ -203,6 +203,24 @@ no result line) on any fault:
      ``rglru_scan_train``, ``mlstm_chunk_train``: forward and backward call
      and device ms, bounds, plain and plain-autograd ms). The phase prints
      its seconds and fails past 150 s.
+ 15. dryrun: the launch layer's trace on ``meta`` (this host's
+     CPU; ``repro_torch.launch``) beside the card, for phase 12's train
+     step (36-layer qwen2.5-3b on (1, 1), 4 x 2048 in 2 microbatches),
+     phase 3's 4-slot decode step and phase 13's paged decode step under
+     the serve table on (1, 2): argument bytes against
+     ``memory_allocated``, peak temp against ``max_memory_allocated``,
+     product FLOPs against the profiler's (``with_flops``; the written-out
+     flash backward's apart); then one line per cell of the committed
+     ``--all`` sweep on (32, 8).
+ 16. mesh_train: float32 qwen2.5-3b widths, 4 layers, on (2, 2)
+     under the train table against the unsharded step (loss, gradients,
+     params; bound 1e-5); bf16 qwen, 36 layers, on (2, 1) (FSDP and batch
+     over "data"), tok/s and peak beside phase 12's; a decode under the
+     decode table with "kv_seq" on (1, 2) against unsharded (bound 2e-2).
+
+Every decode chunk is one CUDA graph launch whose while node stops once
+every row is done; each serving phase prints the decode steps run after
+every row's last emit (``count_run_on``), and fails unless it is 0.
 
 Every server runs its decode chunks and verify steps as replayed CUDA
 graphs (``serving/programs.py``); each serving phase prints its decode and
@@ -217,7 +235,7 @@ with one entry per kernel; the last line is ``{"ok": true, "device":
 
 Run from the repository root:  python3 chip_smoke.py
 (``--phases`` picks a subset of kernels,serve,spec,fame,fleet,mesh,stateful,
-moe,modality,checkpoint,train,stateful_train.)
+moe,modality,checkpoint,train,stateful_train,dryrun,mesh_train.)
 """
 from __future__ import annotations
 
@@ -247,6 +265,20 @@ TOL = {"bfloat16": 2e-2, "float32": 2e-5,
 
 def log(*a):
     print(*a, flush=True)
+
+
+def not_completed(label, handles) -> None:
+    """Fail if a request of ``handles`` did not complete, with the error the
+    scheduler's failure isolation kept on it (its traceback logged)."""
+    import traceback
+    for h in handles:
+        r = h.request
+        if r.status == "completed" and r.output_ids:
+            continue
+        why = "" if r.error is None else "".join(
+            traceback.format_exception(type(r.error), r.error, r.error.__traceback__))
+        log(f"[{label}] rid={r.rid} {r.status}, {len(r.output_ids)} tokens\n{why}")
+        raise AssertionError(f"{label}: rid={r.rid} {r.status}: {r.error!r}")
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -321,13 +353,12 @@ def log_kernels(name, by_kernel: dict):
         log(f"[kernels] {name}: {ms:.4f} device ms  {short.split('(')[0][:70]}")
 
 
-def bound(nbytes: float, flops: float, dtype) -> tuple:
-    """(least time in ms, "bytes" or "operations"); int32 and float32 work
-    runs outside the tensor cores, at the float32 rate."""
-    import torch
-    peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
-    t_b, t_f = nbytes / HBM * 1e3, flops / peak * 1e3
-    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+def bound(kernel: str, *args, **kw) -> tuple:
+    """(least time in ms, "bytes" or "operations") of a kernel's work at
+    these shapes: ``repro_torch.kernels.costs.<kernel>``, the counts the
+    dry run's cost counter reads too."""
+    from repro_torch.kernels import costs
+    return costs.bound_ms(getattr(costs, kernel)(*args, **kw))
 
 
 def check_close(name, got, want, dtype_name):
@@ -387,9 +418,7 @@ def kernel_phase(dev):
         qt, kt, vt, is_causal=True, enable_gqa=True)
     lib = time_ms(lf, 20)
     log_device("flash_attention", fa, lf)
-    pairs = S * (S + 1) // 2
-    b_ms, b_by = bound(2 * (2 * S * H * hd + 2 * S * K * hd), 4 * hd * H * pairs,
-                       torch.bfloat16)
+    b_ms, b_by = bound("flash", 1, S, S, H, K, hd, 2, S * (S + 1) // 2)
     rows["flash_attention"] = dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
@@ -447,8 +476,7 @@ def kernel_phase(dev):
     lib = time_ms(lf, 50)
     log_device("decode_attention", da, lf)
     live = int((torch.clamp(clen.long() + 1, max=W)).sum())
-    b_ms, b_by = bound(2 * (2 * B * H * hd + 2 * live * K * hd) + 4 * B,
-                       4 * hd * H * live, torch.bfloat16)
+    b_ms, b_by = bound("decode", B, H, K, hd, live, 2)
     rows["decode_attention"] = dict(
         name="decode_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/split_decode_attention.cu",
@@ -498,8 +526,7 @@ def kernel_phase(dev):
     log_device("paged_decode_attention", pa, lf)
     live = int((cl.long() + 1).sum())
     pages = sum(-(-(c + 1) // ps) for c in cl.tolist())
-    b_ms, b_by = bound(2 * (2 * B * H * hd + 2 * live * K * hd) + 4 * (B + pages),
-                       4 * hd * H * live, torch.bfloat16)
+    b_ms, b_by = bound("decode", B, H, K, hd, live, 2, pages)
     rows["paged_decode_attention"] = dict(
         name="paged_decode_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/split_decode_attention.cu",
@@ -594,9 +621,8 @@ def flash_window_row(dev, rnd, name, S, H, K, hd, win):
             qt, kt, vt, attn_mask=mask, enable_gqa=True)
     lib = time_ms(lf, 20)
     dms, lib_dms = device_times(name, fa, lf)
-    pairs = sum(min(i + 1, win or S) for i in range(S))
-    b_ms, b_by = bound(2 * (2 * S * H * hd + 2 * S * K * hd), 4 * hd * H * pairs,
-                       torch.bfloat16)
+    b_ms, b_by = bound("flash", 1, S, S, H, K, hd, 2, sum(min(i + 1, win or S)
+                                                          for i in range(S)))
     return dict(
         name=name, route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
@@ -664,9 +690,7 @@ def mha_decode_rows(dev, rnd, name, W, H, hd, clens):
             qt, kt, vt, attn_mask=mask)
         lib = time_ms(lf, 50)
         dms, lib_dms = device_times(row, fn, lf)
-        b_ms, b_by = bound(2 * (2 * B * H * hd + 2 * live * H * hd)
-                           + 4 * (B + (pages if paged else 0)),
-                           4 * hd * H * live, torch.bfloat16)
+        b_ms, b_by = bound("decode", B, H, H, hd, live, 2, pages if paged else 0)
         rows[row] = dict(
             name=row, route="cuda",
             source="src/repro_torch/kernels/csrc/split_decode_attention.cu",
@@ -709,8 +733,7 @@ def decode_ring_row(dev, rnd, name, W, H, K, hd, win, clens):
     lib = time_ms(lf, 50)
     dms = log_device(name, da, lf)
     live = int(kept.sum())
-    b_ms, b_by = bound(2 * (2 * B * H * hd + 2 * live * K * hd) + 4 * B,
-                       4 * hd * H * live, torch.bfloat16)
+    b_ms, b_by = bound("decode", B, H, K, hd, live, 2)
     return dict(
         name=name, route="cuda",
         source="src/repro_torch/kernels/csrc/split_decode_attention.cu",
@@ -758,7 +781,7 @@ def spec_kernel_rows(dev, rnd):
     dms = device_ms(al, 200)
     log(f"[kernels] accept_len: device_ms={fmt_ms(dms)}")
     B, S = acc.shape
-    b_ms, b_by = bound(B * S + 4 * B + 4 * B, 2 * B * S, torch.int32)
+    b_ms, b_by = bound("accept_len", B, S)
     rows["accept_len"] = dict(
         name="accept_len", route="cuda",
         source="src/repro_torch/kernels/csrc/spec_scan.cu",
@@ -791,8 +814,7 @@ def spec_kernel_rows(dev, rnd):
     log_device("spec_decode_attention", sa, lf)
     live = int(torch.clamp(clen.long() + S, max=W).sum())
     pairs = int(torch.clamp(pos_q + 1, max=W).sum())
-    b_ms, b_by = bound(2 * (2 * B * S * H * hd + 2 * live * K * hd) + 4 * B,
-                       4 * hd * H * pairs, torch.bfloat16)
+    b_ms, b_by = bound("verify", B, S, H, K, hd, live, pairs, 2)
     rows["spec_decode_attention"] = dict(
         name="spec_decode_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/split_decode_attention.cu",
@@ -847,8 +869,7 @@ def spec_kernel_rows(dev, rnd):
     live = int((cl.long() + S).sum())
     pairs = int((pos_q + 1).sum())
     pages = sum(-(-(c + S) // ps) for c in cl.tolist())
-    b_ms, b_by = bound(2 * (2 * B * S * H * hd + 2 * live * K * hd) + 4 * (B + pages),
-                       4 * hd * H * pairs, torch.bfloat16)
+    b_ms, b_by = bound("verify", B, S, H, K, hd, live, pairs, 2, pages)
     rows["paged_spec_decode_attention"] = dict(
         name="paged_spec_decode_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/split_decode_attention.cu",
@@ -937,11 +958,10 @@ def stateful_kernel_rows(dev):
     log_kernels("rglru_scan [1,4096,4096]", by_kernel)
     dms = sum(by_kernel.values()) or None
     v_ms, v_dms = time_ms(kv, 50), device_ms(kv)
-    v_bound, v_by = bound(4 * 3 * 4 * 5 * R + 4 * 2 * 4 * R, 2 * 4 * 5 * R, f32)
+    v_bound, v_by = bound("rglru", 4, 5, R, 4, True)
     log(f"[kernels] rglru_scan verify [4,5,4096]: ms={v_ms:.4f} "
         f"device_ms={fmt_ms(v_dms)} bound_ms={v_bound:.4f} ({v_by}) (sequential route)")
-    b_ms, b_by = bound(4 * 2 * B * S * R + 2 * B * S * R + 4 * 2 * B * R,
-                       2 * B * S * R, f32)
+    b_ms, b_by = bound("rglru", B, S, R, 2, True)
     rows["rglru_scan"] = dict(
         name="rglru_scan", route="cuda",
         source="src/repro_torch/kernels/csrc/rglru_scan.cu",
@@ -1023,16 +1043,9 @@ def stateful_kernel_rows(dev):
     by_kernel = device_ms_by_kernel(ma)
     log_kernels("mlstm_chunk [1,2048,4,512]", by_kernel)
     dms = sum(by_kernel.values()) or None
-    nc = -(-S // L)
     # causal q·kᵀ and w·v in bf16; q·C and the state update take a float32
     # operand, so TF32 (495 TFLOP/s) is their fastest rate
-    ops_bf16 = B * H * nc * 2 * L * L * hd
-    ops_tf32 = B * H * nc * 4 * L * hd * hd
-    nbytes = (2 * 4 * B * S * H * hd + 4 * 2 * B * S * H
-              + 2 * 4 * (B * H * hd * hd + B * H * hd + B * H))
-    t_ops = (ops_bf16 / PEAK_BF16 + ops_tf32 / PEAK_TF32) * 1e3
-    t_bytes = nbytes / HBM * 1e3
-    b_ms, b_by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    b_ms, b_by = bound("mlstm", B, S, H, hd, L, 2, True)
     rows["mlstm_chunk"] = dict(
         name="mlstm_chunk", route="cuda",
         source="src/repro_torch/kernels/csrc/mlstm_chunk_wgmma.cu",
@@ -1140,11 +1153,107 @@ def check_bf16_routes(name, counts):
                                  f"of {counts[kern]} launches")
 
 
+def count_run_on():
+    """From here on every decode chunk adds, on the device and with no host
+    sync, the steps it ran after every row's last emit to its programs'
+    ``_run_on`` (the step buffer minus the last ``emit_buf`` row with an
+    emit): the work the reference's while loop does not do. Works on any
+    tree whose chunk keeps a device step index (``tools/run_on.py``)."""
+    import torch
+    from repro_torch.serving.programs import EnginePrograms
+    fn = EnginePrograms._decode_chunk_fn
+    if getattr(fn, "counts_run_on", False):
+        return
+
+    def counted(self, *a, **kw):
+        out = fn(self, *a, **kw)
+        emit, step = out[2], self._bufs["decode"]["step"]
+        rows = torch.arange(1, emit.shape[0] + 1, device=emit.device)
+        last = (emit.any(dim=1) * rows).amax()
+        if getattr(self, "_run_on", None) is None:
+            self._run_on = torch.zeros((), dtype=torch.int64, device=emit.device)
+        self._run_on += step[0] - last
+        return out
+
+    counted.counts_run_on = True
+    EnginePrograms._decode_chunk_fn = counted
+
+
+def run_on_steps(server) -> int:
+    t = getattr(server.engine.progs, "_run_on", None)
+    return 0 if t is None else int(t)
+
+
+def pick_eos(outputs) -> int:
+    """A token that many of ``outputs`` (id lists) emit after their first
+    token, at different steps: the most rows, then the earliest mean step."""
+    first = collections.defaultdict(list)
+    for ids in outputs:
+        seen = {}
+        for i, t in enumerate(ids[1:], 1):
+            seen.setdefault(int(t), i)
+        for t, i in seen.items():
+            first[t].append(i)
+    return min(first, key=lambda t: (-len(first[t]), sum(first[t]) / len(first[t])))
+
+
+def eos_stops(dev, mode: str, eager: bool = False) -> dict:
+    """Reduced float32 qwen2.5-3b (vocab 512, random weights from seed 3),
+    6 requests of 24 tokens on 3 slots, decode_chunk 8, with the EOS id set
+    to a token the requests emit at different steps (``pick_eos`` over a
+    first run), so rows stop at EOS mid-chunk: ids, decode steps and
+    chunks, and the steps run after every row's last emit."""
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import Model
+    from repro_torch.serving.server import EngineConfig, LLMServer, SamplingParams
+    count_run_on()
+    cfg = ARCHS["qwen2.5-3b"].reduced(dtype="float32", param_dtype="float32",
+                                      vocab_size=512)
+    sd = Model(cfg, device="cpu").init(seed=4).state_dict()
+    prompts = [f"request {i}: " + "tool output line. " * (i + 1) for i in range(6)]
+    eos = None
+    for _ in range(2):
+        srv = LLMServer(cfg, num_slots=3, capacity=256, device=dev,
+                        params={k: v.to(dev) for k, v in sd.items()},
+                        engine_cfg=EngineConfig(cache_mode=mode, page_size=16,
+                                                decode_chunk=8))
+        progs = srv.engine.progs
+        if eos is not None:
+            srv.engine.tokenizer.eos_id = progs.eos_id = eos
+        with (progs.eager() if eager else contextlib.nullcontext()):
+            hs = [srv.submit(p, SamplingParams(max_new_tokens=24)) for p in prompts]
+            srv.run_until_idle()
+        eos = pick_eos([h.request.output_ids for h in hs])
+    return {"ids": [h.request.output_ids for h in hs],
+            "decode_steps": progs.decode_steps,
+            "decode_chunks": srv.stats()["decode_chunks"],
+            "run_on": run_on_steps(srv)}
+
+
+def eos_stop_check(dev):
+    """The decode chunk stops once every row is done: on the while graph and
+    on the eager steps the run-on is 0, with equal ids and steps."""
+    for mode in ("dense", "paged"):
+        got = {how: eos_stops(dev, mode, eager=how == "eager")
+               for how in ("graph", "eager")}
+        g, e = got["graph"], got["eager"]
+        log(f"[eos-{mode}] rows stopping at EOS: output tokens "
+            f"{[len(x) for x in g['ids']]}; decode steps graph {g['decode_steps']} "
+            f"eager {e['decode_steps']}, chunks {g['decode_chunks']}; run-on "
+            f"steps graph {g['run_on']} eager {e['run_on']}")
+        if g["ids"] != e["ids"] or g["decode_steps"] != e["decode_steps"]:
+            raise AssertionError(f"eos-{mode}: while graph differs from eager")
+        if g["run_on"] or e["run_on"]:
+            raise AssertionError(f"eos-{mode}: decode steps ran after every row's "
+                                 "last emit")
+
+
 def graph_counts(server) -> dict:
     """The decode and verify steps a server's programs ran, and their CUDA
     graph captures and replays."""
     p = server.engine.progs
     return {"decode_steps": p.decode_steps, "verify_steps": p.verify_steps,
+            "run_on": run_on_steps(server),
             **{f"{prog}_{what}": n.get(prog, 0) for prog in ("decode", "verify")
                for what, n in (("captures", p.graph_captures),
                                ("replays", p.graph_replays))}}
@@ -1163,7 +1272,10 @@ def check_graphs(name, server, before):
         f"{d['decode_captures']} replays={d['decode_replays']}; verify steps="
         f"{d['verify_steps']} captures={d['verify_captures']} replays="
         f"{d['verify_replays']} (server captures: decode {now['decode_captures']}, "
-        f"verify {now['verify_captures']})")
+        f"verify {now['verify_captures']}); run-on steps={d['run_on']}")
+    if d["run_on"]:
+        raise AssertionError(f"{name}: {d['run_on']} decode steps ran after every "
+                             "row's last emit")
     for prog in ("decode", "verify"):
         if d[f"{prog}_captures"] + d[f"{prog}_replays"] != d[f"{prog}_steps"]:
             raise AssertionError(f"{name}: {prog} steps not all on graphs: {d}")
@@ -1238,11 +1350,7 @@ def serve_phase(name, server, prompts, sampled_idx, session_turns, warm=None):
     check_bf16_routes(name, counts)
     check_graphs(name, server, gbefore)
     st = server.stats()
-    for h in handles:
-        r = h.request
-        if r.status != "completed" or not r.output_ids:
-            raise AssertionError(f"{name}: rid={r.rid} status={r.status} "
-                                 f"outputs={r.output_ids}")
+    not_completed(name, handles)
     ttft = [h.request.first_token_s for h in handles]
     dec_tok = sum(h.request.output_tokens for h in handles)
     # each decode chunk's wall time is split over the requests in it, so the
@@ -1337,8 +1445,7 @@ def profile_decode_chunk(server, prompts, eager=True):
             statistics.median(walls), 10)
         out[label] = {"wall_ms": walls, "device_busy_ms": busy, "live_slots": live}
     server.run_until_idle()
-    if not all(h.request.status == "completed" for h in handles):
-        raise AssertionError("profiled requests did not complete")
+    not_completed("profiled chunk", handles)
     return dict(out[paths[0][0]], eager=out.get("eager"))
 
 
@@ -1389,8 +1496,7 @@ def profile_verify_step(server, prompts):
             statistics.median(walls), 10)
         out[label] = {"wall_ms": walls, "device_busy_ms": busy}
     server.run_until_idle()
-    if not all(h.request.status == "completed" for h in handles):
-        raise AssertionError("profiled requests did not complete")
+    not_completed("profiled verify", handles)
     first = next(iter(out))
     return dict(out[first], eager=out.get("eager"))
 
@@ -1421,8 +1527,7 @@ def profile_prefill(server, prompt, *, reps: int = WALL_REPS, host_trace: bool =
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
         server.run_until_idle()
-        if h.request.status != "completed":
-            raise AssertionError(f"prefill profile: status {h.request.status}")
+        not_completed("prefill profile", [h])
         return wall, h.request.prompt_tokens
 
     admit()                                         # warm
@@ -1537,6 +1642,7 @@ def serving_phases(dev, model, params, tok):
         f"dense_teacher_forced_matches_served={greedy_ok}")
     if not math.isfinite(diff) or diff > 5e-2:
         raise AssertionError(f"dense vs paged logits differ by {diff}")
+    eos_stop_check(dev)
     return {k: dcounts[k] + pcounts[k] for k in dcounts}
 
 
@@ -1571,9 +1677,7 @@ def serve_ids(server, prompts, max_new_tokens=48):
     hs = [server.submit(p, SamplingParams(max_new_tokens=max_new_tokens))
           for p in prompts]
     server.run_until_idle()
-    for h in hs:
-        if h.request.status != "completed" or not h.request.output_ids:
-            raise AssertionError(f"rid={h.request.rid} status={h.request.status}")
+    not_completed("serve", hs)
     return hs
 
 
@@ -2026,13 +2130,13 @@ def stateful_phase(dev):
 # with the capacity factor at E / k = 4, so that C >= G in every group, and
 # a prefill past the window before the decode-vs-forward steps
 MOE = {
-    "mixtral-8x22b": dict(num_layers=8, capacity=8192, prompts=(200, 1500, 3000, 6000),
+    "mixtral-8x22b": dict(num_layers=4, capacity=8192, prompts=(200, 1500, 3000, 6000),
                           num_snapshots=16, snap_stride=8,
                           f32=dict(num_layers=1, capacity_factor=4.0),
                           f32_prefill=4200,
                           kernels=("flash_attention", "decode_attention",
                                    "accept_len")),
-    "dbrx-132b": dict(num_layers=6, capacity=2048, prompts=(200, 600, 1000, 1500),
+    "dbrx-132b": dict(num_layers=3, capacity=2048, prompts=(200, 600, 1000, 1500),
                       kernels=("flash_attention", "decode_attention",
                                "paged_decode_attention", "paged_spec_decode_attention",
                                "accept_len")),
@@ -2146,9 +2250,7 @@ def spec_run(name, cfg, params, dev, tok, rng, cap, **ecfg):
     srv.run_until_idle()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    for h in hs:
-        if h.request.status != "completed" or not h.request.output_ids:
-            raise AssertionError(f"{label}: rid={h.request.rid} status={h.request.status}")
+    not_completed(label, hs)
     c = kernel_counts()
     check_bf16_routes(label, c)
     check_graphs(label, srv, gbefore)
@@ -2164,7 +2266,7 @@ def spec_run(name, cfg, params, dev, tok, rng, cap, **ecfg):
     log(f"[{label}] launches={c}")
     if d["verify_steps"] <= 0 or d["draft_tokens"] <= 0:
         raise AssertionError(f"{label}: no verify steps / drafts: {d}")
-    del h, hs, srv
+    del hs, srv
     gc.collect()
     torch.cuda.empty_cache()
     return c
@@ -2283,13 +2385,14 @@ def moe_phase(dev):
 
 # per arch: the depth (None: the published one), capacity and the dense
 # run's prompt lengths (the qwen cells')
-# 24 of 48 layers each (chameleon 17.3 B params): the whole script must stay
-# under its 1200 s on a slow host (1122 s with both at full depth on one
-# H100 host), and this phase's cost goes with the depth
+# 12 of 48 layers each: the whole script must stay under its 1200 s on a
+# slow host (1122 s with both at full depth on one H100 host, 1259 s with
+# 24 layers and the launch-layer phases), and this phase's cost goes with
+# the depth
 MODALITY = {
-    "musicgen-large": dict(num_layers=24, capacity=2048,
+    "musicgen-large": dict(num_layers=12, capacity=2048,
                            prompts=(200, 600, 1000, 1500)),
-    "chameleon-34b": dict(num_layers=24, capacity=2048,
+    "chameleon-34b": dict(num_layers=12, capacity=2048,
                           prompts=(200, 600, 1000, 1500)),
 }
 
@@ -2670,8 +2773,7 @@ def run_sessions(front, plan, turns, sessions=None, order=None, threads=4,
         for t in turns:
             h = s.submit(plan[i][0] if t == 0 else s.text + plan[i][1][t - 1], sp)
             h.result()
-            if h.request.status != "completed":
-                raise AssertionError(f"session {i} turn {t}: {h.request.status}")
+            not_completed(f"session {i} turn {t}", [h])
             out[i].append(h)
 
     def worker(idx):
@@ -2796,10 +2898,7 @@ def preempt_run(cfg, params, dev, prompts, sps, mode, preempt: bool):
                         SamplingParams(max_new_tokens=16, priority=5))
         hs.append(hi)
     srv.run_until_idle()
-    for h in hs:
-        if h.request.status != "completed":
-            raise AssertionError(f"preempt {mode}: rid={h.request.rid} "
-                                 f"{h.request.status}")
+    not_completed(f"preempt {mode}{'' if preempt else ' ref'}", hs)
     check_graphs(f"preempt-{mode}{'' if preempt else '-ref'}", srv,
                  dict.fromkeys(graph_counts(srv), 0))
     st = srv.stats()
@@ -2960,7 +3059,8 @@ def fleet_phase(dev, model, params, tok):
         f"step alone), both requests {[h.request.status for h in pair]}; "
         f"paged_decode launches {counts['paged_decode_attention']} == layers x "
         f"decode steps {cfg.num_layers * sum(steps)}")
-    if (record != want_rec or any(h.request.status != "completed" for h in pair)
+    not_completed("fleet admission beside a capture", pair)
+    if (record != want_rec
             or counts["paged_decode_attention"] != cfg.num_layers * sum(steps)
             or counts["flash_attention"] <= 0):
         raise AssertionError("fleet: an admission beside a capture leaked or broke it")
@@ -3066,8 +3166,8 @@ def fleet_phase(dev, model, params, tok):
         f"migrated={st['migrated_sessions']}; replica {new} ran turn 4 of "
         f"{len(later)} sessions and a fresh request, decode captures "
         f"{gc_new['decode_captures']} replays {gc_new['decode_replays']}")
+    not_completed("fleet elastic", [fresh])
     if (rn.server.params is not params or gc_new["decode_captures"] < 1
-            or fresh.request.status != "completed"
             or any(s.replica_index != new for s in sessions.values())):
         raise AssertionError("fleet: the added replica did not take the traffic")
 
@@ -3164,7 +3264,8 @@ def fleet_phase(dev, model, params, tok):
     log(f"[restore] journal {path.name}: restored text equal {sb.text.startswith(text)}, "
         f"turn 2 {h.request.status} output_tokens={h.request.output_tokens} "
         f"turn_prefix_hits={bst['turn_prefix_hits']}")
-    if h.request.status != "completed" or not sb.text.startswith(text):
+    not_completed("restore", [h])
+    if not sb.text.startswith(text):
         raise AssertionError("restore: the next turn did not complete")
     del b
     torch.cuda.empty_cache()
@@ -3252,13 +3353,11 @@ def flash_train_row(dev, mb):
     lib_bwd = time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), dot,
                                                   retain_graph=True), 10)
     pairs = S * (S + 1) // 2
-    b_ms, b_by = bound(2 * mb * (2 * S * H * hd + 2 * S * K * hd),
-                       4 * hd * H * pairs * mb, torch.bfloat16)
+    b_ms, b_by = bound("flash", mb, S, S, H, K, hd, 2, pairs)
     # the backward's least time: 2.5x the forward's products (dS·K, dSᵀ·Q,
     # Pᵀ·dO, dO·Vᵀ and the recomputed Q·Kᵀ), reading q, k, v, o, dO once and
     # writing dq, dk, dv once, at the float32 rate it runs at
-    bb_ms, bb_by = bound(2 * mb * (4 * S * H * hd + 4 * S * K * hd),
-                         10 * hd * H * pairs * mb, torch.float32)
+    bb_ms, bb_by = bound("flash_bwd", mb, S, S, H, K, hd, 2, pairs)
     log(f"[train] flash_attention_bwd (written-out PyTorch, float32 products, "
         f"query blocks of 128) at [{mb},{S},{H},{hd}]: {bwd_ms:.4f} ms (its bound "
         f"{bb_ms:.4f} by {bb_by} at the float32 rate); SDPA backward {lib_bwd:.4f} ms")
@@ -3498,6 +3597,7 @@ def train_phase(dev, card):
         f"= {want}; wgmma {counts['flash_attention/wgmma']}); other kernels "
         f"{ {k: n for k, n in counts.items() if n and not k.startswith('flash')} }; "
         f"peak memory {gb(peak)} GB; loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    TRAIN_RECORD.update(tok_s=tokens / statistics.median(walls[1:]) * 1e3, peak=peak)
     if counts["flash_attention"] != want or counts["flash_attention/wgmma"] != want:
         raise AssertionError(f"train: flash launches {counts['flash_attention']} != {want}")
     if any(n for k, n in counts.items() if not k.startswith("flash")):
@@ -4042,10 +4142,9 @@ def rglru_train_row(dev):
     plain = time_ms(ref, 1, warmup=0)
     plain_b = time_ms(lambda: torch.autograd.grad(yw, (ag, bg), dy, retain_graph=True),
                       1, warmup=0)
-    n = B * S * R
-    f_bound, f_by = bound((4 + 4 + 2) * n, 2 * n, torch.float32)
+    f_bound, f_by = bound("rglru", B, S, R, 2, False)
     # the backward reads a, the states and dy once and writes da and dbx
-    bb_ms, bb_by = bound((4 + 4 + 2 + 4 + 4) * n, 4 * n, torch.float32)
+    bb_ms, bb_by = bound("rglru_bwd", B, S, R)
     log(f"[stateful_train] rglru_scan_train [2,2048,4096]: forward {ms:.4f} ms "
         f"({fmt_ms(dms)} device; bound {f_bound:.4f} by {f_by}; plain {plain:.2f}); "
         f"backward {b_ms:.4f} ms ({fmt_ms(b_dms)} device; bound {bb_ms:.4f} by "
@@ -4101,19 +4200,13 @@ def mlstm_train_row(dev):
     plain = time_ms(ref, 3, warmup=1)
     plain_b = time_ms(lambda: torch.autograd.grad(hr, ins, dh, retain_graph=True), 3,
                       warmup=1)
-    nc = -(-S // L)
-    pairs = L * (L + 1) // 2
     # forward: causal q·kᵀ and w·v in bf16, q·C and the state update in TF32
-    t_ops = (B * H * nc * 2 * 2 * pairs * hd / PEAK_BF16
-             + B * H * nc * 4 * L * hd * hd / PEAK_TF32) * 1e3
-    io = 2 * 4 * B * S * H * hd + 4 * 2 * B * S * H
-    f_bound, f_by = max((t_ops, "operations"), (io / HBM * 1e3, "bytes"))
+    f_bound, f_by = bound("mlstm", B, S, H, hd, L, 2, False)
     # backward, float32 products: nine over the causal pairs (q·kᵀ, w·v and
     # d·k recomputed; dw, dv, dd, dk from n, dq and dk from s) and six over
     # the state (U and q·C recomputed; dq, dC_j, and dk, dv from the state
     # update); q, k, v, ig, fg and dh read once, the five gradients written
-    bb_ms, bb_by = bound(2 * io, B * H * nc * (9 * 2 * pairs * hd + 6 * 2 * L * hd * hd),
-                         torch.float32)
+    bb_ms, bb_by = bound("mlstm_bwd", B, S, H, hd, L)
     log(f"[stateful_train] mlstm_chunk_train {shape} chunk {L}: forward "
         f"{ms:.4f} ms ({fmt_ms(dms)} device; bound {f_bound:.4f} by {f_by}; plain "
         f"{plain:.2f}); backward {b_ms:.4f} ms ({fmt_ms(b_dms)} device; bound "
@@ -4207,8 +4300,9 @@ def mesh_serve(name, cfg, params, dev, prompts, mesh, max_new, **ecfg):
     torch.cuda.synchronize()
     after = launch_counts.snapshot()
     check_graphs(name, srv, gbefore)
+    not_completed(name, hs)
     for h in hs:
-        if h.request.status != "completed" or len(h.request.output_ids) != max_new:
+        if len(h.request.output_ids) != max_new:
             raise AssertionError(f"{name}: rid={h.request.rid} {h.request.status} "
                                  f"{len(h.request.output_ids)} tokens")
     progs, st = srv.engine.progs, srv.stats()
@@ -4355,8 +4449,7 @@ def admit_ms(server, prompt, reps=3):
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
         server.run_until_idle()
-        if h.request.status != "completed":
-            raise AssertionError(f"admission: status {h.request.status}")
+        not_completed("admission", [h])
     return statistics.median(walls[1:])
 
 
@@ -4475,8 +4568,7 @@ def seqpar_row(dev):
     lib = time_ms(lf, 50)
     dms, lib_dms = device_times("seqpar_decode_attention", fn, lf)
     live = int(torch.clamp(clen.long() + 1, max=W).sum())
-    b_ms, b_by = bound(2 * (2 * B * K * G * hd + 2 * live * K * hd) + 4 * B,
-                       4 * hd * K * G * live, torch.bfloat16)
+    b_ms, b_by = bound("decode", B, K * G, K, hd, live, 2)
     log(f"[seqpar] ms={ms:.4f} one-launch decode_attention ms={one_ms:.4f} "
         f"plain_ms={plain_ms:.4f} library_ms={lib:.4f} bound_ms={b_ms:.5f} ({b_by})")
     row = dict(name="seqpar_decode_attention", route="cuda",
@@ -4556,13 +4648,371 @@ def mesh_phase(dev, model, params, tok):
     return {"seqpar_decode_attention": row}, counts, n_seqpar
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the dry run's predictions beside the card
+# ---------------------------------------------------------------------------
+
+PRODUCT_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
+SWEEP = ROOT / "results" / "torch" / "dryrun_single_pod.json"
+TRAIN_RECORD = {}           # phase 12's unsharded tok/s and peak, for mesh_train
+
+
+WRITTEN_OUT = ("flash_attention_bwd", "mlstm_chunk_bwd")
+
+
+def profiled_products(fn):
+    """The aten products' FLOPs (``with_flops``) of one call of ``fn``: the
+    total, and those under each written-out backward's profiler range."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU], with_flops=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total, by_range = 0.0, collections.Counter()
+    for e in prof.events():
+        if e.name not in PRODUCT_OPS or not e.flops:
+            continue
+        total += e.flops
+        p = e.cpu_parent
+        while p is not None and p.name not in WRITTEN_OUT:
+            p = p.cpu_parent
+        if p is not None:
+            by_range[p.name] += e.flops
+    return total, by_range
+
+
+def predicted(cfg, shape, grid=(1, 1), accum=None):
+    """The dry run of a one-card cell: (argument bytes, its trace)."""
+    from repro_torch.distributed.mesh import make_test_mesh
+    from repro_torch.launch import dryrun
+    mesh = make_test_mesh(grid, devices="meta")
+    run, rules, *_ = dryrun.build_cell(cfg, shape, mesh, accum_steps=accum)
+    args = sum(dryrun.argument_bytes(cfg, shape, mesh, rules).values())
+    return args, dryrun.trace(run)
+
+
+PAGED_ROWS, PAGED_PAGES = 4, 128        # 4 rows of 2048 slots in pages of 16
+
+
+def paged_serve_step(cfg, dev):
+    """One paged decode step of phase 13's (1, 2) qwen on ``dev``: the
+    serve table's placement of the weights and of a 4 x 2048-slot pool
+    (``kvpool.shard_rows``), each row at its last slot. Returns (the step,
+    the bytes of its arguments' tensors)."""
+    import torch
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.mesh import make_test_mesh
+    from repro_torch.models import Model
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving import kvpool
+    mesh = make_test_mesh((1, 2), devices=dev)
+    rules = shd.rules_for(mesh, "serve")
+    params = Model(cfg, device=dev)
+    params = (tfm.TransformerParams(cfg, device="meta", dtype=tfm.DTYPES[cfg.param_dtype])
+              if str(dev) == "meta" else params.init(seed=0))
+    params = shd.place_params(params, rules)
+    n_pages = 1 + PAGED_ROWS * PAGED_PAGES          # page 0: the trash page
+    pool = kvpool.shard_rows(kvpool.init_paged_cache(cfg, n_pages, 16, dev), cfg,
+                             rules, mesh)
+    bt = (1 + torch.arange(PAGED_ROWS * PAGED_PAGES, dtype=torch.int32,
+                           device=dev)).view(PAGED_ROWS, PAGED_PAGES)
+    clen = torch.full((PAGED_ROWS,), PAGED_PAGES * 16 - 1, dtype=torch.int32, device=dev)
+    batch = {"tokens": torch.zeros(PAGED_ROWS, 1, dtype=torch.long, device=dev),
+             "positions": clen[:, None].long()}
+    # every storage the step's arguments hold: the placed parts, the module
+    # they were cut from (kept beside them: a fleet's replicas share it),
+    # the pool's parts, the step's inputs
+    held = [t for _, leaf in params.named_parameters() for t in shd.leaf_parts(leaf)]
+    held += list(shd.source_params(params).parameters())
+    held += [t for leaf in tfm.tree_leaves(pool) for t in shd.leaf_parts(leaf)]
+    held += [bt, clen] + list(batch.values())
+    nbytes = sum({t.untyped_storage()._cdata: t.untyped_storage().nbytes()
+                  for t in held}.values())
+
+    def step():
+        with torch.no_grad(), shd.use_rules(rules):
+            return tfm.decode_step(params, batch, cfg, pool, clen, block_tables=bt)
+
+    return step, nbytes
+
+
+def compare_line(name, what, pred, meas):
+    log(f"[dryrun] {name} {what}: predicted {pred / 1e9:.4f} G measured "
+        f"{meas / 1e9:.4f} G (measured / predicted {meas / max(pred, 1):.4f})")
+
+
+def dryrun_phase(dev, card):
+    """Phase 15 (see the module docstring)."""
+    import torch
+    from repro_torch.launch import cost
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import Model
+    from repro_torch.training import optimizer as topt
+    from repro_torch.training import train_step as tts
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = ARCHS["qwen2.5-3b"]
+    log(f"[dryrun] {card}: predictions of the launch layer (repro_torch.launch, "
+        "traced on meta on this host's CPU) beside the card")
+    # -- the train step of phase 12: 4 x 2048 tokens in 2 microbatches
+    shape = ShapeConfig("train_phase12", TRAIN_SEQ, TRAIN_BATCH, "train")
+    t1 = time.perf_counter()
+    p_args, tr = predicted(cfg, shape, accum=TRAIN_ACCUM)
+    log(f"[dryrun] train trace {time.perf_counter() - t1:.1f} s")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    params = Model(cfg, device=dev).init(seed=0, trainable=True)
+    opt = topt.init_opt_state(params)
+    batch = train_data(cfg, dev).batch_at(0)
+    torch.cuda.synchronize()
+    args = torch.cuda.memory_allocated() - base
+    _, step = train_step_fn(cfg)
+    log(f"[dryrun] train placed {time.perf_counter() - t1:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    params, opt, _ = step(params, opt, batch)
+    torch.cuda.synchronize()
+    temp = torch.cuda.max_memory_allocated() - base - args
+    half = {k: v[:TRAIN_BATCH // TRAIN_ACCUM] for k, v in batch.items()}
+    log(f"[dryrun] train step {time.perf_counter() - t1:.1f} s")
+    meas, meas_bwd = profiled_products(lambda: tts.loss_and_grads(params, half, cfg))
+    log(f"[dryrun] train profiled {time.perf_counter() - t1:.1f} s")
+    compare_line("train 36-layer qwen2.5-3b (1, 1)", "argument GB", p_args, args)
+    compare_line("train", "peak temp GB", tr["peak_bytes"], temp)
+    compare_line("train", "products GFLOP a microbatch", tr["product_flops"] / TRAIN_ACCUM,
+                 meas)
+    compare_line("train", "of which the written-out flash backward's, GFLOP",
+                 tr["range_product_flops"].get("flash_attention_bwd", 0.0) / TRAIN_ACCUM,
+                 meas_bwd["flash_attention_bwd"])
+    log(f"[dryrun] train forward kernels' analytic GFLOP a microbatch (the trace's "
+        f"count; the profiler sees no products in a kernel): "
+        f"{tr['kernel_flops'] / TRAIN_ACCUM / 1e9:.2f}")
+    del params, opt, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    # -- the 4-slot decode step of phase 3 (capacity 2048)
+    t1 = time.perf_counter()
+    shape = ShapeConfig("decode_phase3", 2048, 4, "decode")
+    p_args, tr = predicted(cfg, shape)
+    log(f"[dryrun] decode trace {time.perf_counter() - t1:.1f} s")
+    model = Model(cfg, device=dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    params = model.init(seed=0)
+    cache = model.init_cache(4, 2048)
+    tok = torch.zeros(4, 1, dtype=torch.long, device=dev)
+    clen = torch.full((4,), 2047, dtype=torch.int32, device=dev)
+    batch = {"tokens": tok, "positions": clen[:, None].long()}
+    torch.cuda.synchronize()
+    args = torch.cuda.memory_allocated() - base
+    model.decode_step(params, batch, cache, clen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model.decode_step(params, batch, cache, clen)
+    torch.cuda.synchronize()
+    temp = torch.cuda.max_memory_allocated() - base - args
+    meas, _ = profiled_products(lambda: model.decode_step(params, batch, cache, clen))
+    compare_line("decode 4-slot qwen2.5-3b (1, 1)", "argument GB", p_args, args)
+    compare_line("decode", "peak temp GB", tr["peak_bytes"], temp)
+    compare_line("decode", "products GFLOP a step", tr["product_flops"], meas)
+    del params, cache, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    # -- phase 13's (1, 2) paged qwen under the serve table, both positions
+    # on this card: the trace counts every position (no position tags)
+    t1 = time.perf_counter()
+    step, p_args = paged_serve_step(cfg, "meta")
+    with cost.CostCounter() as counter:
+        step()
+    tr = counter.result()
+    log(f"[dryrun] paged (1, 2) trace {time.perf_counter() - t1:.1f} s")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    step, _ = paged_serve_step(cfg, dev)
+    torch.cuda.synchronize()
+    args = torch.cuda.memory_allocated() - base
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    temp = torch.cuda.max_memory_allocated() - base - args
+    meas, _ = profiled_products(step)
+    compare_line("paged decode 4-slot qwen2.5-3b, serve table on (1, 2)", "argument GB",
+                 p_args, args)
+    compare_line("paged (1, 2)", "peak temp GB", tr["peak_bytes"], temp)
+    compare_line("paged (1, 2)", "products GFLOP a step", tr["product_flops"], meas)
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+    # -- the sweep of every cell on (32, 8), from the committed trace
+    sweep = json.loads(SWEEP.read_text())
+    log(f"[dryrun] sweep {SWEEP.relative_to(ROOT)} ({len(sweep['results'])} cells, "
+        f"{len(sweep['failures'])} failed; python -m repro_torch.launch.dryrun --all "
+        "on the CPU): GB a card, fits 80 GB, dominant term")
+    for r in sweep["results"]:
+        roof = r["roofline"]
+        log(f"[dryrun]   {r['arch']} x {r['shape']} on {r['mesh']}: "
+            f"{roof['gb_per_card']:.2f} GB fits={roof['fits_80gb']} "
+            f"dominant={roof['dominant']} accum={r['accum_steps']}")
+    log(f"[dryrun] phase seconds={time.perf_counter() - t0:.1f}")
+
+
+# ---------------------------------------------------------------------------
+# phase 16: training and decode under the baseline tables on the card
+# ---------------------------------------------------------------------------
+
+MESH_TRAIN_STEPS = 3
+
+
+def _max_gap(a, b, rel=False):
+    import torch
+    d = float((a.float() - b.float()).abs().max())
+    return d / max(1.0, float(b.float().abs().max())) if rel else d
+
+
+def mesh_train_phase(dev, card):
+    """Phase 16 (see the module docstring)."""
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.mesh import make_test_mesh
+    from repro_torch.models import Model
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training import optimizer as topt
+    from repro_torch.training import train_step as tts
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    # -- (a) float32, published widths, 4 layers, (2, 2) train table
+    cfg = dataclasses.replace(ARCHS["qwen2.5-3b"], num_layers=4, dtype="float32",
+                              param_dtype="float32")
+    sd = Model(cfg, device=dev).init(seed=0).state_dict()
+    batch = train_data(cfg, dev, batch=4, seq=256).batch_at(0)
+    step = tts.make_train_step(cfg, tts.TrainConfig())
+    ref = Model(cfg, device=dev).load(sd, trainable=True)
+    l0, _, g0 = step.loss_and_grads(ref, batch)
+    ref, _, _ = step(ref, topt.init_opt_state(ref), batch)
+    rules = shd.rules_for(make_test_mesh((2, 2), devices=dev), "train")
+    placed = shd.place_params(Model(cfg, device=dev).load(sd), rules, trainable=True)
+    with shd.use_rules(rules):
+        l1, _, g1 = step.loss_and_grads(placed, batch)
+        placed, _, _ = step(placed, topt.init_opt_state(placed), batch)
+    dl = abs(float(l1) - float(l0)) / abs(float(l0))
+    dg = max(_max_gap(shd.gather(g1[k]), g, rel=True) for k, g in g0.items())
+    want, got = shd.full_state_dict(ref), shd.full_state_dict(placed)
+    dp = max(_max_gap(got[k], p) for k, p in want.items())
+    log(f"[mesh_train] float32 qwen2.5-3b widths, 4 layers, (2, 2) train table "
+        f"against unsharded: loss rel {dl:.3e}, largest gradient gap {dg:.3e} "
+        f"(of max(1, |leaf|)), largest param gap {dp:.3e} (bound 1e-5)")
+    if not max(dl, dg, dp) <= 1e-5:
+        raise AssertionError(f"mesh_train: float32 gaps {dl}, {dg}, {dp} > 1e-5")
+    del sd, ref, placed, g0, g1, want, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    # -- (b) bf16 qwen2.5-3b, 36 layers, (2, 1): FSDP and batch over "data"
+    cfg = ARCHS["qwen2.5-3b"]
+    rules = shd.rules_for(make_test_mesh((2, 1), devices=dev), "train")
+    data = train_data(cfg, dev)
+    opt_cfg, step = train_step_fn(cfg)
+    params = Model(cfg, device=dev).init(seed=0, trainable=True)
+    batch = data.batch_at(0)
+    half = {k: v[:TRAIN_BATCH // TRAIN_ACCUM] for k, v in batch.items()}
+    l0, _, g0 = tts.loss_and_grads(params, half, cfg)
+    placed = shd.place_params(params, rules, trainable=True)
+    with shd.use_rules(rules):
+        l1, _, g1 = tts.loss_and_grads(placed, half, cfg)
+    dl = abs(float(l1) - float(l0)) / abs(float(l0))
+    dg = max(_max_gap(shd.gather(g1[k]), g, rel=True) for k, g in g0.items())
+    log(f"[mesh_train] bf16 qwen2.5-3b 36 layers, (2, 1) train table against "
+        f"unsharded, one microbatch: loss rel {dl:.3e}, largest gradient gap "
+        f"{dg:.3e} (of max(1, |leaf|); bound 2e-2)")
+    if not max(dl, dg) <= 2e-2:
+        raise AssertionError(f"mesh_train: bf16 gaps {dl}, {dg} > 2e-2")
+    del params, g0, g1
+    gc.collect()
+    torch.cuda.empty_cache()
+    opt = topt.init_opt_state(placed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls, tokens = [], TRAIN_BATCH * TRAIN_SEQ
+    with shd.use_rules(rules):
+        for i in range(MESH_TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            placed, opt, m = step(placed, opt, data.batch_at(i))
+            loss = float(m["loss"])
+            walls.append((time.perf_counter() - t1) * 1e3)
+            if not math.isfinite(loss):
+                raise AssertionError(f"mesh_train: loss {loss}")
+            log(f"[mesh_train] (2, 1) step {i} loss={loss:.4f} wall_ms={walls[-1]:.2f} "
+                f"tok/s={tokens / walls[-1] * 1e3:.1f}")
+    peak = torch.cuda.max_memory_allocated()
+    tps = tokens / statistics.median(walls[1:]) * 1e3
+    ref = TRAIN_RECORD or {"tok_s": float("nan"), "peak": float("nan")}
+    log(f"[mesh_train] (2, 1) bf16 36 layers: {tps:.1f} tok/s (median of steps "
+        f"1-{MESH_TRAIN_STEPS - 1}), peak {gb(peak)} GB; phase 12 unsharded: "
+        f"{ref['tok_s']:.1f} tok/s, peak {ref['peak'] / 1e9:.3f} GB")
+    del placed, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    # -- (c) decode under the decode table, "kv_seq" over a (1, 2) mesh
+    params = eos_guard(cfg, Model(cfg, device=dev).init(seed=0))
+    rules_pf = shd.rules_for(make_test_mesh((1, 2), devices=dev), "prefill")
+    rules_dec = shd.rules_for(rules_pf["mesh"], "decode")
+    B, S, cap, n = 2, 1024, 4096, 8
+    g = torch.Generator().manual_seed(15)
+    tok = torch.randint(0, min(30000, cfg.vocab_size), (B, S), generator=g).to(dev)
+    out = {}
+    for how in ("unsharded", "kv_seq"):
+        p = params if how == "unsharded" else shd.place_params(params, rules_pf)
+        cache = tfm.init_cache(cfg, B, cap, dev)
+        if how == "kv_seq":
+            cache = shd.shard_put(cache, shd.cache_pspecs(cfg, rules_pf), rules_pf["mesh"])
+        ctx = (lambda r: contextlib.nullcontext()) if how == "unsharded" else shd.use_rules
+        pos = torch.arange(S, device=dev).expand(B, S)
+        with ctx(rules_pf):
+            lg, cache = tfm.prefill(p, {"tokens": tok, "positions": pos}, cfg, cache)
+        logits = [lg[:, -1]]
+        feed = out["unsharded"][1] if how == "kv_seq" else None
+        ids = [lg[:, -1].argmax(-1)]
+        for i in range(n):
+            clen = torch.full((B,), S + i, dtype=torch.int32, device=dev)
+            nxt = ids[-1] if feed is None else feed[i]      # teacher-forced
+            with ctx(rules_dec):
+                lg, cache = tfm.decode_step(p, {"tokens": nxt[:, None],
+                                                "positions": clen[:, None].long()},
+                                            cfg, cache, clen)
+            logits.append(lg[:, 0])
+            ids.append(lg[:, 0].argmax(-1))
+        out[how] = (torch.stack(logits), ids)
+        del cache, p
+    gap = _max_gap(out["kv_seq"][0], out["unsharded"][0], rel=True)
+    agree = float(sum((a == b).float().mean() for a, b in zip(out["kv_seq"][1],
+                                                             out["unsharded"][1]))
+                  / (n + 1))
+    log(f"[mesh_train] bf16 decode, decode table with kv_seq on (1, 2) against "
+        f"unsharded ({S}-token prompts, {n} teacher-forced steps): greedy agreement "
+        f"{agree:.4f}, largest logit gap {gap:.3e} of max(1, |logit|) (bound 2e-2)")
+    if not gap <= 2e-2:
+        raise AssertionError(f"mesh_train: decode logit gap {gap} > 2e-2")
+    del params, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[mesh_train] phase seconds={time.perf_counter() - t0:.1f}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="kernels,serve,spec,fame,fleet,mesh,stateful,moe,"
-                            "modality,checkpoint,train,stateful_train",
+                            "modality,checkpoint,train,stateful_train,dryrun,mesh_train",
                     help="comma list of kernels,serve,spec,fame,fleet,mesh,stateful,"
-                         "moe,modality,checkpoint,train,stateful_train (default: all)")
+                         "moe,modality,checkpoint,train,stateful_train,dryrun,"
+                         "mesh_train (default: all)")
     args = ap.parse_args()
     t_start = t_lap = time.perf_counter()
 
@@ -4590,6 +5040,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    count_run_on()
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
@@ -4676,6 +5127,12 @@ def main() -> int:
         launches["rglru_scan_train"] = sc["recurrentgemma-9b"]["rglru_scan"]
         launches["mlstm_chunk_train"] = sc["xlstm-350m"]["mlstm_chunk"]
         lap("stateful_train")
+    if "dryrun" in phases:
+        dryrun_phase(dev, card)
+        lap("dryrun")
+    if "mesh_train" in phases:
+        mesh_train_phase(dev, card)
+        lap("mesh_train")
     for name, r in rows.items():
         r["launches"] = launches.get(name, 0)
     if {"serve", "spec", "stateful", "moe", "modality", "train",

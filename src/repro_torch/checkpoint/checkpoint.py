@@ -204,7 +204,8 @@ def restore(ckpt_dir: str, like_tree, *, shardings=None) -> Tuple[Any, int]:
     against it, and each leaf is cast to its like leaf's dtype, on its
     device. ``shardings``: a matching tree of ``sharding.NamedSharding``s
     of the CURRENT mesh; each leaf is then laid out on it (``shard_put``:
-    an elastic restore onto another device count). Returns (tree, step)."""
+    an elastic restore onto another device count; FSDP parts where the
+    sharding says ``fsdp``). Returns (tree, step)."""
     d, manifest = _latest(ckpt_dir)
     like, _ = flatten(like_tree)
     if len(like) != len(manifest["leaves"]):
@@ -216,7 +217,8 @@ def restore(ckpt_dir: str, like_tree, *, shardings=None) -> Tuple[Any, int]:
     out = []
     for i, (ref, sh) in enumerate(zip(like, shards)):
         leaf = _read_leaf(d, i, manifest, ref.shape).to(dtype=ref.dtype)
-        out.append(leaf.to(ref.device) if sh is None else _put(leaf, sh.spec, sh.mesh))
+        out.append(leaf.to(ref.device) if sh is None
+                   else _put(leaf, sh.spec, sh.mesh, sh.fsdp))
     return unflatten(like_tree, out), manifest["step"]
 
 

@@ -6,12 +6,14 @@ import torch
 
 def resolve_device(device="cuda") -> torch.device:
     """The port runs on the card unless the caller asks for the CPU: a CUDA
-    device without a card raises instead of carrying on on the CPU."""
+    device without a card raises instead of carrying on on the CPU.
+    ``"meta"`` (shapes only: the dry run) is taken when asked for by name,
+    never as a fallback."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "repro_torch: no CUDA device available; pass device='cpu' to run "
             "the port on the CPU (its plain PyTorch kernel versions)")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"repro_torch: unsupported device {dev}")
     return dev

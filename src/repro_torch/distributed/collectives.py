@@ -24,6 +24,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.distributed.mesh import Mesh
 from repro_torch.distributed.sharding import Shards, split
 from repro_torch.kernels import split_decode
@@ -114,6 +115,10 @@ def seqpar_decode_attention(q, k_shards: Shards, v_shards: Shards, cache_len, *,
         lo += n
     o = torch.empty_like(q)
     split_decode.launch_combine(acc, ml, clen, o, q_per_kv, n_pos=W)
+    # the combine's exchange: every shard's float32 (m, l, acc), an all-gather
+    n = len(k_shards.parts)
+    tracing.collective("all-gather", (n - 1) * B * H * (hd + 2) * 4, ("model",),
+                       k_shards.parts, o)
     return o
 
 

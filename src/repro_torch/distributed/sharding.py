@@ -5,9 +5,10 @@ axis names (each parameter module's ``AXES``, the reference's ``ParamDef``
 axes); a rule set maps them to mesh axes, per phase: ``rules_for`` keeps
 every table of the reference (train, decode, ``weight_stationary``,
 ``expert_parallel``, multi-pod, serve), and ``param_pspecs`` /
-``cache_pspecs`` / ``batch_pspecs`` turn them into specs. Only the serve
-rules drive code here; the other tables are held against the JAX
-package's by the tests.
+``cache_pspecs`` / ``batch_pspecs`` turn them into specs. Every table
+drives code: the serve rules the serving path, the baseline tables
+(train / prefill / decode, ``weight_stationary``, ``expert_parallel``) the
+model-level entry points and the train step (below).
 
 The serve layout (phase="serve") keeps greedy outputs bit-identical to one
 device: it shards only batch-like dims (slot / page / snapshot rows over
@@ -24,6 +25,22 @@ the devices along "data" of each position must be one device
 data shard's launch, and a slot row is a view). A leaf with no "model" dim
 is one tensor on the mesh's lead device, where replicated work runs. A dim
 whose mesh extent does not divide it stays whole (``_divisible_spec``).
+
+Under the baseline tables (``place_params`` of a non-serve rule set) a
+parameter dim mapped to the FSDP axes ("data", or ("pod", "data")) is cut
+into ``Fsdp`` parts, one a "data" position (the reference's FSDP over
+"embed" / "moe_embed"); a layer gathers them before it runs
+(``fsdp_gathered``: a concatenation whose gradient is the parts' slices,
+the reduce-scatter), except experts over the FSDP axis
+(``expert_parallel``), which run where they lie. Products whose
+contraction dim is cut over "model" ("heads_in", "mlp_in", "rnn_in") run
+per part and their partial sums are added (``psum``: re-associated, so
+float32 is close to the unsharded result, not bit-equal). With
+``trainable=True`` every part is a leaf that requires grad, and a
+``Placed`` tree lists its parts as its parameters (``named_parameters``),
+so the train step and AdamW run on the parts, their moments shaped alike.
+Each collective point tells a tracer (``tracing.collective``; the dry
+run's cost counter) the bytes a device receives there.
 """
 from __future__ import annotations
 
@@ -34,6 +51,7 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs import base as cfgbase
 from repro_torch.distributed.mesh import Mesh
 
@@ -57,8 +75,8 @@ class NamedSharding:
     """A spec on a mesh: where ``checkpoint.restore(shardings=...)`` and
     ``reshard_tree`` put a leaf."""
 
-    def __init__(self, mesh: Mesh, spec: P):
-        self.mesh, self.spec = mesh, P(*spec)
+    def __init__(self, mesh: Mesh, spec: P, fsdp: bool = False):
+        self.mesh, self.spec, self.fsdp = mesh, P(*spec), fsdp
 
 
 def rules_for(mesh: Mesh, phase: str, *, shard_batch: bool = True,
@@ -306,13 +324,120 @@ class Shards:
         return self.parts[0].device
 
 
+class Fsdp:
+    """A parameter cut along ``dim`` over the FSDP axes: ``parts[i]`` the
+    i-th contiguous slice, all on one "model" position's device.
+    ``logical`` is the cut dim's logical axis."""
+
+    __slots__ = ("parts", "dim", "logical")
+
+    def __init__(self, parts, dim: int, logical=None):
+        self.parts, self.dim, self.logical = list(parts), dim, logical
+
+    def __len__(self):
+        return len(self.parts)
+
+    shape = Shards.shape
+    dtype = Shards.dtype
+    device = Shards.device
+
+
+def _ring(n: int) -> float:
+    return (n - 1) / n if n > 1 else 0.0
+
+
+class _AllGather(torch.autograd.Function):
+    """``torch.cat(parts, dim)``: the FSDP gather; its gradient is the
+    slices of the output gradient (the reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, dim, axes, *parts):
+        ctx.dim, ctx.axes = dim, axes
+        ctx.sizes = [p.shape[dim] for p in parts]
+        out = torch.cat(parts, dim)
+        tracing.collective("all-gather", _ring(len(parts)) * out.numel()
+                        * out.element_size(), axes, parts, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        tracing.collective("reduce-scatter", _ring(len(ctx.sizes)) * g.numel()
+                        * g.element_size(), ctx.axes, (g,))
+        # each part's gradient its own tensor, so the whole one is freed
+        return (None, None) + tuple(t.contiguous() if len(ctx.sizes) == 1 else t.clone()
+                                    for t in g.split(ctx.sizes, ctx.dim))
+
+
+def fsdp_full(x, axes=("data",)):
+    """An ``Fsdp`` leaf (or a ``Shards`` of them) gathered over the FSDP
+    axes; other leaves pass through."""
+    if isinstance(x, Fsdp):
+        if len(x.parts) == 1:
+            return x.parts[0]
+        return _AllGather.apply(x.dim, axes, *x.parts)
+    if isinstance(x, Shards) and isinstance(x.parts[0], Fsdp):
+        return Shards([fsdp_full(q, axes) for q in x.parts], x.dim)
+    return x
+
+
+def _runs_in_place(x) -> bool:
+    """Experts over the FSDP axis run where they lie (expert parallelism)."""
+    if isinstance(x, Shards):
+        x = x.parts[0]
+    return isinstance(x, Fsdp) and x.logical == "experts"
+
+
+def fsdp_gathered(p):
+    """A ``Placed`` module with its ``Fsdp`` leaves gathered (not experts
+    over the FSDP axis): what a layer reads. Other values pass through."""
+    if not isinstance(p, Placed) or not p.__dict__.get("_fsdp"):
+        return p
+    rules = current_rules()
+    axes = rules["fsdp"] if rules is not None and rules.get("fsdp") else ("data",)
+    out = {}
+    for k, v in vars(p).items():
+        if k.startswith("_"):
+            continue
+        if isinstance(v, Placed):
+            out[k] = fsdp_gathered(v)
+        elif isinstance(v, list):
+            out[k] = [fsdp_gathered(b) for b in v]
+        else:
+            out[k] = v if _runs_in_place(v) else fsdp_full(v, axes)
+    return Placed(**out)
+
+
+def psum(partials, device=None):
+    """The row-parallel sum: the "model" parts' partial products added in
+    part order on ``device`` (default: part 0's), an all-reduce."""
+    device = device or partials[0].device
+    out = partials[0].to(device)
+    for t in partials[1:]:
+        out = out + t.to(device)
+    tracing.collective("all-reduce", 2 * _ring(len(partials)) * out.numel()
+                    * out.element_size(), ("model",), partials, out)
+    return out
+
+
+def baseline() -> bool:
+    """Whether the current rules are a baseline table (not "serve")."""
+    rules = current_rules()
+    return rules is not None and rules.get("phase") != "serve"
+
+
 def gather(x, device=None):
     """A ``Shards`` gathered into one tensor on ``device`` (default: part
     0's): a copy and a concatenation, which move bits and add nothing.
     Tensors pass through (moved to ``device`` if given)."""
+    if isinstance(x, Fsdp):
+        x = torch.cat(x.parts, dim=x.dim)
+        return x if device is None else x.to(device)
     if isinstance(x, Shards):
         device = device or x.parts[0].device
-        return torch.cat([p.to(device) for p in x.parts], dim=x.dim)
+        out = torch.cat([gather(p).to(device) for p in x.parts], dim=x.dim)
+        tracing.collective("all-gather", _ring(len(x.parts)) * out.numel()
+                        * out.element_size(), ("model",), x.parts, out)
+        return out
     return x if device is None else x.to(device)
 
 
@@ -343,18 +468,39 @@ def _divisible_spec(shape, spec: P, mesh: Mesh) -> P:
     return P(*out)
 
 
-def _put(x, spec: P, mesh: Mesh):
+def _put(x, spec: P, mesh: Mesh, fsdp: bool = False, logical=None,
+         trainable: bool = False):
+    """One leaf on ``mesh`` by ``spec`` (after ``_divisible_spec``): cut
+    into ``Shards`` over "model"; with ``fsdp`` (a parameter under a
+    baseline table) a dim over the FSDP axes is cut into ``Fsdp`` parts
+    (``logical``: the leaf's logical axes); otherwise such a dim is rows,
+    views of one storage. ``trainable``: every part a leaf that requires
+    grad."""
     spec = _divisible_spec(x.shape, spec, mesh)
     cut = [i for i, e in enumerate(spec) if "model" in _names(e)
            and mesh.shape.get("model", 1) > 1]
-    rows = [e for e in spec if e is not None and set(_names(e)) - {"model"}]
+    rows = [i for i, e in enumerate(spec)
+            if e is not None and set(_names(e)) - {"model"}]
     if rows and not mesh.rows_share_devices():
         raise NotImplementedError(
             f"{mesh}: rows cut over 'data' on several devices need a storage "
             "per device and a page gather (ROADMAP.md queue 1, item 15)")
+    part = (lambda t: t.detach().clone().requires_grad_(True)) if trainable else \
+        (lambda t: t)
+
+    def rows_cut(t):
+        if not (fsdp and rows):
+            return part(t)
+        n = mesh.extent(_names(spec[rows[0]]))
+        if n <= 1:
+            return part(t)
+        return Fsdp([part(c.contiguous()) for c in t.chunk(n, rows[0])], rows[0],
+                    None if logical is None else logical[rows[0]])
+
     if cut:
-        return split(x, cut[0], mesh.column_devices())
-    return x.to(mesh.lead)
+        sh = split(x, cut[0], mesh.column_devices())
+        return Shards([rows_cut(q) for q in sh.parts], sh.dim)
+    return rows_cut(x.to(mesh.lead))
 
 
 def shard_put(tree, spec_tree, mesh: Mesh):
@@ -363,6 +509,8 @@ def shard_put(tree, spec_tree, mesh: Mesh):
     fallback."""
     if isinstance(spec_tree, P):
         return _put(unshard(tree), spec_tree, mesh)
+    if isinstance(spec_tree, NamedSharding):
+        return _put(unshard(tree), spec_tree.spec, spec_tree.mesh, spec_tree.fsdp)
     if isinstance(tree, dict):
         return {k: shard_put(v, spec_tree[k], mesh) for k, v in tree.items()}
     if isinstance(tree, tuple) and not isinstance(tree, Shards):
@@ -374,7 +522,7 @@ def shard_put(tree, spec_tree, mesh: Mesh):
 def unshard(tree, device=None):
     """Every ``Shards`` leaf of a tree gathered into one tensor."""
     return _map(lambda x: gather(x, device), tree,
-                lambda x: isinstance(x, (Shards, torch.Tensor)))
+                lambda x: isinstance(x, (Shards, Fsdp, torch.Tensor)))
 
 
 def tree_parts(tree, j: int):
@@ -426,6 +574,23 @@ class Placed(types.SimpleNamespace):
                 for k, v in vars(self).items() if not k.startswith("_")})
         return cache[j]
 
+    def named_parameters(self, prefix: str = ""):
+        """(state-dict name, leaf) of every leaf: a tensor, or a ``Shards``
+        / ``Fsdp`` whose parts are the tensors (``leaf_parts``)."""
+        for k, v in vars(self).items():
+            if k.startswith("_"):
+                continue
+            if isinstance(v, Placed):
+                yield from v.named_parameters(f"{prefix}{k}.")
+            elif isinstance(v, list):
+                for i, b in enumerate(v):
+                    yield from b.named_parameters(f"{prefix}{k}.{i}.")
+            else:
+                yield prefix + k, v
+
+    def parameters(self):
+        return [t for _, v in self.named_parameters() for t in leaf_parts(v)]
+
     def devices(self):
         """The "model" devices of the module's first ``Shards`` leaf."""
         for v in self._leaves():
@@ -447,28 +612,104 @@ def _attention_spec(name, spec, shapes, mesh):
     return spec
 
 
-def place_params(params, rules: dict):
+def place_params(params, rules: dict, *, trainable: bool = False):
     """The params ``nn.Module`` laid out on ``rules["mesh"]`` by the
-    modules' ``AXES`` under ``rules`` (``shard_put`` leaf by leaf).
-    Returns a ``Placed`` tree; ``source_params`` gives the module back."""
+    modules' ``AXES`` under ``rules`` (``shard_put`` leaf by leaf; under a
+    baseline table FSDP dims become ``Fsdp`` parts). ``trainable``: every
+    part a leaf that requires grad (a copy). Returns a ``Placed`` tree;
+    ``source_params`` gives the module back."""
     mesh = rules["mesh"]
+    fsdp = rules.get("phase") != "serve"
 
     def place(mod):
         out = {}
         shapes = {n: tuple(t.shape) for n, t in mod.named_parameters(recurse=False)}
         for name, t in mod.named_parameters(recurse=False):
             spec = _axes_to_spec(mod.AXES[name], rules)
-            if "wk" in shapes and "wq" in shapes:
+            if "wk" in shapes and "wq" in shapes and not fsdp:
                 spec = _attention_spec(name, spec, shapes, mesh)
-            out[name] = _put(t.detach(), spec, mesh)
+            out[name] = _put(t.detach(), spec, mesh, fsdp, mod.AXES[name], trainable)
         for name, sub in mod.named_children():
             out[name] = ([place(b) for b in sub] if isinstance(sub, torch.nn.ModuleList)
                          else place(sub))
-        return Placed(**out)
+        placed = Placed(**out)
+        placed.__dict__["_fsdp"] = fsdp
+        return placed
 
     placed = place(params)
     placed.__dict__["_source"] = params
     return placed
+
+
+def per_part(fn, n: int) -> list:
+    """``[fn(0), ..., fn(n - 1)]``, the work of each "model" part; while a
+    tracer counts one device (``tracing.one_part``) only part 0's,
+    standing for all (the parts are alike)."""
+    if tracing.one_part():
+        return [fn(0)] * n
+    return [fn(j) for j in range(n)]
+
+
+def leaf_parts(x) -> List[torch.Tensor]:
+    """The tensors a laid-out leaf holds: itself, or the parts of a
+    ``Shards`` / ``Fsdp`` (part 0 only under ``tracing.one_part``)."""
+    if isinstance(x, (Shards, Fsdp)):
+        parts = x.parts[:1] if tracing.one_part() else x.parts
+        return [t for q in parts for t in leaf_parts(q)]
+    return [x]
+
+
+def map_parts(fn, x):
+    """``fn`` on every part of a laid-out leaf, keeping its layout (on part
+    0 only under ``tracing.one_part``)."""
+    if isinstance(x, (Shards, Fsdp)):
+        parts = [map_parts(fn, q) for q in (x.parts[:1] if tracing.one_part()
+                                            else x.parts)]
+        return Shards(parts, x.dim) if isinstance(x, Shards) else \
+            Fsdp(parts, x.dim, x.logical)
+    return fn(x)
+
+
+def zip_parts(*leaves):
+    """Tuples of the matching parts of laid-out leaves of one layout."""
+    return list(zip(*(leaf_parts(x) for x in leaves)))
+
+
+def placed_from(named: Dict[str, Any]) -> "Placed":
+    """A ``Placed`` tree (baseline layout) from state-dict names to laid-out
+    leaves, as ``named_parameters`` lists them (``blocks.<i>`` a list):
+    what a checkpoint of ``dict(placed.named_parameters())`` restores to."""
+    root: Dict[str, Any] = {}
+    for name, leaf in named.items():
+        node = root
+        *path, last = name.split(".")
+        for k in path:
+            node = node.setdefault(k, {})
+        node[last] = leaf
+
+    def build(d):
+        if d and all(k.isdigit() for k in d):
+            return [build(d[k]) for k in sorted(d, key=int)]
+        out = Placed(**{k: build(v) if isinstance(v, dict) else v for k, v in d.items()})
+        out.__dict__["_fsdp"] = True
+        return out
+
+    return build(root)
+
+
+def state_dict_pspecs(params, rules: dict) -> Dict[str, P]:
+    """name -> ``P`` of every parameter of a params module under ``rules``."""
+    return {(f"{path}." if path else "") + name: _axes_to_spec(mod.AXES[name], rules)
+            for path, mod in params.named_modules()
+            for name, _ in mod.named_parameters(recurse=False)}
+
+
+def full_state_dict(params) -> Dict[str, torch.Tensor]:
+    """name -> the whole tensor of every leaf of a ``Placed`` tree (or a
+    params module's state dict)."""
+    if isinstance(params, Placed):
+        return {n: gather(v).detach() for n, v in params.named_parameters()}
+    return {k: v.detach() for k, v in params.state_dict().items()}
 
 
 def source_params(params):

@@ -12,6 +12,14 @@ wrappers pass it to ``check``, which raises on anything but 0. A launch is
 forward-only: its output has no ``grad_fn``. So a wrapper whose kernel has
 no backward calls ``refuse_grad`` before it launches, and raises where a
 gradient is asked for instead of silently dropping it.
+
+Each launch is an operator of the dispatcher, ``torch.ops.repro_torch.*``
+(``op``): the wrappers call it for every tensor not on the CPU. Its one
+implementation launches the kernel on a CUDA tensor and refuses any other
+device, so a tensor on ``meta`` raises as any other device does, except
+under a ``TorchDispatchMode``, which sees the call before any
+implementation: the dry run's cost counter (``launch/cost.py``) answers it
+with the kernel's outputs and counts its work by the operator's name.
 """
 from __future__ import annotations
 
@@ -109,6 +117,20 @@ def library() -> ctypes.CDLL:
             lib.repro_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
+
+
+def op(name: str, schema: str):
+    """Declare ``torch.ops.repro_torch.<name>`` with ``schema`` and make the
+    decorated function its implementation for every device; returns the
+    operator."""
+    import torch
+
+    def wrap(fn):
+        qual = f"repro_torch::{name}"
+        torch.library.define(qual, schema)
+        torch.library.impl(qual, "default")(fn)
+        return getattr(torch.ops.repro_torch, name)
+    return wrap
 
 
 def entry(name: str, argtypes) -> ctypes._CFuncPtr:

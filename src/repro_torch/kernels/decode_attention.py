@@ -18,9 +18,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import launch_counts
+from repro_torch.kernels import split_decode
 from repro_torch.kernels.flash_attention import NEG_INF
-from repro_torch.kernels.split_decode import launch_split
 
 launches = 0            # kernel launches (never the plain version)
 
@@ -55,9 +54,5 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, q_per_kv: int,
     if q.device.type == "cpu":
         return decode_attention_ref(q, k_cache, v_cache, cache_len,
                                     q_per_kv=q_per_kv, window=window)
-    if q.device.type != "cuda":
-        raise ValueError(f"decode_attention: unsupported device {q.device}")
-    o = launch_split("decode_attention", q, k_cache, v_cache, cache_len,
-                     q_per_kv, one_token=True, window=window)
-    launch_counts.count(__name__)
-    return o
+    return split_decode.decode("decode_attention", q, k_cache, v_cache, cache_len,
+                               q_per_kv, one_token=True, window=window)

@@ -178,10 +178,17 @@ def flash_attention(q, k, v, *, q_per_kv: int, window: Optional[int] = None,
 
 def _forward(q, k, v, *, q_per_kv: int, window: Optional[int] = None,
              q_start: int = 0):
-    """The kernel (CUDA tensors) or the plain version (CPU tensors)."""
+    """The plain version (CPU tensors), or the kernel's operator."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, q_per_kv=q_per_kv, window=window,
                                    q_start=q_start)
+    return _launch(q, k, v, q_per_kv, window, q_start)
+
+
+@build.op("flash_attention", "(Tensor q, Tensor k, Tensor v, int q_per_kv, "
+          "int? window, int q_start) -> Tensor")
+def _launch(q, k, v, q_per_kv, window, q_start):
+    """The kernel on CUDA tensors (``torch.ops.repro_torch.flash_attention``)."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     B, S, H, hd = q.shape

@@ -383,9 +383,21 @@ def mlstm_chunk(q, k, v, ig, fg, state=None, *, chunk: int = 256):
 
 
 def _forward(q, k, v, ig, fg, state=None, *, chunk: int = 256):
-    """The kernel (CUDA tensors) or the plain version (CPU tensors)."""
+    """The plain version (CPU tensors), or the kernel's operator."""
     if q.device.type == "cpu":
         return mlstm_chunk_ref(q, k, v, ig, fg, state, chunk=chunk)
+    C0, n0, m0 = (None,) * 3 if state is None else state
+    h, C, n, m = _launch(q, k, v, ig, fg, C0, n0, m0, chunk)
+    return h, (C, n, m)
+
+
+@build.op("mlstm_chunk", "(Tensor q, Tensor k, Tensor v, Tensor ig, Tensor fg, "
+          "Tensor? C0, Tensor? n0, Tensor? m0, int chunk) "
+          "-> (Tensor, Tensor, Tensor, Tensor)")
+def _launch(q, k, v, ig, fg, C0, n0, m0, chunk):
+    """The kernel on CUDA tensors (``torch.ops.repro_torch.mlstm_chunk``):
+    h and the state after the last step (C, n, m)."""
+    state = None if C0 is None else (C0, n0, m0)
     if q.device.type != "cuda":
         raise ValueError(f"mlstm_chunk: unsupported device {q.device}")
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
@@ -425,9 +437,10 @@ def _forward(q, k, v, ig, fg, state=None, *, chunk: int = 256):
                torch.empty(B, H, hd, dtype=torch.float32, device=q.device),
                torch.empty(B, H, dtype=torch.float32, device=q.device))
     if B == 0 or H == 0:
-        return h, (C, n, m)
+        return h, C, n, m
     if S == 0:
-        return h, zero_state(B, H, hd, q.device) if state is None else st
+        return (h,) + (zero_state(B, H, hd, q.device) if state is None
+                       else tuple(t.clone() for t in st))
     scratch = (None,) * 4
     if q.dtype == torch.bfloat16:
         scratch = tuple(torch.empty(shape, dtype=torch.float32, device=q.device)
@@ -440,4 +453,4 @@ def _forward(q, k, v, ig, fg, state=None, *, chunk: int = 256):
                     hd ** -0.5, DTYPES[q.dtype], stream)
     build.check(err, "mlstm_chunk")
     launch_counts.count(__name__, ROUTES[q.dtype])
-    return h, (C, n, m)
+    return h, C, n, m

@@ -15,9 +15,8 @@ CPU; for CUDA tensors it launches the kernel or raises.
 """
 from __future__ import annotations
 
-from repro_torch.kernels import launch_counts
+from repro_torch.kernels import split_decode
 from repro_torch.kernels.decode_attention import decode_attention_ref
-from repro_torch.kernels.split_decode import launch_split
 
 launches = 0            # kernel launches (never the plain version)
 
@@ -41,9 +40,6 @@ def paged_decode_attention(q, pool_k, pool_v, block_tables, cache_len, *,
     if q.device.type == "cpu":
         return paged_decode_attention_ref(q, pool_k, pool_v, block_tables,
                                           cache_len, q_per_kv=q_per_kv)
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_decode_attention: unsupported device {q.device}")
-    o = launch_split("paged_decode_attention", q, pool_k, pool_v, cache_len,
-                     q_per_kv, one_token=True, block_tables=block_tables)
-    launch_counts.count(__name__)
-    return o
+    return split_decode.decode("paged_decode_attention", q, pool_k, pool_v,
+                               cache_len, q_per_kv, one_token=True,
+                               block_tables=block_tables)

@@ -18,8 +18,7 @@ the CPU; for CUDA tensors it launches the kernel or raises.
 """
 from __future__ import annotations
 
-from repro_torch.kernels import launch_counts
-from repro_torch.kernels.split_decode import launch_split
+from repro_torch.kernels import split_decode
 from repro_torch.kernels.spec_decode_attention import spec_attention_ref
 
 launches = 0            # kernel launches (never the plain version)
@@ -44,10 +43,6 @@ def paged_spec_decode_attention(q, pool_k, pool_v, block_tables, cache_lens, *,
     if q.device.type == "cpu":
         return paged_spec_attention_ref(q, pool_k, pool_v, block_tables,
                                         cache_lens, q_per_kv=q_per_kv)
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_spec_decode_attention: unsupported device {q.device}")
-    o = launch_split("paged_spec_decode_attention", q, pool_k, pool_v,
-                     cache_lens, q_per_kv, one_token=False,
-                     block_tables=block_tables)
-    launch_counts.count(__name__)
-    return o
+    return split_decode.decode("paged_spec_decode_attention", q, pool_k, pool_v,
+                               cache_lens, q_per_kv, one_token=False,
+                               block_tables=block_tables)

@@ -164,9 +164,16 @@ def rglru_scan(a, bx, h0=None, *, out_dtype=torch.float32):
 
 
 def _forward(a, bx, h0=None, *, out_dtype=torch.float32):
-    """The kernel (CUDA tensors) or the plain version (CPU tensors)."""
+    """The plain version (CPU tensors), or the kernel's operator."""
     if a.device.type == "cpu":
         return rglru_scan_ref(a, bx, h0, out_dtype=out_dtype)
+    return _launch(a, bx, h0, out_dtype)
+
+
+@build.op("rglru_scan", "(Tensor a, Tensor bx, Tensor? h0, ScalarType out_dtype) "
+          "-> (Tensor, Tensor)")
+def _launch(a, bx, h0, out_dtype):
+    """The kernel on CUDA tensors (``torch.ops.repro_torch.rglru_scan``)."""
     if a.device.type != "cuda":
         raise ValueError(f"rglru_scan: unsupported device {a.device}")
     if a.dim() != 3 or bx.shape != a.shape:

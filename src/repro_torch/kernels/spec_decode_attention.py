@@ -19,9 +19,8 @@ import math
 
 import torch
 
-from repro_torch.kernels import launch_counts
+from repro_torch.kernels import split_decode
 from repro_torch.kernels.flash_attention import NEG_INF
-from repro_torch.kernels.split_decode import launch_split
 
 launches = 0            # kernel launches (never the plain version)
 
@@ -49,9 +48,5 @@ def spec_decode_attention(q, k_cache, v_cache, cache_lens, *, q_per_kv: int):
     if q.device.type == "cpu":
         return spec_attention_ref(q, k_cache, v_cache, cache_lens,
                                   q_per_kv=q_per_kv)
-    if q.device.type != "cuda":
-        raise ValueError(f"spec_decode_attention: unsupported device {q.device}")
-    o = launch_split("spec_decode_attention", q, k_cache, v_cache, cache_lens,
-                     q_per_kv, one_token=False)
-    launch_counts.count(__name__)
-    return o
+    return split_decode.decode("spec_decode_attention", q, k_cache, v_cache,
+                               cache_lens, q_per_kv, one_token=False)

@@ -44,6 +44,12 @@ def accept_len(accept, draft_lens):
     ``accept_len_ref``."""
     if accept.device.type == "cpu":
         return accept_len_ref(accept, draft_lens)
+    return _launch(accept, draft_lens)
+
+
+@build.op("accept_len", "(Tensor accept, Tensor draft_lens) -> Tensor")
+def _launch(accept, draft_lens):
+    """The kernel on CUDA tensors (``torch.ops.repro_torch.accept_len``)."""
     if accept.device.type != "cuda":
         raise ValueError(f"accept_len: unsupported device {accept.device}")
     if accept.dim() != 2 or accept.dtype != torch.bool:

@@ -12,9 +12,10 @@ at cache length ``cache_len[b] + s``, so a verify step equals S decode
 steps bit for bit.
 
 The wrappers (``decode_attention``, ``spec_decode_attention``,
-``paged_decode_attention``, ``paged_spec_decode_attention``) count their own
-launches and run their plain versions for CPU tensors; ``launch_split`` is
-their CUDA path only.
+``paged_decode_attention``, ``paged_spec_decode_attention``) run their plain
+versions for CPU tensors and otherwise call ``decode``, the operator
+``torch.ops.repro_torch.split_decode``, whose CUDA path (``launch_split``)
+counts each form's launches.
 
 The sequence-parallel decode (``distributed/collectives.py``) launches the
 two kernels apart: ``launch_partials`` once per sequence shard of a dense
@@ -119,7 +120,16 @@ def launch_partials(q, k, v, clen, part_acc, part_ml, q_per_kv: int, *,
     slots a row (``slot0`` a multiple of ``SPLIT``); its splits' partials
     land at their absolute index in the scratch of the whole cache
     (``split_scratch``), on the shard's device. ``clen`` [B] int32."""
+    _partials(q, k, v, clen, part_acc, part_ml, q_per_kv, n_pos, slot0, window)
+
+
+@build.op("split_decode_partials", "(Tensor q, Tensor k, Tensor v, Tensor clen, "
+          "Tensor(a!) part_acc, Tensor(b!) part_ml, int q_per_kv, int n_pos, "
+          "int slot0, int? window) -> ()")
+def _partials(q, k, v, clen, part_acc, part_ml, q_per_kv, n_pos, slot0, window):
     name = "split_decode_partials"
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
     B, H, hd = check_decode_inputs(name, q, k, v, q_per_kv)
     build.refuse_grad(name, "a serving kernel; train mode never decodes", q, k, v)
     Wl, K = k.shape[1], k.shape[2]
@@ -138,7 +148,15 @@ def launch_partials(q, k, v, clen, part_acc, part_ml, q_per_kv: int, *,
 
 def launch_combine(part_acc, part_ml, clen, o, q_per_kv: int, *, n_pos: int):
     """The combine over the partials of every shard: o [B, 1, H, hd]."""
+    _combine(part_acc, part_ml, clen, o, q_per_kv, n_pos)
+
+
+@build.op("split_decode_combine", "(Tensor part_acc, Tensor part_ml, Tensor clen, "
+          "Tensor(a!) o, int q_per_kv, int n_pos) -> ()")
+def _combine(part_acc, part_ml, clen, o, q_per_kv, n_pos):
     name = "split_decode_combine"
+    if o.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {o.device}")
     B, _, H, hd = o.shape
     P_, I = ctypes.c_void_p, ctypes.c_int
     fn = _stage_fn(name, [P_] * 4 + [I] * 7 + [P_])
@@ -192,3 +210,27 @@ def launch_split(name, q, k, v, cache_len, q_per_kv, *, one_token: bool,
                     window or 0, DTYPES[q.dtype], stream)
     build.check(err, name)
     return o
+
+
+@build.op("split_decode", "(str form, Tensor q, Tensor k, Tensor v, Tensor? lens, "
+          "int length, int q_per_kv, bool one_token, Tensor? block_tables, "
+          "int? window) -> Tensor")
+def _split_op(form, q, k, v, lens, length, q_per_kv, one_token, block_tables, window):
+    """The kernels of the decode form ``form`` on CUDA tensors
+    (``torch.ops.repro_torch.split_decode``); ``lens`` [B], or ``length``
+    for every row when None."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{form}: unsupported device {q.device}")
+    o = launch_split(form, q, k, v, length if lens is None else lens, q_per_kv,
+                     one_token=one_token, block_tables=block_tables, window=window)
+    launch_counts.count(form)
+    return o
+
+
+def decode(form, q, k, v, cache_len, q_per_kv, *, one_token: bool,
+           block_tables=None, window: Optional[int] = None):
+    """The operator of the decode form ``form`` (a wrapper's name);
+    ``cache_len`` a tensor [B] or one int for every row."""
+    lens = cache_len if isinstance(cache_len, torch.Tensor) else None
+    return _split_op(form, q, k, v, lens, 0 if lens is not None else int(cache_len),
+                     q_per_kv, one_token, block_tables, window)

@@ -26,19 +26,31 @@ from repro_torch.kernels.spec_decode_attention import \
 from repro_torch.models.layers import rms_norm_headwise, rotary_embed
 
 
+def _proj(x, w, b, cfg, positions, rotate: bool):
+    y = torch.einsum("bsd,dhk->bshk", x, w)
+    if cfg.attn_bias:
+        y = y + b
+    if rotate and cfg.qk_norm:
+        y = rms_norm_headwise(y)
+    if rotate and cfg.pos_emb == "rope":
+        y = rotary_embed(y, positions, cfg.rope_theta, cfg.rotary_pct)
+    return y.contiguous()
+
+
+def q_proj(p, x, cfg, positions):
+    """x [B,S,D] -> q [B,S,H,hd] with rope / qk-norm applied."""
+    return _proj(x, p.wq, getattr(p, "bq", None), cfg, positions, True)
+
+
+def kv_proj(p, x, cfg, positions):
+    """x [B,S,D] -> k, v [B,S,K,hd] (k with rope / qk-norm applied)."""
+    return (_proj(x, p.wk, getattr(p, "bk", None), cfg, positions, True),
+            _proj(x, p.wv, getattr(p, "bv", None), cfg, positions, False))
+
+
 def qkv_proj(p, x, cfg, positions):
     """x [B,S,D] -> q [B,S,H,hd], k,v [B,S,K,hd] with rope/qk-norm applied."""
-    q = torch.einsum("bsd,dhk->bshk", x, p.wq)
-    k = torch.einsum("bsd,dhk->bshk", x, p.wk)
-    v = torch.einsum("bsd,dhk->bshk", x, p.wv)
-    if cfg.attn_bias:
-        q, k, v = q + p.bq, k + p.bk, v + p.bv
-    if cfg.qk_norm:
-        q, k = rms_norm_headwise(q), rms_norm_headwise(k)
-    if cfg.pos_emb == "rope":
-        q = rotary_embed(q, positions, cfg.rope_theta, cfg.rotary_pct)
-        k = rotary_embed(k, positions, cfg.rope_theta, cfg.rotary_pct)
-    return q.contiguous(), k.contiguous(), v.contiguous()
+    return (q_proj(p, x, cfg, positions),) + kv_proj(p, x, cfg, positions)
 
 
 def out_proj(p, o):

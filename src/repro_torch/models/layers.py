@@ -15,7 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.distributed.sharding import Shards, gather
+from repro_torch.distributed.sharding import (Shards, fsdp_gathered, gather,
+                                              per_part, psum)
 
 # ---------------------------------------------------------------------------
 # Parameters and their initialisation (the rules of
@@ -126,8 +127,15 @@ def _mlp_hidden(p, x, cfg):
 def apply_mlp(p, x, cfg):
     """On a mesh (``p.wi`` in ``Shards``) each "model" shard computes its
     columns of the hidden state (mlp-up is cut by its output dim, its
-    contraction whole) and the hidden state is gathered before ``wo``, so
-    the down-projection's sum is never split (the reference's "mlp_act")."""
+    contraction whole). Under the serve rules the hidden state is gathered
+    before ``wo``, so the down-projection's sum is never split (the
+    reference's "mlp_act"); under a baseline table ``wo`` is cut by its
+    rows too ("mlp_in") and the shards' partial products are added."""
+    if isinstance(p.wo, Shards):
+        devs = p.devices()
+        y = psum(per_part(lambda j: _mlp_hidden(p.part(j), x.to(devs[j]), cfg)
+                          @ p.wo.parts[j], len(devs)), x.device)
+        return y + p.bo if cfg.mlp_bias else y
     if isinstance(p.wi, Shards):
         h = gather(Shards([_mlp_hidden(p.part(j), x.to(d), cfg)
                            for j, d in enumerate(p.devices())], -1), x.device)
@@ -194,7 +202,7 @@ def _embed_rows(table: Shards, tokens):
 
 
 def embed_tokens(params, tokens, cfg):
-    table = params.embed.table
+    table = fsdp_gathered(params.embed).table
     x = _embed_rows(table, tokens) if isinstance(table, Shards) else table[tokens]
     if cfg.name.startswith("gemma") or cfg.family == "hybrid":
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
@@ -226,7 +234,7 @@ def matmul_f32(a, b):
     vocab-sized table); float32 inputs are a plain matmul."""
     if a.dtype == torch.float32:
         return a @ b
-    if a.is_cuda:
+    if a.is_cuda or a.is_meta:          # meta: the dry run traces the card's path
         a2 = a.reshape(-1, a.shape[-1])
         if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
             out = _MatmulF32.apply(a2, b)
@@ -239,7 +247,7 @@ def matmul_f32(a, b):
 def unembed(params, x, cfg):
     """float32 logits; on a mesh each "model" shard computes its vocab
     columns (the contraction over d_model whole) and they are gathered."""
-    w = params.embed.table if cfg.tie_embeddings else params.unembed.table
+    w = fsdp_gathered(params.embed if cfg.tie_embeddings else params.unembed).table
     if isinstance(w, Shards):
         logits = gather(Shards([
             matmul_f32(x.to(part.device), part.t() if cfg.tie_embeddings else part)

@@ -25,14 +25,21 @@ On a mesh the experts are cut over "model" (``wi`` / ``wg`` / ``wo`` in
 ``Shards`` by their expert dim): each shard runs its experts' slice of the
 dispatched tokens and ``ye`` is gathered before the combine, the
 reference's expert parallelism; routing, dispatch and combine run once,
-so the drops and the slot order are those of one device.
+so the drops and the slot order are those of one device. Under a baseline
+table the expert FFNs are cut over "model" by their hidden dim
+("moe_mlp": ``wi`` / ``wg`` by columns, ``wo`` by rows) and the parts'
+partial products are added; with ``expert_parallel`` the experts lie over
+the FSDP axis (``Fsdp`` by their expert dim) and each "data" position
+runs its experts' slots.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import Shards, gather
+import types
+
+from repro_torch.distributed.sharding import Fsdp, Shards, gather, per_part, psum
 from repro_torch.models.layers import Params, activation, matmul_f32, param
 
 
@@ -111,17 +118,43 @@ def _promote(a, b):
     return a.to(torch.promote_types(a.dtype, b.dtype))
 
 
-def _experts(p, xe, cfg):
+def _experts(p, xe, cfg, xin=None):
     """The expert FFNs over their dispatched tokens xe [N,E,C,D]. Inputs
     are promoted at each use, as jnp.einsum does: the bf16 ``xe`` then gets
-    one rounded cotangent per use, summed in bf16, as in JAX's gradient."""
-    h = torch.einsum("necd,edf->necf", _promote(xe, p.wi), p.wi)
+    one rounded cotangent per use, summed in bf16, as in JAX's gradient.
+    ``xin``: the promoted inputs of ``wi`` and ``wg`` given (the parts of
+    a cut weight share them, so each use still rounds one cotangent)."""
+    xi, xg = xin or (_promote(xe, p.wi), _promote(xe, p.wg) if cfg.gated_mlp else None)
+    h = torch.einsum("necd,edf->necf", xi, p.wi)
     if cfg.gated_mlp:
-        h = activation(h, cfg.act) * torch.einsum(
-            "necd,edf->necf", _promote(xe, p.wg), p.wg)
+        h = activation(h, cfg.act) * torch.einsum("necd,edf->necf", xg, p.wg)
     else:
         h = activation(h, cfg.act)
     return torch.einsum("necf,efd->necd", h, p.wo)
+
+
+def _inputs(p, xe, cfg):
+    """``xe`` promoted for ``wi`` and ``wg`` (a part's dtypes)."""
+    wi = p.wi.parts[0] if isinstance(p.wi, Fsdp) else p.wi
+    wg = (p.wg.parts[0] if isinstance(p.wg, Fsdp) else p.wg) if cfg.gated_mlp else None
+    return _promote(xe, wi), None if wg is None else _promote(xe, wg)
+
+
+def _experts_over_data(p, xe, cfg, xin):
+    """``_experts`` on the promoted inputs ``xin``; with the experts in
+    ``Fsdp`` parts by their expert dim (``expert_parallel``), each part over
+    its experts' slots, the outputs joined along the experts."""
+    if not isinstance(p.wi, Fsdp):
+        return _experts(p, xe, cfg, xin)
+    outs, lo = [], 0
+    for i, wi in enumerate(p.wi.parts):
+        n = wi.shape[0]
+        q = types.SimpleNamespace(wi=wi, wo=p.wo.parts[i],
+                                  wg=p.wg.parts[i] if cfg.gated_mlp else None)
+        outs.append(_experts(q, None, cfg, tuple(
+            None if t is None else t[:, lo:lo + n] for t in xin)))
+        lo += n
+    return torch.cat(outs, 1)
 
 
 def apply_moe(p, x, cfg):
@@ -137,13 +170,19 @@ def apply_moe(p, x, cfg):
     xg = xf.reshape(N, G, D)
     dispatch, combine, aux = route(p.router, xg, cfg)
     xe = torch.einsum("ngec,ngd->necd", dispatch, xg.to(torch.bfloat16))
-    if isinstance(p.wi, Shards):
+    if isinstance(p.wi, Shards) and p.wi.dim == 0:
         n_e = p.wi.parts[0].shape[0]
         ye = gather(Shards([
             _experts(p.part(j), xe[:, j * n_e:(j + 1) * n_e].to(d), cfg)
             for j, d in enumerate(p.devices())], 1), x.device)
+    elif isinstance(p.wi, Shards):
+        devs = p.devices()
+        xin = _inputs(p.part(0), xe, cfg)
+        ye = psum(per_part(lambda j: _experts_over_data(
+            p.part(j), xe, cfg, tuple(t if t is None else t.to(devs[j]) for t in xin)),
+            len(devs)), x.device)
     else:
-        ye = _experts(p, xe, cfg)
+        ye = _experts_over_data(p, xe, cfg, _inputs(p, xe, cfg))
     y = torch.einsum("necd,ngec->ngd", ye, _promote(combine, ye))
     y = y.reshape(Tp, D)[:T]
     return y.reshape(B, S, D).to(x.dtype), aux

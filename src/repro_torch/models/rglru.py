@@ -19,7 +19,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import Shards, by_rows, gather, tree_parts
+from repro_torch.distributed.sharding import (Shards, by_rows, gather, per_part,
+                                              psum, tree_parts)
 from repro_torch.kernels.rglru_scan import rglru_scan
 from repro_torch.models.layers import assign
 
@@ -90,22 +91,25 @@ def apply_recurrent_mixer(p, x, cfg, *, cache=None, mode="full", length=None,
     channels (rnn-up cut by its output dim; the recurrence is elementwise
     per channel) over its part of the cache, and the gated output is
     gathered before ``wo`` (the reference's "rnn_act"); the record is then
-    ``Shards`` too.
+    ``Shards`` too. Under a baseline table ``wo`` is cut by its rows too
+    ("rnn_in") and the shards' partial products are added.
     """
     if not isinstance(p.wx, Shards):
         yg, record = _mixer_channels(p, x, cfg, cache=cache, mode=mode,
                                      length=length, mask=mask, keep=keep)
         return yg @ p.wo, record
-    outs = []
-    for j, d in enumerate(p.devices()):
-        outs.append(_mixer_channels(
-            p.part(j), x.to(d), cfg, cache=tree_parts(cache, j), mode=mode,
-            length=length, mask=None if mask is None else mask.to(d),
-            keep=None if keep is None else keep.to(d)))
-    yg = gather(Shards([y for y, _ in outs], -1), x.device)
+    devs = p.devices()
+    outs = per_part(lambda j: _mixer_channels(
+        p.part(j), x.to(devs[j]), cfg, cache=tree_parts(cache, j), mode=mode,
+        length=length, mask=None if mask is None else mask.to(devs[j]),
+        keep=None if keep is None else keep.to(devs[j])), len(devs))
     record = None
     if outs[0][1] is not None:
         record = {k: Shards([r[k] for _, r in outs], -1) for k in outs[0][1]}
+    if isinstance(p.wo, Shards):
+        w = p.wo.parts
+        return psum(per_part(lambda j: outs[j][0] @ w[j], len(w)), x.device), record
+    yg = gather(Shards([y for y, _ in outs], -1), x.device)
     return yg @ p.wo, record
 
 

@@ -35,8 +35,11 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs import base as cfgbase
-from repro_torch.distributed.sharding import (Shards, first_shards, gather,
-                                              rows_here, tree_parts)
+from repro_torch.distributed import collectives
+from repro_torch.distributed import sharding
+from repro_torch.distributed.sharding import (Shards, by_rows, first_shards,
+                                              gather, psum, rows_here,
+                                              tree_parts)
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_decode_attention import paged_decode_attention
@@ -398,6 +401,9 @@ def _attn_mixer(p, x, cfg, *, kind, cache, positions, **kw):
     "heads_act"), so the projection's sum over heads is never split; the
     products run over all rows at once. A verify record is then ``Shards``
     over the KV heads too."""
+    if sharding.baseline():
+        return _attn_mixer_tp(p, x, cfg, kind=kind, cache=cache,
+                              positions=positions, **kw)
     n = x.shape[0]
     rows = rows_here(n)
     sharded = isinstance(p.wq, Shards)
@@ -427,6 +433,120 @@ def _attn_mixer(p, x, cfg, *, kind, cache, positions, **kw):
     if outs[0][1] is not None:
         record = {a: Shards([r[a] for _, r in outs], 2) for a in outs[0][1]}
     return attn.out_proj(p, o), record
+
+
+def _kv_for(k, j: int, h: int, G: int):
+    """The KV heads the q heads [j*h, (j+1)*h) of part j read, and their
+    q_per_kv: a slice when the part holds whole GQA groups or shares one KV
+    head, else one KV head per q head (an index)."""
+    lo = j * h
+    if h % G == 0:
+        return k[:, :, lo // G:(lo + h) // G].contiguous(), G
+    if G % h == 0:
+        return k[:, :, lo // G:lo // G + 1].contiguous(), h
+    idx = torch.arange(lo, lo + h, device=k.device) // G
+    return k.index_select(2, idx), 1
+
+
+def _attn_mixer_tp(p, x, cfg, *, kind, cache, positions, mode, cache_len,
+                   block_tables=None, lens=None, prefill_len=None, keep=None):
+    """Attention under a baseline table (train / prefill / decode, the
+    reference's ``rules_for``): q heads cut over "model" with ``p.wq`` in
+    ``Shards``, K / V whole ("kv_heads" replicated), the output projection
+    cut by its rows ("heads_in") and the parts' partial products added
+    (``psum``). Train and prefill run flash per part over the KV heads its
+    q heads read, per "data" shard. Decode gathers q (all heads) and
+    attends once over the cache, sequence-parallel when the cache is cut
+    by "kv_seq" (``collectives.seqpar_decode_attention``: the split-K
+    kernel's partials per sequence shard, one combine). Returns (out,
+    None)."""
+    if mode not in ("train", "prefill", "decode") or block_tables is not None:
+        raise NotImplementedError(
+            f"mode {mode!r}{' on a page pool' if block_tables is not None else ''} "
+            "under a baseline table: the serving path runs under the serve rules")
+    G, window = cfg.q_per_kv, attn_window(kind, cfg)
+    k, v = attn.kv_proj(p, x, cfg, positions)
+    if isinstance(p.wq, Shards):
+        devs = p.devices()
+        qs = sharding.per_part(lambda j: attn.q_proj(
+            p.part(j), x.to(devs[j]), cfg, positions.to(devs[j])), len(devs))
+    else:
+        qs = [attn.q_proj(p, x, cfg, positions)]
+    h = qs[0].shape[2]
+    if mode == "decode":
+        kc, vc = cache["k"], cache["v"]
+        _decode_write(kc, vc, k, v, cache_len, keep)
+        q = gather(Shards(qs, 2), x.device) if len(qs) > 1 else qs[0]
+        if isinstance(kc, Shards):
+            o = collectives.seqpar_decode_attention(q, kc, vc, cache_len,
+                                                    q_per_kv=G, window=window)
+        else:
+            clen = torch.as_tensor(cache_len, device=x.device).reshape(-1).expand(
+                x.shape[0]).contiguous()
+            o = by_rows(lambda q_, k_, v_, c_: decode_attention(
+                q_, k_, v_, c_, q_per_kv=G, window=window), x.shape[0], q, kc, vc, clen)
+        outs = [o[:, :, j * h:(j + 1) * h] for j in range(len(qs))]
+    else:
+        def attend(j):
+            q = qs[j]
+            kj, g = _kv_for(k.to(q.device), j, h, G)
+            vj, _ = _kv_for(v.to(q.device), j, h, G)
+            return by_rows(lambda q_, k_, v_: flash_attention(
+                q_, k_, v_, q_per_kv=g, window=window), q.shape[0], q, kj, vj)
+        outs = sharding.per_part(attend, len(qs))
+        if mode == "prefill":
+            _prefill_write(cache, k, v, prefill_len)
+    if isinstance(p.wo, Shards):
+        w = p.wo.parts
+        return psum(sharding.per_part(lambda j: torch.einsum(
+            "bshk,hkd->bsd", outs[j].to(w[j].device), w[j]), len(w)), x.device), None
+    o = outs[0] if len(outs) == 1 else gather(Shards(outs, 2), x.device)
+    return attn.out_proj(p, o), None
+
+
+def _decode_write(kc, vc, k, v, cache_len, keep):
+    """The decode token's K / V at slot ``cache_len % W`` of each row; a
+    cache cut by sequence (``Shards`` over dim 1) takes it in the part
+    holding the slot, the others write back what they hold."""
+    if not isinstance(kc, Shards):
+        attn.cache_update(kc, vc, k, v, cache_len, keep)
+        return
+    B, W = k.shape[0], kc.shape[1]
+    slot = torch.as_tensor(cache_len, device=k.device).long().reshape(-1).expand(B) % W
+    lo = 0
+    for kp, vp in zip(kc.parts, vc.parts):
+        n, d = kp.shape[1], kp.device
+        mine = ((slot >= lo) & (slot < lo + n)).to(d)
+        attn.cache_update(kp, vp, k.to(d), v.to(d), (slot.to(d) - lo).clamp(0, n - 1),
+                          mine if keep is None else mine & keep.to(d))
+        lo += n
+
+
+def _prefill_write(cache, k, v, prefill_len):
+    """A prefill's K / V into a layer's cache (``_attend``'s writes); a
+    cache cut by sequence takes each part's slots."""
+    if not isinstance(cache["k"], Shards):
+        for name, new in (("k", k), ("v", v)):
+            _prefill_write_one(cache[name], new, prefill_len)
+        return
+    for name, new in (("k", k), ("v", v)):
+        sh = cache[name]
+        full = torch.zeros(sh.shape, dtype=sh.dtype, device=new.device)
+        _prefill_write_one(full, new, prefill_len)
+        lo = 0
+        for part in sh.parts:
+            n = part.shape[1]
+            part.copy_(full[:, lo:lo + n])                             # mutation
+            lo += n
+
+
+def _prefill_write_one(c, new, prefill_len):
+    S, cap = new.shape[1], c.shape[1]
+    if cap >= S:
+        attn.chunk_write(c, new, 0)
+    else:
+        length = S if prefill_len is None else prefill_len
+        attn.ring_splice(c, new, 0, length, old=torch.zeros_like(c))
 
 
 def _rows(v, r: slice, n: int):
@@ -570,6 +690,7 @@ def apply_block(kind, p, x, cfg, *, positions, mode, cache, cache_len,
     sLSTM, ring attention) leave their cache as it is and return a record
     that ``verify_commit`` resolves once the accept step has picked each
     row's accepted length; linear full attention commits in place."""
+    p = sharding.fsdp_gathered(p)
     rec_mode = mode if mode in ("decode", "extend", "verify") else "full"
     rec_len = prefill_len if mode in ("prefill", "extend") else None
     rec_mask = prefill_mask if mode in ("prefill", "extend", "verify") else None
@@ -638,7 +759,9 @@ def _remat(policy: str):
     """How a period of layers runs under autograd (the JAX
     ``remat_policy``): "full" saves only its input and recomputes the rest
     in the backward (``nothing_saveable``), "minimal" also saves the matmul
-    outputs, "none" saves everything."""
+    outputs, "none" saves everything. The recompute runs in the backward,
+    on autograd's device thread for CUDA tensors, so it re-enters the
+    sharding rules the forward ran under (they are thread-local)."""
     if policy == "none":
         return lambda fn, *args: fn(*args)
     kw = dict(use_reentrant=False)
@@ -647,7 +770,17 @@ def _remat(policy: str):
             ckpt.create_selective_checkpoint_contexts, _minimal_policy)
     elif policy != "full":
         raise ValueError(f"remat_policy {policy!r}")
-    return lambda fn, *args: ckpt.checkpoint(fn, *args, **kw)
+
+    def run(fn, *args):
+        rules = sharding.current_rules()
+        if rules is None:
+            return ckpt.checkpoint(fn, *args, **kw)
+
+        def under_rules(*a):
+            with sharding.use_rules(rules):
+                return fn(*a)
+        return ckpt.checkpoint(under_rules, *args, **kw)
+    return run
 
 
 def _train_stack(params, x, cfg, positions):

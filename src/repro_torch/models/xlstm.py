@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.kernels.mlstm_chunk import NEG_INF, mlstm_chunk
 from repro_torch.models.layers import assign
 from repro_torch.models.rglru import causal_conv1d, gather_conv, gather_states
@@ -128,7 +129,7 @@ def slstm_scan(p, x, cfg, state=None, mask=None, all_states: bool = False):
         state = (zeros, zeros, zeros, torch.full_like(zeros, NEG_INF))
     c, n, h, m = state
     ys, stack = [], []
-    for t in range(S):
+    for t in tracing.loop(S):
         rec = torch.einsum("bhd,hgde->bhge", h.reshape(B, H, hd).to(x.dtype),
                            p.r_gates)
         g = gates_x[:, t].float() + rec.permute(0, 2, 1, 3).reshape(B, 4, D).float()
@@ -147,6 +148,9 @@ def slstm_scan(p, x, cfg, state=None, mask=None, all_states: bool = False):
         c, n, h, m = new
         if all_states:
             stack.append(new)
+    # a cost counter traces one step of the S alike (its trip count)
+    ys += ys[-1:] * (S - len(ys))
+    stack += stack[-1:] * (S - len(stack))
     y = torch.stack(ys, dim=1)
     if all_states:
         return y, tuple(torch.stack(s, dim=1) for s in zip(*stack))

@@ -19,10 +19,13 @@ top-k). The scheduler's inputs are staged into those buffers by one
 packed host-to-device copy. The CPU runs the same step functions eagerly.
 
 A decode chunk runs at most ``decode_chunk`` steps with no host sync
-inside (JAX exits its ``while_loop`` early once every row is done): a done
-row of a full-attention cache rewrites the same K/V at the same position
-and an empty paged row writes to trash page 0, so the extra steps change
-no result. Archs with per-slot state (recurrent, conv, xLSTM, ring KV) pass
+inside, and stops once every row is done, as JAX exits its ``while_loop``:
+on the card the chunk is one CUDA graph whose conditional while node
+replays the captured step (``kernels/decode_loop.py``), on the CPU the
+loop checks ``done`` after every step. Inside a chunk a done row of a
+full-attention cache rewrites the same K/V at the same position and an
+empty paged row writes to trash page 0, so the steps of other rows change
+no result of it. Archs with per-slot state (recurrent, conv, xLSTM, ring KV) pass
 ``keep = ~done`` to every decode step instead, so a done row's state stays
 bit for bit (the JAX package's ``select_rows``), one masked copy per state
 leaf. The scheduler then pulls everything in one transfer. Snapshot mode
@@ -32,6 +35,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import gc
 import random
 import threading
 import time
@@ -41,6 +45,7 @@ import torch
 
 from repro_torch.distributed import sharding
 from repro_torch.kernels import launch_counts
+from repro_torch.kernels.decode_loop import WhileGraph
 from repro_torch.models.transformer import DTYPES, tree_leaves, tree_map
 from repro_torch.serving.faults import DeadLetterError, RetryPolicy, TransientFault
 from repro_torch.serving.sampler import accept_batched, sample_batched
@@ -53,6 +58,23 @@ from repro_torch.serving.sampler import accept_batched, sample_batched
 # on during a capture: each capture is thread-local, on its own stream and
 # memory pool.
 _CAPTURE_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def _no_gc():
+    """No automatic garbage collection during a capture. A graph collected
+    there (a dropped ``torch.cuda.CUDAGraph`` of another server, or a
+    ``WhileGraph``) destroys its executable graph, and on the capturing
+    thread that call fails with cudaErrorStreamCaptureUnsupported and
+    invalidates the capture (``tests/test_torch_gpu.py``:
+    ``test_gpu_capture_with_garbage_graphs``)."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
 
 
 def slot_extract(cache, slot: int):
@@ -146,13 +168,16 @@ class EnginePrograms:
         self.watchdog_s = watchdog_s
         self.dispatch_retries = 0       # TransientFaults retried
         self.watchdog_stalls = 0        # dispatches slower than watchdog_s
-        self.decode_steps = 0           # decode steps run in decode chunks
+        self._decode_steps = 0          # decode steps run in decode chunks
         self.verify_steps = 0           # verify steps run
+        # the last chunk's while-graph launch, until its step count is known
+        # (``settle``): (program, launches a step, step buffer, counted)
+        self._pending = None
         self._retry_rng = random.Random(0)   # backoff jitter (deterministic)
         # step programs (card): static buffers by program, graphs by
         # (program, variant), bound to one (params, cache) pair
         self.graph_captures = collections.Counter()     # by program
-        self.graph_replays = collections.Counter()      # by program
+        self._graph_replays = collections.Counter()     # by program
         self._bufs = {}
         self._graphs = {}
         self._bound = None
@@ -160,6 +185,40 @@ class EnginePrograms:
         self._stream = None             # warm-up and capture stream
         self._pool = None               # the graphs' shared memory pool
         self._eager = False             # eager() on the card
+
+    @property
+    def decode_steps(self) -> int:
+        """Decode steps run in decode chunks (the last chunk settled)."""
+        self.settle()
+        return self._decode_steps
+
+    @property
+    def graph_replays(self) -> collections.Counter:
+        """Replayed steps by program (the last chunk settled)."""
+        self.settle()
+        return self._graph_replays
+
+    def chunk_steps(self):
+        """The last decode chunk's step count, a device int64 [1] (the
+        scheduler pulls it with the chunk's outputs; zeros before any)."""
+        bufs = self._bufs.get("decode")
+        if bufs is None:
+            return torch.zeros(1, dtype=torch.int64, device=self.device)
+        return bufs["step"]
+
+    def settle(self, ran=None):
+        """Count the steps of the last chunk launched as one while graph:
+        ``ran`` steps (the pulled ``chunk_steps()``), or read the step
+        buffer here (one sync) when no value is given. The launches of the
+        captured step count once per replayed step."""
+        if self._pending is None:
+            return
+        program, launches, buf, counted = self._pending
+        self._pending = None
+        ran = int(buf.item() if ran is None else ran)
+        self._decode_steps += ran
+        self._graph_replays[program] += ran - counted
+        launch_counts.add({k: v * (ran - counted) for k, v in launches.items()})
 
     # ---- guarded dispatch --------------------------------------------------
     def _run(self, site: str, fn, *args, **kwargs):
@@ -319,36 +378,53 @@ class EnginePrograms:
                 seg = seg.to(torch.int32).view(torch.float32)
             buf.copy_(seg)
 
-    def _run_steps(self, program: str, variant: str, step, n: int, params, cache):
-        """Run ``step`` (one step over static buffers) ``n`` times. On the
-        CPU, or inside ``eager()``, it runs as Python. On the card the first
-        call of each (program, variant) runs one real step eagerly on a side
-        stream as the warm-up, then captures the step into a CUDA graph
-        (all of this programs object's graphs share one memory pool) and
-        replays it for the remaining steps; later calls only replay. A
-        capture that fails, or reaches a host sync, raises: there is no
-        eager fallback on the card."""
+    def _run_steps(self, program: str, variant: str, step, n: int, params,
+                   cache, loop=None):
+        """Run ``step`` (one step over static buffers) ``n`` times, or, with
+        ``loop`` (buffers ``step``, ``nsteps`` = n and ``done``), while
+        ``step < nsteps`` and some row is not done. On the CPU, or inside
+        ``eager()``, it runs as Python (checking ``done`` on the host). On
+        the card the first call of each (program, variant) runs one real
+        step eagerly on a side stream as the warm-up, then captures the step
+        into a CUDA graph (all of this programs object's graphs share one
+        memory pool); later steps replay it, or, with ``loop``, run inside
+        one graph launch whose while node loops on the device
+        (``settle`` counts them once the step count is pulled). A capture
+        that fails, or reaches a host sync, raises: there is no eager
+        fallback on the card."""
         if n <= 0:
             return
         if not self.graphs or self._eager:
-            for _ in range(n):
+            ran = 0
+            while ran < n and (loop is None or not bool(loop["done"].all())):
                 step()
+                ran += 1
+            if loop is not None:
+                self._decode_steps += ran
             return
         if self._bound is None or self._bound[0] is not params \
                 or self._bound[1] is not cache:
             self._graphs.clear()            # graphs hold the old addresses
             self._bound = (params, cache)
         graph = self._graphs.get((program, variant))
+        counted = 0
         if graph is None:
-            graph = self._capture(step)
+            if loop is not None and bool(loop["done"].all()):
+                return                      # (a sync; a capture syncs anyway)
+            graph = self._capture(step, loop)
             self._graphs[program, variant] = graph
             self.graph_captures[program] += 1
             n -= 1                          # the warm-up was a real step
-        for _ in range(n):
-            graph.replay()
-        self.graph_replays[program] += n
+            counted = 1
+        if loop is None:
+            for _ in range(n):
+                graph.replay()
+            self._graph_replays[program] += n
+            return
+        graph.graph.launch()
+        self._pending = (program, graph.launches, loop["step"], counted)
 
-    def _capture(self, step):
+    def _capture(self, step, loop=None):
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
         if self._pool is None:
@@ -358,10 +434,10 @@ class EnginePrograms:
         with torch.cuda.stream(s):          # warm-up: builds and loads the
             step()                          # kernels, lazy library state
         cur.wait_stream(s)
-        graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph(keep_graph=loop is not None)
         launches = {}
         try:
-            with _CAPTURE_LOCK, launch_counts.captured(launches):
+            with _CAPTURE_LOCK, _no_gc(), launch_counts.captured(launches):
                 with torch.cuda.graph(graph, pool=self._pool, stream=s,
                                       capture_error_mode="thread_local"):
                     step()
@@ -370,6 +446,8 @@ class EnginePrograms:
             raise
         finally:
             torch.cuda.set_stream(cur)      # also when the capture failed
+        if loop is not None:
+            graph = WhileGraph(graph, loop["step"], loop["nsteps"], loop["done"])
         return launch_counts.Replayed(graph, launches)
 
     # ---- chunked decode ----------------------------------------------------
@@ -378,17 +456,19 @@ class EnginePrograms:
                          block_tables=None, steps=None):
         """Decode up to ``decode_chunk`` tokens for every slot on the device.
 
-        ``steps`` (default ``decode_chunk``) is the number of decode steps
-        run: the scheduler passes the most tokens any live row can still
-        emit under its budget and the capacity, which it knows on the host,
-        so a chunk stops where the reference's loop stops once every row
-        has hit its budget. ``tok_buf`` / ``emit_buf`` keep their
-        ``decode_chunk`` rows; rows past ``steps`` emit nothing.
+        ``steps`` (default ``decode_chunk``) is the most decode steps run:
+        the scheduler passes the most tokens any live row can still emit
+        under its budget and the capacity, which it knows on the host. The
+        chunk also stops once every row is done (an EOS), where the
+        reference's loop stops. ``tok_buf`` / ``emit_buf`` keep their
+        ``decode_chunk`` rows; rows past the steps run emit nothing.
 
         The inputs (host values or tensors) are staged into static buffers
-        and ``_decode_step`` runs ``steps`` times over them: as one CUDA
-        graph replayed per step on the card (``_run_steps``), eagerly on the
-        CPU. Per-slot done mask (EOS / budget / capacity); finished or empty
+        and ``_decode_step`` runs over them: on the card inside one CUDA
+        graph launch whose while node loops on the device (``_run_steps``;
+        ``chunk_steps()`` holds the count), eagerly on the CPU.
+
+        Per-slot done mask (EOS / budget / capacity); finished or empty
         slots keep running in the fixed batch but stop emitting and stop
         advancing (with ``freeze_done_rows``, their state rows are left bit
         for bit: a spec-handled slot sitting the chunk out decodes on from
@@ -405,22 +485,23 @@ class EnginePrograms:
                   "done": ((B,), torch.bool), "temps": ((B,), torch.float32),
                   "top_ks": ((B,), i32), "keys": ((B,), torch.int64),
                   "plens": ((B,), i32), "tok": ((chunk, B), i32),
-                  "emit": ((chunk, B), torch.bool), "step": ((1,), torch.int64)}
+                  "emit": ((chunk, B), torch.bool), "step": ((1,), torch.int64),
+                  "nsteps": ((1,), i32)}
         if block_tables is not None:
             shapes["bt"] = (tuple(block_tables.shape), i32)
+        self.settle()                       # before the step buffer is reused
         bufs = self._buffers("decode", shapes)
+        steps = chunk if steps is None else min(steps, chunk)
         self._stage(bufs, {"last": last_tok, "clens": cache_lens,
                            "rem": remaining, "done": done, "temps": temps,
                            "top_ks": top_ks, "keys": keys, "plens": prompt_lens,
-                           "bt": block_tables})
+                           "bt": block_tables, "nsteps": [steps]})
         for k in ("tok", "emit", "step"):
             bufs[k].zero_()
         variant = _variant(temps, top_ks)
-        steps = chunk if steps is None else min(steps, chunk)
-        self.decode_steps += steps
         self._run_steps("decode", variant,
                         lambda: self._decode_step(params, cache, bufs, variant),
-                        steps, params, cache)
+                        steps, params, cache, bufs)
         return (cache, bufs["tok"], bufs["emit"], bufs["clens"], bufs["rem"],
                 bufs["done"])
 

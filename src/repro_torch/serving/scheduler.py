@@ -1956,11 +1956,13 @@ class Scheduler:
             # state in a single transfer
             chunk = tok_buf.shape[0]
             pulled = torch.cat([tok_buf.flatten(), emit_buf.flatten().int(),
-                                clens, rem, done.int()]).cpu().numpy()
+                                clens, rem, done.int(),
+                                self.progs.chunk_steps().int()]).cpu().numpy()
+            self.progs.settle(pulled[-1])
             n = chunk * self.num_slots
             tok_buf = pulled[:n].reshape(chunk, self.num_slots)
             emit_buf = pulled[n:2 * n].reshape(chunk, self.num_slots) != 0
-            clens_h, rem_h, done_h = pulled[2 * n:].reshape(3, self.num_slots)
+            clens_h, rem_h, done_h = pulled[2 * n:-1].reshape(3, self.num_slots)
         except Exception as e:
             # failure isolation: a dead-lettered decode dispatch (retries
             # exhausted / injected corruption) fails only the slots in this

@@ -13,7 +13,9 @@ tensors keyed by the parameters' state-dict names. Where the JAX update is
 a pure function, this one updates the parameters, ``m`` and ``v`` in place
 and returns them: at 3 B parameters a second copy of the float32 moments
 alone would be 25 GB. The clip is applied leaf by leaf inside the update,
-so no float32 copy of all the gradients is made.
+so no float32 copy of all the gradients is made. A leaf laid out on a
+mesh (``Shards`` / ``Fsdp``) has moments of the same layout and updates
+part by part (``sharding.zip_parts``).
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from typing import Dict, Iterable, Mapping
 import torch
 
 from repro_torch.checkpoint.checkpoint import OptState
+from repro_torch.distributed.sharding import leaf_parts, map_parts, zip_parts
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,11 +53,15 @@ def named_params(params) -> Dict[str, torch.Tensor]:
 def init_opt_state(params) -> OptState:
     """Step 0 and zero float32 moments shaped like the params."""
     named = named_params(params)
-    dev = next(iter(named.values())).device
-    zeros = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-             for n, p in named.items()}
+    dev = leaf_parts(next(iter(named.values())))[0].device
+
+    def zeros():
+        return {n: map_parts(lambda t: torch.zeros(t.shape, dtype=torch.float32,
+                                                   device=t.device), p)
+                for n, p in named.items()}
+
     return OptState(step=torch.zeros((), dtype=torch.int32, device=dev),
-                    m=zeros, v={n: z.clone() for n, z in zeros.items()})
+                    m=zeros(), v=zeros())
 
 
 def schedule(cfg: AdamWConfig, step) -> torch.Tensor:
@@ -86,22 +93,22 @@ def adamw_update(cfg: AdamWConfig, params, grads: Mapping[str, torch.Tensor],
     docstring). ``grads`` maps every parameter's name to its gradient (any
     float dtype). Returns (params, state, {"grad_norm", "lr"})."""
     named = named_params(params)
-    gn = global_norm(grads[n] for n in named)
+    gn = global_norm(t for n in named for t in leaf_parts(grads[n]))
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gn, min=1e-9), max=1.0)
     step = state.step + 1
     lr = schedule(cfg, step)
     sf = step.to(torch.float32)
     b1c = 1 - cfg.b1 ** sf
     b2c = 1 - cfg.b2 ** sf
-    for name, p in named.items():
-        g = grads[name].float() * scale
-        m, v = state.m[name], state.v[name]
-        m.mul_(cfg.b1).add_(g, alpha=1 - cfg.b1)
-        v.mul_(cfg.b2).add_(g.square_(), alpha=1 - cfg.b2)
-        denom = torch.div(v, b2c, out=g).sqrt_().add_(cfg.eps)
-        delta = (m / b1c).div_(denom)
-        pf = p.float()
-        delta.add_(pf, alpha=cfg.weight_decay)
-        p.copy_(pf - lr * delta)
+    for name, leaf in named.items():
+        for p, g, m, v in zip_parts(leaf, grads[name], state.m[name], state.v[name]):
+            g = g.float() * scale
+            m.mul_(cfg.b1).add_(g, alpha=1 - cfg.b1)
+            v.mul_(cfg.b2).add_(g.square_(), alpha=1 - cfg.b2)
+            denom = torch.div(v, b2c, out=g).sqrt_().add_(cfg.eps)
+            delta = (m / b1c).div_(denom)
+            pf = p.float()
+            delta.add_(pf, alpha=cfg.weight_decay)
+            p.copy_(pf - lr * delta)
     return params, OptState(step=step, m=state.m, v=state.v), {
         "grad_norm": gn, "lr": lr}

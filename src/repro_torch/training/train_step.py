@@ -10,6 +10,12 @@ microbatch's gradients go into float32 buffers as ``g / n`` (the
 reference's ``grads_acc``), not into the parameters' own ``.grad``, which
 holds one microbatch at a time in the parameters' dtype.
 
+The params may also be a ``sharding.Placed`` tree laid out under a
+baseline table (``place_params(..., trainable=True)``, run under
+``sharding.use_rules``): its leaves are ``Shards`` / ``Fsdp`` of parts, the
+gradients, accumulators and AdamW moments take the same layout, and every
+update runs part by part.
+
 ``state_to_jax`` and ``state_from_jax`` carry ``(params, OptState)``
 to and from the JAX package's tree (the layout of its checkpoints and of
 ``examples/train_lm.py``'s).
@@ -21,7 +27,9 @@ from typing import Dict
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.checkpoint.checkpoint import OptState
+from repro_torch.distributed.sharding import leaf_parts, map_parts, zip_parts
 from repro_torch.models import convert
 from repro_torch.models import transformer as tfm
 from repro_torch.training.optimizer import AdamWConfig, adamw_update
@@ -47,11 +55,14 @@ def decompress_int8(q, scale):
 
 def grads_roundtrip_int8(grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """Quantize and dequantize every gradient (a compressed all-reduce's
-    rounding, on one card)."""
+    rounding, on one card); a laid-out leaf's parts share its scale."""
     out = {}
     for name, g in grads.items():
-        q, s = compress_int8(g.to(torch.float32))
-        out[name] = decompress_int8(q, s).to(g.dtype)
+        scale = torch.clamp(max(torch.max(torch.abs(t.float())) for t in leaf_parts(g)),
+                            min=1e-8) / 127.0
+        out[name] = map_parts(lambda t, s=scale: decompress_int8(
+            torch.clamp(torch.round(t.float() / s), -127, 127).to(torch.int8),
+            s).to(t.dtype), g)
     return out
 
 
@@ -63,9 +74,10 @@ def loss_and_grads(params, batch, cfg):
         p.grad = None
     loss, metrics = tfm.train_loss(params, batch, cfg)
     loss.backward()
-    grads = {}
-    for name, p in params.named_parameters():
-        grads[name] = torch.zeros_like(p) if p.grad is None else p.grad
+    grads = {name: map_parts(lambda t: torch.zeros_like(t) if t.grad is None
+                             else t.grad, p)
+             for name, p in params.named_parameters()}
+    for p in params.parameters():
         p.grad = None
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
@@ -84,15 +96,18 @@ def make_train_step(model_cfg, train_cfg: TrainConfig):
         mb = B // n
         if n == 1:
             return loss_and_grads(params, batch, model_cfg)
-        acc = {name: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        acc = {name: map_parts(lambda t: torch.zeros(t.shape, dtype=torch.float32,
+                                                     device=t.device), p)
                for name, p in params.named_parameters()}
         loss_acc = torch.zeros((), dtype=torch.float32,
-                               device=next(params.parameters()).device)
-        for i in range(n):
+                               device=next(iter(params.parameters())).device)
+        # a tracer runs one microbatch, counted n times (tracing.loop)
+        for i in tracing.loop(n):
             micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
             loss, _, grads = loss_and_grads(params, micro, model_cfg)
             for name in acc:
-                acc[name].add_(grads.pop(name).float() / n)
+                for a, g in zip_parts(acc[name], grads.pop(name)):
+                    a.add_(g.float() / n)
             loss_acc = loss_acc + loss / n
         return loss_acc, {"nll": loss_acc}, acc
 

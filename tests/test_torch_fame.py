@@ -245,6 +245,9 @@ def test_port_imports_no_jax():
             bad[path.relative_to(ROOT).as_posix()] = hit
     assert len(_port_files()) > 50
     assert ROOT / "src" / "repro_torch" / "serving" / "fleet.py" in _port_files()
+    launch = ROOT / "src" / "repro_torch" / "launch"
+    for name in ("mesh.py", "input_specs.py", "cost.py", "dryrun.py"):
+        assert launch / name in _port_files()
     assert not bad, bad
 
 

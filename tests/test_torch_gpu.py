@@ -815,6 +815,202 @@ def test_gpu_graph_steps_match_eager(case):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["dense", "paged"])
+def test_gpu_while_chunk_stops_at_eos(mode, monkeypatch):
+    """Random weights with no EOS guard, so rows stop at EOS at different
+    steps: a chunk on the while graph runs the steps of the eager chunk,
+    which checks ``done`` on the host after every step, with equal ids;
+    the step count pulled with each chunk (``chunk_steps()``) equals the
+    steps the device ran (a counter the captured step itself advances),
+    and no decode step ran after every row's last emit
+    (``chip_smoke.count_run_on``)."""
+    from repro_torch.serving.programs import EnginePrograms
+    dev = _need_card()
+    chip_smoke = _chip_smoke()
+    monkeypatch.setattr(EnginePrograms, "_decode_chunk_fn",
+                        EnginePrograms._decode_chunk_fn)    # restored after
+    chip_smoke.count_run_on()
+    cfg = _qwen()
+    sd = Model(cfg, device="cpu").init(seed=4).state_dict()
+    prompts = [f"request {i}: " + "tool output line. " * (i + 1) for i in range(6)]
+    srv = _graph_server(cfg, sd, dev, cache_mode=mode)
+    hs = [srv.submit(p, SamplingParams(max_new_tokens=12)) for p in prompts]
+    srv.run_until_idle()
+    first = {}                  # the EOS id: a token most rows emit mid-way
+    for h in hs:
+        ids = h.request.output_ids
+        for t in set(ids[1:]):
+            first.setdefault(t, []).append(ids.index(t, 1))
+    eos = min(first, key=lambda t: (-len(first[t]), sum(first[t]) / len(first[t])))
+    out = {}
+    for how in ("eager", "graph"):
+        srv = _graph_server(cfg, sd, dev, cache_mode=mode)
+        progs = srv.engine.progs
+        srv.engine.tokenizer.eos_id = progs.eos_id = eos
+        ran = torch.zeros((), dtype=torch.int64, device=dev)
+        step, settle, pulled = progs._decode_step, progs.settle, []
+
+        def counted(*a, step=step, ran=ran, **kw):
+            ran.add_(1)                 # captured with the step: one per step run
+            return step(*a, **kw)
+
+        def spy(n=None, settle=settle, pulled=pulled, progs=progs):
+            if n is not None and progs._pending is not None:
+                pulled.append(int(n))
+            settle(n)
+
+        progs._decode_step, progs.settle = counted, spy
+        with (progs.eager() if how == "eager" else contextlib.nullcontext()):
+            hs = [srv.submit(p, SamplingParams(max_new_tokens=12)) for p in prompts]
+            srv.run_until_idle()
+        ids = [h.request.output_ids for h in hs]
+        out[how] = (ids, progs.decode_steps, srv.stats()["decode_chunks"])
+        assert progs.decode_steps == int(ran)
+        assert chip_smoke.run_on_steps(srv) == 0
+        if how == "graph":
+            assert pulled and sum(pulled) == int(ran)
+            assert max(pulled) <= srv.engine.engine_cfg.decode_chunk
+            assert progs.graph_captures["decode"] + progs.graph_replays["decode"] \
+                == progs.decode_steps
+    assert out["graph"] == out["eager"]
+    assert any(len(i) < 12 for i in out["graph"][0])    # some row hit EOS
+
+
+def _chip_smoke():
+    """The repository's ``chip_smoke.py`` as a module (its run-on count)."""
+    import sys
+    from pathlib import Path
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+    return chip_smoke
+
+
+def _while_graph(dev):
+    """A ``WhileGraph`` around a captured step that adds one to ``step``,
+    launched once (3 steps)."""
+    from repro_torch.kernels import decode_loop
+    step = torch.zeros(1, dtype=torch.int64, device=dev)
+    nsteps = torch.full((1,), 3, dtype=torch.int32, device=dev)
+    done = torch.zeros(2, dtype=torch.bool, device=dev)
+    s = torch.cuda.Stream(dev)
+    s.wait_stream(torch.cuda.current_stream(dev))
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g, stream=s, capture_error_mode="thread_local"):
+        step.add_(1)
+    wg = decode_loop.WhileGraph(g, step, nsteps, done)
+    wg.launch()
+    torch.cuda.synchronize()
+    assert int(step) == 3
+    return wg
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("destroy", ["immediate", "deferred"])
+def test_gpu_dropped_while_graph_inside_a_capture(destroy):
+    """A ``WhileGraph`` dropped and collected inside another graph's capture.
+    Destroying its executable graph there (what its ``__del__`` did first)
+    fails with cudaErrorStreamCaptureUnsupported (900) and invalidates the
+    capture; the deferred destroy keeps it until the next loop build, and
+    the capture completes."""
+    import ctypes
+    import gc
+    from repro_torch.kernels import decode_loop
+    dev = _need_card()
+    held = [_while_graph(dev)]
+    x = torch.zeros(4, device=dev)
+    s = torch.cuda.Stream(dev)
+    s.wait_stream(torch.cuda.current_stream(dev))
+    g = torch.cuda.CUDAGraph()
+    rc = []
+
+    def drop():
+        wg = held.pop()
+        if destroy == "immediate":
+            rc.append(decode_loop._entry("decode_loop_destroy", [ctypes.c_void_p])(wg._exec))
+            wg._exec = None
+        del wg
+        gc.collect()
+
+    def capture():
+        with torch.cuda.graph(g, stream=s, capture_error_mode="thread_local"):
+            x.add_(1)
+            drop()
+            x.add_(1)
+
+    if destroy == "immediate":
+        with pytest.raises(RuntimeError, match="capture"):
+            capture()
+        assert rc == [900]
+        return
+    capture()
+    assert len(decode_loop._dropped) == 1
+    g.replay()
+    torch.cuda.synchronize()
+    assert float(x[0]) == 2.0
+    fresh = _while_graph(dev)           # the next build destroys the dropped one
+    assert not decode_loop._dropped
+    del fresh
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("guard", [True, False])
+def test_gpu_capture_with_garbage_graphs(guard, monkeypatch):
+    """A replayed ``torch.cuda.CUDAGraph`` becomes cyclic garbage inside a
+    server's first decode capture, with automatic collections at every
+    allocation. Under ``programs._no_gc`` nothing is collected there and
+    the request completes; without it the collection destroys that graph's
+    executable inside the capture, the capture fails and the request ends
+    FAILED with the capture's error (how one request of a fleet run on the
+    card failed before the guard)."""
+    import gc
+    from repro_torch.serving import programs
+    dev = _need_card()
+    cfg = _qwen()
+    srv = _graph_server(cfg, _guarded_weights(cfg), dev, cache_mode="dense")
+    progs = srv.engine.progs
+    y = torch.zeros(4, device=dev)
+    s = torch.cuda.Stream(dev)
+    s.wait_stream(torch.cuda.current_stream(dev))
+    other = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(other, stream=s):
+        y.add_(1)
+    other.replay()
+    torch.cuda.synchronize()
+    holder = [other]
+    del other
+    step = progs._decode_step
+
+    def dropping(*a, **kw):
+        if holder and torch.cuda.is_current_stream_capturing():
+            cyc = [holder.pop()]
+            cyc.append(cyc)             # garbage only a collection frees
+            del cyc
+            for _ in range(200):        # allocations: collections, if enabled
+                [[] for _ in range(4)]
+        return step(*a, **kw)
+
+    progs._decode_step = dropping
+    if not guard:
+        monkeypatch.setattr(programs, "_no_gc", contextlib.nullcontext)
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        h = srv.submit(GRAPH_PROMPTS[0], SamplingParams(max_new_tokens=9))
+        srv.run_until_idle()
+    finally:
+        gc.set_threshold(*thresholds)
+    assert not holder
+    if guard:
+        assert h.request.status == "completed", repr(h.request.error)
+        assert progs.graph_captures["decode"] == 1
+    else:
+        assert h.request.status == "failed"
+        assert "capture" in str(h.request.error)
+
+
+@pytest.mark.gpu
 def test_gpu_host_sync_in_captured_step_raises():
     """A host sync inside the captured step: the chunk raises (the capture
     fails) instead of running the steps eagerly, no graph is kept, and the
@@ -867,9 +1063,9 @@ def test_gpu_graph_steps_under_the_background_pump(mode):
         threads = []
         capture = progs._capture
 
-        def spy(step, capture=capture, threads=threads):
+        def spy(step, *loop, capture=capture, threads=threads):
             threads.append(threading.get_ident())
-            return capture(step)
+            return capture(step, *loop)
 
         progs._capture = spy            # before any work reaches the pump
         with (progs.eager() if how == "eager" else contextlib.nullcontext()):
@@ -1374,3 +1570,87 @@ def test_gpu_mesh_server_matches_unsharded(mode):
         srv.close()
     assert all(len(x) == 10 for x in ids[True])
     assert ids[False] == ids[True]
+
+
+# ---------------------------------------------------------------------------
+# the baseline layouts (train / decode tables) on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_gpu_train_table_step_matches_unsharded():
+    """A float32 train step of a reduced qwen (accumulation 2) under the
+    train table on a (2, 2) mesh of ``cuda:0`` positions (FSDP over "data",
+    q heads and mlp over "model", row-parallel sums) equals the unsharded
+    step on the card: loss, every gradient leaf and the updated params
+    within 1e-5; flash launched on every "model" part and "data" shard."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.mesh import make_test_mesh
+    from repro_torch.training import data as tdata
+    from repro_torch.training import optimizer as topt
+    from repro_torch.training import train_step as tts
+    dev = _need_card()
+    cfg = _qwen()
+    sd = {k: v.to(dev) for k, v in Model(cfg, device="cpu").init(seed=0).state_dict().items()}
+    batch = tdata.SyntheticLM(tdata.DataConfig(global_batch=4, seq_len=64,
+                                               vocab_size=cfg.vocab_size), cfg,
+                              device=dev).batch_at(0)
+    step = tts.make_train_step(cfg, tts.TrainConfig(accum_steps=2))
+    ref = Model(cfg, device=dev).load(sd, trainable=True)
+    l0, _, g0 = step.loss_and_grads(ref, batch)
+    ref, _, _ = step(ref, topt.init_opt_state(ref), batch)
+    rules = shd.rules_for(make_test_mesh((2, 2), devices=dev), "train")
+    placed = shd.place_params(Model(cfg, device=dev).load(sd), rules, trainable=True)
+    before = kfa.launches
+    with shd.use_rules(rules):
+        l1, _, g1 = step.loss_and_grads(placed, batch)
+        torch.cuda.synchronize()
+        assert kfa.launches - before == 2 * cfg.num_layers * 2 * 2 * 2
+        placed, _, _ = step(placed, topt.init_opt_state(placed), batch)
+    assert abs(float(l1) - float(l0)) <= 1e-5 * abs(float(l0))
+    for k, g in g0.items():
+        assert float((shd.gather(g1[k]) - g).abs().max()) <= 1e-5, k
+    want, got = shd.full_state_dict(ref), shd.full_state_dict(placed)
+    for k, p in want.items():
+        assert float((got[k] - p).abs().max()) <= 1e-5, k
+
+
+@pytest.mark.gpu
+def test_gpu_decode_table_seqpar_matches_unsharded():
+    """Prefill under the prefill table and decode steps under the decode
+    table on a (1, 2) mesh of ``cuda:0`` positions: the cache cut by
+    sequence ("kv_seq"), the split kernel's partials per shard and one
+    combine; greedy ids equal the unsharded model's, logits within 1e-5."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.mesh import make_test_mesh
+    dev = _need_card()
+    cfg = _qwen()
+    params = Model(cfg, device=dev).init(seed=0)
+    B, S, cap = 2, 40, 256
+    g = torch.Generator().manual_seed(0)
+    tok = torch.randint(0, 500, (B, S), generator=g).to(dev)
+    rules_pf = shd.rules_for(make_test_mesh((1, 2), devices=dev), "prefill")
+    rules_dec = shd.rules_for(rules_pf["mesh"], "decode")
+    out = {}
+    for how in ("unsharded", "mesh"):
+        p = params if how == "unsharded" else shd.place_params(params, rules_pf)
+        cache = ttfm.init_cache(cfg, B, cap, dev)
+        if how == "mesh":
+            cache = shd.shard_put(cache, shd.cache_pspecs(cfg, rules_pf), rules_pf["mesh"])
+        ctx = (lambda r: contextlib.nullcontext()) if how == "unsharded" else shd.use_rules
+        pos = torch.arange(S, device=dev).expand(B, S)
+        with ctx(rules_pf):
+            lg, cache = ttfm.prefill(p, {"tokens": tok, "positions": pos}, cfg, cache)
+        nxt, logits, ids = lg[:, -1].argmax(-1), [], []
+        for i in range(8):
+            clen = torch.full((B,), S + i, dtype=torch.int32, device=dev)
+            with ctx(rules_dec):
+                lg, cache = ttfm.decode_step(p, {"tokens": nxt[:, None],
+                                                 "positions": clen[:, None].long()},
+                                             cfg, cache, clen)
+            nxt = lg[:, 0].argmax(-1)
+            logits.append(lg[:, 0])
+            ids.append(nxt)
+        out[how] = (torch.stack(logits), torch.stack(ids))
+    assert torch.equal(out["mesh"][1], out["unsharded"][1])
+    assert float((out["mesh"][0] - out["unsharded"][0]).abs().max()) <= 1e-5

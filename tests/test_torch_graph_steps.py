@@ -253,6 +253,35 @@ def test_decode_step_equals_the_loop_at_real_temperatures(mode):
         x = _next(x, got)
 
 
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_chunk_stops_once_every_row_is_done(mode):
+    """Rows that stop at different steps, one at EOS: the chunk runs the
+    steps of the JAX loop (which exits once every row is done), fewer than
+    its step bound, with equal buffers and carries."""
+    jeng, teng = _admitted(mode)
+    x = dict(_carries(teng), rem=np.full(3, 12, np.int32))
+    steps = _steps(teng, x)
+    args = _port_args(teng, x)
+    probe = _loop_chunk(teng.progs, args[0], _clone(teng.cache), *args[2:])
+    tok = probe[1].numpy()
+    # a row r whose token k (k >= 1) is new in it stops there at EOS; the
+    # other two stop at their budgets after one and two steps
+    r, k = next((r, k) for r in range(3) for k in (1, 2)
+                if tok[k, r] not in tok[:k, r])
+    eos = int(tok[k, r])
+    x["rem"] = np.array([1, 2, 2], np.int32)
+    x["rem"][r] = 12
+    x["rem"][(r + 1) % 3] = 1
+    jeng.progs.eos_id = teng.progs.eos_id = eos
+    before = teng.progs.decode_steps
+    want, got = _jax_chunk(jeng, x), _port_chunk(teng, x)
+    _same(got, want)
+    ran = teng.progs.decode_steps - before
+    assert ran == int(want[1].any(axis=1).sum()) == k + 1 < steps
+    assert int(teng.progs.chunk_steps()) == ran
+    assert got[4].all() and got[0][k, r] == eos
+
+
 # ---------------------------------------------------------------------------
 # staging across chunks
 # ---------------------------------------------------------------------------

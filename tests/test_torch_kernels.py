@@ -210,7 +210,8 @@ def test_build_commands_target_sm90a():
     srcs = {Path(c[c.index("-c") + 1]).name for c in cmds}
     assert srcs == {"flash_attention.cu", "flash_attention_wgmma.cu",
                     "split_decode_attention.cu", "spec_scan.cu",
-                    "rglru_scan.cu", "mlstm_chunk.cu", "mlstm_chunk_wgmma.cu"}
+                    "rglru_scan.cu", "mlstm_chunk.cu", "mlstm_chunk_wgmma.cu",
+                    "decode_loop.cu"}
     for c in cmds + [link]:
         assert "arch=compute_90a,code=sm_90a" in c
     assert "-shared" in link and lib.suffix == ".so"
