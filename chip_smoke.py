@@ -18,7 +18,11 @@ no result line) on any fault:
      prefill and, as rows of their own, at recurrentgemma-9b's
      (``flash_attention_hd256``: hd 256, one KV head, window 2048) and at
      mixtral-8x22b's (``flash_attention_swa``: q [1,8192,48,128], 8 KV
-     heads, G = 6, window 4096); so is the ring decode
+     heads, G = 6, window 4096); the flash backward kernel at
+     recurrentgemma-9b's train microbatch (``flash_attention_bwd_hd256``:
+     [2,2048,16,256], one KV head, window 2048; gradients against plain
+     autograd, two calls bit-identical, call and device ms beside the
+     plain backward's and SDPA's backward); so is the ring decode
      (``decode_attention_ring``: recurrentgemma's 2048-slot ring, hd 256,
      one KV head; ``decode_attention_swa_ring``: mixtral's 4096-slot ring,
      hd 128, G = 6, cache lengths across the wrap); the multi-query
@@ -143,14 +147,16 @@ no result line) on any fault:
      ``make_train_step``: SyntheticLM batches of 4 x 2048 tokens in 2
      microbatches, AdamW (lr 1e-4), 16 steps; the loss falls by >= 1.5,
      flash forward launches == 2 x 36 x 2 x 16 (each layer's forward and
-     its recompute)
-     and no other kernel; per-step loss, grad norm, lr, wall and tokens/s,
-     peak memory, the split of a step into forward + backward and
-     optimizer, one profiled step (the written-out flash backward's device
-     ms and share) and the 8·N·T share of the bf16 peak. Then the flash
-     kernel at the train shape (row ``flash_attention_train``: forward
-     against plain, the autograd.Function's gradients against plain
-     autograd, the backward's time beside SDPA's), one step's gradients
+     its recompute) on wgmma, backward launches == 36 x 2 x 16 on
+     wgmma_bwd, and no other kernel; per-step loss, grad norm, lr, wall and
+     tokens/s, peak memory, the split of a step into forward + backward and
+     optimizer, one profiled step (the flash backward kernels' device ms
+     and share) and the 8·N·T share of the bf16 peak. Then the flash
+     kernels at the train shape (rows ``flash_attention_train``: forward
+     against plain, and ``flash_attention_bwd``: the autograd.Function's
+     gradients against plain autograd, two backward calls bit-identical,
+     the backward's call and device ms beside the plain backward's and
+     SDPA's backward's), one step's gradients
      through the kernel path against plain autograd at reduced float32 and
      bf16 configs (GQA, causal and windowed), and 2 of 36 layers trained 3
      steps, saved, restored into fresh params and resumed against the
@@ -190,10 +196,11 @@ no result line) on any fault:
      ``stateful_train_launches`` (rglru_scan 3 a recurrent layer,
      microbatch and step: forward, recompute and the reverse scan of its
      gradient, on the chunked route; mlstm_chunk 2 an mLSTM layer on the
-     wgmma route; flash 2 an attention layer; nothing else); per-step
+     wgmma route; flash 3 an attention layer, forward and recompute on
+     wgmma and the backward kernel on wgmma_bwd; nothing else); per-step
      loss, grad norm, wall and tokens/s, peak memory, the second-last step
      split into forward + backward and optimizer, the last under the
-     profiler (recurrentgemma: the written-out backwards' busy ms) or with
+     profiler (recurrentgemma: the backwards' busy ms) or with
      the sLSTM loop timed on the host (xlstm; its device ms from one layer
      alone, the mLSTM backward's from the row below), the 8·N·T share. Then
      one step through the kernel path against plain autograd at reduced
@@ -209,12 +216,13 @@ no result line) on any fault:
      phase 3's 4-slot decode step and phase 13's paged decode step under
      the serve table on (1, 2): argument bytes against
      ``memory_allocated``, peak temp against ``max_memory_allocated``,
-     product FLOPs against the profiler's (``with_flops``; the written-out
-     flash backward's apart); then one line per cell of the committed
-     ``--all`` sweep on (32, 8).
+     product FLOPs against the profiler's (``with_flops``), the flash
+     backward kernel's analytic GFLOP against its launches on the card;
+     then one line per cell of the committed ``--all`` sweep on (32, 8).
  16. mesh_train: float32 qwen2.5-3b widths, 4 layers, on (2, 2)
      under the train table against the unsharded step (loss, gradients,
-     params; bound 1e-5); bf16 qwen, 36 layers, on (2, 1) (FSDP and batch
+     params; bound 1e-5; the flash backward on its float32 route); bf16
+     qwen, 36 layers, on (2, 1) (FSDP and batch
      over "data"), tok/s and peak beside phase 12's; a decode under the
      decode table with "kv_seq" on (1, 2) against unsharded (bound 2e-2).
 
@@ -546,6 +554,9 @@ def kernel_phase(dev):
     del ql, kl, vl
     rows["flash_attention_hd256"] = flash_window_row(
         dev, rnd, "flash_attention_hd256", S=4096, H=16, K=1, hd=256, win=2048)
+    # its backward kernel at recurrentgemma-9b's train microbatch (phase 14)
+    rows["flash_attention_bwd_hd256"] = flash_bwd_row(
+        dev, "flash_attention_bwd_hd256", 2, 2048, 16, 1, 256, window=2048)
     rows["decode_attention_ring"] = decode_ring_row(
         dev, rnd, "decode_attention_ring", W=2048, H=16, K=1, hd=256, win=2048,
         clens=[2999, 100, 2047, 4095])
@@ -3311,31 +3322,20 @@ def train_step_fn(cfg, lr=TRAIN_LR, accum=TRAIN_ACCUM):
 
 
 def flash_train_row(dev, mb):
-    """The flash kernel at the train step's shape (q [mb,2048,16,128], k/v
-    [mb,2048,2,128], bf16, causal): its forward against the plain version
-    (bf16 2e-2), and the autograd.Function's gradients against autograd of
-    the plain version (2e-2 relative to each gradient's largest value where
-    that exceeds 1); forward, plain, SDPA and bound times, and the written-
-    out backward's time beside SDPA's backward."""
+    """The flash forward kernel at the train step's shape (q
+    [mb,2048,16,128], k/v [mb,2048,2,128], bf16, causal): against the plain
+    version (bf16 2e-2); forward, plain, SDPA and bound times."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as kfa
     g = torch.Generator(device=dev).manual_seed(12)
     H, K, hd, S = 16, 2, 128, TRAIN_SEQ
-    q, k, v, do = (torch.randn(*s, generator=g, device=dev).to(torch.bfloat16)
-                   for s in ((mb, S, H, hd), (mb, S, K, hd), (mb, S, K, hd), (mb, S, H, hd)))
+    q, k, v = (torch.randn(*s, generator=g, device=dev).to(torch.bfloat16)
+               for s in ((mb, S, H, hd), (mb, S, K, hd), (mb, S, K, hd)))
     kw = dict(q_per_kv=H // K)
     fa = lambda: kfa.flash_attention(q, k, v, **kw)                 # noqa: E731
     fr = lambda: kfa.flash_attention_ref(q, k, v, **kw)             # noqa: E731
     err = check_close(f"train flash fwd bf16 [{mb},{S},{H},{hd}]", fa(), fr(), "bfloat16")
-    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
-    got = torch.autograd.grad(kfa.flash_attention(qg, kg, vg, **kw), (qg, kg, vg), do)
-    want = torch.autograd.grad(kfa.flash_attention_ref(qg, kg, vg, **kw), (qg, kg, vg), do)
-    for name, a, w in zip("qkv", got, want):
-        scale = max(1.0, float(w.float().abs().max()))
-        check_close(f"train flash d{name} (scaled by {scale:.3g})", a.float() / scale,
-                    w.float() / scale, "bfloat16")
-    del got, want, qg, kg, vg
     ms, plain = time_ms(fa, 20), time_ms(fr, 3, warmup=1)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     lf = lambda: F.scaled_dot_product_attention(                    # noqa: E731
@@ -3344,38 +3344,89 @@ def flash_train_row(dev, mb):
     dms, lib_dms = graph_ms(fa), graph_ms(lf)
     log(f"[kernels] flash_attention_train: device_ms={dms:.4f}, library_device_ms="
         f"{lib_dms:.4f} (CUDA-graph replay)")
-    o = fa()
-    bwd = lambda: kfa.flash_attention_bwd(q, k, v, o, do, **kw)     # noqa: E731
-    bwd_ms = time_ms(bwd, 5, warmup=1)
-    qs, ks, vs = (t.detach().clone().transpose(1, 2).requires_grad_() for t in (q, k, v))
-    out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
-    dot = do.transpose(1, 2)
-    lib_bwd = time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), dot,
-                                                  retain_graph=True), 10)
-    pairs = S * (S + 1) // 2
-    b_ms, b_by = bound("flash", mb, S, S, H, K, hd, 2, pairs)
-    # the backward's least time: 2.5x the forward's products (dS·K, dSᵀ·Q,
-    # Pᵀ·dO, dO·Vᵀ and the recomputed Q·Kᵀ), reading q, k, v, o, dO once and
-    # writing dq, dk, dv once, at the float32 rate it runs at
-    bb_ms, bb_by = bound("flash_bwd", mb, S, S, H, K, hd, 2, pairs)
-    log(f"[train] flash_attention_bwd (written-out PyTorch, float32 products, "
-        f"query blocks of 128) at [{mb},{S},{H},{hd}]: {bwd_ms:.4f} ms (its bound "
-        f"{bb_ms:.4f} by {bb_by} at the float32 rate); SDPA backward {lib_bwd:.4f} ms")
+    b_ms, b_by = bound("flash", mb, S, S, H, K, hd, 2, S * (S + 1) // 2)
     return dict(
         name="flash_attention_train", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
         replaces="src/repro/kernels/flash_attention.py:63",
         max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-        library_ms=lib, device_ms=dms, library_device_ms=lib_dms,
-        backward_ms=bwd_ms, backward_bound_ms=bb_ms, library_backward_ms=lib_bwd)
+        library_ms=lib, device_ms=dms, library_device_ms=lib_dms)
+
+
+def flash_bwd_row(dev, name, mb, S, H, K, hd, window=None):
+    """The flash backward kernel at a train microbatch's shape (bf16,
+    causal, optional window): the autograd.Function's gradients (forward
+    kernel, backward kernel, launched once on wgmma_bwd) against autograd
+    of the plain version (2e-2 relative to max(1, each gradient's largest
+    value)); two backward calls bit-identical; the backward's call ms and
+    device ms (CUDA-graph replay), the plain backward's ms, SDPA's backward
+    call ms and device ms (a graph of its forward and backward less one of
+    its forward), and the bound (``costs.flash_bwd`` at the bf16 rate)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import costs
+    from repro_torch.kernels import flash_attention as kfa
+    g = torch.Generator(device=dev).manual_seed(13)
+    G = H // K
+    q, k, v, do = (torch.randn(*s, generator=g, device=dev).to(torch.bfloat16)
+                   for s in ((mb, S, H, hd), (mb, S, K, hd), (mb, S, K, hd), (mb, S, H, hd)))
+    kw = dict(q_per_kv=G, window=window)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    before = kfa.launches_by_route["wgmma_bwd"]
+    got = torch.autograd.grad(kfa.flash_attention(qg, kg, vg, **kw), (qg, kg, vg), do)
+    torch.cuda.synchronize()
+    if kfa.launches_by_route["wgmma_bwd"] != before + 1:
+        raise AssertionError(f"{name}: the backward kernel did not launch once")
+    want = torch.autograd.grad(kfa.flash_attention_ref(qg, kg, vg, **kw), (qg, kg, vg), do)
+    err = 0.0
+    for n, a, w in zip("qkv", got, want):
+        scale = max(1.0, float(w.float().abs().max()))
+        err = max(err, check_close(f"{name} d{n} [{mb},{S},{H},{hd}] K={K} window={window} "
+                                   f"(scaled by {scale:.3g})", a.float() / scale,
+                                   w.float() / scale, "bfloat16"))
+    del got, want, qg, kg, vg
+    o, lse = kfa._forward(q, k, v, with_lse=True, **kw)
+    bwd = lambda: kfa._launch_bwd(q, k, v, o, do, lse, G, window, 0)   # noqa: E731
+    first, second = bwd(), bwd()
+    if not all(torch.equal(x, y) for x, y in zip(first, second)):
+        raise AssertionError(f"{name}: two backward calls on the same inputs differ")
+    del first, second
+    ms, dms = time_ms(bwd, 20), graph_ms(bwd)
+    plain = time_ms(lambda: kfa.flash_attention_bwd(q, k, v, o, do, lse=lse, **kw), 3,
+                    warmup=1)
+    if window is not None and window < S:
+        raise AssertionError(f"{name}: SDPA's yardstick here is causal only")
+    qs, ks, vs = (t.detach().clone().transpose(1, 2).requires_grad_() for t in (q, k, v))
+    dot = do.transpose(1, 2)
+    sdpa = lambda: F.scaled_dot_product_attention(                  # noqa: E731
+        qs, ks, vs, is_causal=True, enable_gqa=True)
+    out = sdpa()
+    lib = time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), dot, retain_graph=True), 10)
+    del out
+    lib_fb = graph_ms(lambda: torch.autograd.grad(sdpa(), (qs, ks, vs), dot))
+    lib_dms = lib_fb - graph_ms(sdpa)
+    pairs = costs.flash_pairs(S, window=window)
+    b_ms, b_by = bound("flash_bwd", mb, S, S, H, K, hd, 2, pairs, "bf16")
+    log(f"[kernels] {name} at [{mb},{S},{H},{hd}] K={K} window={window}: {ms:.4f} ms a "
+        f"call, {dms:.4f} device ms (CUDA-graph replay; split "
+        f"{kfa.bwd_splits(mb, S, K, G, torch.bfloat16)}), bound {b_ms:.4f} by {b_by}; "
+        f"plain (written-out float32) {plain:.4f} ms; SDPA backward {lib:.4f} ms a call, "
+        f"{lib_dms:.4f} device ms (forward + backward graph {lib_fb:.4f} less the "
+        f"forward's); two calls bit-identical")
+    return dict(
+        name=name, route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd_wgmma.cu",
+        replaces="src/repro/kernels/flash_attention.py:63",
+        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+        library_ms=lib, device_ms=dms, library_device_ms=lib_dms)
 
 
 def profile_train_step(step, params, opt, batch, ranges=("flash_attention_bwd",),
-                       kernels=("flash_wgmma",)):
+                       kernels=("flash_wgmma", "flash_bwd")):
     """One train step under torch.profiler. Returns (params, opt, a dict):
     ``wall_ms`` of the profiled step; ``kernel_ms``, every kernel's self
     time; for each name of ``ranges`` (the ``record_function`` ranges of
-    the written-out backwards), ``busy[name]``, the kernels launched inside
+    the backwards), ``busy[name]``, the kernels launched inside
     it, ``span[name]``, the device timeline it spans, idle gaps included,
     and ``host[name]``, its host time; ``metrics``, the step's; for each
     substring of ``kernels``, ``by_kernel[sub]``, the
@@ -3437,10 +3488,12 @@ def train_grad_checks(dev):
             batch = tdata.SyntheticLM(tdata.DataConfig(global_batch=2, seq_len=256,
                                                        vocab_size=cfg.vocab_size),
                                       cfg, device=dev).batch_at(1)
-            before = kfa.launches
+            before, bwd0 = kfa.launches, dict(kfa.launches_by_route)
             loss, _, grads = tts.loss_and_grads(params, batch, cfg)
             grads = {n: g.float().clone() for n, g in grads.items()}
             launched = kfa.launches - before
+            route = kfa.BWD_ROUTES[getattr(torch, dt)]
+            bwd = kfa.launches_by_route[route] - bwd0[route]
             real = tfm.flash_attention
             tfm.flash_attention = kfa.flash_attention_ref
             try:
@@ -3453,10 +3506,11 @@ def train_grad_checks(dev):
                         for n, g in grads_p.items())
             dl = abs(float(loss) - float(loss_p)) / abs(float(loss_p))
             log(f"[train] kernel path vs plain autograd, {dt}, window={window}, GQA "
-                f"4/2: flash launches {launched} (2 x {cfg.num_layers} layers), loss "
-                f"rel diff {dl:.3e} (tol {loss_tol}), worst grad leaf rel diff "
-                f"{worst:.3e} (tol {tol})")
-            if launched != 2 * cfg.num_layers or not dl <= loss_tol or not worst <= tol:
+                f"4/2: flash launches {launched} (3 x {cfg.num_layers} layers: forward, "
+                f"recompute, backward; {bwd} on {route}), loss rel diff {dl:.3e} (tol "
+                f"{loss_tol}), worst grad leaf rel diff {worst:.3e} (tol {tol})")
+            if launched != 3 * cfg.num_layers or bwd != cfg.num_layers \
+                    or not dl <= loss_tol or not worst <= tol:
                 raise AssertionError(f"train: kernel-path grads differ ({dt}, "
                                      f"window={window})")
             del params, grads, grads_p
@@ -3543,14 +3597,16 @@ def train_phase(dev, card):
     random weights from seed 0, remat full), SyntheticLM batches of 4 x
     2048 tokens (data vocab 256), AdamW(lr 1e-4, warmup 3, total 20),
     accumulation over 2 microbatches, 16 steps: per-step loss, grad norm,
-    lr, wall ms and tokens/s; flash launches == 2 x layers x microbatches
-    x steps (forward and recompute); the loss falls by >= 1.5; peak memory;
-    a step split into forward + backward and optimizer; one profiled step
-    (the written-out flash backward's device ms per layer and its share);
-    the 8·N·T FLOP share of the bf16 peak. Then the flash kernel at the
-    train shape, the kernel path's gradients against plain autograd at
-    reduced configs, and a save / restore / resume. Returns (the kernel
-    row, the launch counts of the training steps)."""
+    lr, wall ms and tokens/s; flash forward launches == 2 x layers x
+    microbatches x steps (forward and recompute) on wgmma and backward
+    launches == layers x microbatches x steps on wgmma_bwd; the loss falls
+    by >= 1.5; peak memory; a step split into forward + backward and
+    optimizer; one profiled step (the flash backward kernels' device ms per
+    layer and their share); the 8·N·T FLOP share of the bf16 peak. Then
+    the flash kernels at the train shape, the kernel path's gradients
+    against plain autograd at reduced configs, and a save / restore /
+    resume. Returns (the kernel rows, the launch counts of the training
+    steps)."""
     import torch
     from repro_torch.configs.registry import ARCHS
     from repro_torch.models import Model
@@ -3592,14 +3648,19 @@ def train_phase(dev, card):
     counts = kernel_counts()
     peak = torch.cuda.max_memory_allocated()
     want = 2 * cfg.num_layers * TRAIN_ACCUM * TRAIN_STEPS
-    log(f"[train] flash forward launches {counts['flash_attention']} (2 x "
-        f"{cfg.num_layers} layers x {TRAIN_ACCUM} microbatches x {TRAIN_STEPS} steps "
-        f"= {want}; wgmma {counts['flash_attention/wgmma']}); other kernels "
+    want_bwd = cfg.num_layers * TRAIN_ACCUM * TRAIN_STEPS
+    log(f"[train] flash launches {counts['flash_attention']}: forward on wgmma "
+        f"{counts['flash_attention/wgmma']} (2 x {cfg.num_layers} layers x {TRAIN_ACCUM} "
+        f"microbatches x {TRAIN_STEPS} steps = {want}), backward on wgmma_bwd "
+        f"{counts['flash_attention/wgmma_bwd']} ({want_bwd}); other kernels "
         f"{ {k: n for k, n in counts.items() if n and not k.startswith('flash')} }; "
         f"peak memory {gb(peak)} GB; loss {losses[0]:.4f} -> {losses[-1]:.4f}")
     TRAIN_RECORD.update(tok_s=tokens / statistics.median(walls[1:]) * 1e3, peak=peak)
-    if counts["flash_attention"] != want or counts["flash_attention/wgmma"] != want:
-        raise AssertionError(f"train: flash launches {counts['flash_attention']} != {want}")
+    if counts["flash_attention"] != want + want_bwd or \
+            counts["flash_attention/wgmma"] != want or \
+            counts["flash_attention/wgmma_bwd"] != want_bwd:
+        raise AssertionError(f"train: flash launches {counts} break the rule "
+                             f"({want} forward, {want_bwd} backward)")
     if any(n for k, n in counts.items() if not k.startswith("flash")):
         raise AssertionError("train: a kernel other than flash launched")
     if not all(math.isfinite(x) for x in losses) or \
@@ -3631,7 +3692,7 @@ def train_phase(dev, card):
         f"({tokens / step_s:.1f} tok/s, steps 2-{TRAIN_STEPS - 1})")
     busy, span = prof["busy"]["flash_attention_bwd"], prof["span"]["flash_attention_bwd"]
     if busy > 0:
-        share = (f"flash_attention_bwd kernels {busy:.2f} device ms = "
+        share = (f"flash backward kernels (flash_attention_bwd range) {busy:.2f} device ms = "
                  f"{busy / n_bwd:.3f} per layer and microbatch ({n_bwd} calls), "
                  f"{100 * busy / prof['kernel_ms']:.1f}% of the kernel time; its "
                  f"ranges span {span:.2f} ms of the device timeline "
@@ -3641,7 +3702,8 @@ def train_phase(dev, card):
     log(f"[train] profiled step: wall {prof['wall_ms']:.2f} ms, kernels "
         f"{prof['kernel_ms']:.2f} device ms (device idle "
         f"{100 * (1 - prof['kernel_ms'] / prof['wall_ms']):.1f}%); {share}; flash "
-        f"forward kernels {prof['by_kernel']['flash_wgmma']:.2f} device ms")
+        f"forward kernels {prof['by_kernel']['flash_wgmma']:.2f} device ms, backward "
+        f"kernels by name {prof['by_kernel']['flash_bwd']:.2f} device ms")
     for name, ms, n in prof["top"]:
         log(f"[train]   top kernel {ms:9.2f} ms / {n:5d} calls  {name}")
     log(f"[train] 8·N·T = {flops:.4e} FLOP a step (N={n_params}, T={tokens}, remat "
@@ -3652,13 +3714,21 @@ def train_phase(dev, card):
     gc.collect()
     torch.cuda.empty_cache()
 
-    row = flash_train_row(dev, TRAIN_BATCH // TRAIN_ACCUM)
+    mb = TRAIN_BATCH // TRAIN_ACCUM
+    fwd = flash_train_row(dev, mb)
+    bwd = flash_bwd_row(dev, "flash_attention_bwd", mb, TRAIN_SEQ, 16, 2, 128)
+    # the train row carries its backward's columns too
+    fwd.update(backward_ms=bwd["ms"], backward_device_ms=bwd["device_ms"],
+               backward_bound_ms=bwd["bound_ms"], plain_backward_ms=bwd["plain_ms"],
+               library_backward_ms=bwd["library_ms"],
+               library_backward_device_ms=bwd["library_device_ms"])
+    rows = {"flash_attention_train": fwd, "flash_attention_bwd": bwd}
     train_grad_checks(dev)
     train_resume_check(dev)
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[train] phase wall_s={time.perf_counter() - t_phase:.3f}")
-    return row, counts
+    return rows, counts
 
 
 # ---------------------------------------------------------------------------
@@ -3687,22 +3757,27 @@ STATEFUL_TRAIN = {
 STATEFUL_LOSS_DROP = 0.5
 STATEFUL_TRAIN_S = 150      # the phase's time budget (seconds)
 STATEFUL_RANGES = ("rglru_scan_bwd", "mlstm_chunk_bwd", "flash_attention_bwd")
-STATEFUL_KERNELS = ("rglru_scan", "mlstm_", "flash_wgmma")
+STATEFUL_KERNELS = ("rglru_scan", "mlstm_", "flash_wgmma", "flash_bwd")
 
 
 def stateful_train_launches(cfg, accum, steps):
     """The launch rule of a train run under remat "full": a layer of a
     scanned period runs its forward twice (forward and recompute), a tail
-    layer once; rglru_scan adds the reverse scan of its backward; the
-    mLSTM's and flash's backwards launch nothing. Per microbatch and step."""
+    layer once; rglru_scan adds the reverse scan of its backward and flash
+    its backward kernel (counted apart too, as
+    ``"flash_attention/wgmma_bwd"``); the mLSTM's backward launches
+    nothing. Per microbatch and step."""
     scanned = len(cfg.pattern) * cfg.num_scan_groups
-    want = {"rglru_scan": 0, "mlstm_chunk": 0, "flash_attention": 0}
+    want = {"rglru_scan": 0, "mlstm_chunk": 0, "flash_attention": 0,
+            "flash_attention/wgmma_bwd": 0}
     kernel = {"recurrent": "rglru_scan", "mlstm": "mlstm_chunk",
               "local_attn": "flash_attention", "attn": "flash_attention"}
     for i, kind in enumerate(cfg.layer_kinds):
         if kind in kernel:
             name = kernel[kind]
-            want[name] += (2 if i < scanned else 1) + (name == "rglru_scan")
+            bwd = name in ("rglru_scan", "flash_attention")
+            want[name] += (2 if i < scanned else 1) + bwd
+            want["flash_attention/wgmma_bwd"] += name == "flash_attention"
     return {k: n * accum * steps for k, n in want.items()}
 
 
@@ -3785,7 +3860,7 @@ def stateful_train_run(dev, card, arch):
     per-step loss, grad norm, wall and tok/s; launches against
     ``stateful_train_launches``; peak memory; the second-last step split
     into forward + backward and optimizer; the last step under the
-    profiler (the written-out backwards' busy and host ms, the stateful
+    profiler (the backwards' busy and host ms, the stateful and flash
     kernels' device ms) or, where the arch has sLSTM layers, with the
     loop's forward and backward timed on the host (``slstm_timed``) and
     its device ms taken from one layer alone (``slstm_device_ms``); the
@@ -3861,10 +3936,12 @@ def stateful_train_run(dev, card, arch):
     want = stateful_train_launches(cfg, accum, n)
     log(f"{tag}: launches { {k: c for k, c in counts.items() if c} } (rule {want}); "
         f"peak memory {gb(peak)} GB; loss {losses[0]:.4f} -> {losses[-1]:.4f}")
-    routed = {"rglru_scan": "chunked", "mlstm_chunk": "wgmma", "flash_attention": "wgmma"}
+    # each kernel's launches all on its train routes
+    routed = {"rglru_scan": ("chunked",), "mlstm_chunk": ("wgmma",),
+              "flash_attention": ("wgmma", "wgmma_bwd")}
     others = {k: c for k, c in counts.items() if c and "/" not in k and k not in want}
-    if any(counts[k] != c or counts[f"{k}/{routed[k]}"] != c for k, c in want.items()) \
-            or others:
+    if any(counts[k] != c for k, c in want.items()) or others or any(
+            sum(counts[f"{k}/{r}"] for r in rs) != want[k] for k, rs in routed.items()):
         raise AssertionError(f"stateful_train: {arch} launches {counts} break the "
                              f"rule {want}")
     if not all(math.isfinite(x) for x in losses + norms) or \
@@ -3884,7 +3961,8 @@ def stateful_train_run(dev, card, arch):
             f"{100 * (1 - prof['kernel_ms'] / prof['wall_ms']):.1f}%)")
         per = {"rglru_scan_bwd": ("reverse scan", want["rglru_scan"] // 3),
                "mlstm_chunk_bwd": ("mLSTM backward", want["mlstm_chunk"] // 2),
-               "flash_attention_bwd": ("flash backward", want["flash_attention"] // 2)}
+               "flash_attention_bwd": ("flash backward kernel",
+                                       want["flash_attention/wgmma_bwd"])}
         kernel_ms = prof["kernel_ms"] or math.nan
         for r in STATEFUL_RANGES:
             what, calls = per[r][0], per[r][1] // n
@@ -4088,7 +4166,8 @@ def stateful_grad_checks(dev):
             if len(recs) != sum(1 for k in cfg.layer_kinds if k in ("recurrent", "mlstm")):
                 bad.append(("calls recorded", len(recs)))
             dl = abs(float(loss) - float(loss_p)) / abs(float(loss_p))
-            want = {k: n for k, n in stateful_train_launches(cfg, 1, 1).items() if n}
+            want = {k: n for k, n in stateful_train_launches(cfg, 1, 1).items()
+                    if n and "/" not in k}      # by kernel; the routes follow dt
             worst_call = max(calls, key=lambda c: c[0])
             log(f"[stateful_train] kernel path vs plain autograd, {arch} reduced "
                 f"({cfg.num_layers} layers), {dt}: launches {launched} (rule {want}); "
@@ -4657,12 +4736,12 @@ SWEEP = ROOT / "results" / "torch" / "dryrun_single_pod.json"
 TRAIN_RECORD = {}           # phase 12's unsharded tok/s and peak, for mesh_train
 
 
-WRITTEN_OUT = ("flash_attention_bwd", "mlstm_chunk_bwd")
+WRITTEN_OUT = ("mlstm_chunk_bwd",)
 
 
 def profiled_products(fn):
     """The aten products' FLOPs (``with_flops``) of one call of ``fn``: the
-    total, and those under each written-out backward's profiler range."""
+    total, and those under the written-out mLSTM backward's profiler range."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU], with_flops=True) as prof:
@@ -4747,6 +4826,8 @@ def dryrun_phase(dev, card):
     from repro_torch.launch import cost
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.configs.registry import ARCHS
+    from repro_torch.kernels import costs
+    from repro_torch.kernels import flash_attention as kfa
     from repro_torch.models import Model
     from repro_torch.training import optimizer as topt
     from repro_torch.training import train_step as tts
@@ -4777,15 +4858,24 @@ def dryrun_phase(dev, card):
     temp = torch.cuda.max_memory_allocated() - base - args
     half = {k: v[:TRAIN_BATCH // TRAIN_ACCUM] for k, v in batch.items()}
     log(f"[dryrun] train step {time.perf_counter() - t1:.1f} s")
-    meas, meas_bwd = profiled_products(lambda: tts.loss_and_grads(params, half, cfg))
+    before = kfa.launches_by_route["wgmma_bwd"]
+    meas, _ = profiled_products(lambda: tts.loss_and_grads(params, half, cfg))
+    n_bwd = kfa.launches_by_route["wgmma_bwd"] - before
     log(f"[dryrun] train profiled {time.perf_counter() - t1:.1f} s")
     compare_line("train 36-layer qwen2.5-3b (1, 1)", "argument GB", p_args, args)
     compare_line("train", "peak temp GB", tr["peak_bytes"], temp)
     compare_line("train", "products GFLOP a microbatch", tr["product_flops"] / TRAIN_ACCUM,
                  meas)
-    compare_line("train", "of which the written-out flash backward's, GFLOP",
-                 tr["range_product_flops"].get("flash_attention_bwd", 0.0) / TRAIN_ACCUM,
-                 meas_bwd["flash_attention_bwd"])
+    # the backward kernel: the trace's analytic count against the launches
+    # the card made in the microbatch, each at costs.flash_bwd of its shape
+    mb = TRAIN_BATCH // TRAIN_ACCUM
+    per_call = sum(costs.flash_bwd(mb, TRAIN_SEQ, TRAIN_SEQ, cfg.num_heads,
+                                   cfg.num_kv_heads, cfg.head_dim, 2,
+                                   costs.flash_pairs(TRAIN_SEQ))[0].values())
+    compare_line("train", f"flash backward kernel's analytic GFLOP a microbatch "
+                 f"({n_bwd} launches on the card)",
+                 tr["kernel_flops_by"].get("flash_attention_bwd", 0.0) / TRAIN_ACCUM,
+                 n_bwd * per_call)
     log(f"[dryrun] train forward kernels' analytic GFLOP a microbatch (the trace's "
         f"count; the profiler sees no products in a kernel): "
         f"{tr['kernel_flops'] / TRAIN_ACCUM / 1e9:.2f}")
@@ -4879,6 +4969,7 @@ def mesh_train_phase(dev, card):
     from repro_torch.configs.registry import ARCHS
     from repro_torch.distributed import sharding as shd
     from repro_torch.distributed.mesh import make_test_mesh
+    from repro_torch.kernels import flash_attention as kfa
     from repro_torch.models import Model
     from repro_torch.models import transformer as tfm
     from repro_torch.training import optimizer as topt
@@ -4894,6 +4985,7 @@ def mesh_train_phase(dev, card):
     batch = train_data(cfg, dev, batch=4, seq=256).batch_at(0)
     step = tts.make_train_step(cfg, tts.TrainConfig())
     ref = Model(cfg, device=dev).load(sd, trainable=True)
+    reset_counts()
     l0, _, g0 = step.loss_and_grads(ref, batch)
     ref, _, _ = step(ref, topt.init_opt_state(ref), batch)
     rules = shd.rules_for(make_test_mesh((2, 2), devices=dev), "train")
@@ -4901,6 +4993,14 @@ def mesh_train_phase(dev, card):
     with shd.use_rules(rules):
         l1, _, g1 = step.loss_and_grads(placed, batch)
         placed, _, _ = step(placed, topt.init_opt_state(placed), batch)
+    counts = kernel_counts()
+    log(f"[mesh_train] float32 flash launches: forward "
+        f"{counts['flash_attention/simt_f32']}, backward kernel on simt_f32_bwd "
+        f"{counts['flash_attention/simt_f32_bwd']} (wgmma_bwd "
+        f"{counts['flash_attention/wgmma_bwd']})")
+    if counts["flash_attention/simt_f32_bwd"] <= 0 or counts["flash_attention/wgmma_bwd"] \
+            or counts["flash_attention/wgmma"]:
+        raise AssertionError(f"mesh_train: float32 cells off the float32 routes: {counts}")
     dl = abs(float(l1) - float(l0)) / abs(float(l0))
     dg = max(_max_gap(shd.gather(g1[k]), g, rel=True) for k, g in g0.items())
     want, got = shd.full_state_dict(ref), shd.full_state_dict(placed)
@@ -4923,8 +5023,12 @@ def mesh_train_phase(dev, card):
     half = {k: v[:TRAIN_BATCH // TRAIN_ACCUM] for k, v in batch.items()}
     l0, _, g0 = tts.loss_and_grads(params, half, cfg)
     placed = shd.place_params(params, rules, trainable=True)
+    before = kfa.launches_by_route["wgmma_bwd"]
     with shd.use_rules(rules):
         l1, _, g1 = tts.loss_and_grads(placed, half, cfg)
+    if kfa.launches_by_route["wgmma_bwd"] - before != 2 * cfg.num_layers:
+        raise AssertionError("mesh_train: the (2, 1) microbatch did not run the bf16 "
+                             "backward kernel once a layer and \"data\" shard")
     dl = abs(float(l1) - float(l0)) / abs(float(l0))
     dg = max(_max_gap(shd.gather(g1[k]), g, rel=True) for k, g in g0.items())
     log(f"[mesh_train] bf16 qwen2.5-3b 36 layers, (2, 1) train table against "
@@ -5118,14 +5222,25 @@ def main() -> int:
         checkpoint_phase(dev)
         lap("checkpoint")
     if "train" in phases:
-        rows["flash_attention_train"], tc = train_phase(dev, card)
-        launches["flash_attention_train"] = tc["flash_attention"]
+        trows, tc = train_phase(dev, card)
+        rows.update(trows)
+        launches["flash_attention_train"] = tc["flash_attention/wgmma"]
+        launches["flash_attention_bwd"] = tc["flash_attention/wgmma_bwd"]
+        rows["flash_attention_bwd"]["routes"] = {
+            r: tc[f"flash_attention/{r}"] for r in ("wgmma_bwd", "simt_f32_bwd")}
         lap("train")
     if "stateful_train" in phases:
         srows, sc = stateful_train_phase(dev, card)
         rows.update(srows)
         launches["rglru_scan_train"] = sc["recurrentgemma-9b"]["rglru_scan"]
         launches["mlstm_chunk_train"] = sc["xlstm-350m"]["mlstm_chunk"]
+        # recurrentgemma-9b's flash backward calls: hd 256, one KV head
+        launches["flash_attention_bwd_hd256"] = \
+            sc["recurrentgemma-9b"]["flash_attention/wgmma_bwd"]
+        if "flash_attention_bwd_hd256" in rows:
+            rows["flash_attention_bwd_hd256"]["routes"] = {
+                r: sc["recurrentgemma-9b"][f"flash_attention/{r}"]
+                for r in ("wgmma_bwd", "simt_f32_bwd")}
         lap("stateful_train")
     if "dryrun" in phases:
         dryrun_phase(dev, card)
@@ -5143,7 +5258,8 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("device_ms", "library_device_ms", "backward_ms", "backward_device_ms",
-             "backward_bound_ms", "plain_backward_ms", "library_backward_ms")
+             "backward_bound_ms", "plain_backward_ms", "library_backward_ms",
+             "library_backward_device_ms", "routes")
     log(card)
     log(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
                                 for r in rows.values()]}))

@@ -3,9 +3,8 @@
 One source for two readers: the dry run's cost counter
 (``launch/cost.py``), which answers each kernel's operator with these
 counts, and ``chip_smoke.py``'s kernel rows, whose ``bound_ms`` is
-``bound_ms`` of the same counts (``flash_bwd`` and ``mlstm_bwd`` are the
-bounds of the written-out backwards, which the dry run counts as the ops
-they run). Each function returns ``(ops, nbytes)``: ``ops`` maps a rate
+``bound_ms`` of the same counts (``mlstm_bwd`` is the bound of the
+written-out mLSTM backward, which the dry run counts as the ops it runs). Each function returns ``(ops, nbytes)``: ``ops`` maps a rate
 ("bf16", "tf32", "f32": the tensor cores, TF32, or the CUDA cores) to the
 operations done at it; ``nbytes`` counts each input read once and each
 output written once. Where the work depends on the data (the cache rows a
@@ -46,16 +45,20 @@ def flash_pairs(S: int, window: Optional[int] = None, q_start: int = 0) -> int:
     return n1 * q_start + n1 * (n1 + 1) // 2 + (S - n1) * window
 
 
-def flash(B, S, T, H, K, hd, elt, pairs, r="bf16") -> Cost:
-    """Flash forward: q [B,S,H,hd], k / v [B,T,K,hd] read, o written;
-    q·kᵀ and p·v over ``pairs`` pairs a head and row."""
-    return {r: 4.0 * hd * H * pairs * B}, elt * B * (2 * S * H * hd + 2 * T * K * hd)
+def flash(B, S, T, H, K, hd, elt, pairs, r="bf16", lse: bool = False) -> Cost:
+    """Flash forward: q [B,S,H,hd], k / v [B,T,K,hd] read, o written (and
+    the rows' float32 log-sum-exp with ``lse``, training); q·kᵀ and p·v
+    over ``pairs`` pairs a head and row."""
+    return ({r: 4.0 * hd * H * pairs * B},
+            elt * B * (2 * S * H * hd + 2 * T * K * hd) + (4 * B * H * S if lse else 0))
 
 
-def flash_bwd(B, S, T, H, K, hd, elt, pairs, r="f32") -> Cost:
-    """Flash backward: q, k, v, o, dO read, dq, dk, dv written; five
-    products over the pairs."""
-    return {r: 10.0 * hd * H * pairs * B}, elt * B * (4 * S * H * hd + 4 * T * K * hd)
+def flash_bwd(B, S, T, H, K, hd, elt, pairs, r="bf16") -> Cost:
+    """Flash backward: q, k, v, o, dO and the forward's float32 log-sum-exp
+    read, dq, dk, dv written; five products over the pairs (q·kᵀ and dO·vᵀ
+    recomputed, pᵀ·dO, dsᵀ·q, ds·k)."""
+    return ({r: 10.0 * hd * H * pairs * B},
+            elt * B * (4 * S * H * hd + 4 * T * K * hd) + 4 * B * H * S)
 
 
 def decode(B, H, K, hd, live, elt, pages=0, r="bf16") -> Cost:

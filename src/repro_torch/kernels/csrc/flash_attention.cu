@@ -39,8 +39,8 @@ constexpr int NT = 128;  // threads per block: 8 per query row
 template <typename T, int HD>
 __global__ void __launch_bounds__(NT)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-          T* __restrict__ o, int S, int Tk, int H, int K, int q_start, int window,
-          float scale) {
+          T* __restrict__ o, float* __restrict__ lse, int S, int Tk, int H, int K,
+          int q_start, int window, float scale) {
   constexpr int DPT = HD / 8;  // output columns per thread
   constexpr int QS = HD + 1;   // padded shared-memory row strides
   constexpr int KS = HD + 1;
@@ -156,6 +156,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   }
 
   if (r < nq) {
+    // the row's log-sum-exp of the scaled scores, for the backward
+    if (lse != nullptr && l8 == 0) lse[(size_t)(b * H + h) * S + q0 + r] = m + logf(l);
     const float den = fmaxf(l, 1e-30f);
     T* orow = o + ((size_t)(b * S + q0 + r) * H + h) * HD;
 #pragma unroll
@@ -164,28 +166,29 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
 }
 
 template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int Tk,
-           int H, int K, int q_start, int window, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
+           int Tk, int H, int K, int q_start, int window, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (BQ * (HD + 1) + BK * (HD + 1) + BK * HD + BQ * (BK + 1));
   auto kern = flash_fwd<T, HD>;
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   dim3 grid((S + BQ - 1) / BQ, H, B);
   kern<<<grid, NT, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                   static_cast<const T*>(v), static_cast<T*>(o), S, Tk,
-                                   H, K, q_start, window, 1.0f / sqrtf((float)HD));
+                                   static_cast<const T*>(v), static_cast<T*>(o), lse, S,
+                                   Tk, H, K, q_start, window, 1.0f / sqrtf((float)HD));
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch_hd(const void* q, const void* k, const void* v, void* o, int B, int S,
-                int Tk, int H, int K, int hd, int q_start, int window, cudaStream_t st) {
+int dispatch_hd(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                int S, int Tk, int H, int K, int hd, int q_start, int window,
+                cudaStream_t st) {
   switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, o, B, S, Tk, H, K, q_start, window, st);
-    case 32: return launch<T, 32>(q, k, v, o, B, S, Tk, H, K, q_start, window, st);
-    case 64: return launch<T, 64>(q, k, v, o, B, S, Tk, H, K, q_start, window, st);
-    case 128: return launch<T, 128>(q, k, v, o, B, S, Tk, H, K, q_start, window, st);
-    case 256: return launch<T, 256>(q, k, v, o, B, S, Tk, H, K, q_start, window, st);
+    case 16: return launch<T, 16>(q, k, v, o, lse, B, S, Tk, H, K, q_start, window, st);
+    case 32: return launch<T, 32>(q, k, v, o, lse, B, S, Tk, H, K, q_start, window, st);
+    case 64: return launch<T, 64>(q, k, v, o, lse, B, S, Tk, H, K, q_start, window, st);
+    case 128: return launch<T, 128>(q, k, v, o, lse, B, S, Tk, H, K, q_start, window, st);
+    case 256: return launch<T, 256>(q, k, v, o, lse, B, S, Tk, H, K, q_start, window, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -193,22 +196,25 @@ int dispatch_hd(const void* q, const void* k, const void* v, void* o, int B, int
 }  // namespace
 
 namespace repro {
-int flash_attention_wgmma(const void* q, const void* k, const void* v, void* o, int B, int S,
-                          int T, int H, int K, int hd, int q_start, int window,
+int flash_attention_wgmma(const void* q, const void* k, const void* v, void* o, float* lse,
+                          int B, int S, int T, int H, int K, int hd, int q_start, int window,
                           cudaStream_t st);
 }
 
 // q, o [B, S, H, hd]; k, v [B, T, K, hd]; all contiguous, one dtype, T >= 1.
-// window <= 0: no sliding window. bf16: the tensor-core route; float32: the
-// CUDA-core route. Returns cudaGetLastError() of the launch.
+// window <= 0: no sliding window. lse: null (serving), or float32 [B, H, S]
+// that receives each row's log-sum-exp of its scaled scores (training: the
+// backward's input). bf16: the tensor-core route; float32: the CUDA-core
+// route. Returns cudaGetLastError() of the launch.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   int B, int S, int T, int H, int K, int hd,
+                                   void* lse, int B, int S, int T, int H, int K, int hd,
                                    int q_start, int window, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (dtype == repro::kF32)
-    return dispatch_hd<float>(q, k, v, o, B, S, T, H, K, hd, q_start, window, st);
+    return dispatch_hd<float>(q, k, v, o, l, B, S, T, H, K, hd, q_start, window, st);
   if (dtype == repro::kBF16)
-    return repro::flash_attention_wgmma(q, k, v, o, B, S, T, H, K, hd, q_start, window, st);
+    return repro::flash_attention_wgmma(q, k, v, o, l, B, S, T, H, K, hd, q_start, window, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -37,13 +37,10 @@
 //     that straddle a boundary.
 //   * q tiles are launched longest causal row first (grid (H, q tiles, B),
 //     the tile index reversed) so the long blocks do not trail.
-#include <cuda.h>
-#include <dlfcn.h>
-
 #include <cstdint>
 
 #include "common.cuh"
-#include "hopper.cuh"
+#include "tma_tiles.cuh"
 
 namespace {
 
@@ -54,76 +51,20 @@ constexpr int BK = 64;      // keys per tile: the N of S = Q·Kᵀ
 constexpr int NT = 128;     // one warpgroup
 constexpr int STAGES = 2;   // K/V ring depth
 
-// shared-memory geometry of a head_dim: tiles are NCB column blocks of BC
-// bf16 columns, rows of ROWB bytes, in the swizzle of that width
+// this kernel's tiles (the geometry of a head dim: TileGeo, tma_tiles.cuh)
 template <int HD>
-struct Geo {
-  static constexpr int ROWB = HD * 2 < 128 ? HD * 2 : 128;
-  static constexpr int BC = ROWB / 2;
-  static constexpr int NCB = HD / BC;
-  static constexpr int KPR = ROWB / 32;  // 16-wide k steps per row
-  static constexpr int LAYOUT = ROWB == 128 ? 1 : ROWB == 64 ? 2 : 3;  // wgmma descriptor
-  static constexpr int Q_BYTES = NCB * BQ * ROWB;
-  static constexpr int KV_BYTES = NCB * BK * ROWB;  // one K (or V) tile
+struct Geo : TileGeo<HD> {
+  static constexpr int Q_BYTES = TileGeo<HD>::NCB * BQ * TileGeo<HD>::ROWB;
+  static constexpr int KV_BYTES = TileGeo<HD>::NCB * BK * TileGeo<HD>::ROWB;  // one K (or V)
   static constexpr int SMEM = Q_BYTES + STAGES * 2 * KV_BYTES;
-  static_assert(HD % BC == 0 && (BQ * ROWB) % 1024 == 0, "geometry");
 };
-
-// K-major operand (Q or K tile of `rows` rows), k step kk of 16 columns:
-// column block kk / KPR, 32 bytes into its swizzled rows per step within it
-template <int HD>
-__device__ __forceinline__ uint64_t desc_kmajor(uint32_t base, int rows, int kk) {
-  using G = Geo<HD>;
-  const uint32_t a = base + (kk / G::KPR) * rows * G::ROWB + (kk % G::KPR) * 32;
-  return make_desc(a, 16, 8 * G::ROWB, G::LAYOUT);
-}
-
-// MN-major operand: V tile column block cb, keys [16 kk, 16 kk + 16)
-template <int HD>
-__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t base, int cb, int kk) {
-  using G = Geo<HD>;
-  const uint32_t a = base + cb * BK * G::ROWB + kk * 16 * G::ROWB;
-  return make_desc(a, BK * G::ROWB, 8 * G::ROWB, G::LAYOUT);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-// a completion that never comes traps (a launch error) instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (uint32_t spins = 0;; ++spins) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (spins == (1u << 26)) __trap();
-  }
-}
-
-// TMA: box of a 4-D map at coordinates (c0 innermost) into shared memory
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
 
 template <int HD>
 __global__ void __launch_bounds__(NT, 1)
 flash_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-            const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int S,
-            int Tk, int H, int K, int q_start, int window, float scale_log2) {
+            const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+            float* __restrict__ lse, int S, int Tk, int H, int K, int q_start, int window,
+            float scale_log2) {
   using G = Geo<HD>;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bars[1 + STAGES];  // Q, then the K/V stages
@@ -248,7 +189,7 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
     for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
       for (int cb = 0; cb < G::NCB; ++cb)
-        wgmma_rs<G::BC>(oacc[cb], pa[kk], desc_mnmajor<HD>(sV(st), cb, kk));
+        wgmma_rs<G::BC>(oacc[cb], pa[kk], desc_mnmajor<HD>(sV(st), BK, cb, kk));
     wgmma_commit();
     wgmma_wait_all();
 #pragma unroll
@@ -258,6 +199,12 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
     if (tid == 0 && t + STAGES < n_tiles) load_kv(t + STAGES);
   }
 
+  // the rows' log-sum-exp of the scaled scores (natural log), for the backward
+  if (lse != nullptr && (lane & 3) == 0) {
+    float* lrow = lse + (size_t)(b * H + h) * S + q0 + r0;
+    if (r0 < nq) lrow[0] = (m_r[0] + log2f(l_r[0])) * 0.6931471805599453f;
+    if (r0 + 8 < nq) lrow[8] = (m_r[1] + log2f(l_r[1])) * 0.6931471805599453f;
+  }
   const float inv0 = 1.f / fmaxf(l_r[0], 1e-30f), inv1 = 1.f / fmaxf(l_r[1], 1e-30f);
   const size_t row_stride = (size_t)H * HD;
   __nv_bfloat16* o0 = o + ((size_t)(b * S + q0 + r0) * H + h) * HD;
@@ -276,53 +223,13 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
     }
 }
 
-// cuTensorMapEncodeTiled from the driver the process already loaded
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (h == nullptr) h = dlopen("libcuda.so.1", RTLD_NOW);
-    if (h != nullptr) fn = reinterpret_cast<EncodeTiled>(dlsym(h, "cuTensorMapEncodeTiled"));
-  }
-  return fn;
-}
-
-// 4-D map over a contiguous bf16 [batch, rows, heads, hd] tensor; a box is
-// `box_rows` rows x `box_cols` columns of one head of one batch row
-bool make_map(CUtensorMap* map, const void* ptr, int batch, int rows, int heads, int hd,
-              int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
-  EncodeTiled enc = encoder();
-  if (enc == nullptr) return false;
-  const cuuint64_t e = sizeof(__nv_bfloat16);
-  cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads, (cuuint64_t)rows,
-                        (cuuint64_t)batch};
-  cuuint64_t strides[3] = {hd * e, (cuuint64_t)heads * hd * e,
-                           (cuuint64_t)rows * heads * hd * e};
-  cuuint32_t box[4] = {(cuuint32_t)box_cols, 1, (cuuint32_t)box_rows, 1};
-  cuuint32_t elem[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int Tk, int H,
-           int K, int q_start, int window, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
+           int Tk, int H, int K, int q_start, int window, cudaStream_t stream) {
   using G = Geo<HD>;
-  const CUtensorMapSwizzle swz = G::ROWB == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
-                                 : G::ROWB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                 : CU_TENSOR_MAP_SWIZZLE_32B;
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, B, S, H, HD, BQ, G::BC, swz) ||
-      !make_map(&tk, k, B, Tk, K, HD, BK, G::BC, swz) ||
-      !make_map(&tv, v, B, Tk, K, HD, BK, G::BC, swz))
+  if (!tile_map<HD>(&tq, q, B, S, H) || !tile_map<HD>(&tk, k, B, Tk, K) ||
+      !tile_map<HD>(&tv, v, B, Tk, K))
     return (int)cudaErrorInvalidValue;
   const int smem = G::SMEM + 1024;  // + room to align the tiles to the swizzle period
   auto kern = flash_wgmma<HD>;
@@ -330,7 +237,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
   if (e != cudaSuccess) return (int)e;
   const float scale_log2 = 1.4426950408889634f / sqrtf((float)HD);
   kern<<<dim3(H, (S + BQ - 1) / BQ, B), NT, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, Tk, H, K, q_start, window, scale_log2);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, S, Tk, H, K, q_start, window,
+      scale_log2);
   return (int)cudaGetLastError();
 }
 
@@ -339,16 +247,17 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
 namespace repro {
 
 // the bf16 route of flash_attention_fwd (flash_attention.cu): q, o
-// [B, S, H, hd]; k, v [B, T, K, hd]; contiguous, 16-byte aligned, T >= 1
-int flash_attention_wgmma(const void* q, const void* k, const void* v, void* o, int B, int S,
-                          int T, int H, int K, int hd, int q_start, int window,
+// [B, S, H, hd]; k, v [B, T, K, hd]; contiguous, 16-byte aligned, T >= 1;
+// lse (float32 [B, H, S]) written when not null
+int flash_attention_wgmma(const void* q, const void* k, const void* v, void* o, float* lse,
+                          int B, int S, int T, int H, int K, int hd, int q_start, int window,
                           cudaStream_t st) {
   switch (hd) {
-    case 16: return launch<16>(q, k, v, o, B, S, T, H, K, q_start, window, st);
-    case 32: return launch<32>(q, k, v, o, B, S, T, H, K, q_start, window, st);
-    case 64: return launch<64>(q, k, v, o, B, S, T, H, K, q_start, window, st);
-    case 128: return launch<128>(q, k, v, o, B, S, T, H, K, q_start, window, st);
-    case 256: return launch<256>(q, k, v, o, B, S, T, H, K, q_start, window, st);
+    case 16: return launch<16>(q, k, v, o, lse, B, S, T, H, K, q_start, window, st);
+    case 32: return launch<32>(q, k, v, o, lse, B, S, T, H, K, q_start, window, st);
+    case 64: return launch<64>(q, k, v, o, lse, B, S, T, H, K, q_start, window, st);
+    case 128: return launch<128>(q, k, v, o, lse, B, S, T, H, K, q_start, window, st);
+    case 256: return launch<256>(q, k, v, o, lse, B, S, T, H, K, q_start, window, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -8,10 +8,10 @@ of the mesh,
   hand-written kernel's analytic operations (a call of its operator
   ``torch.ops.repro_torch.<name>`` is answered here, by name, with the
   kernel's outputs and its work from ``kernels/costs.py``: the causal or
-  windowed pairs of flash, the cache rows a decode reads, the scans'
-  states), and one operation per output element of every other
-  arithmetic op. The written-out backwards of flash and mLSTM are plain
-  PyTorch and count as the ops they run;
+  windowed pairs of flash and of its backward kernel, the cache rows a
+  decode reads, the scans' states), and one operation per output element
+  of every other arithmetic op. The written-out backward of mLSTM is plain
+  PyTorch and counts as the ops it runs;
 * ``bytes_accessed``: operand and result bytes at every op boundary, the
   upper bound (each eager op reads and writes memory);
 * ``bytes_min``: the data movers only: products, kernels (their analytic
@@ -138,8 +138,10 @@ class CostCounter(TorchDispatchMode):
         self.collective_counts: Dict[str, float] = collections.Counter()
         self.link_bytes: Dict[str, float] = collections.Counter()   # nvlink / ib
         self.kernels: Dict[str, float] = collections.Counter()
+        self.kernel_flops_by: Dict[str, float] = collections.Counter()
         # products inside each open ``torch.profiler.record_function`` range
-        # (the written-out backwards: "flash_attention_bwd", ...)
+        # (the written-out backward "mlstm_chunk_bwd"; the flash backward's
+        # range holds its kernel's operator and no product)
         self.range_product_flops: Dict[str, float] = collections.Counter()
         self._ranges = []
         self.live = self.peak = 0
@@ -183,6 +185,7 @@ class CostCounter(TorchDispatchMode):
             self.bytes_accessed += m * nbytes
             self.bytes_min += m * nbytes
             self.kernels[label] += m
+            self.kernel_flops_by[label] += m * sum(ops.values())
             for t in outs:
                 self._allocated(t)
         return out
@@ -252,7 +255,8 @@ class CostCounter(TorchDispatchMode):
                                 "bytes": dict(self.collective_bytes),
                                 "counts": dict(self.collective_counts),
                                 "link_bytes": dict(self.link_bytes)},
-                "kernels": dict(self.kernels), "peak_bytes": self.peak}
+                "kernels": dict(self.kernels),
+                "kernel_flops_by": dict(self.kernel_flops_by), "peak_bytes": self.peak}
 
 
 # ---------------------------------------------------------------------------
@@ -260,13 +264,26 @@ class CostCounter(TorchDispatchMode):
 # ---------------------------------------------------------------------------
 
 
-def _flash(q, k, v, q_per_kv, window, q_start):
+def _flash(q, k, v, q_per_kv, window, q_start, with_lse=False):
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     pairs = costs.flash_pairs(S, window=window, q_start=q_start)
-    return (torch.empty_like(q),
-            costs.flash(B, S, T, H, K, hd, q.element_size(), pairs, costs.rate(q.dtype)),
+    lse = torch.empty((B, H, S) if with_lse else (0,), dtype=torch.float32,
+                      device=q.device)
+    return ((torch.empty_like(q), lse),
+            costs.flash(B, S, T, H, K, hd, q.element_size(), pairs, costs.rate(q.dtype),
+                        lse=with_lse),
             "flash_attention")
+
+
+def _flash_bwd(q, k, v, o, dout, lse, q_per_kv, window, q_start):
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    pairs = costs.flash_pairs(S, window=window, q_start=q_start)
+    return ((torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)),
+            costs.flash_bwd(B, S, T, H, K, hd, q.element_size(), pairs,
+                            costs.rate(q.dtype)),
+            "flash_attention_bwd")
 
 
 def _split_decode(form, q, k, v, lens, length, q_per_kv, one_token, block_tables,
@@ -321,7 +338,8 @@ def _mlstm_chunk(q, k, v, ig, fg, C0, n0, m0, chunk):
             "mlstm_chunk")
 
 
-KERNELS = {"flash_attention": _flash, "split_decode": _split_decode,
+KERNELS = {"flash_attention": _flash, "flash_attention_bwd": _flash_bwd,
+           "split_decode": _split_decode,
            "split_decode_partials": _partials, "split_decode_combine": _combine,
            "accept_len": _accept_len, "rglru_scan": _rglru_scan,
            "mlstm_chunk": _mlstm_chunk}

@@ -29,9 +29,9 @@ ops at position 0 (``cost.py``); the optimizer updates position 0's parts
 (the counter's ``one_part``) and the microbatch loop runs one trip counted
 ``accum_steps`` times. Attention's forward FLOPs are the kernels' causal
 (or windowed) pairs, not the full masked S x S product the reference's
-``hlo_cost`` counts on XLA's attention; the written-out backwards of
-flash and mLSTM count as the PyTorch ops they run (flash's 128-row query
-blocks against the keys each block can see).
+``hlo_cost`` counts on XLA's attention, and so are its backward kernel's
+(five products over the same pairs, ``costs.flash_bwd``); the written-out
+mLSTM backward counts as the PyTorch ops it runs.
 """
 from __future__ import annotations
 

@@ -10,9 +10,10 @@ on graphs: a two-replica fleet with a pump per replica, preempt-resume,
 journal restore, and a transient fault ahead of the first capture; the
 modality archs' kernel geometries (MHA at head dim 64) and servers;
 training: the gradients of the flash, rglru_scan and mlstm_chunk
-wrappers (their autograd.Functions: the kernel forward, a written-out
-backward; the scan's is the kernel run in reverse) against plain
-autograd, the split-K decode forms refusing a gradient, and train steps
+wrappers (their autograd.Functions: the kernel forward; flash's backward
+is its backward kernel on the dtype's route, bit-identical from call to
+call, the scan's the kernel run in reverse, mLSTM's written out) against
+plain autograd, the split-K decode forms refusing a gradient, and train steps
 of qwen, recurrentgemma and xlstm on the card against the CPU. This file
 imports no JAX, so it also runs on a machine with a card and no JAX:
 
@@ -1314,33 +1315,91 @@ def test_gpu_admission_beside_a_capture():
 # ---------------------------------------------------------------------------
 
 
+FLASH_BWD_SHAPES = [  # (B, S, T, H, K, hd, q_start, window)
+    (2, 300, 300, 16, 2, 128, 0, None),     # qwen2.5-3b's heads, G = 8
+    (1, 200, 200, 8, 4, 64, 0, 48),
+    (1, 2048, 2048, 16, 1, 256, 0, 2048),   # recurrentgemma-9b's: hd 256, G = 16
+    (1, 260, 260, 8, 8, 64, 0, None),       # G = 1 (musicgen's MHA at hd 64)
+    (2, 150, 150, 4, 2, 16, 0, 40),         # hd 16
+    (1, 100, 230, 8, 2, 32, 130, None),     # T > S, q_start (an extend)
+    (1, 90, 200, 4, 1, 128, 110, 64),       # T > S, q_start and a window
+]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,S,H,K,hd,window", [(2, 300, 16, 2, 128, None),
-                                               (1, 200, 8, 4, 64, 48)])
-def test_gpu_flash_backward_through_the_kernel_matches_plain(dtype, B, S, H, K,
-                                                             hd, window):
+@pytest.mark.parametrize("B,S,T,H,K,hd,q_start,window", FLASH_BWD_SHAPES)
+def test_gpu_flash_backward_through_the_kernel_matches_plain(dtype, B, S, T, H, K,
+                                                             hd, q_start, window,
+                                                             monkeypatch):
     """The autograd.Function on the card (forward: the kernel, launched
-    once; backward: flash_attention_bwd) against autograd of the plain
-    version on the same tensors, at the tolerances of the CPU tests (2e-5
-    float32, 2e-2 bf16, relative to the gradient's largest value where
-    that exceeds 1)."""
+    once, writing its lse; backward: the backward kernel on the dtype's
+    route, launched once, never the plain ``flash_attention_bwd``) against
+    autograd of the plain version on the same tensors, at the tolerances of
+    the CPU tests (2e-5 float32, 2e-2 bf16, relative to max(1, the
+    gradient's largest value))."""
     dev = _need_card()
+
+    def plain_bwd(*a, **kw):
+        raise AssertionError("the plain backward ran on the card")
+
+    monkeypatch.setattr(kfa, "flash_attention_bwd", plain_bwd)
     g = torch.Generator(device=dev).manual_seed(3)
     q, k, v, do = (torch.randn(*s, generator=g, device=dev).to(dtype)
-                   for s in ((B, S, H, hd), (B, S, K, hd), (B, S, K, hd), (B, S, H, hd)))
-    kw = dict(q_per_kv=H // K, window=window)
+                   for s in ((B, S, H, hd), (B, T, K, hd), (B, T, K, hd), (B, S, H, hd)))
+    kw = dict(q_per_kv=H // K, window=window, q_start=q_start)
     q, k, v = (t.requires_grad_() for t in (q, k, v))
-    before = kfa.launches
+    before = dict(kfa.launches_by_route)
     o = kfa.flash_attention(q, k, v, **kw)
     got = torch.autograd.grad(o, (q, k, v), do)
     torch.cuda.synchronize()
-    assert kfa.launches == before + 1
+    fwd, bwd = kfa.ROUTES[dtype], kfa.BWD_ROUTES[dtype]
+    assert kfa.launches_by_route == {**before, fwd: before[fwd] + 1, bwd: before[bwd] + 1}
     want = torch.autograd.grad(kfa.flash_attention_ref(q, k, v, **kw), (q, k, v), do)
     tol = GPU_TOL[dtype]
     for name, a, w in zip("qkv", got, want):
+        assert a.dtype == w.dtype, name
         scale = max(1.0, float(w.float().abs().max()))
         assert float((a.float() - w.float()).abs().max()) <= tol * scale, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,T,H,K,hd,q_start,window", [FLASH_BWD_SHAPES[0],
+                                                         FLASH_BWD_SHAPES[2]])
+def test_gpu_flash_backward_is_bit_identical_from_call_to_call(dtype, B, S, T, H, K, hd,
+                                                               q_start, window):
+    """No atomics: two backward calls on the same inputs give the same bits
+    (the split dK / dV partials are added in split order)."""
+    dev = _need_card()
+    g = torch.Generator(device=dev).manual_seed(5)
+    q, k, v, do = (torch.randn(*s, generator=g, device=dev).to(dtype)
+                   for s in ((B, S, H, hd), (B, T, K, hd), (B, T, K, hd), (B, S, H, hd)))
+    kw = dict(q_per_kv=H // K, window=window, q_start=q_start)
+    o, lse = kfa._forward(q, k, v, with_lse=True, **kw)
+    a = kfa._launch_bwd(q, k, v, o, do, lse, H // K, window, q_start)
+    b = kfa._launch_bwd(q, k, v, o, do, lse, H // K, window, q_start)
+    torch.cuda.synchronize()
+    for name, x, y in zip("qkv", a, b):
+        assert torch.equal(x, y), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_serving_forward_writes_no_lse_and_the_same_bytes(dtype):
+    """The serving call passes no lse buffer and returns the same bytes as
+    the training call, whose lse equals the plain version's."""
+    dev = _need_card()
+    g = torch.Generator(device=dev).manual_seed(6)
+    q, k, v = (torch.randn(*s, generator=g, device=dev).to(dtype)
+               for s in ((2, 300, 16, 128), (2, 300, 2, 128), (2, 300, 2, 128)))
+    served = kfa.flash_attention(q, k, v, q_per_kv=8)
+    o, lse = kfa._forward(q, k, v, q_per_kv=8, with_lse=True)
+    none, empty = kfa._launch(q, k, v, 8, None, 0, False)
+    torch.cuda.synchronize()
+    assert torch.equal(served, o) and torch.equal(none, o) and empty.numel() == 0
+    _, want = kfa.flash_attention_ref(q, k, v, q_per_kv=8, return_lse=True)
+    assert float((lse - want).abs().max()) < 1e-4
 
 
 @pytest.mark.gpu
@@ -1433,8 +1492,8 @@ def test_gpu_mlstm_function_with_the_kernel_forward_matches_plain(dtype, B, S, H
 def test_gpu_train_step_matches_cpu():
     """One float32 train step of a reduced qwen (accumulation 2, remat
     full) on the card equals the same step of the port on the CPU: loss
-    at 1e-4, and the kernel's forward launched twice a layer a microbatch
-    (forward and recompute)."""
+    at 1e-4, the kernel's forward launched twice a layer a microbatch
+    (forward and recompute) and its backward once, on the float32 route."""
     from repro_torch.training import data as tdata
     from repro_torch.training import optimizer as topt
     from repro_torch.training import train_step as tts
@@ -1448,13 +1507,14 @@ def test_gpu_train_step_matches_cpu():
         params = Model(cfg, device=where).load(sd, trainable=True)
         step = tts.make_train_step(cfg, tts.TrainConfig(
             opt=topt.AdamWConfig(lr=1e-3, warmup_steps=1), accum_steps=2))
-        before = kfa.launches
+        before, bwd = kfa.launches, kfa.launches_by_route["simt_f32_bwd"]
         _, _, m = step(params, topt.init_opt_state(params),
                        tdata.SyntheticLM(dcfg, cfg, device=where).batch_at(0))
         losses[str(where)] = float(m["loss"])
         if where != "cpu":
             torch.cuda.synchronize()
-            assert kfa.launches - before == 2 * cfg.num_layers * 2
+            assert kfa.launches - before == 3 * cfg.num_layers * 2
+            assert kfa.launches_by_route["simt_f32_bwd"] - bwd == cfg.num_layers * 2
     assert abs(losses[str(dev)] - losses["cpu"]) <= 1e-4 * abs(losses["cpu"])
 
 
@@ -1465,8 +1525,9 @@ def test_gpu_stateful_train_step_matches_cpu(arch):
     (accumulation 2, remat full) on the card equals the same step on the
     CPU: loss and grad norm at 1e-4 (relative). Launches: rglru_scan 3 a recurrent layer of the
     scanned period (forward, recompute, reverse scan) and 2 a tail layer
-    (no recompute), flash 2 an attention layer, mlstm_chunk 2 an mLSTM
-    layer, each a microbatch; no split-K launch."""
+    (no recompute), flash likewise (forward, recompute, its backward
+    kernel), mlstm_chunk 2 an mLSTM layer, each a microbatch; no split-K
+    launch."""
     from repro_torch.training import data as tdata
     from repro_torch.training import optimizer as topt
     from repro_torch.training import train_step as tts
@@ -1481,7 +1542,7 @@ def test_gpu_stateful_train_step_matches_cpu(arch):
         key = {"recurrent": "rglru_scan", "local_attn": "flash_attention",
                "mlstm": "mlstm_chunk"}.get(kind)
         if key:
-            want[key] += 2 * (runs + (key == "rglru_scan"))
+            want[key] += 2 * (runs + (key in ("rglru_scan", "flash_attention")))
     out = {}
     for where in ("cpu", dev):
         params = Model(cfg, device=where).load(sd, trainable=True)
@@ -1583,7 +1644,8 @@ def test_gpu_train_table_step_matches_unsharded():
     train table on a (2, 2) mesh of ``cuda:0`` positions (FSDP over "data",
     q heads and mlp over "model", row-parallel sums) equals the unsharded
     step on the card: loss, every gradient leaf and the updated params
-    within 1e-5; flash launched on every "model" part and "data" shard."""
+    within 1e-5; flash launched on every "model" part and "data" shard:
+    forward, recompute and its backward kernel (float32 route)."""
     from repro_torch.distributed import sharding as shd
     from repro_torch.distributed.mesh import make_test_mesh
     from repro_torch.training import data as tdata
@@ -1601,11 +1663,12 @@ def test_gpu_train_table_step_matches_unsharded():
     ref, _, _ = step(ref, topt.init_opt_state(ref), batch)
     rules = shd.rules_for(make_test_mesh((2, 2), devices=dev), "train")
     placed = shd.place_params(Model(cfg, device=dev).load(sd), rules, trainable=True)
-    before = kfa.launches
+    before, bwd = kfa.launches, kfa.launches_by_route["simt_f32_bwd"]
     with shd.use_rules(rules):
         l1, _, g1 = step.loss_and_grads(placed, batch)
         torch.cuda.synchronize()
-        assert kfa.launches - before == 2 * cfg.num_layers * 2 * 2 * 2
+        assert kfa.launches - before == 3 * cfg.num_layers * 2 * 2 * 2
+        assert kfa.launches_by_route["simt_f32_bwd"] - bwd == cfg.num_layers * 2 * 2 * 2
         placed, _, _ = step(placed, topt.init_opt_state(placed), batch)
     assert abs(float(l1) - float(l0)) <= 1e-5 * abs(float(l0))
     for k, g in g0.items():

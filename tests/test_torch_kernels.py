@@ -209,6 +209,7 @@ def test_build_commands_target_sm90a():
     cmds, link, lib = build.compile_commands(Path("/tmp/out"))
     srcs = {Path(c[c.index("-c") + 1]).name for c in cmds}
     assert srcs == {"flash_attention.cu", "flash_attention_wgmma.cu",
+                    "flash_attention_bwd.cu", "flash_attention_bwd_wgmma.cu",
                     "split_decode_attention.cu", "spec_scan.cu",
                     "rglru_scan.cu", "mlstm_chunk.cu", "mlstm_chunk_wgmma.cu",
                     "decode_loop.cu"}
