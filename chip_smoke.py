@@ -195,21 +195,24 @@ no result line) on any fault:
      loss and grad norm finite; launches by the rule of
      ``stateful_train_launches`` (rglru_scan 3 a recurrent layer,
      microbatch and step: forward, recompute and the reverse scan of its
-     gradient, on the chunked route; mlstm_chunk 2 an mLSTM layer on the
-     wgmma route; flash 3 an attention layer, forward and recompute on
-     wgmma and the backward kernel on wgmma_bwd; nothing else); per-step
+     gradient, on the chunked route; mlstm_chunk and flash 3 a layer,
+     forward and recompute on wgmma and the backward kernel on wgmma_bwd,
+     21 mLSTM backward launches a step; nothing else); per-step
      loss, grad norm, wall and tokens/s, peak memory, the second-last step
      split into forward + backward and optimizer, the last under the
      profiler (recurrentgemma: the backwards' busy ms) or with
      the sLSTM loop timed on the host (xlstm; its device ms from one layer
-     alone, the mLSTM backward's from the row below), the 8·N·T share. Then
+     alone, the mLSTM backward kernel's from the row below), the 8·N·T share. Then
      one step through the kernel path against plain autograd at reduced
      float32 and bf16 configs of both archs (each kernel call alone on the
      inputs and output gradient it had in the step, the loss, the param
-     leaves), and the two kernels at the train shapes (rows
-     ``rglru_scan_train``, ``mlstm_chunk_train``: forward and backward call
-     and device ms, bounds, plain and plain-autograd ms). The phase prints
-     its seconds and fails past 150 s.
+     leaves), and the kernels at the train shapes (rows
+     ``rglru_scan_train``: forward and backward call and device ms, bounds,
+     plain and plain-autograd ms; ``mlstm_chunk_train``: the forward's;
+     ``mlstm_chunk_bwd``:
+     the backward kernel against autograd of the plain version, bf16 and a
+     float32 call, two calls bit-identical, beside the plain written-out
+     backward's ms). The phase prints its seconds and fails past 150 s.
  15. dryrun: the launch layer's trace on ``meta`` (this host's
      CPU; ``repro_torch.launch``) beside the card, for phase 12's train
      step (36-layer qwen2.5-3b on (1, 1), 4 x 2048 in 2 microbatches),
@@ -218,7 +221,9 @@ no result line) on any fault:
      ``memory_allocated``, peak temp against ``max_memory_allocated``,
      product FLOPs against the profiler's (``with_flops``), the flash
      backward kernel's analytic GFLOP against its launches on the card;
-     then one line per cell of the committed ``--all`` sweep on (32, 8).
+     the mLSTM backward kernel's in a trace of phase 14's xlstm-350m step
+     against the launches phase 14 made a step; then one line per cell of
+     the committed ``--all`` sweep on (32, 8).
  16. mesh_train: float32 qwen2.5-3b widths, 4 layers, on (2, 2)
      under the train table against the unsharded step (loss, gradients,
      params; bound 1e-5; the flash backward on its float32 route); bf16
@@ -268,7 +273,10 @@ PEAK_F32 = 67e12            # float32 outside the tensor cores
 HBM = 3.35e12               # bytes/s
 TOL = {"bfloat16": 2e-2, "float32": 2e-5,
        # the stateful kernels' bounds (tests/test_kernels.py:101, 139)
-       "bf16_state": 5e-2, "float32_scan": 5e-6}
+       "bf16_state": 5e-2, "float32_scan": 5e-6,
+       # a float32 backward against autograd of its plain version, relative
+       # (tests/test_torch_stateful_training.py's mLSTM bound)
+       "float32_grad": 1e-4}
 
 
 def log(*a):
@@ -1049,7 +1057,7 @@ def stateful_kernel_rows(dev):
             f"{float(h64.abs().max()):.2f}")
         err = max(err, check_close(name, hf.double(), h64, "float32"),
                   check_state(name, tuple(t.double() for t in sf), s64, TOL["float32"]))
-    routes(kmc, {"wgmma": 3, "simt_f32": 5})
+    routes(kmc, {"wgmma": 3, "simt_f32": 5, "wgmma_bwd": 0, "simt_f32_bwd": 0})
     ms, plain = time_ms(ma, 20, warmup=2), time_ms(mr, 3, warmup=1)
     by_kernel = device_ms_by_kernel(ma)
     log_kernels("mlstm_chunk [1,2048,4,512]", by_kernel)
@@ -3756,28 +3764,29 @@ STATEFUL_TRAIN = {
 }
 STATEFUL_LOSS_DROP = 0.5
 STATEFUL_TRAIN_S = 150      # the phase's time budget (seconds)
-STATEFUL_RANGES = ("rglru_scan_bwd", "mlstm_chunk_bwd", "flash_attention_bwd")
-STATEFUL_KERNELS = ("rglru_scan", "mlstm_", "flash_wgmma", "flash_bwd")
+STATEFUL_RANGES = ("rglru_scan_bwd", "flash_attention_bwd")
+STATEFUL_KERNELS = ("rglru_scan", "mlstm_", "mlstm_bwd", "flash_wgmma", "flash_bwd")
+XLSTM_BWD = {}              # phase 14's mLSTM backward launches a step, for dryrun
 
 
 def stateful_train_launches(cfg, accum, steps):
     """The launch rule of a train run under remat "full": a layer of a
     scanned period runs its forward twice (forward and recompute), a tail
-    layer once; rglru_scan adds the reverse scan of its backward and flash
-    its backward kernel (counted apart too, as
-    ``"flash_attention/wgmma_bwd"``); the mLSTM's backward launches
-    nothing. Per microbatch and step."""
+    layer once; each adds one launch for its backward: rglru_scan the
+    reverse scan, flash and mlstm_chunk their backward kernels (counted apart
+    too, as ``"flash_attention/wgmma_bwd"`` and
+    ``"mlstm_chunk/wgmma_bwd"``). Per microbatch and step."""
     scanned = len(cfg.pattern) * cfg.num_scan_groups
     want = {"rglru_scan": 0, "mlstm_chunk": 0, "flash_attention": 0,
-            "flash_attention/wgmma_bwd": 0}
+            "flash_attention/wgmma_bwd": 0, "mlstm_chunk/wgmma_bwd": 0}
     kernel = {"recurrent": "rglru_scan", "mlstm": "mlstm_chunk",
               "local_attn": "flash_attention", "attn": "flash_attention"}
     for i, kind in enumerate(cfg.layer_kinds):
         if kind in kernel:
             name = kernel[kind]
-            bwd = name in ("rglru_scan", "flash_attention")
-            want[name] += (2 if i < scanned else 1) + bwd
-            want["flash_attention/wgmma_bwd"] += name == "flash_attention"
+            want[name] += (2 if i < scanned else 1) + 1
+            if name != "rglru_scan":
+                want[f"{name}/wgmma_bwd"] += 1
     return {k: n * accum * steps for k, n in want.items()}
 
 
@@ -3937,7 +3946,7 @@ def stateful_train_run(dev, card, arch):
     log(f"{tag}: launches { {k: c for k, c in counts.items() if c} } (rule {want}); "
         f"peak memory {gb(peak)} GB; loss {losses[0]:.4f} -> {losses[-1]:.4f}")
     # each kernel's launches all on its train routes
-    routed = {"rglru_scan": ("chunked",), "mlstm_chunk": ("wgmma",),
+    routed = {"rglru_scan": ("chunked",), "mlstm_chunk": ("wgmma", "wgmma_bwd"),
               "flash_attention": ("wgmma", "wgmma_bwd")}
     others = {k: c for k, c in counts.items() if c and "/" not in k and k not in want}
     if any(counts[k] != c for k, c in want.items()) or others or any(
@@ -3948,6 +3957,12 @@ def stateful_train_run(dev, card, arch):
             not losses[-1] <= losses[0] - STATEFUL_LOSS_DROP:
         raise AssertionError(f"stateful_train: {arch} loss did not fall by "
                              f"{STATEFUL_LOSS_DROP} (or is not finite): {losses} {norms}")
+    n_mb = want["mlstm_chunk/wgmma_bwd"] // n
+    if n_mb:
+        XLSTM_BWD[arch] = n_mb
+        log(f"{tag}: mLSTM backward kernel {n_mb} launches a step on wgmma_bwd "
+            f"({counts['mlstm_chunk/wgmma_bwd']} in {n} steps), the plain "
+            "mlstm_chunk_bwd none")
 
     first = min(2, n - 3)       # the median over the steps before the split one
     step_ms = statistics.median(walls[first:n - 2])
@@ -3960,7 +3975,6 @@ def stateful_train_run(dev, card, arch):
             f"{prof['kernel_ms']:.2f} device ms (device idle "
             f"{100 * (1 - prof['kernel_ms'] / prof['wall_ms']):.1f}%)")
         per = {"rglru_scan_bwd": ("reverse scan", want["rglru_scan"] // 3),
-               "mlstm_chunk_bwd": ("mLSTM backward", want["mlstm_chunk"] // 2),
                "flash_attention_bwd": ("flash backward kernel",
                                        want["flash_attention/wgmma_bwd"])}
         kernel_ms = prof["kernel_ms"] or math.nan
@@ -4238,12 +4252,19 @@ def rglru_train_row(dev):
 
 
 def mlstm_train_row(dev):
-    """mlstm_chunk at xlstm-350m's train microbatch (q/k/v [2, 1024, 4, 512]
-    bf16, chunk 256: ``STATEFUL_TRAIN``) through ``MLSTMChunk``: the forward (the kernel,
-    ``"wgmma"`` route) against the plain version's float32 result (5e-2),
-    the gradients against autograd of the plain version (2e-2 relative to
-    max(1, their largest value)); call, device, bound and plain ms of the
-    forward and of ``mlstm_chunk_bwd`` (written-out, float32)."""
+    """mlstm_chunk at xlstm-350m's train microbatch (q/k/v [4, 1024, 4, 512]
+    bf16, chunk 256: ``STATEFUL_TRAIN``) through ``MLSTMChunk``: the forward
+    (the kernel, ``"wgmma"`` route, its chunk start states kept) against the
+    plain version's float32 result (5e-2); the backward kernel (launched once
+    on ``"wgmma_bwd"``, the plain ``mlstm_chunk_bwd`` never) against autograd
+    of the plain version (2e-2 relative to max(1, each gradient's largest
+    value)), two backward calls bit-identical; the float32 route's backward
+    at a reduced shape ([2, 300, 2, 128], chunk 256) at 1e-4. Call, device,
+    bound and plain ms of the forward (its row) and of the backward kernel
+    (its own row, with autograd of the plain version as its plain ms and the
+    plain backward ``mlstm_chunk_bwd``, the written-out float32 PyTorch the
+    card ran before, beside it; device: CUDA-graph replay). Returns (the
+    forward's row, the backward kernel's)."""
     import torch
     from repro_torch.kernels import mlstm_chunk as kmc
     g = torch.Generator(device=dev).manual_seed(15)
@@ -4264,39 +4285,92 @@ def mlstm_train_row(dev):
     (h, _), (hw, _) = fwd(), kmc.mlstm_chunk_ref(q.float(), k.float(), v.float(),
                                                  ig, fg, chunk=L)
     err = check_close(f"train mlstm_chunk h bf16 {shape}", h, hw, "bf16_state")
-    got = torch.autograd.grad(h, ins, dh)
+    before = kmc.launches_by_route["wgmma_bwd"]
+    plain_bwd = kmc.mlstm_chunk_bwd
+
+    def never(*a, **kw):
+        raise AssertionError("mlstm_chunk_train: the plain mlstm_chunk_bwd ran on the card")
+
+    kmc.mlstm_chunk_bwd = never
+    try:
+        got = torch.autograd.grad(h, ins, dh)
+    finally:
+        kmc.mlstm_chunk_bwd = plain_bwd
+    torch.cuda.synchronize()
+    if kmc.launches_by_route["wgmma_bwd"] != before + 1:
+        raise AssertionError("mlstm_chunk_train: the backward kernel did not launch once")
     hr, _ = ref()
     want = torch.autograd.grad(hr, ins, dh, retain_graph=True)
+    b_err = 0.0
     for name, x, w in zip(("q", "k", "v", "ig", "fg"), got, want):
         scale = max(1.0, float(w.float().abs().max()))
-        err = max(err, check_close(f"train mlstm_chunk d{name} (scaled by {scale:.3g})",
-                                   x.float() / scale, w.float() / scale, "bfloat16"))
+        b_err = max(b_err, check_close(f"train mlstm_chunk d{name} (scaled by {scale:.3g})",
+                                       x.float() / scale, w.float() / scale, "bfloat16"))
     del got, want
-    bwd = lambda: kmc.mlstm_chunk_bwd(q, k, v, ig, fg, dh, chunk=L)   # noqa: E731
+    # the float32 route's backward, at a reduced shape
+    f32 = [rnd(2, 300, 2, 128, scale=0.5), rnd(2, 300, 2, 128, scale=0.5),
+           rnd(2, 300, 2, 128), rnd(2, 300, 2), rnd(2, 300, 2, shift=2.0)]
+    dh32 = rnd(2, 300, 2, 128)
+    xs = [t.clone().requires_grad_() for t in f32]
+    before32 = kmc.launches_by_route["simt_f32_bwd"]
+    got = torch.autograd.grad(kmc.mlstm_chunk(*xs, chunk=L)[0], xs, dh32)
+    want = torch.autograd.grad(kmc.mlstm_chunk_ref(*xs, chunk=L)[0], xs, dh32)
+    torch.cuda.synchronize()
+    if kmc.launches_by_route["simt_f32_bwd"] != before32 + 1:
+        raise AssertionError("mlstm_chunk_train: the float32 backward did not launch once")
+    f_err = 0.0
+    for name, x, w in zip(("q", "k", "v", "ig", "fg"), got, want):
+        scale = max(1.0, float(w.abs().max()))
+        f_err = max(f_err, check_close(f"train mlstm_chunk float32 d{name} [2,300,2,128] "
+                                       f"(scaled by {scale:.3g})", x / scale, w / scale,
+                                       "float32_grad"))
+    del got, want, xs
+    # the backward kernel alone, on the forward's kept states
+    _, (C, n, _), kept = kmc._forward(q, k, v, ig, fg, chunk=L, with_states=True)
+    bwd = lambda: torch.ops.repro_torch.mlstm_chunk_bwd(      # noqa: E731
+        q, k, v, ig, fg, dh, None, None, C, n, *kept, False, L)
+    first, second = bwd(), bwd()
+    if not all(torch.equal(x, y) for x, y in zip(first, second)):
+        raise AssertionError("mlstm_chunk_train: two backward calls on the same inputs differ")
+    del first, second
     body = lambda: kmc._forward(q, k, v, ig, fg, chunk=L)             # noqa: E731
     ms, dms = time_ms(fwd, 20), graph_ms(body)
-    b_ms, b_dms = time_ms(bwd, 10, warmup=1), graph_ms(bwd, iters=5)
+    b_ms, b_dms = time_ms(bwd, 20), graph_ms(bwd)
+    log_kernels(f"mlstm_chunk_bwd {shape} (by launch)", device_ms_by_kernel(bwd, 10))
+    written = lambda: plain_bwd(q, k, v, ig, fg, dh, chunk=L)         # noqa: E731
+    w_ms, w_dms = time_ms(written, 5, warmup=1), graph_ms(written, iters=5)
     plain = time_ms(ref, 3, warmup=1)
     plain_b = time_ms(lambda: torch.autograd.grad(hr, ins, dh, retain_graph=True), 3,
                       warmup=1)
     # forward: causal q·kᵀ and w·v in bf16, q·C and the state update in TF32
     f_bound, f_by = bound("mlstm", B, S, H, hd, L, 2, False)
-    # backward, float32 products: nine over the causal pairs (q·kᵀ, w·v and
-    # d·k recomputed; dw, dv, dd, dk from n, dq and dk from s) and six over
-    # the state (U and q·C recomputed; dq, dC_j, and dk, dv from the state
-    # update); q, k, v, ig, fg and dh read once, the five gradients written
-    bb_ms, bb_by = bound("mlstm_bwd", B, S, H, hd, L)
+    # backward kernel: five products over the pairs in bf16, four over the
+    # state in TF32; q, k, v, dh, the gates and the kept states read once,
+    # the five gradients written
+    bb_ms, bb_by = bound("mlstm_bwd_kernel", B, S, H, hd, L, 2)
+    wb_ms, wb_by = bound("mlstm_bwd", B, S, H, hd, L)
     log(f"[stateful_train] mlstm_chunk_train {shape} chunk {L}: forward "
         f"{ms:.4f} ms ({fmt_ms(dms)} device; bound {f_bound:.4f} by {f_by}; plain "
-        f"{plain:.2f}); backward {b_ms:.4f} ms ({fmt_ms(b_dms)} device; bound "
-        f"{bb_ms:.4f} by {bb_by} at the float32 rate; plain autograd {plain_b:.2f})")
-    return dict(
+        f"{plain:.2f}); backward kernel {b_ms:.4f} ms ({fmt_ms(b_dms)} device; bound "
+        f"{bb_ms:.4f} by {bb_by}; two calls bit-identical; float32 route at "
+        f"[2,300,2,128] max scaled err {f_err:.3e}); the plain mlstm_chunk_bwd "
+        f"(written-out float32, the card's backward until this kernel) {w_ms:.4f} ms "
+        f"({fmt_ms(w_dms)} device; bound {wb_ms:.4f} by {wb_by} at the float32 rate); "
+        f"plain autograd {plain_b:.2f}")
+    train = dict(
         name="mlstm_chunk_train", route="cuda",
         source="src/repro_torch/kernels/csrc/mlstm_chunk_wgmma.cu",
         replaces="src/repro/kernels/mlstm_chunk.py:77",
         max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=f_bound, bound_by=f_by,
-        library_ms=None, device_ms=dms, backward_ms=b_ms, backward_device_ms=b_dms,
-        backward_bound_ms=bb_ms, plain_backward_ms=plain_b)
+        library_ms=None, device_ms=dms)
+    back = dict(
+        name="mlstm_chunk_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/mlstm_chunk_bwd_wgmma.cu",
+        replaces="src/repro/kernels/mlstm_chunk.py:77",
+        max_abs_err=max(b_err, f_err), ms=b_ms, plain_ms=plain_b, bound_ms=bb_ms,
+        bound_by=bb_by, library_ms=None, device_ms=b_dms, written_out_ms=w_ms,
+        written_out_device_ms=w_dms)
+    return train, back
 
 
 def stateful_train_phase(dev, card):
@@ -4312,14 +4386,14 @@ def stateful_train_phase(dev, card):
     stateful_grad_checks(dev)
     parts["gradient checks"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    rows = {"rglru_scan_train": rglru_train_row(dev),
-            "mlstm_chunk_train": mlstm_train_row(dev)}
+    rows = {"rglru_scan_train": rglru_train_row(dev)}
+    rows["mlstm_chunk_train"], rows["mlstm_chunk_bwd"] = mlstm_train_row(dev)
     parts["kernel rows"] = time.perf_counter() - t0
     # xlstm's step is not profiled (``slstm_timed``): its mLSTM backward
     # calls at the row's device time
     xl = STATEFUL_TRAIN["xlstm-350m"]
-    calls = counts["xlstm-350m"]["mlstm_chunk"] // (2 * xl["steps"])
-    b_dms = rows["mlstm_chunk_train"]["backward_device_ms"]
+    calls = counts["xlstm-350m"]["mlstm_chunk/wgmma_bwd"] // xl["steps"]
+    b_dms = rows["mlstm_chunk_bwd"]["device_ms"]
     log(f"[stateful_train] xlstm-350m mLSTM backward: {calls} calls a step x "
         f"{fmt_ms(b_dms)} device ms = "
         f"{fmt_ms(None if b_dms is None else calls * b_dms)} device ms a step")
@@ -4736,28 +4810,16 @@ SWEEP = ROOT / "results" / "torch" / "dryrun_single_pod.json"
 TRAIN_RECORD = {}           # phase 12's unsharded tok/s and peak, for mesh_train
 
 
-WRITTEN_OUT = ("mlstm_chunk_bwd",)
-
-
 def profiled_products(fn):
-    """The aten products' FLOPs (``with_flops``) of one call of ``fn``: the
-    total, and those under the written-out mLSTM backward's profiler range."""
+    """The aten products' FLOPs (``with_flops``) of one call of ``fn`` (no
+    card path runs a written-out backward: the kernels' work is counted
+    apart, by their analytic costs)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU], with_flops=True) as prof:
         fn()
         torch.cuda.synchronize()
-    total, by_range = 0.0, collections.Counter()
-    for e in prof.events():
-        if e.name not in PRODUCT_OPS or not e.flops:
-            continue
-        total += e.flops
-        p = e.cpu_parent
-        while p is not None and p.name not in WRITTEN_OUT:
-            p = p.cpu_parent
-        if p is not None:
-            by_range[p.name] += e.flops
-    return total, by_range
+    return sum(e.flops for e in prof.events() if e.name in PRODUCT_OPS and e.flops)
 
 
 def predicted(cfg, shape, grid=(1, 1), accum=None):
@@ -4859,7 +4921,7 @@ def dryrun_phase(dev, card):
     half = {k: v[:TRAIN_BATCH // TRAIN_ACCUM] for k, v in batch.items()}
     log(f"[dryrun] train step {time.perf_counter() - t1:.1f} s")
     before = kfa.launches_by_route["wgmma_bwd"]
-    meas, _ = profiled_products(lambda: tts.loss_and_grads(params, half, cfg))
+    meas = profiled_products(lambda: tts.loss_and_grads(params, half, cfg))
     n_bwd = kfa.launches_by_route["wgmma_bwd"] - before
     log(f"[dryrun] train profiled {time.perf_counter() - t1:.1f} s")
     compare_line("train 36-layer qwen2.5-3b (1, 1)", "argument GB", p_args, args)
@@ -4882,6 +4944,30 @@ def dryrun_phase(dev, card):
     del params, opt, batch, step
     gc.collect()
     torch.cuda.empty_cache()
+    # -- phase 14's xlstm-350m step: the mLSTM backward kernel's analytic
+    # GFLOP in the trace against the launches the card made a step
+    if "xlstm-350m" in XLSTM_BWD:
+        t1 = time.perf_counter()
+        xl, xcfg = STATEFUL_TRAIN["xlstm-350m"], ARCHS["xlstm-350m"]
+        mb = xl["batch"] // xl["accum"]
+        shape = ShapeConfig("train_phase14", xl["seq"], xl["batch"], "train")
+        _, tr = predicted(xcfg, shape, accum=xl["accum"])
+        hd = int(xcfg.mlstm_proj_factor * xcfg.d_model) // xcfg.num_heads
+        per_call = sum(costs.mlstm_bwd_kernel(
+            mb, xl["seq"], xcfg.num_heads, hd, min(xcfg.mlstm_chunk, xl["seq"]))[0].values())
+        n_bwd = XLSTM_BWD["xlstm-350m"]
+        compare_line("train xlstm-350m (phase 14's step)",
+                     f"mLSTM backward kernel's analytic GFLOP a step ({n_bwd} launches "
+                     f"on the card, {tr['kernels'].get('mlstm_chunk_bwd', 0):.0f} traced)",
+                     tr["kernel_flops_by"].get("mlstm_chunk_bwd", 0.0), n_bwd * per_call)
+        if tr["kernels"].get("mlstm_chunk_bwd", 0) != n_bwd or tr["range_product_flops"]:
+            raise AssertionError(f"dryrun: the trace counts {tr['kernels']} mLSTM launches "
+                                 f"and range products {tr['range_product_flops']}; the card "
+                                 f"{n_bwd} backward launches a step")
+        log(f"[dryrun] xlstm trace {time.perf_counter() - t1:.1f} s")
+    else:
+        log("[dryrun] xlstm-350m's mLSTM backward: phase 14 did not run, no launches "
+            "to hold the trace to")
     # -- the 4-slot decode step of phase 3 (capacity 2048)
     t1 = time.perf_counter()
     shape = ShapeConfig("decode_phase3", 2048, 4, "decode")
@@ -4903,7 +4989,7 @@ def dryrun_phase(dev, card):
     model.decode_step(params, batch, cache, clen)
     torch.cuda.synchronize()
     temp = torch.cuda.max_memory_allocated() - base - args
-    meas, _ = profiled_products(lambda: model.decode_step(params, batch, cache, clen))
+    meas = profiled_products(lambda: model.decode_step(params, batch, cache, clen))
     compare_line("decode 4-slot qwen2.5-3b (1, 1)", "argument GB", p_args, args)
     compare_line("decode", "peak temp GB", tr["peak_bytes"], temp)
     compare_line("decode", "products GFLOP a step", tr["product_flops"], meas)
@@ -4929,7 +5015,7 @@ def dryrun_phase(dev, card):
     step()
     torch.cuda.synchronize()
     temp = torch.cuda.max_memory_allocated() - base - args
-    meas, _ = profiled_products(step)
+    meas = profiled_products(step)
     compare_line("paged decode 4-slot qwen2.5-3b, serve table on (1, 2)", "argument GB",
                  p_args, args)
     compare_line("paged (1, 2)", "peak temp GB", tr["peak_bytes"], temp)
@@ -5233,7 +5319,10 @@ def main() -> int:
         srows, sc = stateful_train_phase(dev, card)
         rows.update(srows)
         launches["rglru_scan_train"] = sc["recurrentgemma-9b"]["rglru_scan"]
-        launches["mlstm_chunk_train"] = sc["xlstm-350m"]["mlstm_chunk"]
+        launches["mlstm_chunk_train"] = sc["xlstm-350m"]["mlstm_chunk/wgmma"]
+        launches["mlstm_chunk_bwd"] = sc["xlstm-350m"]["mlstm_chunk/wgmma_bwd"]
+        rows["mlstm_chunk_bwd"]["routes"] = {
+            r: sc["xlstm-350m"][f"mlstm_chunk/{r}"] for r in ("wgmma_bwd", "simt_f32_bwd")}
         # recurrentgemma-9b's flash backward calls: hd 256, one KV head
         launches["flash_attention_bwd_hd256"] = \
             sc["recurrentgemma-9b"]["flash_attention/wgmma_bwd"]
@@ -5259,7 +5348,8 @@ def main() -> int:
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     extra = ("device_ms", "library_device_ms", "backward_ms", "backward_device_ms",
              "backward_bound_ms", "plain_backward_ms", "library_backward_ms",
-             "library_backward_device_ms", "routes")
+             "library_backward_device_ms", "written_out_ms", "written_out_device_ms",
+             "routes")
     log(card)
     log(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
                                 for r in rows.values()]}))

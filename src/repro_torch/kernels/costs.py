@@ -3,8 +3,9 @@
 One source for two readers: the dry run's cost counter
 (``launch/cost.py``), which answers each kernel's operator with these
 counts, and ``chip_smoke.py``'s kernel rows, whose ``bound_ms`` is
-``bound_ms`` of the same counts (``mlstm_bwd`` is the bound of the
-written-out mLSTM backward, which the dry run counts as the ops it runs). Each function returns ``(ops, nbytes)``: ``ops`` maps a rate
+``bound_ms`` of the same counts (``mlstm_bwd`` is the bound of the plain
+mLSTM backward's float32 products, which no card path runs). Each function
+returns ``(ops, nbytes)``: ``ops`` maps a rate
 ("bf16", "tf32", "f32": the tensor cores, TF32, or the CUDA cores) to the
 operations done at it; ``nbytes`` counts each input read once and each
 output written once. Where the work depends on the data (the cache rows a
@@ -116,12 +117,30 @@ def mlstm(B, S, H, hd, L, elt=2, state: bool = True) -> Cost:
 
 
 def mlstm_bwd(B, S, H, hd, L) -> Cost:
-    """The written-out backward in float32: nine products over the causal
-    pairs and six over the state; the forward's inputs and dh read, the
-    five gradients written."""
+    """The plain backward (``mlstm_chunk_bwd``) in float32: nine products
+    over the causal pairs and six over the state; the forward's inputs and
+    dh read, the five gradients written."""
     nc = -(-S // L)
     pairs = L * (L + 1) // 2
     io = 2 * 4 * B * S * H * hd + 4 * 2 * B * S * H
     return ({"f32": B * H * nc * (9.0 * 2 * pairs * hd + 6.0 * 2 * L * hd * hd)},
             2 * io)
 
+
+
+def mlstm_bwd_kernel(B, S, H, hd, L, elt=2) -> Cost:
+    """The backward kernel: five products over each chunk's causal pairs
+    (q·kᵀ and dh·vᵀ recomputed, ds'·k, ds'ᵀ·q, wᵀ·dh) at the half-precision
+    rate and four over the state (X = dh·Cᵀ, which gives both dq's term and
+    dh·(q C) as q·X; qᵀ·dh, v·dCEᵀ, (k ⊙ sc)·dCE) at TF32's (float32 inputs: both on the CUDA cores); q, k, v, dh and the
+    two gates read, the forward's saved chunk start states (C, n, m) read,
+    dq, dk, dv and the two gate gradients written."""
+    nc = -(-S // L)
+    pairs = L * (L + 1) // 2
+    r = "bf16" if elt == 2 else "f32"
+    ops = {r: 5.0 * 2 * B * H * nc * pairs * hd}
+    r2 = "tf32" if elt == 2 else "f32"
+    ops[r2] = ops.get(r2, 0.0) + 4.0 * 2 * B * H * nc * L * hd * hd
+    nbytes = (elt * 7 * B * S * H * hd + 4 * 4 * B * S * H
+              + 4 * B * H * nc * (hd * hd + hd + 1))
+    return ops, nbytes

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
-// (flash_attention_wgmma.cu, mlstm_chunk_wgmma.cu): shared-memory
-// addresses, wgmma descriptors and the wgmma instructions they use.
+// (flash_attention_wgmma.cu, mlstm_chunk_wgmma.cu, mlstm_chunk_bwd_wgmma.cu):
+// shared-memory addresses, cp.async, wgmma descriptors and the wgmma
+// instructions they use.
 //
 // Shared-memory operand tiles are 128-byte rows in the 128-byte swizzle
 // (layout type 1): within each 1024-byte group of 8 rows, 16-byte chunk c of
@@ -154,6 +155,35 @@ __device__ __forceinline__ void fence_async_smem() {
 // byte offset of 16-byte chunk c of row r in a 128-byte swizzled tile
 __device__ __forceinline__ uint32_t swz128(int r, int c) {
   return (uint32_t)(r * 128 + ((c ^ (r & 7)) << 4));
+}
+
+// cp.async of 16 bytes into shared memory, zero fill when !valid
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// K-major descriptor of a 128-byte swizzled tile, k step kk (32 bytes)
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
+  return make_desc(tile + kk * 32, 16, 8 * 128, 1);
+}
+// MN-major descriptor of a [64 K rows][64 N columns] bf16 operand stored as
+// 64-column blocks of 64 swizzled 128-byte rows (8 KB): column block cb, K
+// rows [16 kk, 16 kk + 16)
+__device__ __forceinline__ uint64_t desc_v(uint32_t tile, int cb, int kk) {
+  return make_desc(tile + cb * 8192 + kk * 16 * 128, 8192, 8 * 128, 1);
 }
 
 }  // namespace repro

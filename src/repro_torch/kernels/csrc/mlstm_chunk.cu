@@ -61,8 +61,9 @@ mlstm_chunk_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const float* __restrict__ fg, const float* __restrict__ C0,
                    const float* __restrict__ n0, const float* __restrict__ m0,
                    T* __restrict__ hout, float* __restrict__ Cout,
-                   float* __restrict__ nout, float* __restrict__ mout, int S, int H,
-                   int hd, int L, float scale) {
+                   float* __restrict__ nout, float* __restrict__ mout,
+                   float* __restrict__ CT, float* __restrict__ nS, double* __restrict__ mS,
+                   int S, int H, int hd, int L, float scale) {
   const int bh = blockIdx.x, b = bh / H, hh = bh - b * H;
   const int c0 = blockIdx.y * BV;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -105,6 +106,17 @@ mlstm_chunk_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int ci = 0; ci < nc; ++ci) {
     const int p0 = ci * L;
     __syncthreads();  // the previous chunk's state update is done
+    if (CT != nullptr) {  // with_states: the chunk's start state, for the backward
+      float* ct = CT + ((size_t)bh * nc + ci) * hd * hd;  // C_cᵀ [e][d]
+      for (int e = tid; e < BV * hd; e += NT) {
+        const int c = e / hd, d = e - c * hd;
+        ct[(size_t)(c0 + c) * hd + d] = sC[d * BV + c];
+      }
+      if (blockIdx.y == 0) {
+        for (int d = tid; d < hd; d += NT) nS[((size_t)bh * nc + ci) * hd + d] = sN[d];
+        if (tid == 0) mS[(size_t)bh * nc + ci] = m;
+      }
+    }
     // ---- per-row gates: F (cumsum of log_sigmoid(fg)), ig -----------------
     for (int j = tid; j < Lp; j += NT) {
       const int p = p0 + j;
@@ -328,7 +340,8 @@ mlstm_chunk_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* ig, const void* fg,
            const void* C0, const void* n0, const void* m0, void* h, void* C, void* n,
-           void* m, int B, int S, int H, int hd, int L, float scale, cudaStream_t st) {
+           void* m, void* CT, void* nS, void* mS, int B, int S, int H, int hd, int L,
+           float scale, cudaStream_t st) {
   const int Lp = (L + TQ - 1) / TQ * TQ;
   const size_t smem = sizeof(double) * 2 * Lp +
                       sizeof(float) * ((size_t)hd * BV + hd + TQ * (hd + 1) + TK * KSTR +
@@ -343,7 +356,8 @@ int launch(const void* q, const void* k, const void* v, const void* ig, const vo
       static_cast<const float*>(ig), static_cast<const float*>(fg),
       static_cast<const float*>(C0), static_cast<const float*>(n0),
       static_cast<const float*>(m0), static_cast<T*>(h), static_cast<float*>(C),
-      static_cast<float*>(n), static_cast<float*>(m), S, H, hd, L, scale);
+      static_cast<float*>(n), static_cast<float*>(m), static_cast<float*>(CT),
+      static_cast<float*>(nS), static_cast<double*>(mS), S, H, hd, L, scale);
   return (int)cudaGetLastError();
 }
 
@@ -363,7 +377,9 @@ int mlstm_chunk_wgmma(const void* q, const void* k, const void* v, const float* 
 // the outputs distinct from the inputs. float32: hd a multiple of 32 up to
 // 512. bf16: hd a multiple of 64 up to 512, and the float32 scratch of the
 // three phases (gates [B·H, 3, nc·L], CT [B·H, nc, hd, hd], nS [B·H, nc, hd],
-// mS [B·H, nc]; the float32 route takes them null). 1 <= L <= 512.
+// mS [B·H, nc]). The float32 route takes gates null and CT, nS, mS null or,
+// to keep each chunk's start state for the backward, CT [B·H, nc, hd, hd]
+// (C_cᵀ), nS [B·H, nc, hd] float32 and mS [B·H, nc] float64. 1 <= L <= 512.
 // Returns cudaGetLastError() of the launches.
 extern "C" int mlstm_chunk_fwd(const void* q, const void* k, const void* v,
                                const void* ig, const void* fg, const void* C0,
@@ -375,7 +391,8 @@ extern "C" int mlstm_chunk_fwd(const void* q, const void* k, const void* v,
   if (hd % BV != 0 || hd > 512 || L < 1 || L > 512) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == repro::kF32)
-    return launch<float>(q, k, v, ig, fg, C0, n0, m0, h, C, n, m, B, S, H, hd, L, scale, st);
+    return launch<float>(q, k, v, ig, fg, C0, n0, m0, h, C, n, m, CT, nS, mS, B, S, H, hd, L,
+                         scale, st);
   if (dtype == repro::kBF16) {
     if (gates == nullptr || CT == nullptr || nS == nullptr || mS == nullptr)
       return (int)cudaErrorInvalidValue;

@@ -79,33 +79,6 @@ __device__ __forceinline__ float log_sigmoid(float x) {
   return -(fmaxf(-x, 0.f) + log1pf(expf(-fabsf(x))));
 }
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// K-major descriptor of a 128-byte swizzled tile, k step kk (32 bytes)
-__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
-  return make_desc(tile + kk * 32, 16, 8 * 128, 1);
-}
-// MN-major descriptor: value tile of 64 keys, column block cb, keys
-// [16 kk, 16 kk + 16), as flash_attention_wgmma.cu's V operand
-__device__ __forceinline__ uint64_t desc_v(uint32_t tile, int cb, int kk) {
-  return make_desc(tile + cb * SLAB + kk * 16 * 128, SLAB, 8 * 128, 1);
-}
-
 // ---- phase 1: gates ----------------------------------------------------------
 __global__ void __launch_bounds__(GATE_NT)
 mlstm_gates(const float* __restrict__ ig, const float* __restrict__ fg,

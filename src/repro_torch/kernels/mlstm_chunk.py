@@ -31,12 +31,22 @@ gates (F, the stabilisers, the exponents) in float64.
 CUDA tensors it launches the kernel or raises.
 
 Gradients: when autograd is on and q, k, v or a gate requires grad, the
-call goes through ``MLSTMChunk`` (a ``torch.autograd.Function``): its
-forward is the same call (the kernel on the card, on the route of the
-dtype; the plain version on the CPU, so the CPU tests run the backward the
-card runs) and its backward is ``mlstm_chunk_bwd``, written out in
-PyTorch. A state input that requires grad raises: train mode never passes
-one. The JAX package's gradient is XLA's autodiff of ``mlstm_chunkwise``.
+call goes through ``MLSTMChunk`` (a ``torch.autograd.Function``). Its
+forward is the same call with each chunk's start state kept
+(``with_states``: the bf16 route's gates, ``C_cᵀ``, ``n_c`` and ``m_c``
+scratch, which serving drops; the float32 route writes ``C_cᵀ``, ``n_c``
+and a float64 ``m_c`` when given the buffers, ``states_plan``). Its
+backward is the backward kernel on the card (``csrc/mlstm_chunk_bwd_wgmma.cu``
+for bf16: the pair products in bf16 and the state products in TF32 on
+wgmma; ``csrc/mlstm_chunk_bwd.cu`` for float32 on the CUDA cores, gates in
+float64, and the gate phase both share; routes ``wgmma_bwd`` and
+``simt_f32_bwd``; ``bwd_plan`` gives its float32 scratch) and
+``mlstm_chunk_bwd``, its plain version, on the CPU. A state input that
+requires grad raises: train mode never passes one. The JAX package's
+gradient is XLA's autodiff of ``mlstm_chunkwise``, which the backward
+kernel replaces. What bounds it: operations, five products over the causal
+pairs and four over the state (``costs.mlstm_bwd_kernel``); the design is
+in the sources' notes.
 """
 from __future__ import annotations
 
@@ -57,10 +67,25 @@ TILE = 64           # query rows / keys of an output tile; the edge of a C tile
 MAX_BV = 128        # value columns of an output block
 
 ROUTES = {torch.bfloat16: "wgmma", torch.float32: "simt_f32"}
+BWD_ROUTES = {torch.bfloat16: "wgmma_bwd", torch.float32: "simt_f32_bwd"}
 
-launches = 0            # kernel launches (never the plain version)
-launches_by_route = {route: 0 for route in ROUTES.values()}
+launches = 0            # kernel launches, forward and backward (never the plain version)
+launches_by_route = {route: 0 for route in (*ROUTES.values(), *BWD_ROUTES.values())}
 _fn = None
+_bwd_fn = None
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# the C entry points' arguments (csrc/mlstm_chunk.cu::mlstm_chunk_fwd,
+# csrc/mlstm_chunk_bwd.cu::mlstm_chunk_bwd): pointers and the stream as
+# c_void_p, ints as c_int
+FWD_ARGTYPES = [_P] * 16 + [_I] * 5 + [ctypes.c_float, _I, _P]
+BWD_ARGTYPES = [_P] * 27 + [_I] * 5 + [ctypes.c_float, _I, _I, _P]
+
+# the backward's geometry: the float32 route's carry (a thread per element
+# of dC and dn, CARRY_NT a block) and its row kernels (a warp a row)
+CARRY_NT = 256
+ROWS_A_BLOCK = 4
+ROW_SCALARS = 6         # denom, dqn, R, dinter·inter, Σ_m dlogD, Σ_l dlogD
 
 
 def wgmma_plan(B: int, S: int, H: int, hd: int, chunk: int) -> dict:
@@ -80,6 +105,84 @@ def wgmma_plan(B: int, S: int, H: int, hd: int, chunk: int) -> dict:
         L=L, nc=nc, Sp=nc * L, ntile=ntile, bv=bv,
         scratch={"gates": (BH, 3, nc * L), "CT": (BH, nc, hd, hd),
                  "nS": (BH, nc, hd), "mS": (BH, nc)})
+
+
+def states_plan(B: int, S: int, H: int, hd: int, chunk: int, dtype) -> dict:
+    """What the forward keeps for the backward with ``with_states``: name ->
+    (shape, dtype). bf16: the three phases' scratch (``wgmma_plan``; ``CT``
+    rounded to TF32, the backward's operand). float32: ``CT`` and ``nS``
+    float32 and ``mS`` float64 (the route's stabilisers), no gates (its
+    backward recomputes them in float64)."""
+    if dtype == torch.bfloat16:
+        return {name: (shape, torch.float32) for name, shape in
+                wgmma_plan(B, S, H, hd, chunk)["scratch"].items()}
+    L = min(chunk, S)
+    nc = -(-S // L)
+    BH = B * H
+    return {"gates": ((0,), torch.float32), "CT": ((BH, nc, hd, hd), torch.float32),
+            "nS": ((BH, nc, hd), torch.float32), "mS": ((BH, nc), torch.float64)}
+
+
+def bwd_plan(B: int, S: int, H: int, hd: int, chunk: int, dtype) -> dict:
+    """The backward kernel's plan for one call: chunk length ``L``, chunk
+    count ``nc``, padded length ``Sp``, 64-row tiles a chunk ``ntile``, the
+    column blocks whose partial k·dCv a row sums ``ncol``, the partials of a
+    chunk's decay gradient ``NP``, every launch's grid, and the float32
+    scratch (name -> shape; ``gates`` float64, the float32 route's only):
+    ``rows`` the row scalars (``ROW_SCALARS``), ``dlsc`` the partials,
+    ``dCE`` / ``dnE`` each chunk's end-state gradient, ``ddp`` / ``dmp``
+    the partials of the decay's and the state out's m gradient; bf16 only,
+    ``xs`` the state products a row (X = dh·C_cᵀ, then v·dCE_cᵀ; and
+    (k ⊙ sc)·dCE_c) and ``xq`` the partials of q·X and q·n_c."""
+    L = min(chunk, S)
+    nc = -(-S // L)
+    ntile = -(-L // TILE)
+    BH = B * H
+    if dtype == torch.bfloat16:
+        ncol = hd // TILE
+        NP = ncol * ncol
+        grids = {"slab": (ncol, nc, BH), "rows": (ntile * nc * BH,),
+                 "carry": (ncol, ncol, BH), "dq": (ncol * ntile * nc * BH,),
+                 "dkdv": (ncol * ntile * nc * BH,), "gates": (BH,)}
+    else:
+        ncol = 1
+        NP = -(-(hd * hd + hd) // CARRY_NT)
+        rows = (-(-L // ROWS_A_BLOCK), nc, BH)
+        grids = {"gates64": (nc, BH), "rows": rows, "carry": (NP, BH), "dq": rows,
+                 "dkdv": rows, "gates": (BH,)}
+    Sp = nc * L
+    scratch = {"rows": (BH, ROW_SCALARS, Sp), "dlsc": (BH, ncol, Sp),
+               "dCE": (BH, nc, hd, hd), "dnE": (BH, nc, hd), "ddp": (BH, nc, NP),
+               "dmp": (BH, NP)}
+    if dtype == torch.bfloat16:
+        scratch["xs"] = (2, BH, Sp, hd)
+        scratch["xq"] = (BH, 2, ncol, Sp)
+    else:
+        scratch["gates"] = (BH, 3, Sp)
+    return dict(L=L, nc=nc, Sp=Sp, ntile=ntile, ncol=ncol, NP=NP, grids=grids,
+                scratch=scratch)
+
+
+def chunk_states_ref(q, k, v, ig, fg, state=None, *, chunk: int = 256):
+    """Plain version of what the forward keeps with ``with_states``: each
+    chunk's start state, ``CT [B·H, nc, hd, hd]`` (C transposed: [e][d]),
+    ``nS [B·H, nc, hd]`` and ``mS [B·H, nc]``, float32 (float64 for float64
+    inputs), by ``mlstm_chunk_ref`` over each prefix of whole chunks."""
+    B, S, H, hd = q.shape
+    L = min(chunk, S)
+    wide = torch.float64 if q.dtype == torch.float64 else torch.float32
+    st = zero_state(B, H, hd, q.device, wide) if state is None else \
+        tuple(t.to(wide) for t in state)
+    Cs, ns, ms = [], [], []
+    for c0 in range(0, S, L):
+        C, n, m = st
+        Cs.append(C.transpose(-1, -2).reshape(B * H, hd, hd))
+        ns.append(n.reshape(B * H, hd))
+        ms.append(m.reshape(B * H))
+        sl = slice(c0, c0 + L)
+        _, st = mlstm_chunk_ref(q[:, sl], k[:, sl], v[:, sl], ig[:, sl], fg[:, sl], st,
+                                chunk=L)
+    return torch.stack(Cs, 1), torch.stack(ns, 1), torch.stack(ms, 1)
 
 
 def zero_state(B, H, hd, device, dtype=torch.float32):
@@ -141,10 +244,15 @@ def mlstm_chunk_ref(q, k, v, ig, fg, state=None, *, chunk: int = 256):
 def _kernel():
     global _fn
     if _fn is None:
-        P, I = ctypes.c_void_p, ctypes.c_int
-        _fn = build.entry("mlstm_chunk_fwd",
-                          [P] * 16 + [I] * 5 + [ctypes.c_float, I, P])
+        _fn = build.entry("mlstm_chunk_fwd", FWD_ARGTYPES)
     return _fn
+
+
+def _bwd_kernel():
+    global _bwd_fn
+    if _bwd_fn is None:
+        _bwd_fn = build.entry("mlstm_chunk_bwd", BWD_ARGTYPES)
+    return _bwd_fn
 
 
 def mlstm_chunk_bwd(q, k, v, ig, fg, dh, state=None, dstate=None, *,
@@ -341,14 +449,17 @@ def mlstm_chunk_bwd(q, k, v, ig, fg, dh, state=None, dstate=None, *,
 
 class MLSTMChunk(torch.autograd.Function):
     """``mlstm_chunk`` with a gradient: the forward is the wrapper's call
-    (the kernel on the card), the backward ``mlstm_chunk_bwd`` on the very
-    inputs the forward saw; the state in, if any, is held constant."""
+    with each chunk's start state kept (the kernel on the card), the backward
+    the backward kernel on the very inputs the forward saw and those states
+    (``mlstm_chunk_bwd``, the plain version, on the CPU); the state in, if
+    any, is held constant."""
 
     @staticmethod
     def forward(ctx, q, k, v, ig, fg, C0, n0, m0, chunk):
         state = None if C0 is None else (C0, n0, m0)
-        h, (C, n, m) = _forward(q, k, v, ig, fg, state, chunk=chunk)
-        ctx.save_for_backward(q, k, v, ig, fg, C0, n0, m0)
+        h, (C, n, m), saved = _forward(q, k, v, ig, fg, state, chunk=chunk,
+                                       with_states=True)
+        ctx.save_for_backward(q, k, v, ig, fg, C0, n0, m0, C, n, *saved)
         ctx.chunk = chunk
         ctx.set_materialize_grads(False)
         ctx.mark_non_differentiable(m)
@@ -357,12 +468,19 @@ class MLSTMChunk(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dh, dC, dn, dm):
         del dm                      # the stabiliser's: see mlstm_chunk_bwd
-        q, k, v, ig, fg, C0, n0, m0 = ctx.saved_tensors
-        state = None if C0 is None else (C0, n0, m0)
-        with torch.profiler.record_function("mlstm_chunk_bwd"):
-            grads = mlstm_chunk_bwd(q, k, v, ig, fg, dh, state, (dC, dn),
-                                    chunk=ctx.chunk)
-        return grads + (None,) * 4
+        q, k, v, ig, fg, C0, n0, m0, C, n, *saved = ctx.saved_tensors
+        if q.device.type == "cpu":
+            state = None if C0 is None else (C0, n0, m0)
+            with torch.profiler.record_function("mlstm_chunk_bwd"):
+                grads = mlstm_chunk_bwd(q, k, v, ig, fg, dh, state, (dC, dn),
+                                        chunk=ctx.chunk)
+            return grads + (None,) * 4
+        dh = torch.zeros_like(q) if dh is None else dh.contiguous()
+        dq, dk, dv, dig, dfg = _launch_bwd(
+            q, k, v, ig, fg, dh, None if dC is None else dC.contiguous(),
+            None if dn is None else dn.contiguous(), C, n, *saved, C0 is not None,
+            ctx.chunk)
+        return dq, dk, dv, dig.to(ig.dtype), dfg.to(fg.dtype), None, None, None, None
 
 
 def mlstm_chunk(q, k, v, ig, fg, state=None, *, chunk: int = 256):
@@ -382,75 +500,156 @@ def mlstm_chunk(q, k, v, ig, fg, state=None, *, chunk: int = 256):
     return _forward(q, k, v, ig, fg, state, chunk=chunk)
 
 
-def _forward(q, k, v, ig, fg, state=None, *, chunk: int = 256):
-    """The plain version (CPU tensors), or the kernel's operator."""
+def _forward(q, k, v, ig, fg, state=None, *, chunk: int = 256, with_states=False):
+    """The plain version (CPU tensors), or the kernel's operator: (h, (C, n,
+    m)), and with ``with_states`` the chunk start states the backward
+    kernel reads (``states_plan``; none from the plain version, whose
+    backward recomputes them)."""
     if q.device.type == "cpu":
-        return mlstm_chunk_ref(q, k, v, ig, fg, state, chunk=chunk)
+        out = mlstm_chunk_ref(q, k, v, ig, fg, state, chunk=chunk)
+        return out + ((),) if with_states else out
     C0, n0, m0 = (None,) * 3 if state is None else state
-    h, C, n, m = _launch(q, k, v, ig, fg, C0, n0, m0, chunk)
-    return h, (C, n, m)
+    h, C, n, m, *saved = _launch(q, k, v, ig, fg, C0, n0, m0, chunk, with_states)
+    return (h, (C, n, m), tuple(saved)) if with_states else (h, (C, n, m))
 
 
-@build.op("mlstm_chunk", "(Tensor q, Tensor k, Tensor v, Tensor ig, Tensor fg, "
-          "Tensor? C0, Tensor? n0, Tensor? m0, int chunk) "
-          "-> (Tensor, Tensor, Tensor, Tensor)")
-def _launch(q, k, v, ig, fg, C0, n0, m0, chunk):
-    """The kernel on CUDA tensors (``torch.ops.repro_torch.mlstm_chunk``):
-    h and the state after the last step (C, n, m)."""
-    state = None if C0 is None else (C0, n0, m0)
+def _check(name, q, k, v, ig, fg):
+    """What both kernels take: one [B, S, H, hd] shape for q, k, v, [B, S, H]
+    gates, the dtypes and head dims of the routes, one CUDA device,
+    contiguous 16-byte aligned q, k, v."""
     if q.device.type != "cuda":
-        raise ValueError(f"mlstm_chunk: unsupported device {q.device}")
+        raise ValueError(f"{name}: unsupported device {q.device}")
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"mlstm_chunk: q {tuple(q.shape)} k {tuple(k.shape)} "
+        raise ValueError(f"{name}: q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)} must be one [B, S, H, hd] shape")
     B, S, H, hd = q.shape
     if ig.shape != (B, S, H) or fg.shape != (B, S, H):
-        raise ValueError(f"mlstm_chunk: ig {tuple(ig.shape)} / fg {tuple(fg.shape)} "
+        raise ValueError(f"{name}: ig {tuple(ig.shape)} / fg {tuple(fg.shape)} "
                          f"must be [{B}, {S}, {H}]")
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"mlstm_chunk: dtypes {q.dtype}/{k.dtype}/{v.dtype}")
+        raise ValueError(f"{name}: dtypes {q.dtype}/{k.dtype}/{v.dtype}")
     step = TILE if q.dtype == torch.bfloat16 else 32
     if hd % step or hd > MAX_HEAD_DIM:
-        raise ValueError(f"mlstm_chunk: head_dim {hd} must be a multiple of {step} "
+        raise ValueError(f"{name}: head_dim {hd} must be a multiple of {step} "
                          f"up to {MAX_HEAD_DIM} for {q.dtype}")
+    if any(t.device != q.device for t in (k, v, ig, fg)):
+        raise ValueError(f"{name}: tensors on different devices")
+    if not (all(t.is_contiguous() for t in (q, k, v)) and aligned16(q, k, v)):
+        raise ValueError(f"{name}: q, k, v must be contiguous and 16-byte aligned")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+@build.op("mlstm_chunk", "(Tensor q, Tensor k, Tensor v, Tensor ig, Tensor fg, "
+          "Tensor? C0, Tensor? n0, Tensor? m0, int chunk, bool with_states=False) "
+          "-> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, Tensor)")
+def _launch(q, k, v, ig, fg, C0, n0, m0, chunk, with_states=False):
+    """The kernel on CUDA tensors (``torch.ops.repro_torch.mlstm_chunk``):
+    h, the state after the last step (C, n, m), and with ``with_states``
+    the chunk start states of ``states_plan`` (gates, CT, nS, mS; each
+    empty without it: serving keeps none)."""
+    state = None if C0 is None else (C0, n0, m0)
+    _check("mlstm_chunk", q, k, v, ig, fg)
+    B, S, H, hd = q.shape
     L = min(chunk, S)
     if not 1 <= chunk or L > MAX_CHUNK:
         raise ValueError(f"mlstm_chunk: chunk {chunk} (at most {MAX_CHUNK})")
-    ins = [q, k, v, ig, fg]
     if state is not None:
-        C0, n0, m0 = state
         if (C0.shape != (B, H, hd, hd) or n0.shape != (B, H, hd)
                 or m0.shape != (B, H)
                 or any(t.dtype != torch.float32 for t in state)):
             raise ValueError("mlstm_chunk: state must be float32 (C [B,H,hd,hd], "
                              "n [B,H,hd], m [B,H])")
-        ins += [C0, n0, m0]
-    if any(t.device != q.device for t in ins):
-        raise ValueError("mlstm_chunk: tensors on different devices")
-    if not (all(t.is_contiguous() for t in (q, k, v)) and aligned16(q, k, v)):
-        raise ValueError("mlstm_chunk: q, k, v must be contiguous and 16-byte aligned")
+        if any(t.device != q.device for t in state):
+            raise ValueError("mlstm_chunk: tensors on different devices")
     igc = ig.float().contiguous()
     fgc = fg.float().contiguous()
     st = (None, None, None) if state is None else tuple(t.contiguous() for t in state)
+    dev = q.device
     h = torch.empty_like(q)
-    C, n, m = (torch.empty(B, H, hd, hd, dtype=torch.float32, device=q.device),
-               torch.empty(B, H, hd, dtype=torch.float32, device=q.device),
-               torch.empty(B, H, dtype=torch.float32, device=q.device))
+    C, n, m = (torch.empty(B, H, hd, hd, dtype=torch.float32, device=dev),
+               torch.empty(B, H, hd, dtype=torch.float32, device=dev),
+               torch.empty(B, H, dtype=torch.float32, device=dev))
+    empty = tuple(torch.empty(0, device=dev) for _ in range(4))
     if B == 0 or H == 0:
-        return h, C, n, m
+        return (h, C, n, m) + empty
     if S == 0:
-        return (h,) + (zero_state(B, H, hd, q.device) if state is None
-                       else tuple(t.clone() for t in st))
+        return (h,) + (zero_state(B, H, hd, dev) if state is None
+                       else tuple(t.clone() for t in st)) + empty
     scratch = (None,) * 4
-    if q.dtype == torch.bfloat16:
-        scratch = tuple(torch.empty(shape, dtype=torch.float32, device=q.device)
-                        for shape in wgmma_plan(B, S, H, hd, chunk)["scratch"].values())
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    ptr = (lambda t: None if t is None else t.data_ptr())       # noqa: E731
+    if q.dtype == torch.bfloat16 or with_states:
+        scratch = tuple(torch.empty(shape, dtype=dt, device=dev) if shape != (0,) else None
+                        for shape, dt in states_plan(B, S, H, hd, chunk, q.dtype).values())
+    stream = torch.cuda.current_stream(dev).cuda_stream
     err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), igc.data_ptr(),
-                    fgc.data_ptr(), *map(ptr, st), h.data_ptr(), C.data_ptr(),
-                    n.data_ptr(), m.data_ptr(), *map(ptr, scratch), B, S, H, hd, L,
+                    fgc.data_ptr(), *map(_ptr, st), h.data_ptr(), C.data_ptr(),
+                    n.data_ptr(), m.data_ptr(), *map(_ptr, scratch), B, S, H, hd, L,
                     hd ** -0.5, DTYPES[q.dtype], stream)
     build.check(err, "mlstm_chunk")
     launch_counts.count(__name__, ROUTES[q.dtype])
-    return h, C, n, m
+    if not with_states:
+        return (h, C, n, m) + empty
+    gates, CT, nS, mS = (e if t is None else t for t, e in zip(scratch, empty))
+    if state is None and q.dtype == torch.bfloat16:
+        CT[:, 0].zero_()            # the kernel writes no C_0 of a zero start
+    return h, C, n, m, gates, CT, nS, mS
+
+
+@build.op("mlstm_chunk_bwd", "(Tensor q, Tensor k, Tensor v, Tensor ig, Tensor fg, "
+          "Tensor dh, Tensor? dC, Tensor? dn, Tensor C, Tensor n, Tensor gates, "
+          "Tensor CT, Tensor nS, Tensor mS, bool has_state, int chunk) "
+          "-> (Tensor, Tensor, Tensor, Tensor, Tensor)")
+def _launch_bwd(q, k, v, ig, fg, dh, dC, dn, C, n, gates, CT, nS, mS, has_state, chunk):
+    """The backward kernel on CUDA tensors
+    (``torch.ops.repro_torch.mlstm_chunk_bwd``): (dq, dk, dv, dig, dfg) of
+    ``mlstm_chunk`` at (q, k, v, ig, fg), the gates' float32, given the
+    output's gradient ``dh``, the state out's (``dC``, ``dn``; None: 0) and
+    the state out ``C``, ``n``, from the chunk start states the forward kept
+    (``with_states``); ``has_state``: the forward started from a state in."""
+    _check("mlstm_chunk_bwd", q, k, v, ig, fg)
+    B, S, H, hd = q.shape
+    L = min(chunk, S)
+    if not 1 <= chunk or L > MAX_CHUNK:
+        raise ValueError(f"mlstm_chunk_bwd: chunk {chunk} (at most {MAX_CHUNK})")
+    if dh.shape != q.shape or dh.dtype != q.dtype or dh.device != q.device \
+            or not dh.is_contiguous() or not aligned16(dh):
+        raise ValueError(f"mlstm_chunk_bwd: dh must be a contiguous, 16-byte aligned "
+                         f"{q.dtype} tensor of q's shape")
+    f32 = dict(dtype=torch.float32, device=q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dig, dfg = torch.empty(B, S, H, **f32), torch.empty(B, S, H, **f32)
+    if B == 0 or H == 0 or S == 0:
+        return dq, dk, dv, dig, dfg
+    want = states_plan(B, S, H, hd, chunk, q.dtype)
+    for name, t in zip(("gates", "CT", "nS", "mS"), (gates, CT, nS, mS)):
+        shape, dt = want[name]
+        if tuple(t.shape) != shape or t.dtype != dt or t.device != q.device \
+                or not t.is_contiguous():
+            raise ValueError(f"mlstm_chunk_bwd: saved {name} {tuple(t.shape)} {t.dtype} "
+                             f"is not {dt} {shape} (the forward's with_states)")
+    for name, t, shape in (("dC", dC, (B, H, hd, hd)), ("dn", dn, (B, H, hd)),
+                           ("C", C, (B, H, hd, hd)), ("n", n, (B, H, hd))):
+        if t is not None and (tuple(t.shape) != shape or t.dtype != torch.float32
+                              or t.device != q.device or not t.is_contiguous()):
+            raise ValueError(f"mlstm_chunk_bwd: {name} must be contiguous float32 {shape}")
+    plan = bwd_plan(B, S, H, hd, chunk, q.dtype)
+    scratch = {name: torch.empty(shape, dtype=torch.float64 if name == "gates"
+                                 else torch.float32, device=q.device)
+               for name, shape in plan["scratch"].items()}
+    if q.dtype == torch.bfloat16:
+        scratch["gates"] = gates
+    igc, fgc = ig.float().contiguous(), fg.float().contiguous()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    sp = [scratch[name].data_ptr() if name in scratch else None
+          for name in ("rows", "dlsc", "dCE", "dnE", "ddp", "dmp", "xs", "xq")]
+    err = _bwd_kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), igc.data_ptr(),
+                        fgc.data_ptr(), dh.data_ptr(), _ptr(dC), _ptr(dn), C.data_ptr(),
+                        n.data_ptr(), scratch["gates"].data_ptr(), CT.data_ptr(),
+                        nS.data_ptr(), mS.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                        dv.data_ptr(), dig.data_ptr(), dfg.data_ptr(), *sp, B, S, H, hd, L,
+                        hd ** -0.5, int(has_state), DTYPES[q.dtype], stream)
+    build.check(err, "mlstm_chunk_bwd")
+    launch_counts.count(__name__, BWD_ROUTES[q.dtype])
+    return dq, dk, dv, dig, dfg

@@ -10,8 +10,8 @@ of the mesh,
   kernel's outputs and its work from ``kernels/costs.py``: the causal or
   windowed pairs of flash and of its backward kernel, the cache rows a
   decode reads, the scans' states), and one operation per output element
-  of every other arithmetic op. The written-out backward of mLSTM is plain
-  PyTorch and counts as the ops it runs;
+  of every other arithmetic op (the backward kernels of flash and of the
+  mLSTM are operators too, counted by their analytic cost);
 * ``bytes_accessed``: operand and result bytes at every op boundary, the
   upper bound (each eager op reads and writes memory);
 * ``bytes_min``: the data movers only: products, kernels (their analytic
@@ -50,6 +50,7 @@ from torch.utils._pytree import tree_flatten
 
 from repro_torch.distributed import sharding
 from repro_torch.kernels import costs
+from repro_torch.kernels import mlstm_chunk as kmc
 
 aten = torch.ops.aten
 _POS = "_cost_pos"
@@ -140,8 +141,8 @@ class CostCounter(TorchDispatchMode):
         self.kernels: Dict[str, float] = collections.Counter()
         self.kernel_flops_by: Dict[str, float] = collections.Counter()
         # products inside each open ``torch.profiler.record_function`` range
-        # (the written-out backward "mlstm_chunk_bwd"; the flash backward's
-        # range holds its kernel's operator and no product)
+        # (the flash backward's range holds its kernel's operator and no
+        # product)
         self.range_product_flops: Dict[str, float] = collections.Counter()
         self._ranges = []
         self.live = self.peak = 0
@@ -329,17 +330,32 @@ def _rglru_scan(a, bx, h0, out_dtype):
             costs.rglru(B, S, R, y.element_size(), h0 is not None), "rglru_scan")
 
 
-def _mlstm_chunk(q, k, v, ig, fg, C0, n0, m0, chunk):
+def _mlstm_chunk(q, k, v, ig, fg, C0, n0, m0, chunk, with_states=False):
+    """The chunk start states it keeps with ``with_states`` count toward the
+    peak (autograd saves them); their writes are the kernel's scratch."""
     B, S, H, hd = q.shape
     f32 = dict(dtype=torch.float32, device=q.device)
+    kept = kmc.states_plan(B, S, H, hd, chunk, q.dtype).values()
+    states = tuple(torch.empty(shape if with_states else (0,), dtype=dt, device=q.device)
+                   for shape, dt in kept)
     return ((torch.empty_like(q), torch.empty(B, H, hd, hd, **f32),
-             torch.empty(B, H, hd, **f32), torch.empty(B, H, **f32)),
+             torch.empty(B, H, hd, **f32), torch.empty(B, H, **f32)) + states,
             costs.mlstm(B, S, H, hd, chunk, q.element_size(), C0 is not None),
             "mlstm_chunk")
+
+
+def _mlstm_chunk_bwd(q, k, v, ig, fg, dh, dC, dn, C, n, gates, CT, nS, mS, has_state,
+                     chunk):
+    B, S, H, hd = q.shape
+    f32 = dict(dtype=torch.float32, device=q.device)
+    return ((torch.empty_like(q), torch.empty_like(k), torch.empty_like(v),
+             torch.empty(B, S, H, **f32), torch.empty(B, S, H, **f32)),
+            costs.mlstm_bwd_kernel(B, S, H, hd, min(chunk, S), q.element_size()),
+            "mlstm_chunk_bwd")
 
 
 KERNELS = {"flash_attention": _flash, "flash_attention_bwd": _flash_bwd,
            "split_decode": _split_decode,
            "split_decode_partials": _partials, "split_decode_combine": _combine,
            "accept_len": _accept_len, "rglru_scan": _rglru_scan,
-           "mlstm_chunk": _mlstm_chunk}
+           "mlstm_chunk": _mlstm_chunk, "mlstm_chunk_bwd": _mlstm_chunk_bwd}

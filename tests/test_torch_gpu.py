@@ -10,9 +10,9 @@ on graphs: a two-replica fleet with a pump per replica, preempt-resume,
 journal restore, and a transient fault ahead of the first capture; the
 modality archs' kernel geometries (MHA at head dim 64) and servers;
 training: the gradients of the flash, rglru_scan and mlstm_chunk
-wrappers (their autograd.Functions: the kernel forward; flash's backward
-is its backward kernel on the dtype's route, bit-identical from call to
-call, the scan's the kernel run in reverse, mLSTM's written out) against
+wrappers (their autograd.Functions: the kernel forward; flash's and
+mLSTM's backwards are their backward kernels on the dtype's route,
+bit-identical from call to call, the scan's the kernel run in reverse) against
 plain autograd, the split-K decode forms refusing a gradient, and train steps
 of qwen, recurrentgemma and xlstm on the card against the CPU. This file
 imports no JAX, so it also runs on a machine with a card and no JAX:
@@ -1461,24 +1461,32 @@ def test_gpu_rglru_reverse_scan_gradient_matches_plain(B, S, R, route, out_dtype
     (torch.bfloat16, 2, 100, 2, 64, 32),
     (torch.bfloat16, 2, 1024, 4, 512, 256)])      # xlstm-350m's train microbatch
 def test_gpu_mlstm_function_with_the_kernel_forward_matches_plain(dtype, B, S, H, hd,
-                                                                  chunk):
+                                                                  chunk, monkeypatch):
     """``MLSTMChunk`` on the card (forward: the kernel on the dtype's route,
-    launched once; backward: ``mlstm_chunk_bwd``, float32 PyTorch) against
-    autograd of the plain version on the same tensors: each gradient at
-    float32 1e-4 and bf16 2e-2 relative to max(1, its largest value)."""
+    launched once, keeping the chunk start states; backward: the backward
+    kernel on ``BWD_ROUTES[dtype]``, launched once, and never the plain
+    ``mlstm_chunk_bwd``) against autograd of the plain version on the same
+    tensors: each gradient at float32 1e-4 and bf16 2e-2 relative to max(1,
+    its largest value)."""
     dev = _need_card()
     q, k = (_rand(dev, B, S, H, hd, scale=0.5, seed=s).to(dtype) for s in (31, 32))
     v = _rand(dev, B, S, H, hd, seed=33).to(dtype)
     ig, fg = _rand(dev, B, S, H, seed=34), _rand(dev, B, S, H, seed=35) + 2.0
     dh = _rand(dev, B, S, H, hd, seed=36).to(dtype)
     ins = [t.clone().requires_grad_() for t in (q, k, v, ig, fg)]
+
+    def plain_backward(*a, **kw):
+        raise AssertionError("the plain mlstm_chunk_bwd ran on the card")
+
+    monkeypatch.setattr(kmc, "mlstm_chunk_bwd", plain_backward)
     before = dict(kmc.launches_by_route)
     h, _ = kmc.mlstm_chunk(*ins, chunk=chunk)
     assert type(h.grad_fn).__name__ == "MLSTMChunkBackward"
     got = torch.autograd.grad(h, ins, dh)
     torch.cuda.synchronize()
-    route = kmc.ROUTES[dtype]
-    assert kmc.launches_by_route == {**before, route: before[route] + 1}
+    route, bwd = kmc.ROUTES[dtype], kmc.BWD_ROUTES[dtype]
+    assert kmc.launches_by_route == {**before, route: before[route] + 1,
+                                     bwd: before[bwd] + 1}
     hw, _ = kmc.mlstm_chunk_ref(*ins, chunk=chunk)
     want = torch.autograd.grad(hw, ins, dh)
     tol = 1e-4 if dtype == torch.float32 else 2e-2
@@ -1486,6 +1494,72 @@ def test_gpu_mlstm_function_with_the_kernel_forward_matches_plain(dtype, B, S, H
         assert g.dtype == w.dtype, name
         scale = max(1.0, float(w.float().abs().max()))
         assert float((g.float() - w.float()).abs().max()) <= tol * scale, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gpu_mlstm_backward_with_a_state_in_and_out_matches_plain(dtype):
+    """hd 64, S not a multiple of the chunk, a state in (held constant) and a
+    gradient of the state out (dC, dn) from a reader invariant to the
+    stabiliser's shift, the next segment's plain version: the backward kernel
+    against autograd of the plain version through both segments, float32
+    1e-4 and bf16 2e-2 relative to max(1, the gradient's largest value)."""
+    dev = _need_card()
+    B, S, H, hd, chunk = 2, 100, 2, 64, 32
+    q, k = (_rand(dev, B, S, H, hd, scale=0.5, seed=s).to(dtype) for s in (41, 42))
+    v = _rand(dev, B, S, H, hd, seed=43).to(dtype)
+    ig, fg = _rand(dev, B, S, H, seed=44), _rand(dev, B, S, H, seed=45) + 2.0
+    dh = _rand(dev, B, S, H, hd, seed=46).to(dtype)
+    nxt = [_rand(dev, B, 9, H, hd, seed=s) for s in (47, 48, 49, 50)]
+    nxt[3:3] = [_rand(dev, B, 9, H, seed=51), _rand(dev, B, 9, H, seed=52) + 2.0]
+    _, st = kmc.mlstm_chunk_ref(q[:, :17].float(), k[:, :17].float(), v[:, :17].float(),
+                                ig[:, :17], fg[:, :17], chunk=chunk)
+    ins = [t.clone().requires_grad_() for t in (q, k, v, ig, fg)]
+    bwd = kmc.BWD_ROUTES[dtype]
+    before = kmc.launches_by_route[bwd]
+    grads = []
+    for fn in (kmc.mlstm_chunk, kmc.mlstm_chunk_ref):
+        h, st_out = fn(*ins, st, chunk=chunk)
+        h2, _ = kmc.mlstm_chunk_ref(*nxt[:5], st_out, chunk=chunk)
+        loss = (h.float() * dh.float()).sum() + (h2 * nxt[5]).sum()
+        grads.append(torch.autograd.grad(loss, ins))
+    torch.cuda.synchronize()
+    assert kmc.launches_by_route[bwd] == before + 1
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for name, g, w in zip(("q", "k", "v", "ig", "fg"), *grads):
+        scale = max(1.0, float(w.float().abs().max()))
+        assert float((g.float() - w.float()).abs().max()) <= tol * scale, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,B,S,H,hd,chunk", [
+    (torch.float32, 2, 100, 2, 64, 32), (torch.bfloat16, 2, 100, 2, 64, 32),
+    (torch.bfloat16, 2, 1024, 4, 512, 256)])
+def test_gpu_mlstm_backward_is_bit_identical_from_call_to_call(dtype, B, S, H, hd, chunk):
+    """No atomics: two backward calls on the same inputs and kept states give
+    the same bits; the forward with its states kept writes the same h and
+    state out as the serving forward, and its kept states are the plain
+    version's (``chunk_states_ref``: bf16 5e-2, C rounded to TF32 and carried
+    from bf16 inputs; float32 2e-5)."""
+    dev = _need_card()
+    q, k = (_rand(dev, B, S, H, hd, scale=0.5, seed=s).to(dtype) for s in (51, 52))
+    v = _rand(dev, B, S, H, hd, seed=53).to(dtype)
+    ig, fg = _rand(dev, B, S, H, seed=54), _rand(dev, B, S, H, seed=55) + 2.0
+    dh = _rand(dev, B, S, H, hd, seed=56).to(dtype)
+    h, (C, n, m), kept = kmc._forward(q, k, v, ig, fg, chunk=chunk, with_states=True)
+    h2, (C2, n2, m2) = kmc._forward(q, k, v, ig, fg, chunk=chunk)
+    assert all(torch.equal(a, b) for a, b in ((h, h2), (C, C2), (n, n2), (m, m2)))
+    want = kmc.chunk_states_ref(q.float(), k.float(), v.float(), ig, fg, chunk=chunk)
+    tol = 2e-5 if dtype == torch.float32 else 5e-2
+    for got, w in zip(kept[1:], want):
+        w = w.double()
+        scale = max(1.0, float(w.abs().max()))
+        assert float((got.double() - w).abs().max()) <= tol * scale
+    outs = [torch.ops.repro_torch.mlstm_chunk_bwd(q, k, v, ig, fg, dh, None, None, C, n,
+                                                  *kept, False, chunk) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
@@ -1526,8 +1600,8 @@ def test_gpu_stateful_train_step_matches_cpu(arch):
     CPU: loss and grad norm at 1e-4 (relative). Launches: rglru_scan 3 a recurrent layer of the
     scanned period (forward, recompute, reverse scan) and 2 a tail layer
     (no recompute), flash likewise (forward, recompute, its backward
-    kernel), mlstm_chunk 2 an mLSTM layer, each a microbatch; no split-K
-    launch."""
+    kernel), mlstm_chunk likewise (forward, recompute, its backward kernel
+    on ``simt_f32_bwd``), each a microbatch; no split-K launch."""
     from repro_torch.training import data as tdata
     from repro_torch.training import optimizer as topt
     from repro_torch.training import train_step as tts
@@ -1542,7 +1616,8 @@ def test_gpu_stateful_train_step_matches_cpu(arch):
         key = {"recurrent": "rglru_scan", "local_attn": "flash_attention",
                "mlstm": "mlstm_chunk"}.get(kind)
         if key:
-            want[key] += 2 * (runs + (key in ("rglru_scan", "flash_attention")))
+            want[key] += 2 * (runs + 1)
+    bwd = 2 * cfg.layer_kinds.count("mlstm")
     out = {}
     for where in ("cpu", dev):
         params = Model(cfg, device=where).load(sd, trainable=True)
@@ -1557,6 +1632,7 @@ def test_gpu_stateful_train_step_matches_cpu(arch):
             snap = launch_counts.snapshot()
             got = {k: snap[k, ""] for k in want}
             assert got == want
+            assert snap["mlstm_chunk", "simt_f32_bwd"] == bwd
     for i, what in enumerate(("loss", "grad_norm")):
         want_v, got_v = out["cpu"][i], out[str(dev)][i]
         assert abs(got_v - want_v) <= 1e-4 * abs(want_v), (what, got_v, want_v)
