@@ -22,7 +22,8 @@ no result line) on any fault:
      recurrentgemma-9b's train microbatch (``flash_attention_bwd_hd256``:
      [2,2048,16,256], one KV head, window 2048; gradients against plain
      autograd, two calls bit-identical, call and device ms beside the
-     plain backward's and SDPA's backward); so is the ring decode
+     plain backward's and SDPA's backward, the share of the bound reached
+     and the ratio to SDPA's backward); so is the ring decode
      (``decode_attention_ring``: recurrentgemma's 2048-slot ring, hd 256,
      one KV head; ``decode_attention_swa_ring``: mixtral's 4096-slot ring,
      hd 128, G = 6, cache lengths across the wrap); the multi-query
@@ -156,7 +157,8 @@ no result line) on any fault:
      against plain, and ``flash_attention_bwd``: the autograd.Function's
      gradients against plain autograd, two backward calls bit-identical,
      the backward's call and device ms beside the plain backward's and
-     SDPA's backward's), one step's gradients
+     SDPA's backward's, its share of the bound and its ratio to SDPA's),
+     one step's gradients
      through the kernel path against plain autograd at reduced float32 and
      bf16 configs (GQA, causal and windowed), and 2 of 36 layers trained 3
      steps, saved, restored into fresh params and resumed against the
@@ -3369,7 +3371,9 @@ def flash_bwd_row(dev, name, mb, S, H, K, hd, window=None):
     value)); two backward calls bit-identical; the backward's call ms and
     device ms (CUDA-graph replay), the plain backward's ms, SDPA's backward
     call ms and device ms (a graph of its forward and backward less one of
-    its forward), and the bound (``costs.flash_bwd`` at the bf16 rate)."""
+    its forward), and the bound (``costs.flash_bwd`` at the bf16 rate); the
+    ``[kernels]`` line adds the share of the bound the kernel reaches and
+    its device ms over SDPA's backward's."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import costs
@@ -3417,10 +3421,11 @@ def flash_bwd_row(dev, name, mb, S, H, K, hd, window=None):
     b_ms, b_by = bound("flash_bwd", mb, S, S, H, K, hd, 2, pairs, "bf16")
     log(f"[kernels] {name} at [{mb},{S},{H},{hd}] K={K} window={window}: {ms:.4f} ms a "
         f"call, {dms:.4f} device ms (CUDA-graph replay; split "
-        f"{kfa.bwd_splits(mb, S, K, G, torch.bfloat16)}), bound {b_ms:.4f} by {b_by}; "
-        f"plain (written-out float32) {plain:.4f} ms; SDPA backward {lib:.4f} ms a call, "
-        f"{lib_dms:.4f} device ms (forward + backward graph {lib_fb:.4f} less the "
-        f"forward's); two calls bit-identical")
+        f"{kfa.bwd_splits(mb, S, K, G, hd, torch.bfloat16)}), bound {b_ms:.4f} by {b_by} "
+        f"({b_ms / dms:.1%} of it reached); plain (written-out float32) {plain:.4f} ms; "
+        f"SDPA backward {lib:.4f} ms a call, {lib_dms:.4f} device ms (forward + backward "
+        f"graph {lib_fb:.4f} less the forward's; the kernel at {dms / lib_dms:.3f}x it); "
+        f"two calls bit-identical")
     return dict(
         name=name, route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention_bwd_wgmma.cu",

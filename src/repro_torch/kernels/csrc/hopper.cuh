@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
-// (flash_attention_wgmma.cu, mlstm_chunk_wgmma.cu, mlstm_chunk_bwd_wgmma.cu):
-// shared-memory addresses, cp.async, wgmma descriptors and the wgmma
-// instructions they use.
+// (flash_attention_wgmma.cu, flash_attention_bwd_wgmma.cu,
+// mlstm_chunk_wgmma.cu, mlstm_chunk_bwd_wgmma.cu): shared-memory addresses,
+// cp.async, wgmma descriptors and the wgmma instructions they use, register
+// hand-over between warpgroups (setmaxnreg) and named barriers.
 //
 // Shared-memory operand tiles are 128-byte rows in the 128-byte swizzle
 // (layout type 1): within each 1024-byte group of 8 rows, 16-byte chunk c of
@@ -64,6 +65,23 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 64] = A[64 x 16] · B[16 x 64], as wgmma_ss_n64 with accumulate = 0,
+// but D is write-only to the compiler: its old values are not kept alive up
+// to the instruction (registers a warpgroup can spend on other accumulators)
+__device__ __forceinline__ void wgmma_ss_n64_first(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+      : "l"(da), "l"(db), "r"(0));
 }
 
 // D[64 x 16] += A[64 x 16] · B[16 x 16], A in registers, B MN-major
@@ -163,6 +181,16 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool v
                "r"(valid ? 16 : 0)
                : "memory");
 }
+// cp.async of 4 bytes into shared memory, zero fill when !valid
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+// the mbarrier's current phase also waits for this thread's cp.async copies so far
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -170,9 +198,32 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
+// wait until at most N committed wgmma groups are pending (the older ones done)
 template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// warp specialisation (sm_90a): a warpgroup sets its registers a thread to N,
+// a producer giving them back (dec), the consumers taking them (inc). All four
+// warps of the warpgroup execute it; the roles must not reconverge after it.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// named barrier `id` (0 is __syncthreads') of `count` threads: wait for all of
+// them, or arrive without waiting; shared-memory writes before the arrival are
+// visible to the threads that waited
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // K-major descriptor of a 128-byte swizzled tile, k step kk (32 bytes)

@@ -58,6 +58,9 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
                "r"(bytes)
                : "memory");
 }
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
 // a completion that never comes traps (a launch error) instead of hanging the card
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   for (uint32_t spins = 0;; ++spins) {

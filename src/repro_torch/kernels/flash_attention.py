@@ -22,16 +22,21 @@ the same call with the rows' log-sum-exp saved (the kernel writes it when
 given the buffer; serving passes none); its backward is the hand-written
 backward kernel on the card (``csrc/flash_attention_bwd_wgmma.cu`` for
 bf16, ``csrc/flash_attention_bwd.cu`` for float32, routes ``wgmma_bwd``
-and ``simt_f32_bwd``: FA2's backward without atomics, a dK / dV pass and a
-dQ pass) and ``flash_attention_bwd``, its plain version, on the CPU. The
-JAX package has no backward kernel: its Pallas kernels have no VJP and it
-trains on the XLA path, whose gradient is XLA's autodiff of
-``repro.models.attention.flash_attention``; the backward kernel replaces
-that gradient. What bounds it: operations, five products over the causal
-pairs (``costs.flash_bwd``), which only the tensor cores come near in
-bf16; the design (a block per key tile walking its visible query tiles,
-the G heads of a KV head summed in the block or in float32 partials added
-in split order) is in the source's note.
+and ``simt_f32_bwd``: a dK / dV kernel and a dQ kernel, no atomics, so two
+calls give the same bits) and ``flash_attention_bwd``, its plain version,
+on the CPU. The JAX package has no backward kernel: its Pallas kernels
+have no VJP and it trains on the XLA path, whose gradient is XLA's
+autodiff of ``repro.models.attention.flash_attention``; the backward
+kernel replaces that gradient. What bounds it: operations, five products
+over the causal pairs (``costs.flash_bwd``), which only the tensor cores
+come near in bf16. The bf16 dK / dV kernel runs a block per ``BWD_TILE``
+keys of a KV head and row: one warpgroup up to head dim ``BWD_WIDE_HD``
+(two blocks an SM), two splitting the columns at hd 256 (one pass), the
+last warp done with a stage of its Q / dO ring refilling it; the G heads
+of a KV head are summed in the block or, split by ``bwd_splits``, in
+float32 partials added in split order. The dQ kernel is warp-specialised:
+a TMA producer warpgroup feeds two wgmma consumer warpgroups. The rest is
+in the source's note.
 """
 from __future__ import annotations
 
@@ -62,10 +67,12 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 FWD_ARGTYPES = [_P] * 5 + [_I] * 9 + [_P]
 BWD_ARGTYPES = [_P] * 11 + [_I] * 10 + [_P]
 
-# the bf16 backward's dK / dV grid (csrc/flash_attention_bwd_wgmma.cu): one
-# block per BWD_TILE keys of a KV head and row, the G query heads of a KV
-# head split over up to MAX_SPLITS blocks until the grid covers the card
+# the bf16 backward's dK / dV grid (csrc/flash_attention_bwd_wgmma.cu): a
+# block per BWD_TILE keys of a KV head and row (two blocks an SM up to head
+# dim BWD_WIDE_HD, one above it), the G query heads of a KV head split over
+# up to MAX_SPLITS blocks until the grid covers the card twice
 BWD_TILE = 64
+BWD_WIDE_HD = 128
 MAX_SPLITS = 4
 SMS = 132               # an H100's streaming multiprocessors
 
@@ -75,18 +82,19 @@ def aligned16(*tensors) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
-def bwd_splits(B: int, T: int, K: int, G: int, dtype) -> int:
+def bwd_splits(B: int, T: int, K: int, G: int, hd: int, dtype) -> int:
     """Into how many parts the bf16 backward's dK / dV blocks split the G
     query heads of a KV head: the least power of two (dividing G, at most
-    ``MAX_SPLITS``) that gives at least 3 blocks an SM, so the uneven
+    ``MAX_SPLITS``) that gives the card two waves of blocks, so the uneven
     causal walks (key tile 0 sees every query tile, the last one) spread
-    over the card; each part writes float32 partials, added in split
-    order. The float32 route takes 1."""
+    over it; each part writes float32 partials, added in split order. The
+    float32 route takes 1."""
     if dtype != torch.bfloat16:
         return 1
     blocks = B * K * -(-T // BWD_TILE)
+    wave = SMS * (2 if hd <= BWD_WIDE_HD else 1)
     n = 1
-    while n < MAX_SPLITS and G % (2 * n) == 0 and blocks * n < 3 * SMS:
+    while n < MAX_SPLITS and G % (2 * n) == 0 and blocks * n < 2 * wave:
         n *= 2
     return n
 
@@ -323,7 +331,7 @@ def _launch_bwd(q, k, v, o, dout, lse, q_per_kv, window, q_start):
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if B == 0 or S == 0:
         return dq, dk.zero_(), dv.zero_()
-    nsplit = bwd_splits(B, T, K, q_per_kv, q.dtype)
+    nsplit = bwd_splits(B, T, K, q_per_kv, hd, q.dtype)
     f32 = dict(dtype=torch.float32, device=q.device)
     delta = torch.empty(B, H, S, **f32)
     part = torch.empty(2 * nsplit * k.numel(), **f32) if nsplit > 1 else None

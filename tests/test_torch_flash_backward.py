@@ -17,7 +17,8 @@ Here, on numpy inputs made with a seed:
 * ``FlashAttention`` hands its saved lse to the backward; the backward
   operator refuses CPU tensors (the wrapper takes the plain version there);
 * the C entry points' argument lists equal the wrapper's ctypes
-  ``argtypes``; the bf16 backward's tile equals ``BWD_TILE``; the split
+  ``argtypes``; the bf16 backward's tile constants (``BWD_TILE``,
+  ``BWD_WIDE_HD``, ``MAX_SPLITS``) equal the kernel source's; the split
   plan of the dK / dV grid;
 * the dry run's cost counter answers the backward's operator with
   ``costs.flash_bwd`` at the input's rate.
@@ -167,21 +168,25 @@ def test_c_entry_arguments_are_the_wrapper_argtypes(source, name, argtypes):
 def test_backward_tile_is_the_kernel_source():
     text = (CSRC / "flash_attention_bwd_wgmma.cu").read_text()
     assert re.findall(r"constexpr int BR = (\d+);", text) == [str(kfa.BWD_TILE)]
+    assert re.findall(r"constexpr int WIDE_HD = (\d+);", text) == [str(kfa.BWD_WIDE_HD)]
+    assert re.findall(r"constexpr int MAX_SPLITS = (\d+);", text) == [str(kfa.MAX_SPLITS)]
     assert kfa.BWD_ROUTES == {torch.bfloat16: "wgmma_bwd", torch.float32: "simt_f32_bwd"}
     assert set(kfa.launches_by_route) == {"wgmma", "simt_f32", "wgmma_bwd",
                                           "simt_f32_bwd"}
 
 
-@pytest.mark.parametrize("B,T,K,G,dtype,want", [
-    (2, 2048, 2, 8, torch.bfloat16, 4),     # qwen2.5-3b's train microbatch: 128 blocks
-    (2, 2048, 1, 16, torch.bfloat16, 4),    # recurrentgemma-9b's: 64 blocks
-    (2, 2048, 16, 1, torch.bfloat16, 1),    # MHA: nothing to split
-    (8, 2048, 8, 6, torch.bfloat16, 1),     # 1024 blocks cover the card
-    (1, 100, 2, 6, torch.bfloat16, 2),      # G = 6: splits divide it
-    (2, 2048, 2, 8, torch.float32, 1),      # the float32 route takes none
+@pytest.mark.parametrize("B,T,K,G,hd,dtype,want", [
+    (2, 2048, 2, 8, 128, torch.bfloat16, 4),   # qwen2.5-3b's train microbatch: 128 blocks
+    (2, 2048, 1, 16, 256, torch.bfloat16, 4),  # recurrentgemma-9b's: 64 blocks
+    (2, 2048, 16, 1, 128, torch.bfloat16, 1),  # MHA: nothing to split
+    (8, 2048, 8, 6, 128, torch.bfloat16, 1),   # 1024 blocks cover the card
+    (1, 100, 2, 6, 64, torch.bfloat16, 2),     # G = 6: splits divide it
+    (2, 2048, 2, 8, 128, torch.float32, 1),    # the float32 route takes none
+    (2, 1024, 8, 4, 256, torch.bfloat16, 2),   # 256 blocks, one an SM: one more split
+    (2, 1024, 8, 4, 128, torch.bfloat16, 4),   # the same, two blocks an SM
 ])
-def test_backward_split_plan(B, T, K, G, dtype, want):
-    assert kfa.bwd_splits(B, T, K, G, dtype) == want
+def test_backward_split_plan(B, T, K, G, hd, dtype, want):
+    assert kfa.bwd_splits(B, T, K, G, hd, dtype) == want
 
 
 # ---------------------------------------------------------------------------

@@ -1323,6 +1323,10 @@ FLASH_BWD_SHAPES = [  # (B, S, T, H, K, hd, q_start, window)
     (2, 150, 150, 4, 2, 16, 0, 40),         # hd 16
     (1, 100, 230, 8, 2, 32, 130, None),     # T > S, q_start (an extend)
     (1, 90, 200, 4, 1, 128, 110, 64),       # T > S, q_start and a window
+    (2, 333, 333, 8, 2, 64, 0, None),       # S, T not multiples of a 128-row block
+    (1, 400, 400, 8, 2, 128, 0, 100),       # a window that cuts the tiles
+    (1, 256, 256, 12, 4, 128, 0, None),     # G = 3
+    (1, 150, 400, 8, 2, 256, 250, None),    # an extend at hd 256: T > S, q_start
 ]
 
 
@@ -1365,12 +1369,18 @@ def test_gpu_flash_backward_through_the_kernel_matches_plain(dtype, B, S, T, H, 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,S,T,H,K,hd,q_start,window", [FLASH_BWD_SHAPES[0],
-                                                         FLASH_BWD_SHAPES[2]])
+@pytest.mark.parametrize("B,S,T,H,K,hd,q_start,window", [
+    (2, 2048, 2048, 16, 2, 128, 0, None),   # qwen2.5-3b's train microbatch
+    (2, 2048, 2048, 16, 1, 256, 0, 2048),   # recurrentgemma-9b's
+    (1, 300, 700, 16, 2, 128, 400, None),   # q_start > 0
+    FLASH_BWD_SHAPES[0],
+    FLASH_BWD_SHAPES[2],
+])
 def test_gpu_flash_backward_is_bit_identical_from_call_to_call(dtype, B, S, T, H, K, hd,
                                                                q_start, window):
     """No atomics: two backward calls on the same inputs give the same bits
-    (the split dK / dV partials are added in split order)."""
+    (the split dK / dV partials are added in split order), at both train
+    microbatches and with q_start > 0."""
     dev = _need_card()
     g = torch.Generator(device=dev).manual_seed(5)
     q, k, v, do = (torch.randn(*s, generator=g, device=dev).to(dtype)
