@@ -196,21 +196,25 @@ no result line) on any fault:
      steps (xlstm; see ``STATEFUL_TRAIN``); the loss falls by >= 0.5, every
      loss and grad norm finite; launches by the rule of
      ``stateful_train_launches`` (rglru_scan 3 a recurrent layer,
-     microbatch and step: forward, recompute and the reverse scan of its
-     gradient, on the chunked route; mlstm_chunk and flash 3 a layer,
+     microbatch and step: forward and recompute on the chunked route, the
+     gradient kernel on chunked_bwd; mlstm_chunk and flash 3 a layer,
      forward and recompute on wgmma and the backward kernel on wgmma_bwd,
      21 mLSTM backward launches a step; nothing else); per-step
      loss, grad norm, wall and tokens/s, peak memory, the second-last step
      split into forward + backward and optimizer, the last under the
-     profiler (recurrentgemma: the backwards' busy ms) or with
+     profiler (recurrentgemma: the backwards' busy ms; each
+     ``rglru_scan_bwd`` range holds one kernel, the gradient's) or with
      the sLSTM loop timed on the host (xlstm; its device ms from one layer
      alone, the mLSTM backward kernel's from the row below), the 8·N·T share. Then
      one step through the kernel path against plain autograd at reduced
      float32 and bf16 configs of both archs (each kernel call alone on the
      inputs and output gradient it had in the step, the loss, the param
      leaves), and the kernels at the train shapes (rows
-     ``rglru_scan_train``: forward and backward call and device ms, bounds,
-     plain and plain-autograd ms; ``mlstm_chunk_train``: the forward's;
+     ``rglru_scan_train``: the forward, one launch writing a bf16 y and the
+     float32 states; ``rglru_scan_bwd``: the gradient kernel against
+     autograd of the plain version on both routes, two calls
+     bit-identical; call and device ms, bounds, plain and plain-autograd
+     ms of both; ``mlstm_chunk_train``: the forward's;
      ``mlstm_chunk_bwd``:
      the backward kernel against autograd of the plain version, bf16 and a
      float32 call, two calls bit-identical, beside the plain written-out
@@ -973,7 +977,7 @@ def stateful_kernel_rows(dev):
     (y5, h5), (y5w, h5w) = kv(), krs.rglru_scan_ref(av, bv, hv)
     err = max(err, check_close("f32 verify [4,5,4096] with h0", y5, y5w, "float32_scan"),
               check_close("  h_last", h5, h5w, "float32_scan"))
-    routes(krs, {"chunked": 4, "sequential": 1})
+    routes(krs, {"chunked": 4, "sequential": 1, "chunked_bwd": 0, "sequential_bwd": 0})
     ms, plain = time_ms(ka, 20), time_ms(kr, 2, warmup=1)
     by_kernel = device_ms_by_kernel(ka)
     log_kernels("rglru_scan [1,4096,4096]", by_kernel)
@@ -3444,7 +3448,9 @@ def profile_train_step(step, params, opt, batch, ranges=("flash_attention_bwd",)
     and ``host[name]``, its host time; ``metrics``, the step's; for each
     substring of ``kernels``, ``by_kernel[sub]``, the
     self time of the kernels whose name holds it; ``top``, the heaviest
-    kernels."""
+    kernels; ``range_kernels[name]``, for each call of the range, the names
+    of the device activities launched inside it (kernels, and memsets as
+    "Memset ...")."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3456,6 +3462,12 @@ def profile_train_step(step, params, opt, batch, ranges=("flash_attention_bwd",)
         wall = (time.perf_counter() - t0) * 1e3
     ev = prof.key_averages()
     launched = [e for e in ev if e.device_type == DeviceType.CUDA and e.key not in ranges]
+
+    def under(e):               # the device activities of e and its children
+        return [k.name for k in e.kernels] + [n for c in e.cpu_children for n in under(c)]
+
+    calls = {r: [under(e) for e in prof.events()
+                 if e.name == r and e.device_type == DeviceType.CPU] for r in ranges}
     out = dict(
         wall_ms=wall,
         kernel_ms=sum(e.self_device_time_total for e in launched) / 1e3,
@@ -3472,7 +3484,8 @@ def profile_train_step(step, params, opt, batch, ranges=("flash_attention_bwd",)
         by_kernel={k: sum(e.self_device_time_total for e in launched if k in e.key) / 1e3
                    for k in kernels},
         top=[(e.key.split("(")[0][:60], e.self_device_time_total / 1e3, e.count)
-             for e in sorted(launched, key=lambda e: -e.self_device_time_total)[:6]])
+             for e in sorted(launched, key=lambda e: -e.self_device_time_total)[:6]],
+        range_kernels=calls)
     return params, opt, out
 
 
@@ -3777,21 +3790,20 @@ XLSTM_BWD = {}              # phase 14's mLSTM backward launches a step, for dry
 def stateful_train_launches(cfg, accum, steps):
     """The launch rule of a train run under remat "full": a layer of a
     scanned period runs its forward twice (forward and recompute), a tail
-    layer once; each adds one launch for its backward: rglru_scan the
-    reverse scan, flash and mlstm_chunk their backward kernels (counted apart
-    too, as ``"flash_attention/wgmma_bwd"`` and
-    ``"mlstm_chunk/wgmma_bwd"``). Per microbatch and step."""
+    layer once; each adds one launch of its backward kernel (counted apart
+    too, as ``"rglru_scan/chunked_bwd"``, ``"flash_attention/wgmma_bwd"``
+    and ``"mlstm_chunk/wgmma_bwd"``). Per microbatch and step."""
     scanned = len(cfg.pattern) * cfg.num_scan_groups
-    want = {"rglru_scan": 0, "mlstm_chunk": 0, "flash_attention": 0,
-            "flash_attention/wgmma_bwd": 0, "mlstm_chunk/wgmma_bwd": 0}
+    bwd = {"rglru_scan": "chunked_bwd", "mlstm_chunk": "wgmma_bwd",
+           "flash_attention": "wgmma_bwd"}
+    want = dict.fromkeys(list(bwd) + [f"{k}/{r}" for k, r in bwd.items()], 0)
     kernel = {"recurrent": "rglru_scan", "mlstm": "mlstm_chunk",
               "local_attn": "flash_attention", "attn": "flash_attention"}
     for i, kind in enumerate(cfg.layer_kinds):
         if kind in kernel:
             name = kernel[kind]
             want[name] += (2 if i < scanned else 1) + 1
-            if name != "rglru_scan":
-                want[f"{name}/wgmma_bwd"] += 1
+            want[f"{name}/{bwd[name]}"] += 1
     return {k: n * accum * steps for k, n in want.items()}
 
 
@@ -3951,7 +3963,8 @@ def stateful_train_run(dev, card, arch):
     log(f"{tag}: launches { {k: c for k, c in counts.items() if c} } (rule {want}); "
         f"peak memory {gb(peak)} GB; loss {losses[0]:.4f} -> {losses[-1]:.4f}")
     # each kernel's launches all on its train routes
-    routed = {"rglru_scan": ("chunked",), "mlstm_chunk": ("wgmma", "wgmma_bwd"),
+    routed = {"rglru_scan": ("chunked", "chunked_bwd"),
+              "mlstm_chunk": ("wgmma", "wgmma_bwd"),
               "flash_attention": ("wgmma", "wgmma_bwd")}
     others = {k: c for k, c in counts.items() if c and "/" not in k and k not in want}
     if any(counts[k] != c for k, c in want.items()) or others or any(
@@ -3979,7 +3992,7 @@ def stateful_train_run(dev, card, arch):
         log(f"{tag} profiled step: wall {prof['wall_ms']:.2f} ms, kernels "
             f"{prof['kernel_ms']:.2f} device ms (device idle "
             f"{100 * (1 - prof['kernel_ms'] / prof['wall_ms']):.1f}%)")
-        per = {"rglru_scan_bwd": ("reverse scan", want["rglru_scan"] // 3),
+        per = {"rglru_scan_bwd": ("RG-LRU gradient kernel", want["rglru_scan/chunked_bwd"]),
                "flash_attention_bwd": ("flash backward kernel",
                                        want["flash_attention/wgmma_bwd"])}
         kernel_ms = prof["kernel_ms"] or math.nan
@@ -3991,6 +4004,19 @@ def stateful_train_run(dev, card, arch):
                     f"({busy / calls:.4f} a call, {100 * busy / kernel_ms:.1f}% of the "
                     f"kernel time); host {hms:.2f} ms inside the range "
                     f"({100 * hms / prof['wall_ms']:.1f}% of the profiled wall)")
+        # each call of the gradient's range holds one kernel, the gradient
+        # kernel (its carry words' memset aside): no flip, cat or cast pass
+        n_bwd = want["rglru_scan/chunked_bwd"] // n
+        if n_bwd:
+            got = prof["range_kernels"]["rglru_scan_bwd"]
+            kern = [[k for k in ks if not k.startswith("Memset")] for ks in got]
+            log(f"{tag}   rglru_scan_bwd range: {len(got)} calls (rule {n_bwd}), kernels a "
+                f"call {sorted({len(k) for k in kern})}, "
+                f"{sorted({k.split('(')[0][-40:] for ks in got for k in ks})}")
+            if len(got) != n_bwd or any(len(k) != 1 or "rglru_scan_chunked_bwd" not in k[0]
+                                        for k in kern):
+                raise AssertionError(f"stateful_train: the rglru_scan_bwd ranges hold {got}, "
+                                     f"not one gradient kernel in each of {n_bwd} calls")
         for k, ms in prof["by_kernel"].items():
             if ms:
                 log(f"{tag}   kernels '{k}*': {ms:.3f} device ms")
@@ -4206,54 +4232,114 @@ def stateful_grad_checks(dev):
 
 def rglru_train_row(dev):
     """rglru_scan at recurrentgemma-9b's train microbatch (a, bx [2, 2048,
-    4096] float32, bf16 y, as the model passes them) through ``RGLRUScan``:
-    the forward (one launch, float32 states saved) and the backward
-    (``rglru_scan_bwd``: the reverse scan, one launch, and its elementwise
-    products) against the plain version and autograd of it (y at 5e-2;
-    gradients at 2e-5 relative to max(1, their largest value)); call,
-    device, bound and plain ms of both."""
+    4096] float32, bf16 y and dy, as the model passes them) through
+    ``RGLRUScan``: the forward (one launch on ``"chunked"`` writing the bf16
+    y and the float32 states it saves; y at 5e-2 and the states at 5e-6
+    against the plain version) and the backward (the gradient kernel, one
+    launch on ``"chunked_bwd"``, the plain ``rglru_scan_bwd_ref`` never)
+    against autograd of the plain version at 2e-5 relative to max(1, the
+    gradient's largest value); two backward calls bit-identical; the
+    ``"sequential_bwd"`` route at [4, 5, 256] with h0 and a gradient of
+    h_last, float32 dy, at the same bound. Call, device (CUDA-graph
+    replay), bound and plain ms of both directions. Returns (the forward's
+    row, the gradient kernel's row)."""
     import torch
     from repro_torch.kernels import rglru_scan as krs
     g = torch.Generator(device=dev).manual_seed(14)
     B, S, R = 2, 2048, 4096
+    bf16 = torch.bfloat16
     a = torch.sigmoid(torch.randn(B, S, R, generator=g, device=dev))
     bx = torch.randn(B, S, R, generator=g, device=dev) * 0.5
-    dy = torch.randn(B, S, R, generator=g, device=dev).to(torch.bfloat16)
+    dy = torch.randn(B, S, R, generator=g, device=dev).to(bf16)
     ag, bg = a.clone().requires_grad_(), bx.clone().requires_grad_()
-    fwd = lambda: krs.rglru_scan(ag, bg, out_dtype=torch.bfloat16)   # noqa: E731
-    ref = lambda: krs.rglru_scan_ref(ag, bg, out_dtype=torch.bfloat16)  # noqa: E731
+    fwd = lambda: krs.rglru_scan(ag, bg, out_dtype=bf16)             # noqa: E731
+    ref = lambda: krs.rglru_scan_ref(ag, bg, out_dtype=bf16)         # noqa: E731
+    before = dict(krs.launches_by_route)
     (y, _), (yw, _) = fwd(), ref()
     err = check_close("train rglru_scan y bf16 [2,2048,4096]", y, yw, "bf16_state")
-    got = torch.autograd.grad(y, (ag, bg), dy)
+    plain_bwd = krs.rglru_scan_bwd_ref
+
+    def never(*a, **kw):
+        raise AssertionError("rglru_scan_train: the plain rglru_scan_bwd_ref ran on the card")
+
+    krs.rglru_scan_bwd_ref = never
+    try:
+        got = torch.autograd.grad(y, (ag, bg), dy)
+    finally:
+        krs.rglru_scan_bwd_ref = plain_bwd
+    torch.cuda.synchronize()
+    routes = {r: n - before[r] for r, n in krs.launches_by_route.items()}
+    log(f"  train rglru_scan forward + backward: launches_by_route {routes}")
+    if routes != {"chunked": 1, "sequential": 0, "chunked_bwd": 1, "sequential_bwd": 0}:
+        raise AssertionError(f"rglru_scan_train: routes {routes}, expected one forward "
+                             "on chunked and one backward on chunked_bwd")
     want = torch.autograd.grad(yw, (ag, bg), dy, retain_graph=True)
+    b_err = 0.0
     for name, x, w in zip(("a", "bx"), got, want):
         scale = max(1.0, float(w.abs().max()))
-        err = max(err, check_close(f"train rglru_scan d{name} (scaled by {scale:.3g})",
-                                   x / scale, w / scale, "float32"))
-    hh, _ = krs.rglru_scan(a, bx)
+        b_err = max(b_err, check_close(f"train rglru_scan d{name} (scaled by {scale:.3g})",
+                                       x / scale, w / scale, "float32"))
+    del got, want
+    _, _, hh = krs._forward(a, bx, out_dtype=bf16, with_states=True)
+    hw, _ = krs.rglru_scan_ref(a, bx)
+    err = max(err, check_close("train rglru_scan kept float32 states", hh, hw,
+                               "float32_scan"))
+    del hw
+    # the sequential route of the gradient (S <= SHORT_S), h0 and dh_last in
+    gs = torch.Generator(device=dev).manual_seed(15)
+    ins = [torch.sigmoid(torch.randn(4, 5, 256, generator=gs, device=dev)).requires_grad_(),
+           torch.randn(4, 5, 256, generator=gs, device=dev, requires_grad=True),
+           torch.randn(4, 256, generator=gs, device=dev, requires_grad=True)]
+    d5, dl5 = (torch.randn(*sh, generator=gs, device=dev) for sh in ((4, 5, 256), (4, 256)))
+    n_seq = krs.launches_by_route["sequential_bwd"]
+    y5, h5 = krs.rglru_scan(*ins)
+    got = torch.autograd.grad((y5, h5), ins, (d5, dl5))
+    y5w, h5w = krs.rglru_scan_ref(*ins)
+    want = torch.autograd.grad((y5w, h5w), ins, (d5, dl5))
+    torch.cuda.synchronize()
+    if krs.launches_by_route["sequential_bwd"] != n_seq + 1:
+        raise AssertionError("rglru_scan_train: the sequential_bwd route did not launch once")
+    for name, x, w in zip(("a", "bx", "h0"), got, want):
+        scale = max(1.0, float(w.abs().max()))
+        b_err = max(b_err, check_close(f"rglru_scan [4,5,256] sequential_bwd d{name} "
+                                       f"(scaled by {scale:.3g})", x / scale, w / scale,
+                                       "float32"))
     bwd = lambda: krs.rglru_scan_bwd(a, hh, dy)                        # noqa: E731
+    first, second = bwd(), bwd()
+    if not all(torch.equal(x, z) for x, z in zip(first[:2], second[:2])):
+        raise AssertionError("rglru_scan_train: two backward calls on the same inputs differ")
+    del first, second
     # device ms (CUDA-graph replay) of the Function's forward body, outside
     # autograd, and of the backward
-    body = lambda: krs._forward(a, bx)[0].to(torch.bfloat16)           # noqa: E731
+    body = lambda: krs._forward(a, bx, out_dtype=bf16, with_states=True)  # noqa: E731
     ms, dms = time_ms(fwd, 20), graph_ms(body)
     b_ms, b_dms = time_ms(bwd, 20), graph_ms(bwd)
+    log_kernels("rglru_scan_bwd [2,2048,4096]", device_ms_by_kernel(bwd))
     plain = time_ms(ref, 1, warmup=0)
     plain_b = time_ms(lambda: torch.autograd.grad(yw, (ag, bg), dy, retain_graph=True),
                       1, warmup=0)
-    f_bound, f_by = bound("rglru", B, S, R, 2, False)
-    # the backward reads a, the states and dy once and writes da and dbx
+    # the forward reads a and bx and writes the bf16 y and the float32
+    # states (14 bytes an element); the backward reads a, the states and dy
+    # and writes da and dbx (18)
+    f_bound, f_by = bound("rglru", B, S, R, 2, False, True)
     bb_ms, bb_by = bound("rglru_bwd", B, S, R)
     log(f"[stateful_train] rglru_scan_train [2,2048,4096]: forward {ms:.4f} ms "
         f"({fmt_ms(dms)} device; bound {f_bound:.4f} by {f_by}; plain {plain:.2f}); "
-        f"backward {b_ms:.4f} ms ({fmt_ms(b_dms)} device; bound {bb_ms:.4f} by "
-        f"{bb_by}; plain autograd {plain_b:.2f})")
-    return dict(
+        f"backward kernel {b_ms:.4f} ms ({fmt_ms(b_dms)} device; bound {bb_ms:.4f} by "
+        f"{bb_by}; two calls bit-identical; plain autograd {plain_b:.2f})")
+    train = dict(
         name="rglru_scan_train", route="cuda",
         source="src/repro_torch/kernels/csrc/rglru_scan.cu",
         replaces="src/repro/kernels/rglru_scan.py:42",
         max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=f_bound, bound_by=f_by,
-        library_ms=None, device_ms=dms, backward_ms=b_ms, backward_device_ms=b_dms,
-        backward_bound_ms=bb_ms, plain_backward_ms=plain_b)
+        library_ms=None, device_ms=dms)
+    back = dict(
+        name="rglru_scan_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/rglru_scan.cu",
+        replaces="src/repro/kernels/rglru_scan.py:42",
+        max_abs_err=b_err, ms=b_ms, plain_ms=plain_b, bound_ms=bb_ms, bound_by=bb_by,
+        library_ms=None, device_ms=b_dms)
+    return train, back
 
 
 def mlstm_train_row(dev):
@@ -4391,7 +4477,8 @@ def stateful_train_phase(dev, card):
     stateful_grad_checks(dev)
     parts["gradient checks"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    rows = {"rglru_scan_train": rglru_train_row(dev)}
+    rows = {}
+    rows["rglru_scan_train"], rows["rglru_scan_bwd"] = rglru_train_row(dev)
     rows["mlstm_chunk_train"], rows["mlstm_chunk_bwd"] = mlstm_train_row(dev)
     parts["kernel rows"] = time.perf_counter() - t0
     # xlstm's step is not profiled (``slstm_timed``): its mLSTM backward
@@ -5323,7 +5410,11 @@ def main() -> int:
     if "stateful_train" in phases:
         srows, sc = stateful_train_phase(dev, card)
         rows.update(srows)
-        launches["rglru_scan_train"] = sc["recurrentgemma-9b"]["rglru_scan"]
+        launches["rglru_scan_train"] = sc["recurrentgemma-9b"]["rglru_scan/chunked"]
+        launches["rglru_scan_bwd"] = sc["recurrentgemma-9b"]["rglru_scan/chunked_bwd"]
+        rows["rglru_scan_bwd"]["routes"] = {
+            r: sc["recurrentgemma-9b"][f"rglru_scan/{r}"]
+            for r in ("chunked_bwd", "sequential_bwd")}
         launches["mlstm_chunk_train"] = sc["xlstm-350m"]["mlstm_chunk/wgmma"]
         launches["mlstm_chunk_bwd"] = sc["xlstm-350m"]["mlstm_chunk/wgmma_bwd"]
         rows["mlstm_chunk_bwd"]["routes"] = {

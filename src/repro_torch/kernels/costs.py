@@ -86,11 +86,14 @@ def accept_len(B, S) -> Cost:
     return {"f32": 2.0 * B * S}, B * S + 4 * B + 4 * B
 
 
-def rglru(B, S, R, out_elt, h0: bool) -> Cost:
-    """The scan: a and bx (float32) read, the states written, h0 read and
-    the last state written when given."""
+def rglru(B, S, R, out_elt, h0: bool, with_states: bool = False) -> Cost:
+    """The scan: a and bx (float32) read, the states written in the output
+    dtype (and, ``with_states``, in float32 beside a narrower output: the
+    states training keeps for the gradient), h0 read and the last state
+    written when given."""
+    kept = 4 * B * S * R if with_states and out_elt != 4 else 0
     return ({"f32": 2.0 * B * S * R},
-            4 * 2 * B * S * R + out_elt * B * S * R + (4 * 2 * B * R if h0 else 0))
+            4 * 2 * B * S * R + out_elt * B * S * R + kept + (4 * 2 * B * R if h0 else 0))
 
 
 def rglru_bwd(B, S, R) -> Cost:

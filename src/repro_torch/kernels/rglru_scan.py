@@ -26,15 +26,20 @@ CUDA tensors it launches the kernel or raises.
 
 Gradients: when autograd is on and an input requires grad, the call goes
 through ``RGLRUScan`` (a ``torch.autograd.Function``, built as
-``FlashAttention`` is): its forward is the same call with a float32
-``out_dtype`` (one launch; the float32 states are saved for the backward
-and ``y`` is rounded to ``out_dtype`` from them), and its backward,
-``rglru_scan_bwd``, is the same recurrence run backwards in time on the
-same entry point: one more launch. So a layer under remat "full" launches
-the kernel three times a microbatch: forward, recompute, reverse scan. On
-the CPU both directions run the plain version, so the CPU tests run the
-backward the card runs. The JAX package's gradient is XLA's autodiff of
-its associative scan (``repro.models.rglru.rglru_scan``).
+``FlashAttention`` is): its forward is one launch that writes ``y`` in
+``out_dtype`` and, beside it, the float32 states the backward reads (a
+float32 ``y`` is those states); its backward is ``rglru_scan_bwd``, the
+gradient kernel (C entry ``rglru_scan_bwd``, operator
+``torch.ops.repro_torch.rglru_scan_bwd``): the recurrence run backwards in
+time in one launch, on ``"chunked_bwd"`` (S > ``SHORT_S``: the forward's
+tiles, taking their tickets in reverse time order, each tile's carry its
+predecessor's published state, so two calls give the same bits) or
+``"sequential_bwd"`` (one thread per channel walking t down). So a layer
+under remat "full" launches the kernel three times a microbatch: forward,
+recompute, backward. On the CPU both directions run the plain versions
+(``rglru_scan_ref``, ``rglru_scan_bwd_ref``); the card never runs them.
+The JAX package's gradient is XLA's autodiff of its associative scan
+(``repro.models.rglru.rglru_scan``).
 """
 from __future__ import annotations
 
@@ -53,20 +58,32 @@ T = SEG * NW        # steps of a tile
 CH = 32             # channels of a tile
 
 launches = 0            # kernel launches (never the plain version)
-launches_by_route = {"chunked": 0, "sequential": 0}
+launches_by_route = dict.fromkeys(("chunked", "sequential", "chunked_bwd",
+                                   "sequential_bwd"), 0)
 _fn = None
+_bwd_fn = None
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+FWD_ARGTYPES = [_P] * 8 + [_I] * 4 + [_P]
+BWD_ARGTYPES = [_P] * 9 + [_I] * 4 + [_P]
 
 
-def scan_plan(B: int, S: int, R: int) -> dict:
+def scan_plan(B: int, S: int, R: int, backward: bool = False) -> dict:
     """The route for ``[B, S, R]`` and, on the chunked route, its tiles and
-    scratch: int32 flags (one per tile, then the ticket counter; zeroed each
-    call) and float32 ``agg [ntiles, 3, CH]`` (a tile's aggregate pair and
-    the state after it)."""
+    the scratch this wrapper allocates (the C entry zeroes it before each
+    launch). Forward: int32 ``flags`` (one per tile, then the ticket
+    counter) and float32 ``agg [ntiles, 3, CH]`` (a tile's aggregate pair
+    and the state after it). ``backward``: 64-bit ``carry`` words, one per
+    tile and channel (the gradient of the state before the tile's first
+    step, which the tile before it reads, with its published bit), then the
+    ticket counter."""
+    suffix = "_bwd" if backward else ""
     if S <= SHORT_S:
-        return dict(route="sequential", ntiles=0, scratch={})
+        return dict(route="sequential" + suffix, ntiles=0, scratch={})
     ntiles = B * -(-R // CH) * -(-S // T)
-    return dict(route="chunked", ntiles=ntiles,
-                scratch={"flags": (ntiles + 1,), "agg": (ntiles, 3, CH)})
+    scratch = ({"carry": (ntiles * CH + 1,)} if backward
+               else {"flags": (ntiles + 1,), "agg": (ntiles, 3, CH)})
+    return dict(route="chunked" + suffix, ntiles=ntiles, scratch=scratch)
 
 
 def _wide(x):
@@ -90,38 +107,23 @@ def rglru_scan_ref(a, bx, h0=None, *, out_dtype=torch.float32):
     return ys.to(out_dtype), h
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        P, I = ctypes.c_void_p, ctypes.c_int
-        _fn = build.entry("rglru_scan_fwd", [P] * 7 + [I, I, I, I, P])
-    return _fn
-
-
-def rglru_scan_bwd(a, hh, dy, h0=None, dh_last=None):
-    """The gradient of the recurrence at ``a`` (and ``h0``), given the
-    float32 states after every position ``hh [B, S, R]`` and the gradients
-    of ``y`` (``dy``, any float dtype; None: 0) and of ``h_last``
-    (``dh_last [B, R]``; None: 0). Returns (da, dbx, dh0) in float32
-    (float64 for float64 inputs), dh0 None without ``h0``.
-
-    The same linear recurrence run backwards in time:
+def rglru_scan_bwd_ref(a, hh, dy, h0=None, dh_last=None):
+    """Plain version of the gradient (the CPU's; the tests' reference):
+    the same linear recurrence run backwards in time,
     ``dh_t = dy_t + a_{t+1}·dh_{t+1}`` with ``dh_last`` added at t = S-1,
     ``da_t = dh_t·h_{t-1}`` (``h_{-1} = h0``, or 0), ``dbx_t = dh_t`` and
     ``dh0 = a_0·dh_0``. As a forward scan over reversed time u = S-1-t it
     is ``D_u = a'_u·D_{u-1} + g_u`` with ``a' = [1, a_{S-1}, ..., a_1]``,
-    ``g = dy`` reversed and the start state ``dh_last``: one call of
-    ``_forward`` on contiguous float32 copies (the kernel on the card, on
-    the route its S picks; the plain version on the CPU)."""
+    ``g = dy`` reversed and the start state ``dh_last``: ``rglru_scan_ref``
+    on reversed, shifted copies. Same contract as ``rglru_scan_bwd``."""
     B, S, R = a.shape
     wide = _wide(a)
     g = (torch.zeros(B, S, R, dtype=wide, device=a.device) if dy is None
          else dy.to(wide))
     a_rev = torch.cat([torch.ones(B, 1, R, dtype=wide, device=a.device),
                        a.to(wide)[:, 1:].flip(1)], dim=1)
-    start = None if dh_last is None else dh_last.to(wide).contiguous()
-    d_rev, _ = _forward(a_rev.contiguous(), g.flip(1).contiguous(), start,
-                        out_dtype=wide)
+    start = None if dh_last is None else dh_last.to(wide)
+    d_rev, _ = rglru_scan_ref(a_rev, g.flip(1), start, out_dtype=wide)
     dh = d_rev.flip(1)
     prev = torch.zeros(B, 1, R, dtype=wide, device=a.device) if h0 is None \
         else h0.to(wide)[:, None]
@@ -130,18 +132,50 @@ def rglru_scan_bwd(a, hh, dy, h0=None, dh_last=None):
     return da, dh, dh0
 
 
+def _kernel():
+    global _fn
+    if _fn is None:
+        _fn = build.entry("rglru_scan_fwd", FWD_ARGTYPES)
+    return _fn
+
+
+def _bwd_kernel():
+    global _bwd_fn
+    if _bwd_fn is None:
+        _bwd_fn = build.entry("rglru_scan_bwd", BWD_ARGTYPES)
+    return _bwd_fn
+
+
+def rglru_scan_bwd(a, hh, dy, h0=None, dh_last=None):
+    """The gradient of the recurrence at ``a`` (and ``h0``), given the
+    float32 states after every position ``hh [B, S, R]`` and the gradients
+    of ``y`` (``dy``, any float dtype on the CPU, bf16 or float32 on the
+    card; None: 0) and of ``h_last`` (``dh_last [B, R]``; None: 0). Returns
+    (da, dbx, dh0) in float32 (float64 for float64 inputs on the CPU), dh0
+    None without ``h0``. The plain version for CPU tensors, the kernel's
+    operator for CUDA tensors (one launch); a ``dy`` that is not contiguous
+    is copied first (the train step's arrives contiguous)."""
+    if a.device.type == "cpu":
+        return rglru_scan_bwd_ref(a, hh, dy, h0, dh_last)
+    if dy is not None and not dy.is_contiguous():
+        dy = dy.contiguous()
+    da, dbx, dh0 = _launch_bwd(a, hh, dy, h0, dh_last)
+    return da, dbx, None if h0 is None else dh0
+
+
 class RGLRUScan(torch.autograd.Function):
-    """``rglru_scan`` with a gradient: the forward is the wrapper's call
-    with a float32 ``out_dtype`` (the kernel on the card), whose states it
-    saves, and the backward ``rglru_scan_bwd`` (one more launch)."""
+    """``rglru_scan`` with a gradient: the forward is one launch writing y
+    in ``out_dtype`` and the float32 states it saves (``_forward(...,
+    with_states=True)``), the backward ``rglru_scan_bwd`` (one more
+    launch)."""
 
     @staticmethod
     def forward(ctx, a, bx, h0, out_dtype):
-        hh, h_last = _forward(a, bx, h0, out_dtype=_wide(a))
+        y, h_last, hh = _forward(a, bx, h0, out_dtype=out_dtype, with_states=True)
         ctx.save_for_backward(a, hh, h0)
         ctx.bx_dtype = bx.dtype
         ctx.set_materialize_grads(False)
-        return hh.to(out_dtype), h_last
+        return y, h_last
 
     @staticmethod
     def backward(ctx, dy, dh_last):
@@ -163,17 +197,42 @@ def rglru_scan(a, bx, h0=None, *, out_dtype=torch.float32):
     return _forward(a, bx, h0, out_dtype=out_dtype)
 
 
-def _forward(a, bx, h0=None, *, out_dtype=torch.float32):
-    """The plain version (CPU tensors), or the kernel's operator."""
+def _forward(a, bx, h0=None, *, out_dtype=torch.float32, with_states=False):
+    """The plain version (CPU tensors), or the kernel's operator: (y,
+    h_last), and with ``with_states`` the float32 states after every
+    position too (float64 for float64 inputs on the CPU; ``y`` itself when
+    ``out_dtype`` is the states' dtype)."""
     if a.device.type == "cpu":
-        return rglru_scan_ref(a, bx, h0, out_dtype=out_dtype)
-    return _launch(a, bx, h0, out_dtype)
+        ys, h = rglru_scan_ref(a, bx, h0, out_dtype=_wide(a))
+        return (ys.to(out_dtype), h, ys) if with_states else (ys.to(out_dtype), h)
+    keep = with_states and out_dtype != torch.float32
+    y, h_last, states = _launch(a, bx, h0, out_dtype, keep)
+    if not with_states:
+        return y, h_last
+    return y, h_last, states if keep else y
 
 
-@build.op("rglru_scan", "(Tensor a, Tensor bx, Tensor? h0, ScalarType out_dtype) "
-          "-> (Tensor, Tensor)")
-def _launch(a, bx, h0, out_dtype):
-    """The kernel on CUDA tensors (``torch.ops.repro_torch.rglru_scan``)."""
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+_SCRATCH_DTYPES = {"flags": torch.int32, "agg": torch.float32, "carry": torch.int64}
+
+
+def _scratch(plan, device, *names):
+    """The plan's scratch tensors named ``names`` (None where the route has
+    none)."""
+    got = {k: torch.empty(shape, dtype=_SCRATCH_DTYPES[k], device=device)
+           for k, shape in plan["scratch"].items()}
+    return [got.get(k) for k in names]
+
+
+@build.op("rglru_scan", "(Tensor a, Tensor bx, Tensor? h0, ScalarType out_dtype, "
+          "bool with_states=False) -> (Tensor, Tensor, Tensor)")
+def _launch(a, bx, h0, out_dtype, with_states=False):
+    """The kernel on CUDA tensors (``torch.ops.repro_torch.rglru_scan``):
+    (y, h_last, states), states float32 [B, S, R] with ``with_states``
+    (written in the same launch), else empty."""
     if a.device.type != "cuda":
         raise ValueError(f"rglru_scan: unsupported device {a.device}")
     if a.dim() != 3 or bx.shape != a.shape:
@@ -193,21 +252,68 @@ def _launch(a, bx, h0, out_dtype):
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("rglru_scan: inputs must be contiguous")
     y = torch.empty(B, S, R, dtype=out_dtype, device=a.device)
+    states = torch.empty((B, S, R) if with_states else (0,), dtype=torch.float32,
+                         device=a.device)
     h_last = torch.empty(B, R, dtype=torch.float32, device=a.device)
     if B == 0 or R == 0:
-        return y, h_last
+        return y, h_last, states
     if S == 0:
-        return y, (h_last.zero_() if h0 is None else h_last.copy_(h0))
+        return y, (h_last.zero_() if h0 is None else h_last.copy_(h0)), states
     plan = scan_plan(B, S, R)
-    flags = agg = None
-    if plan["route"] == "chunked":
-        flags = torch.zeros(plan["scratch"]["flags"], dtype=torch.int32, device=a.device)
-        agg = torch.empty(plan["scratch"]["agg"], dtype=torch.float32, device=a.device)
-    ptr = (lambda t: None if t is None else t.data_ptr())       # noqa: E731
+    flags, agg = _scratch(plan, a.device, "flags", "agg")
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    err = _kernel()(a.data_ptr(), bx.data_ptr(), ptr(h0), y.data_ptr(),
-                    h_last.data_ptr(), ptr(flags), ptr(agg), B, S, R,
-                    DTYPES[out_dtype], stream)
+    err = _kernel()(a.data_ptr(), bx.data_ptr(), _ptr(h0), y.data_ptr(),
+                    states.data_ptr() if with_states else None, h_last.data_ptr(),
+                    _ptr(flags), _ptr(agg), B, S, R, DTYPES[out_dtype], stream)
     build.check(err, "rglru_scan")
     launch_counts.count(__name__, plan["route"])
-    return y, h_last
+    return y, h_last, states
+
+
+@build.op("rglru_scan_bwd", "(Tensor a, Tensor hh, Tensor? dy, Tensor? h0, "
+          "Tensor? dh_last) -> (Tensor, Tensor, Tensor)")
+def _launch_bwd(a, hh, dy, h0, dh_last):
+    """The gradient kernel on CUDA tensors
+    (``torch.ops.repro_torch.rglru_scan_bwd``): (da, dbx, dh0) float32,
+    dh0 [B, R] written when ``h0`` is given (else empty)."""
+    if a.device.type != "cuda":
+        raise ValueError(f"rglru_scan_bwd: unsupported device {a.device}")
+    if a.dim() != 3 or hh.shape != a.shape:
+        raise ValueError(f"rglru_scan_bwd: a {tuple(a.shape)} / hh {tuple(hh.shape)} "
+                         "must be one [B, S, R] shape")
+    B, S, R = a.shape
+    if a.dtype != torch.float32 or hh.dtype != torch.float32:
+        raise ValueError(f"rglru_scan_bwd: a, hh must be float32, got {a.dtype}/{hh.dtype}")
+    if dy is not None and (dy.shape != a.shape or dy.dtype not in DTYPES):
+        raise ValueError(f"rglru_scan_bwd: dy must be {tuple(a.shape)} in "
+                         f"{sorted(map(str, DTYPES))}, got {tuple(dy.shape)} {dy.dtype}")
+    for name, t in (("h0", h0), ("dh_last", dh_last)):
+        if t is not None and (t.shape != (B, R) or t.dtype != torch.float32):
+            raise ValueError(f"rglru_scan_bwd: {name} must be [{B}, {R}] float32, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    tensors = [t for t in (a, hh, dy, h0, dh_last) if t is not None]
+    if any(t.device != a.device for t in tensors):
+        raise ValueError("rglru_scan_bwd: tensors on different devices")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("rglru_scan_bwd: inputs must be contiguous")
+    f32 = dict(dtype=torch.float32, device=a.device)
+    da, dbx = torch.empty(B, S, R, **f32), torch.empty(B, S, R, **f32)
+    dh0 = torch.empty((B, R) if h0 is not None else (0,), **f32)
+    if B == 0 or R == 0:
+        return da, dbx, dh0
+    if S == 0:
+        if h0 is not None and dh_last is not None:
+            dh0.copy_(dh_last)
+        elif h0 is not None:
+            dh0.zero_()
+        return da, dbx, dh0
+    plan = scan_plan(B, S, R, backward=True)
+    (carry,) = _scratch(plan, a.device, "carry")
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    err = _bwd_kernel()(a.data_ptr(), hh.data_ptr(), _ptr(dy), _ptr(h0), _ptr(dh_last),
+                        da.data_ptr(), dbx.data_ptr(),
+                        dh0.data_ptr() if h0 is not None else None, _ptr(carry), B, S, R,
+                        DTYPES[torch.float32 if dy is None else dy.dtype], stream)
+    build.check(err, "rglru_scan_bwd")
+    launch_counts.count(__name__, plan["route"])
+    return da, dbx, dh0

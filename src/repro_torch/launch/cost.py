@@ -322,12 +322,24 @@ def _accept_len(accept, draft_lens):
             costs.accept_len(*accept.shape), "accept_len")
 
 
-def _rglru_scan(a, bx, h0, out_dtype):
+def _rglru_scan(a, bx, h0, out_dtype, with_states=False):
+    """The float32 states it writes beside y with ``with_states`` count
+    toward the peak (autograd saves them) and toward its bytes."""
     B, S, R = a.shape
-    wide = torch.float64 if a.dtype == torch.float64 else torch.float32
+    f32 = dict(dtype=torch.float32, device=a.device)
     y = torch.empty(B, S, R, dtype=out_dtype, device=a.device)
-    return ((y, torch.empty(B, R, dtype=wide, device=a.device)),
-            costs.rglru(B, S, R, y.element_size(), h0 is not None), "rglru_scan")
+    states = torch.empty((B, S, R) if with_states else (0,), **f32)
+    return ((y, torch.empty(B, R, **f32), states),
+            costs.rglru(B, S, R, y.element_size(), h0 is not None, with_states),
+            "rglru_scan")
+
+
+def _rglru_scan_bwd(a, hh, dy, h0, dh_last):
+    B, S, R = a.shape
+    f32 = dict(dtype=torch.float32, device=a.device)
+    return ((torch.empty(B, S, R, **f32), torch.empty(B, S, R, **f32),
+             torch.empty((B, R) if h0 is not None else (0,), **f32)),
+            costs.rglru_bwd(B, S, R), "rglru_scan_bwd")
 
 
 def _mlstm_chunk(q, k, v, ig, fg, C0, n0, m0, chunk, with_states=False):
@@ -358,4 +370,5 @@ KERNELS = {"flash_attention": _flash, "flash_attention_bwd": _flash_bwd,
            "split_decode": _split_decode,
            "split_decode_partials": _partials, "split_decode_combine": _combine,
            "accept_len": _accept_len, "rglru_scan": _rglru_scan,
+           "rglru_scan_bwd": _rglru_scan_bwd,
            "mlstm_chunk": _mlstm_chunk, "mlstm_chunk_bwd": _mlstm_chunk_bwd}

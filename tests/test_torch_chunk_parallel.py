@@ -75,7 +75,8 @@ def test_route_names():
     assert kmc.ROUTES == {torch.bfloat16: "wgmma", torch.float32: "simt_f32"}
     assert kmc.BWD_ROUTES == {torch.bfloat16: "wgmma_bwd", torch.float32: "simt_f32_bwd"}
     assert set(kmc.launches_by_route) == {"wgmma", "simt_f32", "wgmma_bwd", "simt_f32_bwd"}
-    assert set(krs.launches_by_route) == {"chunked", "sequential"}
+    assert set(krs.launches_by_route) == {"chunked", "sequential", "chunked_bwd",
+                                          "sequential_bwd"}
     assert "constexpr int T = SEG * NW;" in (CSRC / "rglru_scan.cu").read_text()
     assert krs.T == krs.SEG * krs.NW
 

@@ -11,8 +11,8 @@ journal restore, and a transient fault ahead of the first capture; the
 modality archs' kernel geometries (MHA at head dim 64) and servers;
 training: the gradients of the flash, rglru_scan and mlstm_chunk
 wrappers (their autograd.Functions: the kernel forward; flash's and
-mLSTM's backwards are their backward kernels on the dtype's route,
-bit-identical from call to call, the scan's the kernel run in reverse) against
+mLSTM's backwards are their backward kernels on the dtype's route, the
+scan's its gradient kernel, each bit-identical from call to call) against
 plain autograd, the split-K decode forms refusing a gradient, and train steps
 of qwen, recurrentgemma and xlstm on the card against the CPU. This file
 imports no JAX, so it also runs on a machine with a card and no JAX:
@@ -1439,30 +1439,67 @@ def test_gpu_forward_only_kernels_refuse_a_gradient():
                                          (2, 2048, 4096, "chunked")])
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 def test_gpu_rglru_reverse_scan_gradient_matches_plain(B, S, R, route, out_dtype):
-    """``RGLRUScan`` on the card (forward: one launch with float32 states;
-    backward: the reverse scan, one more launch on the same route) against
-    autograd of the plain version on the same tensors: a, bx and h0 at
-    2e-5 relative to max(1, the gradient's largest value); y at the
-    forward's bounds (float32 5e-6, bf16 5e-2)."""
+    """``RGLRUScan`` on the card (forward: one launch on the route S picks,
+    writing y and the float32 states it saves; backward: the gradient
+    kernel, one launch on that route's ``_bwd`` counterpart, never the
+    plain ``rglru_scan_bwd_ref``) against autograd of the plain version on
+    the same tensors, gradients of y (dy in y's dtype) and of h_last: a, bx
+    and h0 at 2e-5 relative to max(1, the gradient's largest value); y at
+    the forward's bounds (float32 5e-6, bf16 5e-2); the kept states equal
+    the plain version's float32 states at 5e-6; two backward calls give the
+    same bits."""
     dev = _need_card()
     a = torch.sigmoid(_rand(dev, B, S, R, seed=21))
     bx, h0 = _rand(dev, B, S, R, scale=0.5, seed=22), _rand(dev, B, R, seed=23)
     a[:, S // 2:S // 2 + 3], bx[:, S // 2:S // 2 + 3] = 1.0, 0.0       # masked steps
-    dy = _rand(dev, B, S, R, seed=24).to(out_dtype)
+    dy, dh = _rand(dev, B, S, R, seed=24).to(out_dtype), _rand(dev, B, R, seed=25)
     ins = [t.clone().requires_grad_() for t in (a, bx, h0)]
     before = dict(krs.launches_by_route)
-    y, _ = krs.rglru_scan(*ins, out_dtype=out_dtype)
-    assert type(y.grad_fn).__name__ == "RGLRUScanBackward"
-    got = torch.autograd.grad(y, ins, dy)
+    plain_bwd = krs.rglru_scan_bwd_ref
+    try:
+        krs.rglru_scan_bwd_ref = None           # the card never runs it
+        y, h = krs.rglru_scan(*ins, out_dtype=out_dtype)
+        assert type(y.grad_fn).__name__ == "RGLRUScanBackward"
+        got = torch.autograd.grad((y, h), ins, (dy, dh))
+    finally:
+        krs.rglru_scan_bwd_ref = plain_bwd
     torch.cuda.synchronize()
-    assert krs.launches_by_route == {**before, route: before[route] + 2}
-    yw, _ = krs.rglru_scan_ref(*ins, out_dtype=out_dtype)
-    want = torch.autograd.grad(yw, ins, dy)
+    assert krs.launches_by_route == {**before, route: before[route] + 1,
+                                     f"{route}_bwd": before[f"{route}_bwd"] + 1}
+    yw, hw = krs.rglru_scan_ref(*ins, out_dtype=out_dtype)
+    want = torch.autograd.grad((yw, hw), ins, (dy, dh))
     tol = 5e-6 if out_dtype == torch.float32 else 5e-2
     assert float((y.float() - yw.float()).abs().max()) < tol
     for name, g, w in zip(("a", "bx", "h0"), got, want):
         scale = max(1.0, float(w.abs().max()))
         assert float((g - w).abs().max()) <= 2e-5 * scale, name
+    _, _, kept = krs._forward(a, bx, h0, out_dtype=out_dtype, with_states=True)
+    states, _ = krs.rglru_scan_ref(a, bx, h0)
+    assert kept.dtype == torch.float32 and float((kept - states).abs().max()) < 5e-6
+    first, second = (krs.rglru_scan_bwd(a, kept, dy, h0, dh) for _ in range(2))
+    assert all(torch.equal(x, z) for x, z in zip(first, second))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,R,out_dtype", [(2, 2048, 4096, torch.bfloat16),
+                                             (2, 2048, 4096, torch.float32),
+                                             (1, 4096, 4096, torch.bfloat16)])
+def test_gpu_rglru_forward_repeat_calls_are_bit_identical(B, S, R, out_dtype):
+    """The chunked forward at recurrentgemma-9b's train microbatch (with the
+    states it keeps) and at its largest prefill bucket: five calls on the
+    same inputs give the same bits. Its decoupled look-back composes a
+    carry from whichever predecessors have published when it looks, so
+    this holds only while every tile finds its predecessor's state."""
+    dev = _need_card()
+    a = torch.sigmoid(_rand(dev, B, S, R, seed=31))
+    bx, h0 = _rand(dev, B, S, R, scale=0.5, seed=32), _rand(dev, B, R, seed=33)
+    before = krs.launches_by_route["chunked"]
+    first = krs._forward(a, bx, h0, out_dtype=out_dtype, with_states=True)
+    for _ in range(4):
+        again = krs._forward(a, bx, h0, out_dtype=out_dtype, with_states=True)
+        assert all(torch.equal(x, z) for x, z in zip(first, again))
+    torch.cuda.synchronize()
+    assert krs.launches_by_route["chunked"] == before + 5
 
 
 @pytest.mark.gpu

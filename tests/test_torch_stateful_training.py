@@ -17,7 +17,7 @@ and xlstm-350m against the JAX package.
   (``grad_fn`` names), and a state in that requires grad raises;
 * under remat "full" (and "minimal") each recurrent and mLSTM layer of a
   scanned period runs its forward twice (the recompute), the tail layers
-  once, and the scan's reverse once a layer;
+  once, and the scan's gradient wrapper once a layer;
 * a 3-step run with accumulation 2 of recurrentgemma-9b and xlstm-350m
   (reduced) equals JAX's at the bounds of ``test_train_steps_equal_jax``
   (tests/test_torch_training.py): params at 1e-4 relative to each leaf's
@@ -261,31 +261,33 @@ def test_mlstm_state_in_that_requires_grad_raises():
 def test_stateful_forwards_run_again_in_the_recompute(monkeypatch, arch, policy):
     """Each recurrent / mLSTM layer of a scanned period runs its forward
     twice under remat "full" and "minimal" (the recompute) and once under
-    "none"; tail layers (outside the scan) once; the RG-LRU's reverse scan
-    once a layer."""
+    "none"; tail layers (outside the scan) once; the RG-LRU's gradient
+    (``rglru_scan_bwd``, its kernel's wrapper) once a layer."""
     _, cfg = tt._cfgs(arch, remat_policy=policy)
     params = Model(cfg, device="cpu").init(seed=0, trainable=True)
     batch = tdata.SyntheticLM(tdata.DataConfig(global_batch=2, seq_len=24,
                                                vocab_size=cfg.vocab_size), cfg,
                               device="cpu").batch_at(0)
-    calls = {"rglru_scan": 0, "mlstm_chunk": 0}
-    for mod in (krs, kmc):
-        real = mod._forward
-        name = mod.__name__.rsplit(".", 1)[-1]
+    calls = {"rglru_scan": 0, "rglru_scan_bwd": 0, "mlstm_chunk": 0}
+    for mod, attr, name in ((krs, "_forward", "rglru_scan"),
+                            (krs, "rglru_scan_bwd", "rglru_scan_bwd"),
+                            (kmc, "_forward", "mlstm_chunk")):
+        real = getattr(mod, attr)
 
         def counted(*a, _real=real, _name=name, **kw):
             calls[_name] += 1
             return _real(*a, **kw)
-        monkeypatch.setattr(mod, "_forward", counted)
+        monkeypatch.setattr(mod, attr, counted)
     tts.loss_and_grads(params, batch, cfg)
     scanned = len(cfg.pattern) * cfg.num_scan_groups
     runs = 1 if policy == "none" else 2
     kinds = list(cfg.layer_kinds)
-    want = {"rglru_scan": 0, "mlstm_chunk": 0}
+    want = {"rglru_scan": 0, "rglru_scan_bwd": 0, "mlstm_chunk": 0}
     for i, kind in enumerate(kinds):
         fwd = runs if i < scanned else 1
         if kind == "recurrent":
-            want["rglru_scan"] += fwd + 1
+            want["rglru_scan"] += fwd
+            want["rglru_scan_bwd"] += 1
         elif kind == "mlstm":
             want["mlstm_chunk"] += fwd
     assert sum(want.values()) > 0
