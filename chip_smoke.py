@@ -60,6 +60,17 @@ no result line) on any fault:
   7. FAME: one log-analytics M+C session through the port's
      WorkflowServingRuntime on the paged spec_len=4 server; statuses equal
      the ScriptedOracle backend's, prefix hits > 0, session tail reused;
+  7c. apps: the port's FAME entry points (``repro_torch.examples``) on the
+     same weights: ``research_summary`` and ``log_analytics`` with oracle
+     agents (host only: E does not finish, M+C does); ``quickstart`` with
+     every agent role on ``TorchLLM`` over one paged server of its
+     settings (4 slots, capacity 512), RS and LA under M+C in both fusion
+     modes (four sessions; statuses logged, every turn terminal, prefix
+     hits > 0, role sessions carried several turns); ``serve_agents``
+     with 3 workflows x 2 rounds, paged, then spec_len=4 (every handle
+     COMPLETED, turns admitted off the retained tail, verify steps > 0
+     with spec); flash, paged decode and, with spec, accept_len and the
+     paged multi-query decode launched, on the bf16 routes and graphs;
   7b. fleet: the same qwen2.5-3b weights behind ``FleetServer`` (2 replicas,
      4 slots each, capacity 2048, paged, page_size 16, decode_chunk 8, a
      background pump per replica capturing and replaying its own graphs);
@@ -253,8 +264,8 @@ with one entry per kernel; the last line is ``{"ok": true, "device":
 {...}}``.
 
 Run from the repository root:  python3 chip_smoke.py
-(``--phases`` picks a subset of kernels,serve,spec,fame,fleet,mesh,stateful,
-moe,modality,checkpoint,train,stateful_train,dryrun,mesh_train.)
+(``--phases`` picks a subset of kernels,serve,spec,fame,apps,fleet,mesh,
+stateful,moe,modality,checkpoint,train,stateful_train,dryrun,mesh_train.)
 """
 from __future__ import annotations
 
@@ -2742,6 +2753,123 @@ def fame_phase(dev, model, params):
     del srv
     torch.cuda.empty_cache()
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 7c: the FAME entry points (repro_torch.examples)
+# ---------------------------------------------------------------------------
+
+
+def record_requests(server):
+    """Every request ``server``'s scheduler queues from here on, in order."""
+    reqs, enqueue = [], server.engine.enqueue
+
+    def recorded(*a, **kw):
+        reqs.append(enqueue(*a, **kw))
+        return reqs[-1]
+
+    server.engine.enqueue = recorded
+    return reqs
+
+
+def counted_apps_run(name, server, fn):
+    """``fn()`` on ``server`` with the kernel counts zeroed just before and
+    read just after: (its result, the counts). The bf16 routes and the
+    graph path are checked."""
+    import torch
+    torch.cuda.synchronize()
+    gbefore = graph_counts(server)
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    check_bf16_routes(name, counts)
+    check_graphs(name, server, gbefore)
+    return out, counts
+
+
+def apps_phase(dev, model, params):
+    """The port's four FAME entry points on the full-width model: the
+    oracle apps (host only), ``quickstart`` with every agent role on
+    ``TorchLLM`` (RS and LA, M+C, both fusion modes: four sessions on one
+    paged server), and ``serve_agents`` (3 workflows x 2 rounds) paged,
+    then with ``spec_len=4``."""
+    import torch
+    from repro_torch.examples import (log_analytics, quickstart,
+                                      research_summary, serve_agents)
+
+    launches = collections.Counter()
+    # the oracle apps: FAME's control plane alone, on this machine's host
+    table = research_summary.table("P1")
+    la_res, _ = log_analytics.run("L1", "M+C")
+    rows = {line.split()[0]: line for line in table[2:]}
+    log(f"[apps] research_summary P1: {rows['E']!r}, {rows['M+C']!r}; "
+        f"log_analytics L1 M+C: {la_res.statuses}")
+    if "DNF" not in rows["E"] or "DNF" in rows["M+C"] or \
+            set(la_res.statuses) != {"SUCCEEDED"}:
+        raise AssertionError(f"apps: oracle statuses {table} {la_res.statuses}")
+
+    # quickstart --llm torch: four sessions on one paged server
+    arch = model.cfg.name
+    srv = quickstart.make_server(model.cfg, dev, params)
+    llm = quickstart.torch_backend(srv, arch)
+    reqs = record_requests(srv)
+
+    def sessions():
+        for app in ("RS", "LA"):
+            for fusion in ("singleton", "consolidated"):
+                t0 = time.perf_counter()
+                res, lines = quickstart.run(app, "M+C", fusion, llm)
+                log(f"[apps] quickstart {app} M+C {fusion}: statuses={res.statuses} "
+                    f"wall_s={time.perf_counter() - t0:.3f}; {lines[-1]}")
+
+    _, counts = counted_apps_run("apps-quickstart", srv, sessions)
+    st = srv.stats()
+    log(f"[apps] quickstart: requests={len(reqs)} sessions_opened="
+        f"{st['sessions_opened']} session_turns={st['session_turns']} "
+        f"turn_prefix_hits={st['turn_prefix_hits']} prefix_hit_tokens="
+        f"{st['prefix_hit_tokens']} of {st['prompt_tokens']} truncated_requests="
+        f"{st['truncated_requests']} decode_tokens={st['decode_tokens']}")
+    log(f"[apps] quickstart launches={counts}")
+    if not reqs or not all(r.finished for r in reqs):
+        raise AssertionError("apps: a quickstart turn is not terminal")
+    if st["prefix_hit_tokens"] <= 0 or st["session_turns"] <= st["sessions_opened"]:
+        raise AssertionError(f"apps: quickstart reused no prefix or session: {st}")
+    if counts["flash_attention"] <= 0 or counts["paged_decode_attention"] <= 0:
+        raise AssertionError(f"apps: quickstart kernels not launched: {counts}")
+    launches.update(counts)
+    del srv, llm
+    torch.cuda.empty_cache()
+
+    # serve_agents --workflows 3 --rounds 2, paged, then --spec-len 4
+    for spec_len in (0, 4):
+        name = f"apps-serve_agents-spec{spec_len}"
+        srv = serve_agents.make_server(model.cfg, spec_len=spec_len, device=dev,
+                                       params=params)
+        t0 = time.perf_counter()
+        out, counts = counted_apps_run(
+            name, srv, lambda: serve_agents.run(srv, workflows=3, rounds=2))
+        st = srv.stats()
+        log(f"[{name}] wall_s={time.perf_counter() - t0:.3f} handles="
+            f"{len(out['handles'])} turn_prefix_hits={out['stats']['turn_prefix_hits']} "
+            f"fame statuses={out['fame'].statuses} verify_steps={st['verify_steps']} "
+            f"draft_tokens={st['draft_tokens']} accepted_tokens={st['accepted_tokens']}")
+        log(f"[{name}] launches={counts}")
+        not_completed(name, out["handles"])
+        if out["stats"]["turn_prefix_hits"] <= 0:
+            raise AssertionError(f"{name}: no turn admitted off the retained tail")
+        need = ["flash_attention", "paged_decode_attention"]
+        if spec_len:
+            if st["verify_steps"] <= 0:
+                raise AssertionError(f"{name}: no verify step ran")
+            need += ["accept_len", "paged_spec_decode_attention"]
+        idle = [k for k in need if counts[k] <= 0]
+        if idle:
+            raise AssertionError(f"{name}: kernels not launched: {idle}")
+        launches.update(counts)
+        del srv
+        torch.cuda.empty_cache()
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -5290,11 +5418,11 @@ def mesh_train_phase(dev, card):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="kernels,serve,spec,fame,fleet,mesh,stateful,moe,"
+                    default="kernels,serve,spec,fame,apps,fleet,mesh,stateful,moe,"
                             "modality,checkpoint,train,stateful_train,dryrun,mesh_train",
-                    help="comma list of kernels,serve,spec,fame,fleet,mesh,stateful,"
-                         "moe,modality,checkpoint,train,stateful_train,dryrun,"
-                         "mesh_train (default: all)")
+                    help="comma list of kernels,serve,spec,fame,apps,fleet,mesh,"
+                         "stateful,moe,modality,checkpoint,train,stateful_train,"
+                         "dryrun,mesh_train (default: all)")
     args = ap.parse_args()
     t_start = t_lap = time.perf_counter()
 
@@ -5348,7 +5476,7 @@ def main() -> int:
     rows = kernel_phase(dev) if "kernels" in phases else {}
     lap("kernels")
     launches = collections.Counter()
-    if phases & {"serve", "spec", "fame", "fleet", "mesh"}:
+    if phases & {"serve", "spec", "fame", "apps", "fleet", "mesh"}:
         model, params, tok = full_model(dev)
         if "serve" in phases:
             launches.update(serving_phases(dev, model, params, tok))
@@ -5359,6 +5487,9 @@ def main() -> int:
         if "fame" in phases:
             launches.update(fame_phase(dev, model, params))
             lap("fame")
+        if "apps" in phases:
+            launches.update(apps_phase(dev, model, params))
+            lap("apps")
         if "fleet" in phases:
             launches.update(fleet_phase(dev, model, params, tok))
             lap("fleet")

@@ -126,10 +126,12 @@ class ScriptedOracle(LLMBackend):
 class TorchLLM(LLMBackend):
     """FAME agents on the port's serving engine.
 
-    ``engine`` is a ``repro_torch.serving.server.LLMServer``: each agent
-    role gets its own server *session*, keyed by its system prompt, so a
-    role's growing conversation reuses its end-of-generation state across
-    turns and concurrent roles co-batch through handles. ``temperature`` /
+    ``engine`` is either a ``repro_torch.serving.server.LLMServer``
+    (preferred: each agent role gets its own server *session*, keyed by its
+    system prompt, so a role's growing conversation reuses its
+    end-of-generation state across turns and concurrent roles co-batch
+    through handles) or a legacy ``repro_torch.serving.engine.
+    ServingEngine`` (the deprecated blocking path). ``temperature`` /
     ``top_k`` ride through to the engine's on-device per-slot sampler;
     ``serving_stats`` exposes the engine's counters (host syncs, decode
     tokens, session/turn reuse, speculative acceptance) so agent
@@ -139,9 +141,11 @@ class TorchLLM(LLMBackend):
     def __init__(self, engine, max_new_tokens: int = 48,
                  latency: Optional[LatencyModel] = None,
                  temperature: float = 0.0, top_k: int = 0):
+        from repro_torch.serving.engine import ServingEngine
         from repro_torch.serving.server import LLMServer
-        if not isinstance(engine, LLMServer):
-            raise TypeError(f"TorchLLM needs an LLMServer, got {type(engine).__name__}")
+        if not isinstance(engine, (LLMServer, ServingEngine)):
+            raise TypeError("TorchLLM needs an LLMServer or a ServingEngine, "
+                            f"got {type(engine).__name__}")
         super().__init__(latency or LatencyModel(base_s=0.02), name="torchllm")
         self.engine = engine
         self.max_new_tokens = max_new_tokens
@@ -155,13 +159,17 @@ class TorchLLM(LLMBackend):
                               temperature=self.temperature,
                               top_k=self.top_k)
 
+    def _server(self):
+        from repro_torch.serving.server import LLMServer
+        return self.engine if isinstance(self.engine, LLMServer) else None
+
     def submit(self, system: str, context: str):
-        """Non-blocking submission: returns a Handle so N concurrent agent
-        calls can co-batch before any result is drained. If the role's
-        session already has a turn in flight (two concurrent workflows
-        sharing one role prompt), the call falls back to a sessionless
-        submit — it still co-batches and radix-shares the prefix, it just
-        skips the session-tail reuse."""
+        """Non-blocking submission (LLMServer only): returns a Handle so N
+        concurrent agent calls can co-batch before any result is drained.
+        If the role's session already has a turn in flight (two concurrent
+        workflows sharing one role prompt), the call falls back to a
+        sessionless submit — it still co-batches and radix-shares the
+        prefix, it just skips the session-tail reuse."""
         session = self._sessions.get(system)
         if session is None or session.closed:
             session = self.engine.open_session()
@@ -171,7 +179,13 @@ class TorchLLM(LLMBackend):
         return session.submit(system + "\n" + context, self._params())
 
     def _generate(self, system: str, context: str) -> str:
-        return self.submit(system, context).result()
+        if self._server() is not None:
+            return self.submit(system, context).result()
+        # the deprecated ServingEngine path
+        return self.engine.generate(system + "\n" + context,
+                                    max_new_tokens=self.max_new_tokens,
+                                    temperature=self.temperature,
+                                    top_k=self.top_k)
 
     def serving_stats(self) -> Dict[str, Any]:
         return self.engine.stats()

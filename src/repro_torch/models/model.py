@@ -71,6 +71,11 @@ class Model:
         return tfm.init_cache(self.cfg, batch, capacity, self.device)
 
     # ---- entry points ------------------------------------------------------
+    def loss(self, params, batch):
+        """Causal LM loss and its parts, (loss, {"nll", "aux"}); see
+        transformer.train_loss."""
+        return tfm.train_loss(params, batch, self.cfg)
+
     def prefill(self, params, batch, cache, **kw):
         return tfm.prefill(params, batch, self.cfg, cache, **kw)
 
@@ -93,14 +98,18 @@ class Model:
         return tfm.verify_commit(self.cfg, staged, cache_lens, ns, lens)
 
     # ---- input construction ------------------------------------------------
-    def make_batch(self, tokens_or_frames, *, positions=None, start: int = 0):
+    def make_batch(self, tokens_or_frames, *, labels=None, positions=None,
+                   start: int = 0):
         """Token ids [B, S], or frame embeddings [B, S, d_model] under
         ``"frames"`` for ``audio_frames`` configs, at positions [start,
-        start+S) unless given."""
+        start+S) unless given; ``labels`` [B, S] for ``loss``."""
         key = "frames" if self.cfg.modality == "audio_frames" else "tokens"
         arr = tokens_or_frames
         B, S = arr.shape[0], arr.shape[1]
         if positions is None:
             positions = (start + torch.arange(S, device=arr.device)
                          )[None, :].expand(B, S)
-        return {key: arr, "positions": positions}
+        batch = {key: arr, "positions": positions}
+        if labels is not None:
+            batch["labels"] = labels
+        return batch

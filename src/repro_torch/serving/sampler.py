@@ -1,6 +1,8 @@
 """Token sampling for the port: greedy / temperature / top-k, plain torch.
 
-Counterpart of ``repro.serving.sampler.sample_batched``. JAX draws row b's
+``sample`` is the one-shot sampler with Python-scalar parameters (the JAX
+``sample``); ``sample_batched`` the serving fast path with per-row
+parameters. Counterpart of ``repro.serving.sampler``. JAX draws row b's
 token t with ``categorical(fold_in(key_b, t), ...)``; ``torch.Generator``
 is one stream per device and cannot give a batched step per-row streams, so
 the port draws its noise from a counter-based hash instead: uniform bits
@@ -90,6 +92,31 @@ def _top_k_filter(scaled, k):
     kth = torch.gather(srt, -1, idx[:, None])
     keep = (k <= 0)[:, None] | (scaled >= kth)
     return torch.where(keep, scaled, torch.full_like(scaled, NEG))
+
+
+def sample(logits, key, *, temperature: float = 0.0, top_k: int = 0,
+           vocab_limit: int = 0):
+    """logits [B, V] -> int32 token ids [B], one set of parameters for the
+    batch (the JAX ``sample``). ``temperature <= 0`` is the argmax (``key``
+    unused, may be None); else row b draws by Gumbel-max with the noise of
+    (``key``, b), ``key`` an int from ``prng_key`` / ``fold_in``: the same
+    key gives the same draws, but not JAX's bits. ``top_k`` > 0 keeps the k
+    largest scaled logits of each row; ids >= ``vocab_limit`` (when set)
+    are never produced."""
+    B, V = logits.shape
+    logits = logits.float()
+    if vocab_limit:
+        vmask = torch.arange(V, device=logits.device) >= vocab_limit
+        logits = logits.masked_fill(vmask[None, :], NEG)
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    scaled = logits / temperature
+    if top_k:
+        scaled = _top_k_filter(scaled, torch.full((B,), top_k,
+                                                  device=logits.device))
+    rows = torch.arange(B, device=logits.device, dtype=torch.int64)
+    keys = torch.stack([torch.full_like(rows, int(key) & M32), rows], dim=-1)
+    return torch.argmax(scaled + gumbel(keys, V), dim=-1).to(torch.int32)
 
 
 def sample_batched(logits, key, *, temperature, top_k=None, vocab_limit: int = 0):

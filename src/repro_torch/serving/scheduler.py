@@ -26,8 +26,9 @@ Public frontends:
 
 * ``repro_torch.serving.server.LLMServer`` — the session-oriented API
   (streaming handles, cancellation, multi-turn reuse). New code starts
-  there. (The JAX package's deprecated ``ServingEngine`` shim is not
-  ported.)
+  there.
+* ``repro_torch.serving.engine.ServingEngine`` — the deprecated blocking
+  ``submit(prompt, **kwargs)`` / ``generate()`` shim over this class.
 
 Sessions and multi-turn reuse
 -----------------------------

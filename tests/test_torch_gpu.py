@@ -9,8 +9,9 @@ against the same steps run eagerly on the card, and the robustness layers
 on graphs: a two-replica fleet with a pump per replica, preempt-resume,
 journal restore, and a transient fault ahead of the first capture; the
 modality archs' kernel geometries (MHA at head dim 64) and servers;
-training: the gradients of the flash, rglru_scan and mlstm_chunk
-wrappers (their autograd.Functions: the kernel forward; flash's and
+the FAME quickstart on a reduced bf16 server; training: the gradients of
+the flash, rglru_scan and mlstm_chunk wrappers (their
+autograd.Functions: the kernel forward; flash's and
 mLSTM's backwards are their backward kernels on the dtype's route, the
 scan's its gradient kernel, each bit-identical from call to call) against
 plain autograd, the split-K decode forms refusing a gradient, and train steps
@@ -502,6 +503,27 @@ def test_gpu_server_greedy_matches_cpu(mode):
                 before[2 if mode == "paged" else 1]
     assert all(len(x) == 10 for x in ids["cpu"])
     assert ids[str(dev)] == ids["cpu"]
+
+
+@pytest.mark.gpu
+def test_gpu_quickstart_session_launches_the_kernels():
+    """``repro_torch.examples.quickstart`` with every agent role on
+    ``TorchLLM`` over a reduced bf16 paged server on the card: the session
+    runs its three queries, admissions go through the flash kernel on its
+    wgmma route and decode through the paged decode kernel."""
+    from repro_torch.examples import quickstart
+    dev = _need_card()
+    cfg = ARCHS["qwen2.5-3b"].reduced(vocab_size=512)
+    assert cfg.dtype == "bfloat16"
+    server = quickstart.make_server(cfg, dev)
+    llm = quickstart.torch_backend(server, "qwen2.5-3b")
+    before = (kfa.launches_by_route["wgmma"], kpda.launches)
+    res, lines = quickstart.run("LA", "M+C", "singleton", llm)
+    torch.cuda.synchronize()
+    assert len(res.statuses) == 3 and lines[-1].startswith("serving stats:")
+    assert kfa.launches_by_route["wgmma"] > before[0]
+    assert kpda.launches > before[1]
+    assert server.stats()["session_turns"] > 0
 
 
 @pytest.mark.gpu
