@@ -15,11 +15,14 @@
 // runs them, from the chunk start states that forward saved (C_cᵀ, n_c and a
 // float64 m_c: with_states). Both end with the gate phase:
 //
-//   gate phase, a block per B·H, chunks from the last: each row's residual
-//   (Σ dlogD + dinter·inter − R, R the exact row sum) to its largest weight
-//   (its star column), each chunk's through m_next's reverse carry (G) to
-//   its largest write or to the chunk before, then dig = colsum − fix + dlsc
-//   (+ the carry) and dfg = revcumsum(dF)·σ(−fg). Every sum has one order.
+//   gate phase, two launches of a block per (chunk, B·H): first each row's
+//   residual (Σ dlogD + dinter·inter − R, R the exact row sum) to its
+//   largest weight (its star column), dig and dF before the carry, and the
+//   chunk's scalars (block sums in one order); then each block walks m_next's
+//   reverse carry (G) from the last chunk to its own (a few operations a
+//   chunk), adds it to the chunk's largest write or its last dF, and writes
+//   dig and dfg = revcumsum(dF)·σ(−fg) by warp scans in one order. Every sum
+//   has one order.
 //
 // The float32 kernels are simple on purpose (no tensor cores: TF32 cannot
 // keep 1e-4): a warp per query row (row scalars; dq) or key row (dk, dv), its
@@ -406,114 +409,195 @@ mlstm_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---- the gate phase (both routes): dig, dfg -------------------------------------------
-// G: the gates' type (float for bf16, double for float32). rows, dlsc
-// (ncol partials a row, summed in column order), ddp / dmp (NP partials of a
-// chunk's decay gradient and of the state out's m gradient, in order).
+// G: the gates' type (float for bf16, double for float32). Two launches, a
+// block per (chunk, B·H) each. gsc (G) [B·H, 2, Sp] each row's dig and dF
+// before the cross-chunk carry, then [B·H, nc, NGS] each chunk's scalars.
+enum { kParts = 0, kBase = 1, kCarried = 2, kTopAt = 3, NGS = 4 };
+
+// a block's sum of one value a thread, in one order (warp trees, then the
+// warps in turn); every thread gets it
+template <typename G>
+__device__ __forceinline__ G gate_block_sum(G x, G* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = x;
+  __syncthreads();
+  G s = 0;
+#pragma unroll
+  for (int w = 0; w < GATE_NT / 32; ++w) s += red[w];
+  return s;
+}
+
+// Σ_x p[x stride], x < n <= MAX_PARTS, in order (the loads issued together)
+constexpr int MAX_PARTS = 8;
+__device__ __forceinline__ float partial_sum(const float* __restrict__ p, int n, int stride) {
+  float v[MAX_PARTS];
+#pragma unroll
+  for (int x = 0; x < MAX_PARTS; ++x) v[x] = x < n ? p[(size_t)x * stride] : 0.f;
+  float s = 0.f;
+#pragma unroll
+  for (int x = 0; x < MAX_PARTS; ++x)
+    if (x < n) s += v[x];
+  return s;
+}
+
+// Per chunk: each row's star column (its largest weight: the first i <= j
+// with logD_ji = m_intra_j), its residual (Σ dlogD + dinter·inter − R) to
+// that column where the intra-chunk stabiliser won (fix: summed in row
+// order), dig = colsum − fix + dlsc and dF = R − colsum + fix − dlsc before
+// the carry; the chunk's parts (Σ dlsc + decay·Σ ddp), base (Σ dinter·inter
+// − Σ residuals the inter-chunk stabiliser took + decay·Σ ddp), whether
+// m_next carried m_c, and its largest write (top_at). cols: ncs partials a
+// row at stride Sp (bh stride cstride), summed in order; dlsc: ncol.
 template <typename G>
 __global__ void __launch_bounds__(GATE_NT)
-mlstm_bwd_gates(const float* __restrict__ fg, const G* __restrict__ gates, const G* __restrict__ mS,
-          const float* __restrict__ rows, const float* __restrict__ dlsc,
-          const float* __restrict__ ddp, const float* __restrict__ dmp,
-          float* __restrict__ dig, float* __restrict__ dfg, int S, int H, int L, int nc, int Sp,
-          int ncol, int NP, int has_dstate) {
-  __shared__ G sF[MAX_L], sIg[MAX_L], sMi[MAX_L], sMint[MAX_L], sRes[MAX_L], sFix[MAX_L],
-      sDF[MAX_L];
-  __shared__ float sR[MAX_L], sDi[MAX_L], sCol[MAX_L], sDl[MAX_L];
-  __shared__ int sStar[MAX_L];
-  __shared__ G sDm, sAt, sTail;
-  __shared__ int sTopAt;
-  const int bh = blockIdx.x, b = bh / H, hh = bh - b * H, tid = threadIdx.x;
-  const G* g0 = gates + (size_t)bh * 3 * Sp;
-  const float* rw = rows + (size_t)bh * NR * Sp;
-  if (tid == 0) {
-    G dm = 0;
-    if (has_dstate)
-      for (int p = 0; p < NP; ++p) dm += (G)dmp[(size_t)bh * NP + p];
-    sDm = dm;
+mlstm_bwd_gate_chunk(const G* __restrict__ gates, const G* __restrict__ mS,
+          const float* __restrict__ rows, const float* __restrict__ cols, int ncs,
+          size_t cstride, const float* __restrict__ dlsc, int ncol,
+          const float* __restrict__ ddp, int NP, G* __restrict__ gsc, int L, int nc, int Sp) {
+  __shared__ G sF[MAX_L], sMi[MAX_L], sIg[MAX_L], sRes[MAX_L], sRed[GATE_NT / 32];
+  __shared__ int sStar[MAX_L], sRedI[GATE_NT / 32];
+  const int c = blockIdx.x, bh = blockIdx.y, tid = threadIdx.x, p0 = c * L;
+  const G* g0 = gates + (size_t)bh * 3 * Sp + p0;
+  const float* rw = rows + (size_t)bh * NR * Sp + p0;
+  for (int j = tid; j < L; j += GATE_NT) {
+    sF[j] = g0[j];
+    sMi[j] = g0[Sp + j];
+    sIg[j] = g0[2 * Sp + j];
   }
-  for (int c = nc - 1; c >= 0; --c) {
-    const int p0 = c * L;
-    __syncthreads();
-    for (int j = tid; j < L; j += GATE_NT) {
-      sF[j] = g0[p0 + j];
-      sMi[j] = g0[Sp + p0 + j];
-      sIg[j] = g0[2 * Sp + p0 + j];
-      sR[j] = rw[kR * Sp + p0 + j];
-      sDi[j] = rw[kDi * Sp + p0 + j];
-      sCol[j] = rw[kColsum * Sp + p0 + j];
-      float dl = 0.f;
-      for (int cc = 0; cc < ncol; ++cc) dl += dlsc[((size_t)bh * ncol + cc) * Sp + p0 + j];
-      sDl[j] = dl;
+  __syncthreads();
+  const G m_c = mS[(size_t)bh * nc + c];
+  const G FL = sF[L - 1], top = sMi[L - 1];
+  G tb = 0, tl = 0;
+  int top_at = L;
+  for (int j = tid; j < L; j += GATE_NT) {
+    const G mint = sF[j] + m_c;
+    const G res = ((G)rw[kRowsum * Sp + j] + (G)rw[kDi * Sp + j]) - (G)rw[kR * Sp + j];
+    int star = j;
+    for (int i = 0; i <= j; ++i)
+      if ((sF[j] - sF[i]) + sIg[i] == sMi[j]) {
+        star = i;
+        break;
+      }
+    sStar[j] = sMi[j] >= mint ? star : -1;
+    sRes[j] = res;
+    tb += (G)rw[kDi * Sp + j] - (mint > sMi[j] ? res : (G)0);
+    tl += (G)partial_sum(dlsc + (size_t)bh * ncol * Sp + p0 + j, ncol, Sp);
+    if (top_at == L && (FL - sF[j]) + sIg[j] == top) top_at = j;
+  }
+  __syncthreads();
+  G* out = gsc + (size_t)bh * 2 * Sp + p0;
+  for (int i = tid; i < L; i += GATE_NT) {
+    G fix = 0;
+    for (int j = i; j < L; ++j)
+      if (sStar[j] == i) fix += sRes[j];
+    const float col = partial_sum(cols + bh * cstride + p0 + i, ncs, Sp);
+    const float dl = partial_sum(dlsc + (size_t)bh * ncol * Sp + p0 + i, ncol, Sp);
+    out[i] = ((G)col - fix) + (G)dl;
+    out[Sp + i] = (((G)rw[kR * Sp + i] - (G)col) + fix) - (G)dl;
+  }
+  // the chunk's scalars
+  tb = gate_block_sum(tb, sRed);
+  tl = gate_block_sum(tl, sRed);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) top_at = min(top_at, __shfl_xor_sync(0xffffffffu, top_at, o));
+  if ((tid & 31) == 0) sRedI[tid >> 5] = top_at;
+  G dd = 0;
+  if (tid < 32) {
+#pragma unroll 8
+    for (int p = tid; p < NP; p += 32) dd += (G)ddp[((size_t)bh * nc + c) * NP + p];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) dd += __shfl_xor_sync(0xffffffffu, dd, o);
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int at = L - 1;
+    for (int w = 0; w < GATE_NT / 32; ++w) at = min(at, sRedI[w]);
+    const G m_next = FL + m_c > top ? FL + m_c : top;
+    const G decay = gexp((FL + m_c) - m_next);
+    G* sc = gsc + (size_t)gridDim.y * 2 * Sp + ((size_t)bh * nc + c) * NGS;
+    sc[kParts] = tl + dd * decay;
+    sc[kBase] = tb + dd * decay;
+    sc[kCarried] = FL + m_c >= top ? (G)1 : (G)0;
+    sc[kTopAt] = (G)at;
+  }
+}
+
+// Per chunk, after every chunk's scalars: the reverse carry of m_next's
+// gradient from the last chunk to this one (G_c = dm − parts_c; to the
+// chunk's largest write unless m_next carried m_c, then on to the chunk
+// before), the tail parts_c + G_c into the chunk's last dF, dig, and dfg =
+// revcumsum(dF)·σ(−fg) by a block scan in one order. A thread holds rows
+// 2t, 2t + 1.
+template <typename G>
+__global__ void __launch_bounds__(GATE_NT)
+mlstm_bwd_gate_rows(const float* __restrict__ fg, const float* __restrict__ dmp, int NP,
+          const G* __restrict__ gsc, float* __restrict__ dig, float* __restrict__ dfg, int S,
+          int H, int L, int nc, int Sp, int has_dstate) {
+  __shared__ G sAt, sTail, sWarp[GATE_NT / 32];
+  __shared__ int sTopAt;
+  const int c = blockIdx.x, bh = blockIdx.y, b = bh / H, hh = bh - b * H;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, p0 = c * L;
+  if (tid < 32) {
+    G dm = 0;
+    if (has_dstate) {
+#pragma unroll 8
+      for (int p = tid; p < NP; p += 32) dm += (G)dmp[(size_t)bh * NP + p];
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) dm += __shfl_xor_sync(0xffffffffu, dm, o);
     }
-    __syncthreads();
-    const G m_c = mS[(size_t)bh * nc + c];
-    for (int j = tid; j < L; j += GATE_NT) {
-      sMint[j] = sF[j] + m_c;
-      sRes[j] = ((G)rw[kRowsum * Sp + p0 + j] + (G)sDi[j]) - (G)sR[j];
-      int star = j;
-      for (int i = 0; i <= j; ++i)
-        if ((sF[j] - sF[i]) + sIg[i] == sMi[j]) {
-          star = i;
+    if (tid == 0) {
+      const G* sc = gsc + (size_t)gridDim.y * 2 * Sp + (size_t)bh * nc * NGS;
+      for (int cc = nc - 1;; --cc) {
+        const G* s = sc + (size_t)cc * NGS;
+        const G Gc = dm - s[kParts];
+        const bool carried = s[kCarried] != (G)0;
+        if (cc == c) {
+          sAt = carried ? (G)0 : Gc;
+          sTail = s[kParts] + Gc;
+          sTopAt = (int)s[kTopAt];
           break;
         }
-      sStar[j] = star;
-      sFix[j] = 0;
-    }
-    __syncthreads();
-    if (tid == 0) {
-      for (int j = 0; j < L; ++j)
-        if (sMi[j] >= sMint[j]) sFix[sStar[j]] += sRes[j];
-      const G FL = sF[L - 1], top = sMi[L - 1];
-      int top_at = L - 1;
-      for (int j = 0; j < L; ++j)
-        if ((FL - sF[j]) + sIg[j] == top) {
-          top_at = j;
-          break;
-        }
-      const G m_next = FL + m_c > top ? FL + m_c : top;
-      const G decay = gexp((FL + m_c) - m_next);
-      G dd = 0, dls = 0, base = 0;
-      for (int p = 0; p < NP; ++p) dd += (G)ddp[((size_t)bh * nc + c) * NP + p];
-      for (int j = 0; j < L; ++j) {
-        dls += (G)sDl[j];
-        base += (G)sDi[j];
-        if (sMint[j] > sMi[j]) base -= sRes[j];
-      }
-      const G parts = dls + dd * decay;
-      base += dd * decay;
-      const bool carried = FL + m_c >= top;
-      const G Gc = sDm - parts;
-      sAt = carried ? (G)0 : Gc;
-      sDm = base + (carried ? Gc : (G)0);
-      sTopAt = top_at;
-      sTail = parts + Gc;
-    }
-    __syncthreads();
-    for (int j = tid; j < L; j += GATE_NT) {
-      const G at = j == sTopAt ? sAt : (G)0;
-      const G dg = (((G)sCol[j] - sFix[j]) + (G)sDl[j]) + at;
-      G dF = ((((G)sR[j] - (G)sCol[j]) + sFix[j]) - (G)sDl[j]) - at;
-      if (j == L - 1) dF += sTail;
-      sDF[j] = dF;
-      const int p = p0 + j;
-      if (p < S) dig[((size_t)b * S + p) * H + hh] = (float)dg;
-    }
-    __syncthreads();
-    if (tid == 0) {
-      G run = 0;
-      for (int j = L - 1; j >= 0; --j) {
-        run += sDF[j];
-        sDF[j] = run;
+        dm = s[kBase] + (carried ? Gc : (G)0);
       }
     }
-    __syncthreads();
-    for (int j = tid; j < L; j += GATE_NT) {
-      const int p = p0 + j;
-      if (p < S) {
-        const size_t at = ((size_t)b * S + p) * H + hh;
-        dfg[at] = (float)(sDF[j] / ((G)1 + gexp((G)fg[at])));
-      }
-    }
+  }
+  __syncthreads();
+  const G* loc = gsc + (size_t)bh * 2 * Sp + p0;
+  G x[2];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int j = 2 * tid + u;
+    x[u] = 0;
+    if (j >= L) continue;
+    const G at = j == sTopAt ? sAt : (G)0;
+    x[u] = loc[Sp + j] - at;
+    if (j == L - 1) x[u] += sTail;
+    if (p0 + j < S) dig[((size_t)b * S + p0 + j) * H + hh] = (float)(loc[j] + at);
+  }
+  // suffix sums: within the thread, across the warp's lanes, then the warps after
+  const G s0 = x[0] + x[1];
+  G incl = s0;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const G nb = __shfl_down_sync(0xffffffffu, incl, o);
+    if (lane + o < 32) incl += nb;
+  }
+  G excl = __shfl_down_sync(0xffffffffu, incl, 1);
+  if (lane == 31) excl = 0;
+  if (lane == 0) sWarp[warp] = incl;
+  __syncthreads();
+  G after = 0;
+  for (int w = GATE_NT / 32 - 1; w > warp; --w) after += sWarp[w];
+  const G r1 = x[1] + (excl + after);
+  const G r0 = x[0] + r1;
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int j = 2 * tid + u, p = p0 + j;
+    if (j >= L || p >= S) continue;
+    const size_t at = ((size_t)b * S + p) * H + hh;
+    dfg[at] = (float)((u == 0 ? r0 : r1) / ((G)1 + gexp((G)fg[at])));
   }
 }
 
@@ -525,9 +609,26 @@ int mlstm_chunk_bwd_wgmma(const void* q, const void* k, const void* v, const voi
                           const float* mS, const float* dCout, const float* dnout,
                           const float* Cend, const float* nend, void* dq, void* dk, void* dv,
                           float* rows, float* dlsc, float* dCE, float* dnE, float* ddp,
-                          float* dmp, float* xs, float* xq, int B, int S, int H, int hd,
-                          int L, float scale, int has_state, cudaStream_t st);
+                          float* dmp, float* xs, float* xq, float* cols, void* pt, float* sp,
+                          int B, int S, int H, int hd, int L, float scale, int has_state,
+                          cudaStream_t st);
 }  // namespace repro
+
+// the gate phase's two launches (G: the gates' type)
+template <typename G>
+static int gate_phase(const float* fg, const G* gates, const G* mS, const float* rows,
+                      const float* cols, int ncs, size_t cstride, const float* dlsc, int ncol,
+                      const float* ddp, const float* dmp, int NP, G* gsc, float* dig,
+                      float* dfg, int BH, int S, int H, int L, int nc, int Sp, int has_dstate,
+                      cudaStream_t st) {
+  cudaError_t e;
+  mlstm_bwd_gate_chunk<G><<<dim3(nc, BH), GATE_NT, 0, st>>>(gates, mS, rows, cols, ncs, cstride,
+                                                            dlsc, ncol, ddp, NP, gsc, L, nc, Sp);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  mlstm_bwd_gate_rows<G><<<dim3(nc, BH), GATE_NT, 0, st>>>(fg, dmp, NP, gsc, dig, dfg, S, H, L,
+                                                           nc, Sp, has_dstate);
+  return (int)cudaGetLastError();
+}
 
 // The gradient of mlstm_chunk_fwd at (q, k, v, ig, fg), given dh [B, S, H,
 // hd] (q's dtype) and the state out's gradient dC [B, H, hd, hd], dn [B, H,
@@ -539,22 +640,27 @@ int mlstm_chunk_bwd_wgmma(const void* q, const void* k, const void* v, const voi
 // float32 and mS float64 as the float32 forward saved them. Outputs dq, dk,
 // dv (q's dtype) and dig, dfg [B, S, H] float32; float32 scratch rows
 // [B·H, 6, Sp], dlsc [B·H, ncol, Sp], dCE [B·H, nc, hd, hd], dnE [B·H, nc,
-// hd], ddp [B·H, nc, NP], dmp [B·H, NP] (bf16: ncol = hd / 64, NP = ncol^2;
-// float32: ncol = 1, NP = ceil((hd^2 + hd) / 256)); bf16 only (float32: null)
-// xs [2, B·H, Sp, hd] and xq [B·H, 2, ncol, Sp]. All contiguous, outputs
-// distinct from inputs; hd a multiple of 64 (bf16) or 32 (float32) up to
-// 512, 1 <= L <= 512. Returns cudaGetLastError() of the launches.
+// hd], ddp [B·H, nc, NP], dmp [B·H, NP] (bf16: ncol = hd / 64, NP = (hd /
+// 32)^2 + 1; float32: ncol = 1, NP = ceil((hd^2 + hd) / 256)); bf16 only
+// (float32: null) xs [2, B·H, Sp, hd], xq [B·H, 2, ncol, Sp], cols [B·H,
+// ntile, Sp], sp [B·H, nc, T, 2, 64 x 64] and the bf16 pair tiles pt [2, B·H,
+// nc, T, 64 x 64] (T = ntile (ntile + 1) / 2, ntile = ceil(L / 64)); float64
+// gsc [B·H, 2 Sp + 4 nc] (the gate
+// phase's). All contiguous, outputs distinct from inputs; hd a multiple of
+// 64 (bf16) or 32 (float32) up to 512, 1 <= L <= 512. Returns
+// cudaGetLastError() of the launches.
 extern "C" int mlstm_chunk_bwd(const void* q, const void* k, const void* v, const void* ig,
                                const void* fg, const void* dh, const void* dC, const void* dn,
                                const void* Cend, const void* nend, void* gates,
                                const void* CT, const void* nS, const void* mS, void* dq,
                                void* dk, void* dv, void* dig, void* dfg, void* rows,
                                void* dlsc, void* dCE, void* dnE, void* ddp, void* dmp,
-                               void* xs, void* xq, int B, int S, int H, int hd, int L,
-                               float scale, int has_state, int dtype, void* stream) {
+                               void* xs, void* xq, void* cols, void* pt, void* sp, void* gsc, int B,
+                               int S, int H, int hd, int L, float scale, int has_state,
+                               int dtype, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return 0;
   if (hd % 32 != 0 || hd > 512 || L < 1 || L > MAX_L || gates == nullptr || CT == nullptr ||
-      nS == nullptr || mS == nullptr)
+      nS == nullptr || mS == nullptr || gsc == nullptr)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int BH = B * H, nc = (S + L - 1) / L, Sp = nc * L;
@@ -563,17 +669,19 @@ extern "C" int mlstm_chunk_bwd(const void* q, const void* k, const void* v, cons
   auto w = [](void* p) { return static_cast<float*>(p); };
   cudaError_t e;
   if (dtype == repro::kBF16) {
-    if (hd % 64 != 0 || xs == nullptr || xq == nullptr) return (int)cudaErrorInvalidValue;
-    const int ncol = hd / 64;
+    if (hd % 64 != 0 || xs == nullptr || xq == nullptr || cols == nullptr || pt == nullptr ||
+        sp == nullptr)
+      return (int)cudaErrorInvalidValue;
+    const int ncol = hd / 64, ntile = (L + 63) / 64, NP = (hd / 32) * (hd / 32) + 1;
     int err = repro::mlstm_chunk_bwd_wgmma(
         q, k, v, dh, f(gates), f(CT), f(nS), f(mS), f(dC), f(dn), f(Cend), f(nend), dq, dk, dv,
-        w(rows), w(dlsc), w(dCE), w(dnE), w(ddp), w(dmp), w(xs), w(xq), B, S, H, hd, L, scale,
-        has_state, st);
+        w(rows), w(dlsc), w(dCE), w(dnE), w(ddp), w(dmp), w(xs), w(xq), w(cols), pt, w(sp), B, S,
+        H, hd, L, scale, has_state, st);
     if (err != 0) return err;
-    mlstm_bwd_gates<float><<<BH, GATE_NT, 0, st>>>(f(fg), f(gates), f(mS), f(rows), f(dlsc), f(ddp),
-                                             f(dmp), w(dig), w(dfg), S, H, L, nc, Sp, ncol,
-                                             ncol * ncol, has_dstate);
-    return (int)cudaGetLastError();
+    return gate_phase<float>(f(fg), f(gates), f(mS), f(rows), f(cols), ntile,
+                             (size_t)ntile * Sp, f(dlsc), ncol, f(ddp), f(dmp), NP,
+                             static_cast<float*>(gsc), w(dig), w(dfg), BH, S, H, L, nc, Sp,
+                             has_dstate, st);
   }
   if (dtype != repro::kF32) return (int)cudaErrorInvalidValue;
   double* g64 = static_cast<double*>(gates);
@@ -599,7 +707,8 @@ extern "C" int mlstm_chunk_bwd(const void* q, const void* k, const void* v, cons
                                             f(dnE), w(dlsc), w(dk), w(dv), S, H, hd, L, nc, Sp,
                                             scale);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  mlstm_bwd_gates<double><<<BH, GATE_NT, 0, st>>>(f(fg), g64, m64, f(rows), f(dlsc), f(ddp), f(dmp),
-                                            w(dig), w(dfg), S, H, L, nc, Sp, 1, NP, has_dstate);
-  return (int)cudaGetLastError();
+  return gate_phase<double>(f(fg), g64, m64, f(rows), f(rows) + kColsum * Sp, 1,
+                            (size_t)NR * Sp, f(dlsc), 1, f(ddp), f(dmp), NP,
+                            static_cast<double*>(gsc), w(dig), w(dfg), BH, S, H, L, nc, Sp,
+                            has_dstate, st);
 }

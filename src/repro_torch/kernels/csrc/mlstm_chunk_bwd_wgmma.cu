@@ -23,7 +23,7 @@
 //   dv = (w / denom)ᵀ·dh, and from the state update of every chunk
 //   dk += sc (dCE_c·v + dnE_c), dv += (k ⊙ sc)·dCE_c, where dCE_c, the
 //   gradient of chunk c's end state, runs from the end:
-//   dC <- dC decay_c + qᵀ·(dh ⊙ inter / denom), dn <- dn decay_c + Σ dqn inter q.
+//   dC <- dC decay_c + GC_c, GC_c = qᵀ·(dh ⊙ inter / denom); dn likewise.
 // (dh·(q C_c) is taken as q·X: X serves both the row scalars and dq, so the
 // state takes four products, not five.)
 //
@@ -33,40 +33,54 @@
 // the state (dh·Cᵀ, qᵀ·dh, v·dCEᵀ, (k ⊙ sc)·dCE) ~34 GFLOP in TF32, against
 // ~184 MB of inputs, saved states and gradients: ~0.08 ms.
 //
-// Design: a simple, deterministic first kernel, seven launches (then the gate
-// phase). Every block is one warpgroup (phase 0: two); every sum has one
-// order (no atomics), so two calls on the same inputs give the same bits.
-//   0. the state products (mlstm_bwd_slab), a block per (64 columns, chunk,
-//      B·H): it loads its 64-row slab of the chunk's [hd][hd] matrix into
-//      shared memory once; its two warpgroups walk the chunk's 64-row tiles
-//      (even, odd) and write a·slabᵀ (TF32, a streamed 32 columns a step)
-//      to a float32 [B·H, Sp, hd] scratch. Three uses: X = dh·C_cᵀ with each row's Σ q·X and q·n_c
-//      over its columns (before phase 1); dCv = v·dCE_cᵀ with each key's
-//      sc k·(dCv + dnE_c), and (k ⊙ sc)·dCE_c (both before phase 4).
-//   1. rows, a block per (64-row query tile, chunk, B·H): the column sums of
-//      phase 0; per key tile up to the diagonal S = q·kᵀ and P = dh·vᵀ
-//      (bf16), the row sums Σ w and Σ w ⊙ P; the row scalars (denom, dqn, R,
-//      dinter·inter) into a float32 scratch.
-//   2. carry, a block per 64 x 64 tile of dC and B·H: the forward's chunk
-//      state phase run backwards. It writes dCE_c (rounded to TF32: phase
-//      0's operand) and dnE_c at every chunk, its share of Σ dCE_c ⊙ C_c +
-//      dnE_c ⊙ n_c (the decay's gradient) and of the state out's m gradient,
-//      then adds qᵀ·(dh inter / denom) as TF32 wgmma over transposed slabs.
-//   3. dq, a block per (64 dq columns, query tile, chunk, B·H): (inter /
-//      denom) X from phase 0's scratch, then per key tile S and P again, ds'
-//      in registers as the bf16 A operand of ds'·k. The column-0 blocks
-//      write each row's Σ dlogD.
-//   4. dk / dv, a block per (64 columns, key tile, chunk, B·H), key tile 0
-//      (the longest walk) first: per query tile from the diagonal on, Sᵀ =
-//      k·qᵀ and Pᵀ = v·dhᵀ with the keys as wgmma's rows, ds'ᵀ and wᵀ / denom
-//      in registers as A operands of ds'ᵀ·q and (wᵀ / denom)·dh; then the
-//      state terms from phase 0's scratch. Column-0 blocks write each key's
-//      Σ dlogD.
-// The [L, L] tile of a (chunk, head) lives only in registers. Each chunk's
-// saved C_c is read twice in all, never once a tile: by phase 0 (X) and,
-// elementwise, by the carry (the decay's gradient); dCE_c is written once
-// and read by phase 0's two later uses. Rows past S are zero in q, k, v, dh
-// (zero fill) and give zeros.
+// Design: each pair tile is formed twice (the row sums need every key before
+// a row's denominator is known) and then kept, in bf16, the very roundings
+// wgmma reads as A operands; the column blocks of dq, dk and dv read those
+// tiles and recompute nothing. Seven products over the pairs in all (the
+// bound's five plus q·kᵀ and dh·vᵀ once more). Blocks are one warpgroup, or
+// several where they share a resident operand (phase 0: four, 1: two);
+// every sum has one order (no atomics), so two calls on the same inputs give
+// the same bits.
+// Launches, in order:
+//   0. the state products, a block per (64 columns, chunk, B·H): it holds
+//      its 64-row slab of the chunk's [hd][hd] matrix in shared memory
+//      (128 KB at hd 512, its k order permuted: kperm); its four warpgroups
+//      walk the chunk's 64-row tiles (tile w, w + 4, ..), streaming a 64
+//      columns a step through a three-stage raw ring, each thread
+//      building its TF32 A fragments from the raw bf16 rows in registers,
+//      and write a·slabᵀ to a float32 [B·H, Sp, hd] scratch. Three uses: X = dh·C_cᵀ
+//      with each row's Σ q·X and q·n_c over its columns (mlstm_bwd_slab_x,
+//      before phase 1); dCv = v·dCE_cᵀ with each key's sc k·(dCv + dnE_c),
+//      and (k ⊙ sc)·dCE_c (mlstm_bwd_slab_state, one launch for both, before
+//      phase 4; the two read rows and columns of dCE_c: two slabs).
+//   1. pairs, a block per (64-row query tile, chunk, B·H), two warpgroups:
+//      the tile's q and dh held (all hd columns), warpgroup w taking key
+//      tiles w, w + 2, .. up to the diagonal, two passes, S = q·kᵀ and P =
+//      dh·vᵀ each pass: the first sums Σ w and Σ w ⊙ P and gives the row
+//      scalars (denom, dqn, R, dinter·inter into a float32 scratch); the
+//      second writes the tile's ds' and w / denom as bf16 64 x 64 tiles
+//      ([B·H, nc, tiles of the lower triangle], 128-byte rows in the
+//      128-byte swizzle, so a consumer copies a tile as it lies), each row's
+//      Σ dlogD and each key's partial Σ dlogD over the block's rows (summed
+//      in query-tile order by the gate phase).
+//   2. carry in two launches: every GC_c (c >= 1) at once, a block per (64 x
+//      128 tile of GC, chunk, B·H), TF32 wgmma over slabs transposed on the
+//      way in, into the dCE slot of chunk c - 1 (and Gn_c into dnE's); then
+//      the reverse recurrence elementwise, a block per 32 x 32 tile of dC
+//      (one more for dn) and B·H, walking the chunks from the last: dCE_c
+//      (rounded to TF32: phase 0's operand), dnE_c, and the partials of the
+//      decay's gradient Σ dCE_c ⊙ C_c + dnE_c ⊙ n_c and of the state out's m
+//      gradient.
+//   3. dq, a block per (128 dq columns, query tile, chunk, B·H): (inter /
+//      denom) X from phase 0's scratch, then ds'·k over the kept tiles.
+//   4. dk / dv, a block per (128 columns, key tile, chunk, B·H), key tile 0
+//      (the longest walk) first: ds'ᵀ·q and (w / denom)ᵀ·dh over the kept
+//      tiles, wgmma reading them transposed (MN-major A); then the state
+//      terms from phase 0's scratch.
+// (64 columns where 128 do not divide hd.) Each chunk's saved C_c is read
+// twice in all: by phase 0 (X) and, elementwise, by the recurrence (the
+// decay's gradient); dCE_c is written once and read by phase 0's two later
+// uses. Rows past S are zero in q, k, v, dh (zero fill) and give zeros.
 #include <cstdint>
 
 #include "common.cuh"
@@ -81,12 +95,10 @@ constexpr int MAX_L = 512;     // the largest chunk
 constexpr int TILE = 64;       // rows / keys / columns of a tile
 constexpr int KI = 32;         // carry: chunk rows per TF32 slab (128 bytes)
 constexpr int SLAB = TILE * 128;          // 64 rows of 128 bytes, swizzled
-constexpr int STAGE = 4 * SLAB;           // a pair-ring stage: q, k, dh, v
-constexpr int RING = 2 * STAGE;           // two stages
-constexpr int RAW = TILE * 64;            // 64 rows x 32 bf16
-constexpr int P2_PAIR = 2 * TILE * 128;   // carry: a TF32 slab pair
-constexpr int P2_RAW = 2 * KI * 128;      // carry: raw bf16 rows of a step
-constexpr int RAW_STAGES = 4;
+constexpr int RAW_STAGES = 4;             // carry: raw stages (three steps ahead)
+constexpr int PT = TILE * TILE;           // elements of a kept pair tile (8 KB in bf16)
+constexpr int REC_NT = 256;               // the recurrence: a 32 x 32 tile of dC a block
+constexpr int RT = 32;
 
 // the float32 row scratch [B·H, NR, Sp] (shared with mlstm_chunk_bwd.cu)
 enum { kDenom = 0, kDqn = 1, kR = 2, kDi = 3, kRowsum = 4, kColsum = 5, NR = 6 };
@@ -102,69 +114,17 @@ __device__ __forceinline__ uint32_t f32_at(int r, int c) {
   return swz128(r, c >> 2) + (c & 3) * 4;
 }
 
-// raw [64 rows][32 bf16] (64-byte rows) widened into a swizzled [64][32]
-// float32 slab, each row scaled by mul[r] (null: 1) and rounded to TF32
-__device__ __forceinline__ void widen_rows(const uint8_t* raw, uint8_t* dst, int tid,
-                                           const float* mul) {
-  const int r = tid >> 1, half = tid & 1;
-  const float f = mul != nullptr ? mul[r] : 1.f;
-#pragma unroll
-  for (int x = 0; x < 2; ++x) {
-    const uint4 w = *reinterpret_cast<const uint4*>(raw + r * 64 + half * 32 + 16 * x);
-    const bf16* h = reinterpret_cast<const bf16*>(&w);
-    float o[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) o[e] = to_tf32(__bfloat162float(h[e]) * f);
-    const int cq = half * 4 + x * 2;
-    *reinterpret_cast<float4*>(dst + swz128(r, cq)) = make_float4(o[0], o[1], o[2], o[3]);
-    *reinterpret_cast<float4*>(dst + swz128(r, cq + 1)) = make_float4(o[4], o[5], o[6], o[7]);
-  }
-}
-
-// cp.async of 64 rows x 32 bf16 (columns col0..) of a [B, S, H, hd] tensor
-// into raw[64][64 bytes]; rows p0 + row0 + r, zero past the chunk and S
+// cp.async of 64 rows x 64 bf16 (columns col0..) of a [B, S, H, hd] tensor
+// into a swizzled raw[64][128 bytes]; rows p0 + row0 + r, zero past the
+// chunk and S
 __device__ __forceinline__ void load_raw(uint32_t raw, const bf16* head, size_t rs, int p0,
                                          int row0, int L, int S, int col0, int tid) {
-  for (int e = tid; e < TILE * 4; e += NT) {
-    const int r = e >> 2, ch = e & 3, j = row0 + r, p = p0 + j;
-    const bool ok = j < L && p < S;
-    cp_async16(raw + r * 64 + ch * 16, head + (size_t)(ok ? p : 0) * rs + col0 + ch * 8, ok);
-  }
-}
-
-// cp.async of 64 rows x 32 float32 (rows row0.., columns col0..) of a
-// row-major [hd][hd] matrix into a swizzled [64][32] float32 slab
-__device__ __forceinline__ void load_rows_f32(uint32_t dst, const float* m, int hd, int row0,
-                                              int col0, int tid) {
   for (int e = tid; e < TILE * 8; e += NT) {
-    const int r = e >> 3, ch = e & 7;
-    cp_async16(dst + swz128(r, ch), m + (size_t)(row0 + r) * hd + col0 + ch * 4, true);
+    const int r = e >> 3, ch = e & 7, j = row0 + r, p = p0 + j;
+    const bool ok = j < L && p < S;
+    cp_async16(raw + swz128(r, ch), head + (size_t)(ok ? p : 0) * rs + col0 + ch * 8, ok);
   }
 }
-
-// The pair walk both query-side phases share: the slabs of q, k, dh and v
-// for (key tile, 64-column slab) steps through a two-stage cp.async ring.
-struct PairRing {
-  uint32_t ring;
-  const bf16 *q, *k, *dh, *v;
-  size_t rs;
-  int p0, S, NS;
-  __device__ __forceinline__ uint32_t stage(int t) const { return ring + (t & 1) * STAGE; }
-  // step t: query rows qrow0.., key rows krow0.., columns s * 64..
-  __device__ __forceinline__ void issue(int qrow0, int krow0, int s, int t, int tid) const {
-    const uint32_t sq = stage(t), sk = sq + SLAB, sd = sk + SLAB, sv = sd + SLAB;
-    for (int e = tid; e < TILE * 8; e += NT) {
-      const int r = e >> 3, ch = e & 7;
-      const int pq = p0 + qrow0 + r, pk = p0 + krow0 + r;
-      const size_t aq = (size_t)min(pq, S - 1) * rs + s * TILE + ch * 8;
-      const size_t ak = (size_t)min(pk, S - 1) * rs + s * TILE + ch * 8;
-      cp_async16(sq + swz128(r, ch), q + aq, pq < S);
-      cp_async16(sk + swz128(r, ch), k + ak, pk < S);
-      cp_async16(sd + swz128(r, ch), dh + aq, pq < S);
-      cp_async16(sv + swz128(r, ch), v + ak, pk < S);
-    }
-  }
-};
 
 // a [64 rows][64 columns] bf16 tile (rows row0.., columns col0..) into a
 // swizzled tile, zero past S
@@ -176,62 +136,89 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* head, size_t
   }
 }
 
+
+// lower-triangle tile (query tile jt, key tile it <= jt) of a chunk's kept pairs
+__device__ __forceinline__ int tri(int jt, int it) { return jt * (jt + 1) / 2 + it; }
+
+// cp.async of a kept pair tile (8 KB, already in the 128-byte swizzle) as it lies
+__device__ __forceinline__ void copy_tile(uint32_t dst, const bf16* src, int tid) {
+  for (int e = tid; e < PT / 8; e += NT) cp_async16(dst + e * 16, src + e * 8, true);
+}
+
 // ---- phase 0: the state products, a chunk's matrix slab held in shared memory ----
 enum { kSlabX = 0, kSlabDCv = 1, kSlabDvs = 2 };
 
-constexpr int SLAB_NT = 2 * NT;                    // two warpgroups share a slab
-constexpr int SLAB_WG = 2 * SLAB + RAW_STAGES * RAW;  // a warpgroup's ring
+constexpr int SLAB_WGS = 4;                        // warpgroups sharing a slab
+constexpr int SLAB_NT = SLAB_WGS * NT;
+constexpr int RAW_SLAB = 3;        // raw stages of a warpgroup's ring
+constexpr int SLAB_WG = RAW_SLAB * SLAB;  // a warpgroup's ring: raw bf16 [64][64] each
 
 // warpgroup wg's barrier (0 is __syncthreads')
 __device__ __forceinline__ void wg_sync(int wg) {
   asm volatile("bar.sync %0, %1;" ::"r"(1 + wg), "r"(NT) : "memory");
 }
 
-// Warpgroup wg's share (every other 32-row slab) of the block's slab of
-// M(n0 + x, kk), x < 64, all kk, as hd / 32 swizzled [64][32] TF32 slabs:
-// rows n0.. of M (cp.async) or, TRANS, its columns n0.., transposed through
-// registers four 32-row slabs a round trip. A warp reads 8 rows x 16
-// columns, so a store's lanes span 8 source rows: two to a bank at most.
+// The k order within a 32-column group of phase 0's products: physical
+// column pc sits at position 8 ((pc / 2) % 4) + pc / 8 + 4 (pc % 2), so that
+// a thread's A fragments for the group's four k steps (columns tq and tq + 4
+// of each, wgmma's tf32 layout) are the eight columns 8 tq .. 8 tq + 7 it
+// reads with one 16-byte load.
+__device__ __forceinline__ int kperm(int pc) {
+  return 8 * ((pc >> 1) & 3) + (pc >> 3) + 4 * (pc & 1);
+}
+
+// Warpgroup wg's share (every SLAB_WGS-th 32-column group) of the block's slab of
+// M(n0 + x, kk), x < 64, all kk, as hd / 32 swizzled [64][32] TF32 slabs in
+// the kperm order: rows n0.. of M or, TRANS, its columns n0.., through
+// registers, four groups a round trip.
 template <bool TRANS>
-__device__ __forceinline__ void load_slab(uint32_t dst, uint8_t* gdst, const float* m, int hd,
-                                          int n0, int wg, int tid) {
+__device__ __forceinline__ void load_slab(uint8_t* gdst, const float* m, int hd, int n0, int wg,
+                                          int tid) {
   const int ND = hd / 32;
-  if (!TRANS) {
-    for (int ks = wg; ks < ND; ks += 2) load_rows_f32(dst + ks * SLAB, m, hd, n0, ks * 32, tid);
-    return;
-  }
-  for (int k0 = wg; k0 < ND; k0 += 8) {
+  for (int k0 = wg; k0 < ND; k0 += 4 * SLAB_WGS) {
     float4 x[4][4];
 #pragma unroll
     for (int u = 0; u < 4; ++u)
 #pragma unroll
       for (int it = 0; it < 4; ++it) {
-        const int e = tid + it * NT, ks = k0 + 2 * u;
-        const int r = (e & 7) + 8 * ((e >> 5) & 3), c4 = 4 * (((e >> 3) & 3) + 4 * (e >> 7));
-        if (ks < ND)
+        const int e = tid + it * NT, ks = k0 + SLAB_WGS * u;
+        if (ks >= ND) continue;
+        if (TRANS) {  // 4 n at row kk of M: a warp reads 8 rows x 16 columns
+          const int r = (e & 7) + 8 * ((e >> 5) & 3), c4 = 4 * (((e >> 3) & 3) + 4 * (e >> 7));
           x[u][it] = *reinterpret_cast<const float4*>(m + (size_t)(ks * 32 + r) * hd + n0 + c4);
+        } else {      // 4 kk at row n of M
+          const int r = e >> 3, ch = e & 7;
+          x[u][it] = *reinterpret_cast<const float4*>(m + (size_t)(n0 + r) * hd + ks * 32 + ch * 4);
+        }
       }
 #pragma unroll
     for (int u = 0; u < 4; ++u)
 #pragma unroll
       for (int it = 0; it < 4; ++it) {
-        const int e = tid + it * NT, ks = k0 + 2 * u;
-        const int r = (e & 7) + 8 * ((e >> 5) & 3), c4 = 4 * (((e >> 3) & 3) + 4 * (e >> 7));
+        const int e = tid + it * NT, ks = k0 + SLAB_WGS * u;
         if (ks >= ND) continue;
         uint8_t* d = gdst + ks * SLAB;
-        *reinterpret_cast<float*>(d + f32_at(c4 + 0, r)) = x[u][it].x;
-        *reinterpret_cast<float*>(d + f32_at(c4 + 1, r)) = x[u][it].y;
-        *reinterpret_cast<float*>(d + f32_at(c4 + 2, r)) = x[u][it].z;
-        *reinterpret_cast<float*>(d + f32_at(c4 + 3, r)) = x[u][it].w;
+        const float v4[4] = {x[u][it].x, x[u][it].y, x[u][it].z, x[u][it].w};
+        if (TRANS) {
+          const int r = (e & 7) + 8 * ((e >> 5) & 3), c4 = 4 * (((e >> 3) & 3) + 4 * (e >> 7));
+#pragma unroll
+          for (int i = 0; i < 4; ++i) *reinterpret_cast<float*>(d + f32_at(c4 + i, kperm(r))) = v4[i];
+        } else {
+          const int r = e >> 3, ch = e & 7;
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            *reinterpret_cast<float*>(d + f32_at(r, kperm(4 * ch + i))) = v4[i];
+        }
       }
   }
 }
 
-// grid (hd / 64 column blocks, chunk, B·H), two warpgroups: out[bh, p0 + j,
-// n0 + x] = Σ_kk a[j, kk] M(n0 + x, kk) for every row j of chunk c, in TF32.
-// The block loads its [64 n][hd kk] slab of the chunk's M once; its two
-// warpgroups walk the chunk's 64-row tiles (even, odd), each streaming a
-// 32 columns a step. M(n, kk) is M_c[n][kk] (kSlabDCv) or M_c[kk][n].
+// A block (column block ct of ncol, chunk c, head bh) of one use, SLAB_WGS
+// warpgroups: out[bh, p0 + j, n0 + x] = Σ_kk a[j, kk] M(n0 + x, kk) for every
+// row j of chunk c, in TF32. The block loads its [64 n][hd kk] slab of the
+// chunk's M once; warpgroup w walks the chunk's 64-row tiles w, w + SLAB_WGS,
+// .., each streaming a 64 columns a step. M(n, kk) is M_c[n][kk] (kSlabDCv)
+// or M_c[kk][n].
 //   kSlabX:   a = dh, M = CT (C_cᵀ), so X = dh·C_cᵀ; part [B·H, 2, ncol, Sp]
 //             gets each row's Σ q·X and Σ q·n_c (vec = nS) over the block's
 //             columns (b2 = q). A chunk with no start state gives zeros.
@@ -240,23 +227,20 @@ __device__ __forceinline__ void load_slab(uint32_t dst, uint8_t* gdst, const flo
 //   kSlabDvs: a = k ⊙ sc, M = dCE, so (k ⊙ sc)·dCE_c; no part.
 // sc_m = exp(F_L - F_m + ig_m - m_next), the key's weight in the state update.
 template <int MODE>
-__global__ void __launch_bounds__(SLAB_NT)
-mlstm_bwd_slab(const bf16* __restrict__ a, const bf16* __restrict__ b2,
+__device__ __forceinline__ void slab_block(const bf16* __restrict__ a, const bf16* __restrict__ b2,
          const float* __restrict__ M, const float* __restrict__ vec,
          const float* __restrict__ gates, const float* __restrict__ mS,
          float* __restrict__ out, float* __restrict__ part, int S, int H, int hd, int L,
-         int nc, int Sp, int ntile, int has_state) {
+         int nc, int Sp, int ntile, int has_state, int ct, int c, int bh, int ncol) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   uint8_t* gbase = smem_raw + (base - smem_addr(smem_raw));
-  const int ND = hd / 32;
+  const int ND = hd / 32, NK = hd / 64;
   const int wg = threadIdx.x / NT, tid = threadIdx.x % NT;
-  // the warpgroup's 2 x [64][32] of a widened, RAW_STAGES x [64][32] of a raw bf16
+  // the warpgroup's ring: RAW_SLAB stages of the raw bf16 [64][64]
   const uint32_t stg = base + ND * SLAB + wg * SLAB_WG;
-  float* sMul = reinterpret_cast<float*>(gbase + ND * SLAB + 2 * SLAB_WG);  // [ntile * 64]
-  float* sVec = sMul + ntile * TILE;                                       // [64]
+  float* sVec = reinterpret_cast<float*>(gbase + ND * SLAB + SLAB_WGS * SLAB_WG);  // [64]
 
-  const int ct = blockIdx.x, c = blockIdx.y, bh = blockIdx.z, ncol = gridDim.x;
   const int b = bh / H, hh = bh - b * H;
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, tq = lane & 3;
   const int p0 = c * L, n0 = ct * TILE, r_lo = warp * 16 + g;
@@ -273,69 +257,99 @@ mlstm_bwd_slab(const bf16* __restrict__ a, const bf16* __restrict__ b2,
     for (int j = threadIdx.x; j < L; j += SLAB_NT) *part_at(0, j) = *part_at(1, j) = 0.f;
     return;
   }
+  // sc_m = exp(F_L - F_m + ig_m - m_next), key m's weight in the state update
+  const float* gF = gates + (size_t)bh * 3 * Sp + p0;
+  const float m_c = mS[(size_t)bh * nc + c];
+  const float FL = gF[L - 1];
+  const float m_next = fmaxf(FL + m_c, gF[Sp + L - 1]);
+  auto sc_of = [&](int m) {
+    return m < L ? expf(((FL - gF[m]) + gF[2 * Sp + m]) - m_next) : 0.f;
+  };
 
-  // a streamed through the warpgroup's RAW_STAGES ring, 32 columns a step,
-  // widened one step ahead while the step's wgmma runs; its tiles wg, wg + 2, ..
-  const int T = ((ntile - wg + 1) / 2) * ND;
-  auto raw_at = [&](int t) { return stg + 2 * SLAB + (t % RAW_STAGES) * RAW; };
-  auto wide_at = [&](int t) { return stg + (t & 1) * SLAB; };
-  auto tile_of = [&](int t) { return wg + 2 * (t / ND); };
+  // a streamed through the warpgroup's ring, 64 columns a step (RAW_SLAB - 1
+  // steps ahead); each thread builds its TF32 A fragments from the raw rows
+  // (rows r_lo, r_lo + 8; columns 8 tq .. 8 tq + 7 of each 32-column group)
+  const int T = ((ntile - wg + SLAB_WGS - 1) / SLAB_WGS) * NK;
+  auto raw_at = [&](int t) { return stg + (t % RAW_SLAB) * SLAB; };
+  auto tile_of = [&](int t) { return wg + SLAB_WGS * (t / NK); };
   auto issue = [&](int t) {
-    if (t < T) load_raw(raw_at(t), a + head, rs, p0, tile_of(t) * TILE, L, S, (t % ND) * 32, tid);
+    if (t < T) load_raw(raw_at(t), a + head, rs, p0, tile_of(t) * TILE, L, S, (t % NK) * 64, tid);
     cp_async_commit();
   };
-  auto widen = [&](int t) {
-    widen_rows(gbase + (raw_at(t) - base), gbase + (wide_at(t) - base), tid,
-               MODE == kSlabDvs ? sMul + tile_of(t) * TILE : nullptr);
-  };
-  for (int t = 0; t < RAW_STAGES - 1; ++t) issue(t);
-  load_slab<MODE != kSlabDCv>(base, gbase, mat, hd, n0, wg, tid);  // the slab, once
-  cp_async_commit();
-  if (MODE != kSlabX) {
-    const float* gF = gates + (size_t)bh * 3 * Sp + p0;
-    const float m_c = mS[(size_t)bh * nc + c];
-    const float FL = gF[L - 1];
-    const float m_next = fmaxf(FL + m_c, gF[Sp + L - 1]);
-    for (int m = threadIdx.x; m < ntile * TILE; m += SLAB_NT)
-      sMul[m] = m < L ? expf(((FL - gF[m]) + gF[2 * Sp + m]) - m_next) : 0.f;
-  }
+  for (int t = 0; t < RAW_SLAB - 1; ++t) issue(t);
+  load_slab<MODE != kSlabDCv>(gbase, mat, hd, n0, wg, tid);  // the slab, once
   if (threadIdx.x < TILE)
     sVec[threadIdx.x] = MODE != kSlabDvs ? vec[((size_t)bh * nc + c) * hd + n0 + threadIdx.x] : 0.f;
-  cp_async_wait<0>();
-  __syncthreads();
-  if (T > 0) widen(0);
   fence_async_smem();
   __syncthreads();
+  int mul_tile = -1;  // (k ⊙ sc): the sc of this thread's two rows, for tile mul_tile
+  float mul[2] = {1.f, 1.f};
   float acc[32];
   for (int t = 0; t < T; ++t) {
-    const int jt = tile_of(t), ks = t % ND;
+    const int jt = tile_of(t), ks = t % NK;
+    cp_async_wait<RAW_SLAB - 2>();  // step t's raw columns
+    wg_sync(wg);                    // every thread's copy landed; step t - 1 done
+    issue(t + RAW_SLAB - 1);        // into the stage step t - 1 read
+    if (MODE == kSlabDvs && jt != mul_tile) {
+      mul_tile = jt;
+      mul[0] = sc_of(jt * TILE + r_lo);
+      mul[1] = sc_of(jt * TILE + r_lo + 8);
+    }
+    const uint8_t* rb = gbase + (raw_at(t) - base);
+    uint32_t af[2][4][4];  // [32-column group][k step][register]
+#pragma unroll
+    for (int grp = 0; grp < 2; ++grp) {
+      const uint4 w0 = *reinterpret_cast<const uint4*>(rb + swz128(r_lo, 4 * grp + tq));
+      const uint4 w1 = *reinterpret_cast<const uint4*>(rb + swz128(r_lo + 8, 4 * grp + tq));
+      const bf16* h0 = reinterpret_cast<const bf16*>(&w0);
+      const bf16* h1 = reinterpret_cast<const bf16*>(&w1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {  // columns tq (x 0) and tq + 4 (x 1) of the k step
+          const float f0 = __bfloat162float(h0[2 * kk + x]), f1 = __bfloat162float(h1[2 * kk + x]);
+          af[grp][kk][2 * x] = __float_as_uint(MODE == kSlabDvs ? to_tf32(f0 * mul[0]) : f0);
+          af[grp][kk][2 * x + 1] = __float_as_uint(MODE == kSlabDvs ? to_tf32(f1 * mul[1]) : f1);
+        }
+      }
+    }
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_tf32_n64(acc, desc_k(wide_at(t), kk), desc_k(base + ks * SLAB, kk), ks > 0 || kk > 0);
+    for (int grp = 0; grp < 2; ++grp)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_tf32_rs_n64(acc, af[grp][kk], desc_k(base + (2 * ks + grp) * SLAB, kk),
+                          ks > 0 || grp > 0 || kk > 0);
     wgmma_commit();
-    issue(t + RAW_STAGES - 1);  // into the stage step t - 1 widened
-    if (t + 1 < T) {
-      cp_async_wait<RAW_STAGES - 2>();
-      wg_sync(wg);
-      widen(t + 1);  // into the buffer step t - 1's wgmma read
+    // the epilogue's b2 values, loaded while the tile's last wgmma runs (zero
+    // past the chunk and S)
+    float2 b2v[16];
+    if (MODE != kSlabDvs && ks == NK - 1) {
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int j = jt * TILE + acc_row(i, r_lo), p = p0 + j;
+        b2v[i >> 1] = j < L && p < S ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                                           b2 + head + (size_t)p * rs + n0 + acc_col(i, tq)))
+                                     : make_float2(0.f, 0.f);
+      }
     }
-    wgmma_wait_all();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int grp = 0; grp < 2; ++grp)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) fence_regs_u(af[grp][kk]);  // read by wgmma until here
+    if (ks != NK - 1) continue;
     fence_regs(acc);
-    fence_async_smem();
-    wg_sync(wg);
-    if (ks != ND - 1) continue;
     // ---- tile jt is done: write it, and the partials over the block's columns ----------
     float pa[2] = {0.f, 0.f}, pb[2] = {0.f, 0.f};
 #pragma unroll
     for (int i = 0; i < 32; i += 2) {
-      const int hi = (i >> 1) & 1, j = jt * TILE + acc_row(i, r_lo), p = p0 + j;
+      const int hi = (i >> 1) & 1, j = jt * TILE + acc_row(i, r_lo);
       const int col = acc_col(i, tq);
       if (j >= L) continue;
       *reinterpret_cast<float2*>(o + (size_t)j * hd + col) = make_float2(acc[i], acc[i + 1]);
-      if (MODE == kSlabDvs || p >= S) continue;
-      const float2 x2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-          b2 + head + (size_t)p * rs + n0 + col));
+      if (MODE == kSlabDvs) continue;
+      const float2 x2 = b2v[i >> 1];
       if (MODE == kSlabX) {
         pa[hi] = fmaf(x2.x, acc[i], fmaf(x2.y, acc[i + 1], pa[hi]));
         pb[hi] = fmaf(x2.x, sVec[col], fmaf(x2.y, sVec[col + 1], pb[hi]));
@@ -361,7 +375,7 @@ mlstm_bwd_slab(const bf16* __restrict__ a, const bf16* __restrict__ b2,
           *part_at(0, j) = pa[x];
           *part_at(1, j) = pb[x];
         } else {
-          *part_at(0, j) = sMul[j] * pa[x];
+          *part_at(0, j) = sc_of(j) * pa[x];
         }
       }
     }
@@ -369,23 +383,75 @@ mlstm_bwd_slab(const bf16* __restrict__ a, const bf16* __restrict__ b2,
   cp_async_wait<0>();
 }
 
-// ---- phase 1: rows -------------------------------------------------------------
-__global__ void __launch_bounds__(NT)
-mlstm_bwd_rows(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+// grid (hd / 64, nc, B·H): X = dh·C_cᵀ, before phase 1
+__global__ void __launch_bounds__(SLAB_NT)
+mlstm_bwd_slab_x(const bf16* __restrict__ dh, const bf16* __restrict__ q,
+         const float* __restrict__ CT, const float* __restrict__ nS,
+         const float* __restrict__ gates, const float* __restrict__ mS, float* __restrict__ X,
+         float* __restrict__ xq, int S, int H, int hd, int L, int nc, int Sp, int ntile,
+         int has_state) {
+  slab_block<kSlabX>(dh, q, CT, nS, gates, mS, X, xq, S, H, hd, L, nc, Sp, ntile, has_state,
+                     blockIdx.x, blockIdx.y, blockIdx.z, gridDim.x);
+}
+
+// grid (hd / 64, nc, 2 B·H): dCv = v·dCE_cᵀ (z < B·H), then (k ⊙ sc)·dCE_c, in
+// one launch (one tail, not two)
+__global__ void __launch_bounds__(SLAB_NT)
+mlstm_bwd_slab_state(const bf16* __restrict__ v, const bf16* __restrict__ k,
+         const float* __restrict__ dCE, const float* __restrict__ dnE,
+         const float* __restrict__ gates, const float* __restrict__ mS, float* __restrict__ dCv,
+         float* __restrict__ dlsc, float* __restrict__ dvs, int S, int H, int hd, int L, int nc,
+         int Sp, int ntile) {
+  const int BH = gridDim.z / 2;
+  if (blockIdx.z < BH)
+    slab_block<kSlabDCv>(v, k, dCE, dnE, gates, mS, dCv, dlsc, S, H, hd, L, nc, Sp, ntile, 1,
+                         blockIdx.x, blockIdx.y, blockIdx.z, gridDim.x);
+  else
+    slab_block<kSlabDvs>(k, nullptr, dCE, nullptr, gates, mS, dvs, nullptr, S, H, hd, L, nc, Sp,
+                         ntile, 1, blockIdx.x, blockIdx.y, blockIdx.z - BH, gridDim.x);
+}
+
+// ---- phase 1: pairs (the row scalars, then the kept tiles) -------------------------
+// one block per (query tile, chunk, B·H), longest tiles first, two
+// warpgroups: the tile's q and dh (all hd columns) loaded once and held;
+// warpgroup w takes the key tiles w, w + 2, .. up to the diagonal, k and v
+// streamed a 64-column slab a step. Each tile's S and P, once formed, go to
+// sp [B·H, nc, tiles, 2, 4096] float32 in the order the accumulators hold
+// them (the thread that wrote them reads them back, after the row scalars:
+// in L2, not formed again). The tiles of (jt, it) go to
+// pt[x][bh][c][tri(jt, it)], x = 0: ds', 1: w / denom; row r, column col at
+// byte swz128(r, col / 8) + (col % 8) * 2 of the tile. cols [B·H, ntile,
+// Sp]: query tile jt's part of each key's Σ dlogD (zero past its diagonal).
+// A row's sums over the two warpgroups' key tiles add in one order (w 0,
+// then w 1).
+constexpr int PAIR_NT = 2 * NT;
+
+__global__ void __launch_bounds__(PAIR_NT)
+mlstm_bwd_pairs(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
          const bf16* __restrict__ dh, const float* __restrict__ gates,
          const float* __restrict__ xq, const float* __restrict__ mS,
-         float* __restrict__ rows, int S, int H, int hd, int L, int nc, int Sp, int ntile,
+         float* __restrict__ rows, float* __restrict__ cols, bf16* __restrict__ pt,
+         float* __restrict__ sp, int S, int H, int hd, int L, int nc, int Sp, int ntile,
          float scale) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   uint8_t* gbase = smem_raw + (base - smem_addr(smem_raw));
-  float* sF = reinterpret_cast<float*>(gbase + RING);  // [ntile * 64]
+  const int NS = hd / TILE;
+  const uint32_t sQ = base, sDH = base + NS * SLAB;  // the query tile: NS slabs each
+  const uint32_t ring = base + 2 * NS * SLAB;        // 2 stages x 2 warpgroups x (k, v)
+  float* sF = reinterpret_cast<float*>(gbase + 2 * NS * SLAB + 8 * SLAB);  // [ntile * 64]
   float* sIg = sF + ntile * TILE;
   float* sMj = sIg + ntile * TILE;  // [64] per query row
   float* sInter = sMj + TILE;
   float* sEmj = sInter + TILE;
   float* sQn = sEmj + TILE;         // q·n_c
   float* sHx = sQn + TILE;          // q·X = dh·(q C_c)
+  float* sDen = sHx + TILE;
+  float* sDqn = sDen + TILE;
+  float* sW1 = sDqn + TILE;         // [64] warpgroup 1's row sums: Σ w,
+  float* sP1 = sW1 + TILE;          // Σ w ⊙ P,
+  float* sR1 = sP1 + TILE;          // Σ dlogD
+  float* sCol = sR1 + TILE;         // [2 warpgroups][4 warps][64 keys]
 
   int idx = blockIdx.x;
   const int BH = gridDim.x / (nc * ntile);
@@ -393,75 +459,126 @@ mlstm_bwd_rows(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf1
   idx /= BH;
   const int c = idx % nc, jt = ntile - 1 - idx / nc;
   const int b = bh / H, hh = bh - b * H;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, tq = lane & 3;
+  const int ptid = threadIdx.x, wg = ptid / NT, tid = ptid % NT;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, tq = lane & 3;
   const int p0 = c * L, row0 = jt * TILE;
   const size_t rs = (size_t)H * hd;
   const size_t head = (size_t)b * S * rs + (size_t)hh * hd;
   const float* gF = gates + (size_t)bh * 3 * Sp + p0;
   const float m_c = mS[(size_t)bh * nc + c];
   const int nkeys = (jt + 1) * TILE;
-  for (int i = tid; i < nkeys; i += NT) {
-    sF[i] = i < L ? gF[i] : 0.f;
-    sIg[i] = i < L ? gF[2 * Sp + i] : kNegInf;
-  }
-  if (tid < TILE) {
-    const int j = row0 + tid;
-    if (j < L) {
-      const float m_inter = gF[j] + m_c;
-      const float mj = fmaxf(m_inter, gF[Sp + j]);
-      sMj[tid] = mj;
-      sInter[tid] = expf(m_inter - mj);
-      sEmj[tid] = expf(-mj);
-    } else {
-      sMj[tid] = 0.f;
-      sInter[tid] = 0.f;
-      sEmj[tid] = 1.f;
-    }
-    // phase 0's partials over the column blocks, summed in column order
-    const int ncol = hd / TILE;
-    float hx = 0.f, qn = 0.f;
-    for (int ct = 0; ct < ncol && j < L; ++ct) {
-      hx += xq[(((size_t)bh * 2 + 0) * ncol + ct) * Sp + p0 + j];
-      qn += xq[(((size_t)bh * 2 + 1) * ncol + ct) * Sp + p0 + j];
-    }
-    sHx[tid] = hx * scale;
-    sQn[tid] = qn * scale;
-  }
-  __syncthreads();
+  float* colp = cols + ((size_t)bh * ntile + jt) * Sp + p0;
 
-  const int r_lo = warp * 16 + g;
-  float sacc[32], pacc[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) sacc[i] = pacc[i] = 0.f;
-
-  // ---- a. per key tile: S = q·kᵀ, P = dh·vᵀ; Σ w and Σ w ⊙ P ------------------------
-  const int NS = hd / TILE, U = (jt + 1) * NS;
-  const PairRing pr{base, q + head, k + head, dh + head, v + head, rs, p0, S, NS};
+  // the query tile's q and dh, once (rows past S zero)
+  for (int e = ptid; e < NS * TILE * 8; e += PAIR_NT) {
+    const int sl = e / (TILE * 8), r = (e >> 3) & (TILE - 1), ch = e & 7, p = p0 + row0 + r;
+    const size_t at = head + (size_t)min(p, S - 1) * rs + sl * TILE + ch * 8;
+    cp_async16(sQ + sl * SLAB + swz128(r, ch), q + at, p < S);
+    cp_async16(sDH + sl * SLAB + swz128(r, ch), dh + at, p < S);
+  }
+  cp_async_commit();
+  // step t: key tile pair t / NS (warpgroup w: key tile 2 (t / NS) + w), column slab t % NS
+  const int U = (jt + 2) / 2 * NS;
   auto issue = [&](int t) {
-    if (t < U) pr.issue(row0, (t / NS) * TILE, t % NS, t, tid);
+    if (t < U) {
+      const int ip = t / NS, sl = t % NS;
+      for (int w = 0; w < 2; ++w) {
+        const int it = 2 * ip + w;
+        if (it > jt) continue;
+        const uint32_t st = ring + ((t & 1) * 2 + w) * 2 * SLAB;
+        for (int e = ptid; e < TILE * 8; e += PAIR_NT) {
+          const int r = e >> 3, ch = e & 7, pk = p0 + it * TILE + r;
+          const size_t at = head + (size_t)min(pk, S - 1) * rs + sl * TILE + ch * 8;
+          cp_async16(st + swz128(r, ch), k + at, pk < S);
+          cp_async16(st + SLAB + swz128(r, ch), v + at, pk < S);
+        }
+      }
+    }
     cp_async_commit();
   };
   issue(0);
-  float wsum[2] = {0.f, 0.f}, wp[2] = {0.f, 0.f};
+  for (int i = ptid; i < nkeys; i += PAIR_NT) {
+    sF[i] = i < L ? gF[i] : 0.f;
+    sIg[i] = i < L ? gF[2 * Sp + i] : kNegInf;
+  }
+  for (int m = nkeys + ptid; m < L; m += PAIR_NT) colp[m] = 0.f;
+  if (ptid < TILE) {
+    const int j = row0 + ptid;
+    if (j < L) {
+      const float m_inter = gF[j] + m_c;
+      const float mj = fmaxf(m_inter, gF[Sp + j]);
+      sMj[ptid] = mj;
+      sInter[ptid] = expf(m_inter - mj);
+      sEmj[ptid] = expf(-mj);
+    } else {
+      sMj[ptid] = 0.f;
+      sInter[ptid] = 0.f;
+      sEmj[ptid] = 1.f;
+    }
+    sDen[ptid] = 1.f;
+    sDqn[ptid] = 0.f;
+    // phase 0's partials over the column blocks (all loaded, then summed in
+    // column order)
+    const int ncol = hd / TILE;
+    float hv[8], qv[8];
+#pragma unroll
+    for (int ct = 0; ct < 8; ++ct) {
+      const bool ok = ct < ncol && j < L;
+      hv[ct] = ok ? xq[(((size_t)bh * 2 + 0) * ncol + ct) * Sp + p0 + j] : 0.f;
+      qv[ct] = ok ? xq[(((size_t)bh * 2 + 1) * ncol + ct) * Sp + p0 + j] : 0.f;
+    }
+    float hx = 0.f, qn = 0.f;
+#pragma unroll
+    for (int ct = 0; ct < 8; ++ct) {
+      if (ct < ncol) {
+        hx += hv[ct];
+        qn += qv[ct];
+      }
+    }
+    sHx[ptid] = hx * scale;
+    sQn[ptid] = qn * scale;
+  }
+
+  const int r_lo = warp * 16 + g;
+  const int ntri = ntile * (ntile + 1) / 2;
+  bf16* tile_ds = pt + ((size_t)bh * nc + c) * ntri * PT;
+  bf16* tile_wd = tile_ds + (size_t)BH * nc * ntri * PT;
+  // a tile's S and P as this warpgroup's accumulators hold them: [2][8][128 threads][4]
+  float* keep = sp + ((size_t)bh * nc + c) * ntri * 2 * PT;
+  float sacc[32], pacc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sacc[i] = pacc[i] = 0.f;
+  float wsum[2] = {0.f, 0.f}, wp[2] = {0.f, 0.f}, rsum[2] = {0.f, 0.f};
+
+  // ---- a. per key tile: S = q·kᵀ, P = dh·vᵀ; Σ w and Σ w ⊙ P; S and P kept ---------------
   for (int t = 0; t < U; ++t) {
-    const int it = t / NS, s = t - it * NS;
+    const int s = t % NS, it = 2 * (t / NS) + wg;
+    const bool active = it <= jt;
     cp_async_wait<0>();
     fence_async_smem();
     __syncthreads();
     issue(t + 1);
-    const uint32_t sq = pr.stage(t), sk = sq + SLAB, sd = sk + SLAB, sv = sd + SLAB;
+    if (!active) continue;
+    const uint32_t sk = ring + ((t & 1) * 2 + wg) * 2 * SLAB, sv = sk + SLAB;
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_ss_n64(sacc, desc_k(sq, kk), desc_k(sk, kk), s > 0 || kk > 0);
+      wgmma_ss_n64(sacc, desc_k(sQ + s * SLAB, kk), desc_k(sk, kk), s > 0 || kk > 0);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_ss_n64(pacc, desc_k(sd, kk), desc_k(sv, kk), s > 0 || kk > 0);
+      wgmma_ss_n64(pacc, desc_k(sDH + s * SLAB, kk), desc_k(sv, kk), s > 0 || kk > 0);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(sacc);
     fence_regs(pacc);
     if (s != NS - 1) continue;
+    float4* kp = reinterpret_cast<float4*>(keep + (size_t)tri(jt, it) * 2 * PT);
+#pragma unroll
+    for (int x = 0; x < 8; ++x) {
+      kp[x * NT + tid] = make_float4(sacc[4 * x], sacc[4 * x + 1], sacc[4 * x + 2], sacc[4 * x + 3]);
+      kp[(8 + x) * NT + tid] =
+          make_float4(pacc[4 * x], pacc[4 * x + 1], pacc[4 * x + 2], pacc[4 * x + 3]);
+    }
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const int hi = (i >> 1) & 1, r = acc_row(i, r_lo), jl = row0 + r;
@@ -475,7 +592,7 @@ mlstm_bwd_rows(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf1
   }
   cp_async_wait<0>();
 
-  // ---- b. the row scalars ----------------------------------------------------------------
+  // ---- b. the row scalars ---------------------------------------------------------------
 #pragma unroll
   for (int x = 0; x < 2; ++x) {
 #pragma unroll
@@ -484,16 +601,24 @@ mlstm_bwd_rows(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf1
       wp[x] += __shfl_xor_sync(0xffffffffu, wp[x], o);
     }
   }
-  if (tq == 0) {
+  if (wg == 1 && tq == 0) {
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      sW1[r_lo + 8 * x] = wsum[x];
+      sP1[r_lo + 8 * x] = wp[x];
+    }
+  }
+  __syncthreads();
+  if (wg == 0 && tq == 0) {
 #pragma unroll
     for (int x = 0; x < 2; ++x) {
       const int r = r_lo + 8 * x, j = row0 + r;
       if (j >= L) continue;
       const float inter = sInter[r], lo = sEmj[r], qn_c = sQn[r], h_x = sHx[r];
-      const float qn = inter * qn_c + wsum[x];
+      const float qn = inter * qn_c + (wsum[x] + sW1[r]);
       const float aq = fabsf(qn);
       const float denom = fmaxf(aq, lo);
-      const float dhh = inter * h_x + wp[x];
+      const float dhh = inter * h_x + (wp[x] + sP1[r]);
       const float ddenom = -dhh / (denom * denom);
       const float br = aq > lo ? 1.f : (aq == lo ? 0.5f : 0.f);
       const float sg = qn > 0.f ? 1.f : (qn < 0.f ? -1.f : 0.f);
@@ -505,34 +630,111 @@ mlstm_bwd_rows(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf1
       rw[kDqn * Sp] = dqn;
       rw[kR * Sp] = lb * dhh / denom;
       rw[kDi * Sp] = dinter * inter;
+      sDen[r] = denom;
+      sDqn[r] = dqn;
+    }
+  }
+  __syncthreads();
+
+  // ---- c. each of the warpgroup's tiles (jt, it), from the kept S and P: ds', w / denom
+  // kept in bf16; Σ dlogD by row and by key
+  float* wcol = sCol + wg * 4 * TILE;
+  for (int it = wg; it <= jt; it += 2) {
+    const float4* kp = reinterpret_cast<const float4*>(keep + (size_t)tri(jt, it) * 2 * PT);
+#pragma unroll
+    for (int x = 0; x < 8; ++x) {
+      const float4 a = kp[x * NT + tid], b2 = kp[(8 + x) * NT + tid];
+      sacc[4 * x] = a.x, sacc[4 * x + 1] = a.y, sacc[4 * x + 2] = a.z, sacc[4 * x + 3] = a.w;
+      pacc[4 * x] = b2.x, pacc[4 * x + 1] = b2.y, pacc[4 * x + 2] = b2.z, pacc[4 * x + 3] = b2.w;
+    }
+    uint8_t* ods = reinterpret_cast<uint8_t*>(tile_ds + (size_t)tri(jt, it) * PT);
+    uint8_t* owd = reinterpret_cast<uint8_t*>(tile_wd + (size_t)tri(jt, it) * PT);
+    float colv[16];
+#pragma unroll
+    for (int y = 0; y < 16; ++y) colv[y] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int hi = (i >> 1) & 1, r = acc_row(i, r_lo), jl = row0 + r;
+      float ds[2], wd[2];
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const int il = it * TILE + acc_col(i + x, tq);
+        ds[x] = wd[x] = 0.f;
+        if (il <= jl && jl < L) {
+          const float dd = expf(((sF[jl] - sF[il]) + sIg[il]) - sMj[r]);
+          const float tt = pacc[i + x] / sDen[r] + sDqn[r];
+          const float w = sacc[i + x] * scale * dd;
+          const float dl = w * tt;
+          ds[x] = dd * tt;
+          wd[x] = w / sDen[r];
+          rsum[hi] += dl;
+          colv[(i >> 2) * 2 + x] += dl;
+        }
+      }
+      const uint32_t at = swz128(r, i >> 2) + tq * 4;  // column acc_col(i, tq), even
+      *reinterpret_cast<uint32_t*>(ods + at) = pack_bf16(ds[0], ds[1]);
+      *reinterpret_cast<uint32_t*>(owd + at) = pack_bf16(wd[0], wd[1]);
+    }
+    // each key's sum over the tile's 64 rows: lanes of one tq, then the warps in order
+#pragma unroll
+    for (int y = 0; y < 16; ++y) {
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) colv[y] += __shfl_xor_sync(0xffffffffu, colv[y], o);
+    }
+    wg_sync(wg);  // the warpgroup's previous tile's sums are read
+    if (g == 0) {
+#pragma unroll
+      for (int y = 0; y < 16; ++y) wcol[warp * TILE + 8 * (y >> 1) + 2 * tq + (y & 1)] = colv[y];
+    }
+    wg_sync(wg);
+    if (tid < TILE && it * TILE + tid < L)
+      colp[it * TILE + tid] = ((wcol[tid] + wcol[TILE + tid]) + wcol[2 * TILE + tid]) +
+                              wcol[3 * TILE + tid];
+  }
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    rsum[x] += __shfl_xor_sync(0xffffffffu, rsum[x], 1);
+    rsum[x] += __shfl_xor_sync(0xffffffffu, rsum[x], 2);
+  }
+  if (wg == 1 && tq == 0) {
+#pragma unroll
+    for (int x = 0; x < 2; ++x) sR1[r_lo + 8 * x] = rsum[x];
+  }
+  __syncthreads();
+  if (wg == 0 && tq == 0) {
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      const int r = r_lo + 8 * x, j = row0 + r;
+      if (j < L) rows[((size_t)bh * NR + kRowsum) * Sp + p0 + j] = rsum[x] + sR1[r];
     }
   }
 }
 
-// ---- phase 2: the reverse carry of (dC, dn) ------------------------------------------
-// grid (hd / 64 columns e, hd / 64 rows d, B·H); the forward's mlstm_states
-// walked from the last chunk: dCE_c = dC; dC = dC decay_c + GC_c
+// ---- phase 2a: every GC_c at once -------------------------------------------------
+// grid (hd / (64 NE) column blocks e, hd / 64 rows d, (nc - 1)·B·H): GC_c =
+// Σ_i q_i ⊗ dh_i scale inter_i / denom_i over chunk c >= 1's rows (TF32
+// wgmma over slabs transposed on the way in, KI rows a step), written
+// unrounded to dCE's slot c - 1; the et = 0 blocks write Gn_c = Σ_i q_i
+// scale dqn_i inter_i to dnE's slot c - 1.
+template <int NE>
 __global__ void __launch_bounds__(NT)
-mlstm_bwd_carry(const bf16* __restrict__ q, const bf16* __restrict__ dh,
-          const float* __restrict__ gates, const float* __restrict__ CT,
-          const float* __restrict__ nS, const float* __restrict__ mS,
-          const float* __restrict__ rows, const float* __restrict__ dCout,
-          const float* __restrict__ dnout, const float* __restrict__ Cend,
-          const float* __restrict__ nend, float* __restrict__ dCE, float* __restrict__ dnE,
-          float* __restrict__ ddp, float* __restrict__ dmp, int S, int H, int hd, int L,
-          int nc, int Sp, float scale, int has_state) {
+mlstm_bwd_carry_gc(const bf16* __restrict__ q, const bf16* __restrict__ dh,
+          const float* __restrict__ gates, const float* __restrict__ mS,
+          const float* __restrict__ rows, float* __restrict__ dCE, float* __restrict__ dnE,
+          int S, int H, int hd, int L, int nc, int Sp, float scale) {
+  constexpr int PAIR = (1 + NE) * TILE * 128;  // a step's TF32 slabs: [64 d][KI], NE x [64 e][KI]
+  constexpr int RAWB = (1 + NE) * KI * 128;  // a step's raw bf16 rows: q [KI][64], dh [KI][64 NE]
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   uint8_t* gbase = smem_raw + (base - smem_addr(smem_raw));
-  const uint32_t raw = base + 2 * P2_PAIR;
-  float* sCoef = reinterpret_cast<float*>(gbase + 2 * P2_PAIR + RAW_STAGES * P2_RAW);
+  const uint32_t raw = base + 2 * PAIR;
+  float* sCoef = reinterpret_cast<float*>(gbase + 2 * PAIR + RAW_STAGES * RAWB);
   float* sW2 = sCoef + MAX_L;
-  float* sN = sW2 + MAX_L;   // [64] dn of this d tile
-  float* sRed = sN + TILE;   // [4] a block sum's warp parts
 
-  const int et = blockIdx.x, dt = blockIdx.y, bh = blockIdx.z, b = bh / H, hh = bh - b * H;
-  const int e0 = et * TILE, d0 = dt * TILE, ntd = gridDim.x;
-  const int NP = gridDim.x * gridDim.y, part = dt * ntd + et;
+  const int BH = gridDim.z / (nc - 1);
+  const int et = blockIdx.x, dt = blockIdx.y, bh = blockIdx.z % BH, c = 1 + blockIdx.z / BH;
+  const int b = bh / H, hh = bh - b * H;
+  const int e0 = et * TILE * NE, d0 = dt * TILE, p0 = c * L;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, tq = lane & 3;
   const float* gF = gates + (size_t)bh * 3 * Sp;
   const float* gM = gF + Sp;
@@ -541,440 +743,414 @@ mlstm_bwd_carry(const bf16* __restrict__ q, const bf16* __restrict__ dh,
   const bf16* db = dh + (size_t)b * S * rs + (size_t)hh * hd + e0;
   const float* rw = rows + (size_t)bh * NR * Sp;
 
-  // a block's sum of one value per thread, in one order
-  auto block_sum = [&](float x) {
-    x = warp_sum(x);
-    __syncthreads();
-    if (lane == 0) sRed[warp] = x;
-    __syncthreads();
-    return ((sRed[0] + sRed[1]) + sRed[2]) + sRed[3];
-  };
-
-  const int ra = warp * 16 + g;
-  float acc[32];
-  float dm = 0.f;
-#pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    const int d = d0 + ra + 8 * ((i >> 1) & 1), e = e0 + 8 * (i >> 2) + 2 * tq + (i & 1);
-    const size_t at = ((size_t)bh * hd + d) * hd + e;
-    acc[i] = dCout != nullptr ? dCout[at] : 0.f;
-    if (dCout != nullptr) dm = fmaf(acc[i], Cend[at], dm);
-  }
-  if (tid < TILE) {
-    sN[tid] = dnout != nullptr ? dnout[(size_t)bh * hd + d0 + tid] : 0.f;
-    if (dnout != nullptr && et == 0) dm = fmaf(sN[tid], nend[(size_t)bh * hd + d0 + tid], dm);
-  }
-  dm = block_sum(dm);
-  if (tid == 0) dmp[(size_t)bh * NP + part] = dm;
-
-  const int nsteps = (L + KI - 1) / KI, T = nc * nsteps;
-  auto issue = [&](int t) {  // step t of the reverse walk: chunk nc - 1 - t / nsteps
+  const int T = (L + KI - 1) / KI;
+  auto issue = [&](int t) {  // rows t * KI.. of the chunk: q, then dh's NE 64-column halves
     if (t < T) {
-      const int c = nc - 1 - t / nsteps, i0 = (t % nsteps) * KI;
-      const uint32_t dq = raw + (t % RAW_STAGES) * P2_RAW, dd = dq + KI * 128;
-      for (int e = tid; e < KI * 8; e += NT) {
-        const int r = e >> 3, ch = e & 7, i = i0 + r, p = c * L + i;
+      const int i0 = t * KI;
+      const uint32_t rq = raw + (t % RAW_STAGES) * RAWB;
+      for (int e = tid; e < (1 + NE) * KI * 8; e += NT) {
+        const int part = e / (KI * 8), r = (e >> 3) & (KI - 1), ch = e & 7, i = i0 + r;
+        const int p = p0 + i;
         const bool ok = i < L && p < S;
         const size_t at = (size_t)(ok ? p : 0) * rs + ch * 8;
-        cp_async16(dq + swz128(r, ch), qb + at, ok);
-        cp_async16(dd + swz128(r, ch), db + at, ok);
+        cp_async16(rq + part * KI * 128 + swz128(r, ch),
+                   part == 0 ? qb + at : db + at + (part - 1) * TILE, ok);
       }
     }
     cp_async_commit();
   };
   for (int t = 0; t < RAW_STAGES - 1; ++t) issue(t);
 
-  for (int cr = 0; cr < nc; ++cr) {
-    const int c = nc - 1 - cr, p0 = c * L;
-    __syncthreads();  // sN of the previous chunk is settled
-    // ---- dCE_c, dnE_c and the decay's gradient ---------------------------------------
-    float* dce = dCE + ((size_t)bh * nc + c) * hd * hd;
-    const float* ct = CT + ((size_t)bh * nc + c) * hd * hd;
-    const bool live = has_state || c > 0;
-    float dd = 0.f;
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int d = d0 + ra + 8 * ((i >> 1) & 1), e = e0 + 8 * (i >> 2) + 2 * tq + (i & 1);
-      dce[(size_t)d * hd + e] = to_tf32(acc[i]);
-      if (live) dd = fmaf(acc[i], ct[(size_t)e * hd + d], dd);
+  // ---- the rows' weights: q·coef into dC, q·w2 into dn -------------------------------
+  const float m_c = mS[(size_t)bh * nc + c];
+  for (int i = tid; i < T * KI; i += NT) {
+    float cf = 0.f, w2 = 0.f;
+    if (i < L) {
+      const float m_inter = gF[p0 + i] + m_c;
+      const float inter = expf(m_inter - fmaxf(m_inter, gM[p0 + i]));
+      cf = scale * inter / rw[kDenom * Sp + p0 + i];
+      w2 = scale * rw[kDqn * Sp + p0 + i] * inter;
     }
-    if (et == 0 && tid < TILE) {
-      dnE[((size_t)bh * nc + c) * hd + d0 + tid] = sN[tid];
-      dd = fmaf(sN[tid], nS[((size_t)bh * nc + c) * hd + d0 + tid], dd);
-    }
-    dd = block_sum(dd);
-    if (tid == 0) ddp[((size_t)bh * nc + c) * NP + part] = dd;
-    // ---- the rows' weights: q·coef into dC, q·w2 into dn ---------------------------------
-    const float m_c = mS[(size_t)bh * nc + c];
-    const float FL = gF[p0 + L - 1];
-    const float m_next = fmaxf(FL + m_c, gM[p0 + L - 1]);
-    const float decay = expf((FL + m_c) - m_next);
-    for (int i = tid; i < nsteps * KI; i += NT) {
-      float cf = 0.f, w2 = 0.f;
-      if (i < L) {
-        const float m_inter = gF[p0 + i] + m_c;
-        const float inter = expf(m_inter - fmaxf(m_inter, gM[p0 + i]));
-        cf = scale * inter / rw[kDenom * Sp + p0 + i];
-        w2 = scale * rw[kDqn * Sp + p0 + i] * inter;
-      }
-      sCoef[i] = cf;
-      sW2[i] = w2;
-    }
-#pragma unroll
-    for (int i = 0; i < 32; ++i) acc[i] *= decay;
-    float np[2][8];
-#pragma unroll
-    for (int u = 0; u < 2; ++u)
-#pragma unroll
-      for (int e = 0; e < 8; ++e) np[u][e] = 0.f;
-    for (int s = 0; s < nsteps; ++s) {
-      const int t = cr * nsteps + s;
-      cp_async_wait<RAW_STAGES - 2>();
-      __syncthreads();
-      issue(t + RAW_STAGES - 1);
-      const uint8_t* rq = gbase + (raw - base) + (t % RAW_STAGES) * P2_RAW;
-      const uint8_t* rd = rq + KI * 128;
-      uint8_t* A = gbase + (t & 1) * P2_PAIR;
-      uint8_t* Bm = A + P2_PAIR / 2;
-      const float cf = sCoef[s * KI + lane], w2 = sW2[s * KI + lane];
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int cv = warp + 4 * u;
-        const uint4 qr = *reinterpret_cast<const uint4*>(rq + swz128(lane, cv));
-        const uint4 dr = *reinterpret_cast<const uint4*>(rd + swz128(lane, cv));
-        const bf16* qh = reinterpret_cast<const bf16*>(&qr);
-        const bf16* dhh = reinterpret_cast<const bf16*>(&dr);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const int r = cv * 8 + e;
-          const uint32_t off = swz128(r, lane >> 2) + (lane & 3) * 4;
-          const float qv = __bfloat162float(qh[e]);
-          np[u][e] = fmaf(qv, w2, np[u][e]);
-          *reinterpret_cast<float*>(A + off) = to_tf32(qv * cf);
-          *reinterpret_cast<float*>(Bm + off) = __bfloat162float(dhh[e]);
-        }
-      }
-      fence_async_smem();
-      __syncthreads();
-      const uint32_t sA = base + (t & 1) * P2_PAIR, sB = sA + P2_PAIR / 2;
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) wgmma_tf32_n64(acc, desc_k(sA, kk), desc_k(sB, kk), 1);
-      wgmma_commit();
-      wgmma_wait<1>();
-    }
-    wgmma_wait<0>();
-    fence_regs(acc);
-#pragma unroll
-    for (int u = 0; u < 2; ++u)
-#pragma unroll
-      for (int e = 0; e < 8; ++e) np[u][e] = warp_sum(np[u][e]);
-    if (lane == 0) {
-#pragma unroll
-      for (int u = 0; u < 2; ++u)
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const int r = (warp + 4 * u) * 8 + e;
-          sN[r] = sN[r] * decay + np[u][e];
-        }
-    }
+    sCoef[i] = cf;
+    sW2[i] = w2;
   }
+  float acc[NE][32];
+#pragma unroll
+  for (int h = 0; h < NE; ++h)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[h][i] = 0.f;
+  float np[2][8];
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) np[u][e] = 0.f;
+  for (int t = 0; t < T; ++t) {
+    cp_async_wait<RAW_STAGES - 2>();
+    __syncthreads();
+    issue(t + RAW_STAGES - 1);
+    const uint8_t* rq = gbase + (raw - base) + (t % RAW_STAGES) * RAWB;
+    uint8_t* A = gbase + (t & 1) * PAIR;
+    const float cf = sCoef[t * KI + lane], w2 = sW2[t * KI + lane];
+    // transposed on the way: lane = row i, the warp's 16-byte chunks of it
+#pragma unroll
+    for (int u = 0; u < 2 * (1 + NE); ++u) {
+      const int part = u >> 1, ch = warp + 4 * (u & 1);  // part 0: q, then dh's halves
+      const uint4 xr = *reinterpret_cast<const uint4*>(rq + part * KI * 128 + swz128(lane, ch));
+      const bf16* xh = reinterpret_cast<const bf16*>(&xr);
+      uint8_t* dst = A + part * TILE * 128;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int r = ch * 8 + e;
+        const uint32_t off = swz128(r, lane >> 2) + (lane & 3) * 4;
+        const float x = __bfloat162float(xh[e]);
+        if (part == 0) {
+          np[u][e] = fmaf(x, w2, np[u][e]);
+          *reinterpret_cast<float*>(dst + off) = to_tf32(x * cf);
+        } else {
+          *reinterpret_cast<float*>(dst + off) = x;
+        }
+      }
+    }
+    fence_async_smem();
+    __syncthreads();
+    const uint32_t sA = base + (t & 1) * PAIR;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int h = 0; h < NE; ++h)
+        wgmma_tf32_n64(acc[h], desc_k(sA, kk), desc_k(sA + (1 + h) * TILE * 128, kk), 1);
+    wgmma_commit();
+    wgmma_wait<1>();
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int h = 0; h < NE; ++h) fence_regs(acc[h]);
   cp_async_wait<0>();
+  const int ra = warp * 16 + g;
+  float* gc = dCE + ((size_t)bh * nc + c - 1) * hd * hd;
+#pragma unroll
+  for (int h = 0; h < NE; ++h)
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int d = d0 + ra + 8 * ((i >> 1) & 1), e = e0 + h * TILE + 8 * (i >> 2) + 2 * tq;
+      *reinterpret_cast<float2*>(gc + (size_t)d * hd + e) = make_float2(acc[h][i], acc[h][i + 1]);
+    }
+  if (et != 0) return;
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) np[u][e] = warp_sum(np[u][e]);
+  if (lane == 0) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        dnE[((size_t)bh * nc + c - 1) * hd + d0 + (warp + 4 * u) * 8 + e] = np[u][e];
+  }
 }
 
-// ---- phase 3: dq -------------------------------------------------------------------
-// one block per (64 dq columns, B·H, chunk, query tile), longest tiles first
+// ---- phase 2b: the reverse recurrence, elementwise ---------------------------------
+// grid ((hd / 32)^2 + 1, B·H): a 32 x 32 tile of dC a block (the last block:
+// dn), chunks from the last. dCE_c = dC (rounded to TF32), dC <- dC decay_c +
+// GC_c (dCE's slot c - 1, overwritten next); ddp[bh, c, part] its share of
+// Σ dCE_c ⊙ C_c + dnE_c ⊙ n_c, dmp[bh, part] of Σ dC ⊙ C_out + dn ⊙ n_out.
+__global__ void __launch_bounds__(REC_NT)
+mlstm_bwd_carry_rec(const float* __restrict__ gates, const float* __restrict__ CT,
+          const float* __restrict__ nS, const float* __restrict__ mS,
+          const float* __restrict__ dCout, const float* __restrict__ dnout,
+          const float* __restrict__ Cend, const float* __restrict__ nend,
+          float* __restrict__ dCE, float* __restrict__ dnE, float* __restrict__ ddp,
+          float* __restrict__ dmp, int hd, int L, int nc, int Sp, int has_state) {
+  __shared__ float sT[RT][RT + 1];
+  __shared__ float sRed[REC_NT / 32];
+  const int part = blockIdx.x, NP = gridDim.x, bh = blockIdx.y, nt = hd / RT;
+  const int tid = threadIdx.x, tx = tid & 31, ty = tid >> 5;
+  const bool isN = part == NP - 1;
+  const int d0 = (part / nt) * RT, e0 = (part % nt) * RT;
+  const float* gF = gates + (size_t)bh * 3 * Sp;
+  const size_t hd2 = (size_t)hd * hd;
+  auto block_sum = [&](float x) {  // in one order
+    x = warp_sum(x);
+    __syncthreads();
+    if (tx == 0) sRed[ty] = x;
+    __syncthreads();
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < REC_NT / 32; ++w) s += sRed[w];
+    return s;
+  };
+  // this thread's elements: dC (d0 + ty + 8 r, e0 + tx), or dn (tid + 256 r)
+  float E[4];
+  float dm = 0.f;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    E[r] = 0.f;
+    if (isN) {
+      const int d = tid + REC_NT * r;
+      if (r < 2 && d < hd && dnout != nullptr) {
+        E[r] = dnout[(size_t)bh * hd + d];
+        dm = fmaf(E[r], nend[(size_t)bh * hd + d], dm);
+      }
+    } else if (dCout != nullptr) {
+      const size_t at = bh * hd2 + (size_t)(d0 + ty + 8 * r) * hd + e0 + tx;
+      E[r] = dCout[at];
+      dm = fmaf(E[r], Cend[at], dm);
+    }
+  }
+  dm = block_sum(dm);
+  if (tid == 0) dmp[(size_t)bh * NP + part] = dm;
+  for (int c = nc - 1; c >= 0; --c) {
+    const size_t slot = (size_t)bh * nc + c;
+    float dd = 0.f;
+    if (isN) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int d = tid + REC_NT * r;
+        if (d >= hd) continue;
+        dnE[slot * hd + d] = E[r];
+        dd = fmaf(E[r], nS[slot * hd + d], dd);
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        dCE[slot * hd2 + (size_t)(d0 + ty + 8 * r) * hd + e0 + tx] = to_tf32(E[r]);
+        sT[ty + 8 * r][tx] = E[r];
+      }
+      __syncthreads();
+      if (has_state || c > 0) {  // C_c = CT_c transposed: read CT's rows e
+        const float* ct = CT + slot * hd2;
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          dd = fmaf(sT[tx][ty + 8 * r], ct[(size_t)(e0 + ty + 8 * r) * hd + d0 + tx], dd);
+      }
+    }
+    dd = block_sum(dd);  // (its first barrier also frees sT)
+    if (tid == 0) ddp[slot * NP + part] = dd;
+    if (c == 0) break;
+    const float m_c = mS[slot], FL = gF[c * L + L - 1];
+    const float decay = expf((FL + m_c) - fmaxf(FL + m_c, gF[Sp + c * L + L - 1]));
+    if (isN) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int d = tid + REC_NT * r;
+        if (d < hd) E[r] = fmaf(E[r], decay, dnE[(slot - 1) * hd + d]);
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        E[r] = fmaf(E[r], decay, dCE[(slot - 1) * hd2 + (size_t)(d0 + ty + 8 * r) * hd + e0 + tx]);
+    }
+  }
+}
+
+// ---- phase 3: dq from the kept tiles ----------------------------------------------
+// one block per (64 NH dq columns, B·H, chunk, query tile), longest tiles
+// first: acc = (inter / denom) X, then per key tile up to the diagonal
+// acc += ds'(jt, it)·k (A: the kept tile, K-major; B: k, MN-major); dq =
+// scale (acc + dqn inter n_c)
+template <int NH>
 __global__ void __launch_bounds__(NT)
-mlstm_bwd_dq(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-       const bf16* __restrict__ dh, const float* __restrict__ gates,
-       const float* __restrict__ X, const float* __restrict__ nS,
-       const float* __restrict__ mS, float* __restrict__ rows, bf16* __restrict__ dq, int S,
-       int H, int hd, int L, int nc, int Sp, int ntile, float scale) {
+mlstm_bwd_dq(const bf16* __restrict__ k, const bf16* __restrict__ pt,
+       const float* __restrict__ gates, const float* __restrict__ X,
+       const float* __restrict__ nS, const float* __restrict__ mS,
+       const float* __restrict__ rows, bf16* __restrict__ dq, int S, int H, int hd, int L,
+       int nc, int Sp, int ntile, float scale) {
+  constexpr int STG = (1 + NH) * SLAB;  // a stage (of 2): the ds' tile, NH slabs of k
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   uint8_t* gbase = smem_raw + (base - smem_addr(smem_raw));
-  const uint32_t kbuf = base + RING;  // 2 x [64 keys][64 columns] of k
-  float* sF = reinterpret_cast<float*>(gbase + RING + 2 * SLAB);  // [ntile * 64]
-  float* sIg = sF + ntile * TILE;
-  float* sMj = sIg + ntile * TILE;  // [64] per query row
-  float* sCx = sMj + TILE;          // inter / denom
-  float* sInter = sCx + TILE;
-  float* sDen = sInter + TILE;
-  float* sDqn = sDen + TILE;
-  float* sNq = sDqn + TILE;         // [64] n_c of the columns
+  float* sCx = reinterpret_cast<float*>(gbase + 2 * STG);  // [64] inter / denom
+  float* sDi = sCx + TILE;                                  // [64] dqn inter
+  float* sNq = sDi + TILE;                                  // [64 NH] n_c of the columns
 
-  const int ncol = hd / TILE;
+  const int ncb = hd / (TILE * NH);
   int idx = blockIdx.x;
-  const int ct = idx % ncol;
-  idx /= ncol;
-  const int BH = gridDim.x / (ncol * nc * ntile);
+  const int ct = idx % ncb;
+  idx /= ncb;
+  const int BH = gridDim.x / (ncb * nc * ntile);
   const int bh = idx % BH;
   idx /= BH;
   const int c = idx % nc, jt = ntile - 1 - idx / nc;
   const int b = bh / H, hh = bh - b * H;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, tq = lane & 3;
-  const int p0 = c * L, row0 = jt * TILE, d0 = ct * TILE;
+  const int p0 = c * L, row0 = jt * TILE, d0 = ct * TILE * NH;
   const size_t rs = (size_t)H * hd;
   const size_t head = (size_t)b * S * rs + (size_t)hh * hd;
   const float* gF = gates + (size_t)bh * 3 * Sp + p0;
   const float* rw = rows + (size_t)bh * NR * Sp + p0;
   const float m_c = mS[(size_t)bh * nc + c];
-  const int nkeys = (jt + 1) * TILE;
-  for (int i = tid; i < nkeys; i += NT) {
-    sF[i] = i < L ? gF[i] : 0.f;
-    sIg[i] = i < L ? gF[2 * Sp + i] : kNegInf;
-  }
+  const int ntri = ntile * (ntile + 1) / 2;
+  const bf16* tiles = pt + ((size_t)bh * nc + c) * ntri * PT;
   if (tid < TILE) {
     const int j = row0 + tid;
-    float mj = 0.f, inter = 0.f, den = 1.f, dqn = 0.f;
+    float inter = 0.f, den = 1.f, dqn = 0.f;
     if (j < L) {
       const float m_inter = gF[j] + m_c;
-      mj = fmaxf(m_inter, gF[Sp + j]);
-      inter = expf(m_inter - mj);
+      inter = expf(m_inter - fmaxf(m_inter, gF[Sp + j]));
       den = rw[kDenom * Sp + j];
       dqn = rw[kDqn * Sp + j];
     }
-    sMj[tid] = mj;
     sCx[tid] = inter / den;
-    sInter[tid] = inter;
-    sDen[tid] = den;
-    sDqn[tid] = dqn;
-    sNq[tid] = nS[((size_t)bh * nc + c) * hd + d0 + tid];
+    sDi[tid] = dqn * inter;
   }
+  for (int x = tid; x < TILE * NH; x += NT) sNq[x] = nS[((size_t)bh * nc + c) * hd + d0 + x];
+  auto issue = [&](int it) {
+    if (it <= jt) {
+      const uint32_t st = base + (it & 1) * STG;
+      copy_tile(st, tiles + (size_t)tri(jt, it) * PT, tid);
+#pragma unroll
+      for (int h = 0; h < NH; ++h)
+        load_tile(st + (1 + h) * SLAB, k + head, rs, p0, it * TILE, S, d0 + h * TILE, tid);
+    }
+    cp_async_commit();
+  };
+  issue(0);
   __syncthreads();
 
   // ---- a. (inter / denom) X over the dq columns, from phase 0 ---------------------------
   const int r_lo = warp * 16 + g;
   const float* xr = X + ((size_t)bh * Sp + p0) * hd + d0;
-  float acc[32];
+  float acc[NH][32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    const int r = acc_row(i, r_lo), j = row0 + r;
-    acc[i] = j < L ? xr[(size_t)j * hd + acc_col(i, tq)] * sCx[r] : 0.f;
-  }
-
-  // ---- b. per key tile: S, P; ds' = d ⊙ (P / denom + dqn); dq += ds'·k ---------------
-  const int NS = hd / TILE, U = (jt + 1) * NS;
-  const PairRing pr{base, q + head, k + head, dh + head, v + head, rs, p0, S, NS};
-  auto issue = [&](int t) {
-    if (t < U) {
-      const int it = t / NS, s = t % NS;
-      pr.issue(row0, it * TILE, s, t, tid);
-      if (s == 0) load_tile(kbuf + (it & 1) * SLAB, k + head, rs, p0, it * TILE, S, d0, tid);
+  for (int h = 0; h < NH; ++h)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = acc_row(i, r_lo), j = row0 + r;
+      acc[h][i] = j < L ? xr[(size_t)j * hd + h * TILE + acc_col(i, tq)] * sCx[r] : 0.f;
     }
-    cp_async_commit();
-  };
-  issue(0);
-  float sacc[32], pacc[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) sacc[i] = pacc[i] = 0.f;
-  float rsum[2] = {0.f, 0.f};
-  for (int t = 0; t < U; ++t) {
-    const int it = t / NS, s = t - it * NS;
+
+  // ---- b. per key tile: acc += ds'·k ----------------------------------------------------
+  for (int it = 0; it <= jt; ++it) {
     cp_async_wait<0>();
     fence_async_smem();
     __syncthreads();
-    issue(t + 1);
-    const uint32_t sq = pr.stage(t), sk = sq + SLAB, sd = sk + SLAB, sv = sd + SLAB;
+    issue(it + 1);
+    const uint32_t st = base + (it & 1) * STG;
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_ss_n64(sacc, desc_k(sq, kk), desc_k(sk, kk), s > 0 || kk > 0);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_ss_n64(pacc, desc_k(sd, kk), desc_k(sv, kk), s > 0 || kk > 0);
+      for (int h = 0; h < NH; ++h)
+        wgmma_ss_n64_t<0, 1>(acc[h], desc_k(st, kk), desc_v(st + (1 + h) * SLAB, 0, kk));
     wgmma_commit();
     wgmma_wait_all();
-    fence_regs(sacc);
-    fence_regs(pacc);
-    if (s != NS - 1) continue;
-    uint32_t pa[4][4];
 #pragma unroll
-    for (int i = 0; i < 32; i += 2) {
-      const int hi = (i >> 1) & 1, r = acc_row(i, r_lo), jl = row0 + r;
-      float ds[2];
-#pragma unroll
-      for (int x = 0; x < 2; ++x) {
-        const int il = it * TILE + acc_col(i + x, tq);
-        ds[x] = 0.f;
-        if (il <= jl && jl < L) {
-          const float dd = expf(((sF[jl] - sF[il]) + sIg[il]) - sMj[r]);
-          const float tt = pacc[i + x] / sDen[r] + sDqn[r];
-          ds[x] = dd * tt;
-          rsum[hi] = fmaf(sacc[i + x] * scale * dd, tt, rsum[hi]);
-        }
-      }
-      pa[i >> 3][(i >> 1) & 3] = pack_bf16(ds[0], ds[1]);
-    }
-    const uint32_t kt = kbuf + (it & 1) * SLAB;
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs_n64(acc, pa[kk], desc_v(kt, 0, kk));
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(acc);
+    for (int h = 0; h < NH; ++h) fence_regs(acc[h]);
   }
   cp_async_wait<0>();
 
   // ---- epilogue: dq = scale (acc + dqn inter n_c) ------------------------------------------
 #pragma unroll
   for (int x = 0; x < 2; ++x) {
-    rsum[x] += __shfl_xor_sync(0xffffffffu, rsum[x], 1);
-    rsum[x] += __shfl_xor_sync(0xffffffffu, rsum[x], 2);
-  }
-#pragma unroll
-  for (int x = 0; x < 2; ++x) {
     const int r = r_lo + 8 * x, j = row0 + r, p = p0 + j;
-    if (j >= L) continue;
-    if (ct == 0 && tq == 0) rows[((size_t)bh * NR + kRowsum) * Sp + p0 + j] = rsum[x];
-    if (p >= S) continue;
-    const float dqi = sDqn[r] * sInter[r];
+    if (j >= L || p >= S) continue;
+    const float dqi = sDi[r];
     bf16* out = dq + head + (size_t)p * rs + d0;
 #pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
-      const int col = 8 * jj + 2 * tq;
-      const int i = 4 * jj + 2 * x;
-      *reinterpret_cast<uint32_t*>(out + col) = pack_bf16(
-          scale * fmaf(dqi, sNq[col], acc[i]), scale * fmaf(dqi, sNq[col + 1], acc[i + 1]));
-    }
+    for (int h = 0; h < NH; ++h)
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int col = h * TILE + 8 * jj + 2 * tq;
+        const int i = 4 * jj + 2 * x;
+        *reinterpret_cast<uint32_t*>(out + col) =
+            pack_bf16(scale * fmaf(dqi, sNq[col], acc[h][i]),
+                      scale * fmaf(dqi, sNq[col + 1], acc[h][i + 1]));
+      }
   }
 }
 
-// ---- phase 4: dk, dv ----------------------------------------------------------------
-// one block per (64 columns, B·H, chunk, key tile), key tile 0 first
+// ---- phase 4: dk, dv from the kept tiles ------------------------------------------
+// one block per (64 NH columns, B·H, chunk, key tile), key tile 0 first: per
+// query tile from the diagonal on, dk += ds'ᵀ·q and dv += (w / denom)ᵀ·dh
+// (A: the kept tiles read MN-major, i.e. transposed; B: q, dh MN-major);
+// then the state terms from phase 0: dk = scale dk + sc (dCv + dnE_c), dv +=
+// (k ⊙ sc)·dCE_c
+template <int NH>
 __global__ void __launch_bounds__(NT)
-mlstm_bwd_dkdv(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-         const bf16* __restrict__ dh, const float* __restrict__ gates,
-         const float* __restrict__ mS, float* __restrict__ rows,
-         const float* __restrict__ dCv, const float* __restrict__ dvs,
-         const float* __restrict__ dnE, bf16* __restrict__ dk, bf16* __restrict__ dv, int S,
-         int H, int hd, int L, int nc, int Sp, int ntile, float scale) {
+mlstm_bwd_dkdv(const bf16* __restrict__ q, const bf16* __restrict__ dh,
+         const bf16* __restrict__ pt, const float* __restrict__ gates,
+         const float* __restrict__ mS, const float* __restrict__ dCv,
+         const float* __restrict__ dvs, const float* __restrict__ dnE,
+         bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int H, int hd, int L, int nc,
+         int Sp, int ntile, float scale) {
+  constexpr int STG = (2 + 2 * NH) * SLAB;  // a stage (of 2): ds', w / denom, NH slabs of q, dh
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   uint8_t* gbase = smem_raw + (base - smem_addr(smem_raw));
-  const uint32_t cbuf = base + RING;  // 2 x ([64 queries][64 columns] of q, then of dh)
-  float* sF = reinterpret_cast<float*>(gbase + RING + 4 * SLAB);  // [ntile * 64]
-  float* sIg = sF + ntile * TILE;
-  float* sMj = sIg + ntile * TILE;  // every query row of the chunk
-  float* sDen = sMj + ntile * TILE;
-  float* sDqn = sDen + ntile * TILE;
-  float* sSc = sDqn + ntile * TILE; // [64] the tile's keys' update weights
-  float* sDn = sSc + TILE;          // [64] dnE_c of the columns
+  float* sSc = reinterpret_cast<float*>(gbase + 2 * STG);  // [64] the keys' update weights
+  float* sDn = sSc + TILE;                                  // [64 NH] dnE_c of the columns
 
-  const int ncol = hd / TILE;
+  const int ncb = hd / (TILE * NH);
   int idx = blockIdx.x;
-  const int ct = idx % ncol;
-  idx /= ncol;
-  const int BH = gridDim.x / (ncol * nc * ntile);
+  const int ct = idx % ncb;
+  idx /= ncb;
+  const int BH = gridDim.x / (ncb * nc * ntile);
   const int bh = idx % BH;
   idx /= BH;
   const int c = idx % nc, it = idx / nc;
   const int b = bh / H, hh = bh - b * H;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, tq = lane & 3;
-  const int p0 = c * L, key0 = it * TILE, c0 = ct * TILE;
+  const int p0 = c * L, key0 = it * TILE, c0 = ct * TILE * NH;
   const size_t rs = (size_t)H * hd;
   const size_t head = (size_t)b * S * rs + (size_t)hh * hd;
   const float* gF = gates + (size_t)bh * 3 * Sp + p0;
-  const float* rw = rows + (size_t)bh * NR * Sp + p0;
   const float m_c = mS[(size_t)bh * nc + c];
-  const int nrows = ntile * TILE;
-  for (int i = tid; i < nrows; i += NT) {
-    float f = 0.f, ig = kNegInf, mj = 0.f, den = 1.f, dqn = 0.f;
-    if (i < L) {
-      f = gF[i];
-      ig = gF[2 * Sp + i];
-      mj = fmaxf(f + m_c, gF[Sp + i]);
-      den = rw[kDenom * Sp + i];
-      dqn = rw[kDqn * Sp + i];
-    }
-    sF[i] = f;
-    sIg[i] = ig;
-    sMj[i] = mj;
-    sDen[i] = den;
-    sDqn[i] = dqn;
-  }
+  const int ntri = ntile * (ntile + 1) / 2;
+  const bf16* tds = pt + ((size_t)bh * nc + c) * ntri * PT;
+  const bf16* twd = tds + (size_t)BH * nc * ntri * PT;
   const float FL = gF[L - 1];
   const float m_next = fmaxf(FL + m_c, gF[Sp + L - 1]);
   if (tid < TILE) {
     const int m = key0 + tid;
     sSc[tid] = m < L ? expf(((FL - gF[m]) + gF[2 * Sp + m]) - m_next) : 0.f;
-    sDn[tid] = dnE[((size_t)bh * nc + c) * hd + c0 + tid];
   }
-  __syncthreads();
-
-  const int r_lo = warp * 16 + g;
-  float dka[32], dva[32], sacc[32], pacc[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) dka[i] = dva[i] = sacc[i] = pacc[i] = 0.f;
-  float csum[2] = {0.f, 0.f};
-
-  // ---- a. per query tile from the diagonal: Sᵀ = k·qᵀ, Pᵀ = v·dhᵀ ----------------
-  const int NS = hd / TILE, nq = ntile - it, U = nq * NS;
-  const PairRing pr{base, q + head, k + head, dh + head, v + head, rs, p0, S, NS};
-  auto issue = [&](int t) {
+  for (int x = tid; x < TILE * NH; x += NT) sDn[x] = dnE[((size_t)bh * nc + c) * hd + c0 + x];
+  const int U = ntile - it;
+  auto issue = [&](int t) {  // query tile it + t
     if (t < U) {
-      const int jq = t / NS, s = t % NS, qrow0 = (it + jq) * TILE;
-      pr.issue(qrow0, key0, s, t, tid);
-      if (s == 0) {
-        const uint32_t cb = cbuf + (jq & 1) * 2 * SLAB;
-        load_tile(cb, q + head, rs, p0, qrow0, S, c0, tid);
-        load_tile(cb + SLAB, dh + head, rs, p0, qrow0, S, c0, tid);
+      const int jq = it + t;
+      const uint32_t st = base + (t & 1) * STG;
+      copy_tile(st, tds + (size_t)tri(jq, it) * PT, tid);
+      copy_tile(st + SLAB, twd + (size_t)tri(jq, it) * PT, tid);
+#pragma unroll
+      for (int h = 0; h < NH; ++h) {
+        load_tile(st + (2 + h) * SLAB, q + head, rs, p0, jq * TILE, S, c0 + h * TILE, tid);
+        load_tile(st + (2 + NH + h) * SLAB, dh + head, rs, p0, jq * TILE, S, c0 + h * TILE, tid);
       }
     }
     cp_async_commit();
   };
   issue(0);
+
+  const int r_lo = warp * 16 + g;
+  float dka[NH][32], dva[NH][32];
+#pragma unroll
+  for (int h = 0; h < NH; ++h)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dka[h][i] = dva[h][i] = 0.f;
   for (int t = 0; t < U; ++t) {
-    const int jq = t / NS, s = t - jq * NS, qrow0 = (it + jq) * TILE;
     cp_async_wait<0>();
     fence_async_smem();
     __syncthreads();
     issue(t + 1);
-    const uint32_t sq = pr.stage(t), sk = sq + SLAB, sd = sk + SLAB, sv = sd + SLAB;
+    const uint32_t st = base + (t & 1) * STG;
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_ss_n64(sacc, desc_k(sk, kk), desc_k(sq, kk), s > 0 || kk > 0);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_ss_n64(pacc, desc_k(sv, kk), desc_k(sd, kk), s > 0 || kk > 0);
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(sacc);
-    fence_regs(pacc);
-    if (s != NS - 1) continue;
-    uint32_t pa[4][4], pb[4][4];  // ds'ᵀ and wᵀ / denom in bf16
-#pragma unroll
-    for (int i = 0; i < 32; i += 2) {
-      const int hi = (i >> 1) & 1, m = key0 + acc_row(i, r_lo);
-      float ds[2], wd[2];
-#pragma unroll
-      for (int x = 0; x < 2; ++x) {
-        const int l = qrow0 + acc_col(i + x, tq);
-        ds[x] = wd[x] = 0.f;
-        if (m <= l && l < L) {
-          const float dd = expf(((sF[l] - sF[m]) + sIg[m]) - sMj[l]);
-          const float w = sacc[i + x] * scale * dd;
-          const float tt = pacc[i + x] / sDen[l] + sDqn[l];
-          ds[x] = dd * tt;
-          wd[x] = w / sDen[l];
-          csum[hi] = fmaf(w, tt, csum[hi]);
-        }
+      for (int h = 0; h < NH; ++h) {
+        wgmma_ss_n64_t<1, 1>(dka[h], desc_v(st, 0, kk), desc_v(st + (2 + h) * SLAB, 0, kk));
+        wgmma_ss_n64_t<1, 1>(dva[h], desc_v(st + SLAB, 0, kk),
+                             desc_v(st + (2 + NH + h) * SLAB, 0, kk));
       }
-      pa[i >> 3][(i >> 1) & 3] = pack_bf16(ds[0], ds[1]);
-      pb[i >> 3][(i >> 1) & 3] = pack_bf16(wd[0], wd[1]);
-    }
-    const uint32_t cb = cbuf + (jq & 1) * 2 * SLAB;
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      wgmma_rs_n64(dka, pa[kk], desc_v(cb, 0, kk));
-      wgmma_rs_n64(dva, pb[kk], desc_v(cb + SLAB, 0, kk));
-    }
     wgmma_commit();
     wgmma_wait_all();
-    fence_regs(dka);
-    fence_regs(dva);
+#pragma unroll
+    for (int h = 0; h < NH; ++h) {
+      fence_regs(dka[h]);
+      fence_regs(dva[h]);
+    }
   }
   cp_async_wait<0>();
 
@@ -982,37 +1158,30 @@ mlstm_bwd_dkdv(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf1
   const float* cvr = dCv + ((size_t)bh * Sp + p0) * hd + c0;
   const float* svr = dvs + ((size_t)bh * Sp + p0) * hd + c0;
 #pragma unroll
-  for (int i = 0; i < 32; i += 2) {
-    const int r = acc_row(i, r_lo), m = key0 + r, col = acc_col(i, tq);
-    if (m >= L) continue;
-    const float2 cv = *reinterpret_cast<const float2*>(cvr + (size_t)m * hd + col);
-    const float2 sv = *reinterpret_cast<const float2*>(svr + (size_t)m * hd + col);
-    const float sc = sSc[r];
-    dka[i] = fmaf(sc, cv.x + sDn[col], scale * dka[i]);
-    dka[i + 1] = fmaf(sc, cv.y + sDn[col + 1], scale * dka[i + 1]);
-    dva[i] += sv.x;
-    dva[i + 1] += sv.y;
-  }
-#pragma unroll
-  for (int x = 0; x < 2; ++x) {
-#pragma unroll
-    for (int o = 1; o < 4; o <<= 1) {
-      csum[x] += __shfl_xor_sync(0xffffffffu, csum[x], o);
-    }
-  }
-#pragma unroll
   for (int x = 0; x < 2; ++x) {
     const int r = r_lo + 8 * x, m = key0 + r, p = p0 + m;
-    if (m >= L) continue;
-    if (tq == 0 && ct == 0) rows[((size_t)bh * NR + kColsum) * Sp + p0 + m] = csum[x];
-    if (p >= S) continue;
+    if (m >= L || p >= S) continue;
+    const float sc = sSc[r];
     bf16* ok = dk + head + (size_t)p * rs + c0;
     bf16* ov = dv + head + (size_t)p * rs + c0;
 #pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
-      const int col = 8 * jj + 2 * tq, i = 4 * jj + 2 * x;
-      *reinterpret_cast<uint32_t*>(ok + col) = pack_bf16(dka[i], dka[i + 1]);
-      *reinterpret_cast<uint32_t*>(ov + col) = pack_bf16(dva[i], dva[i + 1]);
+    for (int h = 0; h < NH; ++h) {
+      float2 cv[8], sv[8];  // a row's 16 columns of the block half, loaded together
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int col = h * TILE + 8 * jj + 2 * tq;
+        cv[jj] = *reinterpret_cast<const float2*>(cvr + (size_t)m * hd + col);
+        sv[jj] = *reinterpret_cast<const float2*>(svr + (size_t)m * hd + col);
+      }
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int col = h * TILE + 8 * jj + 2 * tq, i = 4 * jj + 2 * x;
+        *reinterpret_cast<uint32_t*>(ok + col) =
+            pack_bf16(fmaf(sc, cv[jj].x + sDn[col], scale * dka[h][i]),
+                      fmaf(sc, cv[jj].y + sDn[col + 1], scale * dka[h][i + 1]));
+        *reinterpret_cast<uint32_t*>(ov + col) =
+            pack_bf16(dva[h][i] + sv[jj].x, dva[h][i + 1] + sv[jj].y);
+      }
     }
   }
 }
@@ -1020,6 +1189,48 @@ mlstm_bwd_dkdv(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf1
 template <typename K>
 cudaError_t set_smem(K kern, int smem) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+// phase 2a at NE 64-column blocks of e a block
+template <int NE>
+cudaError_t launch_carry_gc(const bf16* q, const bf16* dh, const float* gates, const float* mS,
+                            const float* rows, float* dCE, float* dnE, int BH, int S, int H,
+                            int hd, int L, int nc, int Sp, float scale, cudaStream_t st) {
+  const int smem = 1024 + 2 * (1 + NE) * TILE * 128 + RAW_STAGES * (1 + NE) * KI * 128 +
+                   (int)sizeof(float) * 2 * MAX_L;
+  cudaError_t e;
+  if ((e = set_smem(mlstm_bwd_carry_gc<NE>, smem)) != cudaSuccess) return e;
+  mlstm_bwd_carry_gc<NE><<<dim3(hd / (TILE * NE), hd / TILE, (nc - 1) * BH), NT, smem, st>>>(
+      q, dh, gates, mS, rows, dCE, dnE, S, H, hd, L, nc, Sp, scale);
+  return cudaGetLastError();
+}
+
+// phase 3 at NH 64-column blocks a block
+template <int NH>
+cudaError_t launch_dq(const bf16* k, const bf16* pt, const float* gates, const float* X,
+                      const float* nS, const float* mS, const float* rows, bf16* dq, int BH,
+                      int S, int H, int hd, int L, int nc, int Sp, int ntile, float scale,
+                      cudaStream_t st) {
+  const int smem = 1024 + 2 * (1 + NH) * SLAB + (int)sizeof(float) * (2 + NH) * TILE;
+  cudaError_t e;
+  if ((e = set_smem(mlstm_bwd_dq<NH>, smem)) != cudaSuccess) return e;
+  mlstm_bwd_dq<NH><<<hd / (TILE * NH) * ntile * nc * BH, NT, smem, st>>>(
+      k, pt, gates, X, nS, mS, rows, dq, S, H, hd, L, nc, Sp, ntile, scale);
+  return cudaGetLastError();
+}
+
+// phase 4 at NH 64-column blocks a block
+template <int NH>
+cudaError_t launch_dkdv(const bf16* q, const bf16* dh, const bf16* pt, const float* gates,
+                        const float* mS, const float* dCv, const float* dvs, const float* dnE,
+                        bf16* dk, bf16* dv, int BH, int S, int H, int hd, int L, int nc, int Sp,
+                        int ntile, float scale, cudaStream_t st) {
+  const int smem = 1024 + 2 * (2 + 2 * NH) * SLAB + (int)sizeof(float) * (1 + NH) * TILE;
+  cudaError_t e;
+  if ((e = set_smem(mlstm_bwd_dkdv<NH>, smem)) != cudaSuccess) return e;
+  mlstm_bwd_dkdv<NH><<<hd / (TILE * NH) * ntile * nc * BH, NT, smem, st>>>(
+      q, dh, pt, gates, mS, dCv, dvs, dnE, dk, dv, S, H, hd, L, nc, Sp, ntile, scale);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -1032,16 +1243,20 @@ namespace repro {
 // [B·H, nc, hd], mS [B·H, nc]; dCout / dnout (the state out's gradient) and
 // Cend / nend (the state out) float32 or null; float32 scratch rows
 // [B·H, 6, Sp], dlsc [B·H, hd / 64, Sp], dCE [B·H, nc, hd, hd], dnE [B·H, nc,
-// hd], ddp [B·H, nc, (hd / 64)^2], dmp [B·H, (hd / 64)^2], xs [2, B·H, Sp,
-// hd] (phase 0's products: X, then dCv; (k ⊙ sc)·dCE), xq [B·H, 2, hd / 64,
-// Sp]. hd a multiple of 64 up to 512, 1 <= L <= 512.
+// hd], ddp [B·H, nc, (hd / 32)^2 + 1], dmp [B·H, (hd / 32)^2 + 1], xs [2, B·H,
+// Sp, hd] (phase 0's products: X, then dCv; (k ⊙ sc)·dCE), xq [B·H, 2, hd /
+// 64, Sp], cols [B·H, ntile, Sp], sp [B·H, nc, ntile (ntile + 1) / 2, 2, 64
+// x 64] (phase 1's S and P); bf16 scratch pt [2, B·H, nc, ntile (ntile + 1)
+// / 2, 64 x 64] (the kept pair tiles). hd a multiple of 64 up to 512, 1 <= L
+// <= 512.
 int mlstm_chunk_bwd_wgmma(const void* q, const void* k, const void* v, const void* dh,
                           const float* gates, const float* CT, const float* nS,
                           const float* mS, const float* dCout, const float* dnout,
                           const float* Cend, const float* nend, void* dq, void* dk, void* dv,
                           float* rows, float* dlsc, float* dCE, float* dnE, float* ddp,
-                          float* dmp, float* xs, float* xq, int B, int S, int H, int hd, int L,
-                          float scale, int has_state, cudaStream_t st) {
+                          float* dmp, float* xs, float* xq, float* cols, void* pt, float* sp,
+                          int B, int S, int H, int hd, int L, float scale, int has_state,
+                          cudaStream_t st) {
   if (hd % TILE != 0 || hd > 512 || L < 1 || L > MAX_L) return (int)cudaErrorInvalidValue;
   const int BH = B * H, nc = (S + L - 1) / L, Sp = nc * L, ntile = (L + TILE - 1) / TILE;
   const int ncol = hd / TILE;
@@ -1049,59 +1264,60 @@ int mlstm_chunk_bwd_wgmma(const void* q, const void* k, const void* v, const voi
   auto K_ = static_cast<const bf16*>(k);
   auto V = static_cast<const bf16*>(v);
   auto DH = static_cast<const bf16*>(dh);
+  auto PTS = static_cast<bf16*>(pt);
   float* X = xs;                             // X, then dCv
   float* DVS = xs + (size_t)BH * Sp * hd;    // (k ⊙ sc)·dCE
   cudaError_t e;
 
-  const int smem0 = 1024 + (hd / 32) * SLAB + 2 * SLAB_WG +
-                    (int)sizeof(float) * (ntile * TILE + TILE);
-  if ((e = set_smem(mlstm_bwd_slab<kSlabX>, smem0)) != cudaSuccess ||
-      (e = set_smem(mlstm_bwd_slab<kSlabDCv>, smem0)) != cudaSuccess ||
-      (e = set_smem(mlstm_bwd_slab<kSlabDvs>, smem0)) != cudaSuccess)
+  const int smem0 = 1024 + (hd / 32) * SLAB + SLAB_WGS * SLAB_WG + (int)sizeof(float) * TILE;
+  if ((e = set_smem(mlstm_bwd_slab_x, smem0)) != cudaSuccess ||
+      (e = set_smem(mlstm_bwd_slab_state, smem0)) != cudaSuccess)
     return (int)e;
-  const dim3 g0(ncol, nc, BH);
-  mlstm_bwd_slab<kSlabX><<<g0, SLAB_NT, smem0, st>>>(DH, Q, CT, nS, gates, mS, X, xq, S, H, hd, L,
-                                                nc, Sp, ntile, has_state);
+  mlstm_bwd_slab_x<<<dim3(ncol, nc, BH), SLAB_NT, smem0, st>>>(DH, Q, CT, nS, gates, mS, X, xq, S,
+                                                              H, hd, L, nc, Sp, ntile, has_state);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
 
-  const int smem1 = 1024 + RING + (int)sizeof(float) * (2 * ntile * TILE + 5 * TILE);
-  if ((e = set_smem(mlstm_bwd_rows, smem1)) != cudaSuccess) return (int)e;
-  mlstm_bwd_rows<<<ntile * nc * BH, NT, smem1, st>>>(Q, K_, V, DH, gates, xq, mS, rows, S, H,
-                                                      hd, L, nc, Sp, ntile, scale);
+  const int smem1 = 1024 + (2 * (hd / TILE) + 8) * SLAB +
+                    (int)sizeof(float) * (2 * ntile * TILE + 18 * TILE);
+  if ((e = set_smem(mlstm_bwd_pairs, smem1)) != cudaSuccess) return (int)e;
+  mlstm_bwd_pairs<<<ntile * nc * BH, PAIR_NT, smem1, st>>>(Q, K_, V, DH, gates, xq, mS, rows, cols,
+                                                            PTS, sp, S, H, hd, L, nc, Sp, ntile,
+                                                            scale);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
 
-  const int smem2 = 1024 + 2 * P2_PAIR + RAW_STAGES * P2_RAW +
-                    (int)sizeof(float) * (2 * MAX_L + TILE + 4);
-  if ((e = set_smem(mlstm_bwd_carry, smem2)) != cudaSuccess) return (int)e;
-  mlstm_bwd_carry<<<dim3(ncol, ncol, BH), NT, smem2, st>>>(Q, DH, gates, CT,
-                                                      nS, mS, rows, dCout, dnout, Cend, nend,
-                                                      dCE, dnE, ddp, dmp, S, H, hd, L, nc, Sp,
-                                                      scale, has_state);
+  const bool wide = hd % (2 * TILE) == 0;  // 128 columns a block where they divide hd
+  if (nc > 1) {
+    e = wide ? launch_carry_gc<2>(Q, DH, gates, mS, rows, dCE, dnE, BH, S, H, hd, L, nc, Sp,
+                                  scale, st)
+             : launch_carry_gc<1>(Q, DH, gates, mS, rows, dCE, dnE, BH, S, H, hd, L, nc, Sp,
+                                  scale, st);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int NP = (hd / RT) * (hd / RT) + 1;
+  mlstm_bwd_carry_rec<<<dim3(NP, BH), REC_NT, 0, st>>>(gates, CT, nS, mS, dCout, dnout, Cend,
+                                                       nend, dCE, dnE, ddp, dmp, hd, L, nc, Sp,
+                                                       has_state);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
 
-  const int smem3 = 1024 + RING + 2 * SLAB + (int)sizeof(float) * (2 * ntile * TILE + 6 * TILE);
-  if ((e = set_smem(mlstm_bwd_dq, smem3)) != cudaSuccess) return (int)e;
-  mlstm_bwd_dq<<<ncol * ntile * nc * BH, NT, smem3, st>>>(Q, K_, V, DH, gates, X, nS, mS, rows,
-                                                     static_cast<bf16*>(dq), S, H, hd, L, nc,
-                                                     Sp, ntile, scale);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  auto DQ = static_cast<bf16*>(dq);
+  e = wide ? launch_dq<2>(K_, PTS, gates, X, nS, mS, rows, DQ, BH, S, H, hd, L, nc, Sp, ntile,
+                          scale, st)
+           : launch_dq<1>(K_, PTS, gates, X, nS, mS, rows, DQ, BH, S, H, hd, L, nc, Sp, ntile,
+                          scale, st);
+  if (e != cudaSuccess) return (int)e;
 
   // dq has read X: the buffer takes dCv
-  mlstm_bwd_slab<kSlabDCv><<<g0, SLAB_NT, smem0, st>>>(V, K_, dCE, dnE, gates, mS, X, dlsc, S, H, hd,
-                                                  L, nc, Sp, ntile, has_state);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  mlstm_bwd_slab<kSlabDvs><<<g0, SLAB_NT, smem0, st>>>(K_, nullptr, dCE, nullptr, gates, mS, DVS,
-                                                  nullptr, S, H, hd, L, nc, Sp, ntile,
-                                                  has_state);
+  mlstm_bwd_slab_state<<<dim3(ncol, nc, 2 * BH), SLAB_NT, smem0, st>>>(
+      V, K_, dCE, dnE, gates, mS, X, dlsc, DVS, S, H, hd, L, nc, Sp, ntile);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
 
-  const int smem4 = 1024 + RING + 4 * SLAB + (int)sizeof(float) * (5 * ntile * TILE + 2 * TILE);
-  if ((e = set_smem(mlstm_bwd_dkdv, smem4)) != cudaSuccess) return (int)e;
-  mlstm_bwd_dkdv<<<ncol * ntile * nc * BH, NT, smem4, st>>>(Q, K_, V, DH, gates, mS, rows, X, DVS,
-                                                       dnE, static_cast<bf16*>(dk),
-                                                       static_cast<bf16*>(dv), S, H, hd, L, nc,
-                                                       Sp, ntile, scale);
-  return (int)cudaGetLastError();
+  auto DK = static_cast<bf16*>(dk);
+  auto DV = static_cast<bf16*>(dv);
+  e = wide ? launch_dkdv<2>(Q, DH, PTS, gates, mS, X, DVS, dnE, DK, DV, BH, S, H, hd, L, nc, Sp,
+                            ntile, scale, st)
+           : launch_dkdv<1>(Q, DH, PTS, gates, mS, X, DVS, dnE, DK, DV, BH, S, H, hd, L, nc, Sp,
+                            ntile, scale, st);
+  return (int)e;
 }
 
 }  // namespace repro

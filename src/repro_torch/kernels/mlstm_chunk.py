@@ -40,7 +40,7 @@ backward is the backward kernel on the card (``csrc/mlstm_chunk_bwd_wgmma.cu``
 for bf16: the pair products in bf16 and the state products in TF32 on
 wgmma; ``csrc/mlstm_chunk_bwd.cu`` for float32 on the CUDA cores, gates in
 float64, and the gate phase both share; routes ``wgmma_bwd`` and
-``simt_f32_bwd``; ``bwd_plan`` gives its float32 scratch) and
+``simt_f32_bwd``; ``bwd_plan`` gives its scratch) and
 ``mlstm_chunk_bwd``, its plain version, on the CPU. A state input that
 requires grad raises: train mode never passes one. The JAX package's
 gradient is XLA's autodiff of ``mlstm_chunkwise``, which the backward
@@ -79,13 +79,20 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # csrc/mlstm_chunk_bwd.cu::mlstm_chunk_bwd): pointers and the stream as
 # c_void_p, ints as c_int
 FWD_ARGTYPES = [_P] * 16 + [_I] * 5 + [ctypes.c_float, _I, _P]
-BWD_ARGTYPES = [_P] * 27 + [_I] * 5 + [ctypes.c_float, _I, _I, _P]
+BWD_ARGTYPES = [_P] * 31 + [_I] * 5 + [ctypes.c_float, _I, _I, _P]
 
 # the backward's geometry: the float32 route's carry (a thread per element
-# of dC and dn, CARRY_NT a block) and its row kernels (a warp a row)
+# of dC and dn, CARRY_NT a block) and its row kernels (a warp a row); the
+# bf16 route's recurrence (a REC_TILE x REC_TILE tile of dC a block, one more
+# for dn)
 CARRY_NT = 256
 ROWS_A_BLOCK = 4
+REC_TILE = 32
 ROW_SCALARS = 6         # denom, dqn, R, dinter·inter, Σ_m dlogD, Σ_l dlogD
+GATE_SCALARS = 4        # a chunk's parts, base, carried, largest write
+# scratch that is not float32 (the bf16 route's kept pair tiles; the float32
+# route's gates and the gate phase's values in float64)
+SCRATCH_DTYPES = {"pt": torch.bfloat16, "gates": torch.float64, "gsc": torch.float64}
 
 
 def wgmma_plan(B: int, S: int, H: int, hd: int, chunk: int) -> dict:
@@ -127,39 +134,51 @@ def bwd_plan(B: int, S: int, H: int, hd: int, chunk: int, dtype) -> dict:
     """The backward kernel's plan for one call: chunk length ``L``, chunk
     count ``nc``, padded length ``Sp``, 64-row tiles a chunk ``ntile``, the
     column blocks whose partial k·dCv a row sums ``ncol``, the partials of a
-    chunk's decay gradient ``NP``, every launch's grid, and the float32
-    scratch (name -> shape; ``gates`` float64, the float32 route's only):
-    ``rows`` the row scalars (``ROW_SCALARS``), ``dlsc`` the partials,
-    ``dCE`` / ``dnE`` each chunk's end-state gradient, ``ddp`` / ``dmp``
-    the partials of the decay's and the state out's m gradient; bf16 only,
-    ``xs`` the state products a row (X = dh·C_cᵀ, then v·dCE_cᵀ; and
-    (k ⊙ sc)·dCE_c) and ``xq`` the partials of q·X and q·n_c."""
+    chunk's decay gradient ``NP``, every launch's grid, and the scratch
+    (name -> shape; float32 but for ``SCRATCH_DTYPES``): ``rows`` the row
+    scalars (``ROW_SCALARS``), ``dlsc`` the partials, ``dCE`` / ``dnE``
+    each chunk's end-state gradient, ``ddp`` / ``dmp`` the partials of the
+    decay's and the state out's m gradient, ``gsc`` the gate phase's (each
+    row's dig and dF before the cross-chunk carry, each chunk's
+    ``GATE_SCALARS``); bf16 only, ``xs`` the state products a row (X =
+    dh·C_cᵀ, then v·dCE_cᵀ; and (k ⊙ sc)·dCE_c), ``xq`` the partials of q·X
+    and q·n_c, ``cols`` each query tile's part of a key's Σ dlogD, ``sp``
+    each pair tile's S = q·kᵀ and P = dh·vᵀ between the pairs phase's two
+    passes and ``pt`` the kept pair tiles (ds' and w / denom, 64 x 64
+    each, the lower triangle of a chunk's tiles); float32 only, ``gates``. The bf16 dq and
+    dk / dv blocks take ``bw`` columns each (128 where they divide hd)."""
     L = min(chunk, S)
     nc = -(-S // L)
     ntile = -(-L // TILE)
     BH = B * H
+    Sp = nc * L
     if dtype == torch.bfloat16:
         ncol = hd // TILE
-        NP = ncol * ncol
-        grids = {"slab": (ncol, nc, BH), "rows": (ntile * nc * BH,),
-                 "carry": (ncol, ncol, BH), "dq": (ncol * ntile * nc * BH,),
-                 "dkdv": (ncol * ntile * nc * BH,), "gates": (BH,)}
+        NP = (hd // REC_TILE) ** 2 + 1
+        bw = 2 * TILE if hd % (2 * TILE) == 0 else TILE
+        ntri = ntile * (ntile + 1) // 2
+        grids = {"slab": (ncol, nc, BH), "pairs": (ntile * nc * BH,),
+                 "carry": (ncol, ncol, (nc - 1) * BH), "recurrence": (NP, BH),
+                 "dq": (hd // bw * ntile * nc * BH,), "dkdv": (hd // bw * ntile * nc * BH,),
+                 "gates": (nc, BH), "gate_rows": (nc, BH)}
     else:
-        ncol = 1
+        ncol, bw = 1, None
         NP = -(-(hd * hd + hd) // CARRY_NT)
         rows = (-(-L // ROWS_A_BLOCK), nc, BH)
         grids = {"gates64": (nc, BH), "rows": rows, "carry": (NP, BH), "dq": rows,
-                 "dkdv": rows, "gates": (BH,)}
-    Sp = nc * L
+                 "dkdv": rows, "gates": (nc, BH), "gate_rows": (nc, BH)}
     scratch = {"rows": (BH, ROW_SCALARS, Sp), "dlsc": (BH, ncol, Sp),
                "dCE": (BH, nc, hd, hd), "dnE": (BH, nc, hd), "ddp": (BH, nc, NP),
-               "dmp": (BH, NP)}
+               "dmp": (BH, NP), "gsc": (BH, 2 * Sp + GATE_SCALARS * nc)}
     if dtype == torch.bfloat16:
         scratch["xs"] = (2, BH, Sp, hd)
         scratch["xq"] = (BH, 2, ncol, Sp)
+        scratch["cols"] = (BH, ntile, Sp)
+        scratch["sp"] = (BH, nc, ntri, 2, TILE * TILE)
+        scratch["pt"] = (2, BH, nc, ntri, TILE * TILE)
     else:
         scratch["gates"] = (BH, 3, Sp)
-    return dict(L=L, nc=nc, Sp=Sp, ntile=ntile, ncol=ncol, NP=NP, grids=grids,
+    return dict(L=L, nc=nc, Sp=Sp, ntile=ntile, ncol=ncol, NP=NP, bw=bw, grids=grids,
                 scratch=scratch)
 
 
@@ -635,15 +654,16 @@ def _launch_bwd(q, k, v, ig, fg, dh, dC, dn, C, n, gates, CT, nS, mS, has_state,
                               or t.device != q.device or not t.is_contiguous()):
             raise ValueError(f"mlstm_chunk_bwd: {name} must be contiguous float32 {shape}")
     plan = bwd_plan(B, S, H, hd, chunk, q.dtype)
-    scratch = {name: torch.empty(shape, dtype=torch.float64 if name == "gates"
-                                 else torch.float32, device=q.device)
+    scratch = {name: torch.empty(shape, dtype=SCRATCH_DTYPES.get(name, torch.float32),
+                                 device=q.device)
                for name, shape in plan["scratch"].items()}
     if q.dtype == torch.bfloat16:
         scratch["gates"] = gates
     igc, fgc = ig.float().contiguous(), fg.float().contiguous()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     sp = [scratch[name].data_ptr() if name in scratch else None
-          for name in ("rows", "dlsc", "dCE", "dnE", "ddp", "dmp", "xs", "xq")]
+          for name in ("rows", "dlsc", "dCE", "dnE", "ddp", "dmp", "xs", "xq", "cols",
+                       "pt", "sp", "gsc")]
     err = _bwd_kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), igc.data_ptr(),
                         fgc.data_ptr(), dh.data_ptr(), _ptr(dC), _ptr(dn), C.data_ptr(),
                         n.data_ptr(), scratch["gates"].data_ptr(), CT.data_ptr(),

@@ -1524,11 +1524,23 @@ def test_gpu_rglru_forward_repeat_calls_are_bit_identical(B, S, R, out_dtype):
     assert krs.launches_by_route["chunked"] == before + 5
 
 
+# the bf16 backward's tiling edges: 64-row pair tiles kept per chunk, 64 or
+# 128 columns a dq / dk / dv block, GC_c per chunk
+MLSTM_BF16_EDGES = [
+    (torch.bfloat16, 1, 1024, 2, 128, 512),       # the longest chunk (MAX_CHUNK)
+    (torch.bfloat16, 2, 300, 2, 128, 64),         # one tile a chunk, 5 chunks
+    (torch.bfloat16, 2, 300, 2, 64, 100),         # L not a multiple of 64
+    (torch.bfloat16, 1, 1000, 2, 128, 256),       # S not a multiple of the chunk
+    (torch.bfloat16, 2, 512, 2, 256, 256),        # hd 256
+]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,B,S,H,hd,chunk", [
     (torch.float32, 2, 100, 2, 64, 32), (torch.float32, 2, 300, 2, 128, 256),
     (torch.bfloat16, 2, 100, 2, 64, 32),
-    (torch.bfloat16, 2, 1024, 4, 512, 256)])      # xlstm-350m's train microbatch
+    (torch.bfloat16, 2, 1024, 4, 512, 256),       # xlstm-350m's train microbatch
+    *MLSTM_BF16_EDGES])
 def test_gpu_mlstm_function_with_the_kernel_forward_matches_plain(dtype, B, S, H, hd,
                                                                   chunk, monkeypatch):
     """``MLSTMChunk`` on the card (forward: the kernel on the dtype's route,
@@ -1566,15 +1578,19 @@ def test_gpu_mlstm_function_with_the_kernel_forward_matches_plain(dtype, B, S, H
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_gpu_mlstm_backward_with_a_state_in_and_out_matches_plain(dtype):
-    """hd 64, S not a multiple of the chunk, a state in (held constant) and a
+@pytest.mark.parametrize("dtype,S,hd,chunk", [(torch.float32, 100, 64, 32),
+                                              (torch.bfloat16, 100, 64, 32),
+                                              (torch.bfloat16, 300, 128, 64),
+                                              (torch.bfloat16, 600, 256, 256)])
+def test_gpu_mlstm_backward_with_a_state_in_and_out_matches_plain(dtype, S, hd, chunk):
+    """S not a multiple of the chunk, a state in (held constant) and a
     gradient of the state out (dC, dn) from a reader invariant to the
     stabiliser's shift, the next segment's plain version: the backward kernel
     against autograd of the plain version through both segments, float32
-    1e-4 and bf16 2e-2 relative to max(1, the gradient's largest value)."""
+    1e-4 and bf16 2e-2 relative to max(1, the gradient's largest value);
+    bf16 also at 128 columns a dq / dk / dv block and at hd 256."""
     dev = _need_card()
-    B, S, H, hd, chunk = 2, 100, 2, 64, 32
+    B, H = 2, 2
     q, k = (_rand(dev, B, S, H, hd, scale=0.5, seed=s).to(dtype) for s in (41, 42))
     v = _rand(dev, B, S, H, hd, seed=43).to(dtype)
     ig, fg = _rand(dev, B, S, H, seed=44), _rand(dev, B, S, H, seed=45) + 2.0
@@ -1603,7 +1619,7 @@ def test_gpu_mlstm_backward_with_a_state_in_and_out_matches_plain(dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,B,S,H,hd,chunk", [
     (torch.float32, 2, 100, 2, 64, 32), (torch.bfloat16, 2, 100, 2, 64, 32),
-    (torch.bfloat16, 2, 1024, 4, 512, 256)])
+    (torch.bfloat16, 2, 1024, 4, 512, 256), *MLSTM_BF16_EDGES])
 def test_gpu_mlstm_backward_is_bit_identical_from_call_to_call(dtype, B, S, H, hd, chunk):
     """No atomics: two backward calls on the same inputs and kept states give
     the same bits; the forward with its states kept writes the same h and
