@@ -32,6 +32,12 @@ no result line) on any fault:
      both (bf16 tensor cores at xlstm-350m's prefill and extend shapes;
      float32 CUDA cores, at xlstm's chunk of 256 against the plain version
      in float64), with their profiler device times, and accept_len's;
+     the sLSTM scan's two kernels at xlstm-350m's widths (4 heads of 256)
+     against the plain loop and autograd through it, float32 and bf16, at
+     its train microbatch, a padded 1500-token admission, decode, verify
+     (every state kept) and an extend with a state in, two calls
+     bit-identical (rows ``slstm_scan`` and ``slstm_scan_bwd``: call and
+     device ms, bound, serial floor, plain ms; no library call);
   3. dense serving: ``LLMServer`` with full-width qwen2.5-3b (bf16, random
      weights from a seed, 4 slots, capacity 2048, cache_mode="dense"):
      4 concurrent requests of ~200-1500 prompt tokens, one sampled, and a
@@ -102,10 +108,13 @@ no result line) on any fault:
      system prompt and a 2-turn session, and spec_len=4 on copy-heavy
      prompts; every request COMPLETED, snapshot hits > 0, rglru_scan /
      flash / decode / accept_len (recurrentgemma) and mlstm_chunk /
-     accept_len (xlstm) launched; parameter, slot-cache, arena and
+     slstm_scan / accept_len (xlstm) launched, the sLSTM kernel once a
+     sLSTM layer a prefill / extend forward, decode step and verify step,
+     and the plain loop on no CUDA tensor; parameter, slot-cache, arena and
      verify-staging bytes and peak memory printed, each model freed before
-     the next loads; the dense decode chunk profiled and graph against
-     eager as in 3. Then one pattern period (5 / 8 layers) at full width
+     the next loads; the dense decode chunk and the longest prompt's
+     admission profiled, and graph against eager as in 3. Then one pattern
+     period (5 / 8 layers) at full width
      in float32: snapshot == dense and spec == non-spec greedy token for
      token, and decode-step logits after a prefill against one full
      forward within 1e-3;
@@ -210,17 +219,17 @@ no result line) on any fault:
      microbatch and step: forward and recompute on the chunked route, the
      gradient kernel on chunked_bwd; mlstm_chunk and flash 3 a layer,
      forward and recompute on wgmma and the backward kernel on wgmma_bwd,
-     21 mLSTM backward launches a step; nothing else); per-step
-     loss, grad norm, wall and tokens/s, peak memory, the second-last step
-     split into forward + backward and optimizer, the last under the
-     profiler (recurrentgemma: the backwards' busy ms; each
-     ``rglru_scan_bwd`` range holds one kernel, the gradient's) or with
-     the sLSTM loop timed on the host (xlstm; its device ms from one layer
-     alone, the mLSTM backward kernel's from the row below), the 8·N·T share. Then
+     21 mLSTM backward launches a step; slstm_scan 3 a layer, forward and
+     recompute on cluster, the gradient kernel on cluster_bwd; nothing
+     else); per-step loss, grad norm, wall and tokens/s, peak memory, the
+     second-last step split into forward + backward and optimizer, the last
+     under the profiler (the backwards' busy ms; each ``rglru_scan_bwd``
+     and ``slstm_scan_bwd`` range holds one kernel, the gradient's), the
+     8·N·T share. Then
      one step through the kernel path against plain autograd at reduced
      float32 and bf16 configs of both archs (each kernel call alone on the
-     inputs and output gradient it had in the step, the loss, the param
-     leaves), and the kernels at the train shapes (rows
+     inputs and output gradient it had in the step, the sLSTM's included,
+     the loss, the param leaves), and the kernels at the train shapes (rows
      ``rglru_scan_train``: the forward, one launch writing a bf16 y and the
      float32 states; ``rglru_scan_bwd``: the gradient kernel against
      autograd of the plain version on both routes, two calls
@@ -293,7 +302,10 @@ TOL = {"bfloat16": 2e-2, "float32": 2e-5,
        "bf16_state": 5e-2, "float32_scan": 5e-6,
        # a float32 backward against autograd of its plain version, relative
        # (tests/test_torch_stateful_training.py's mLSTM bound)
-       "float32_grad": 1e-4}
+       "float32_grad": 1e-4,
+       # the sLSTM scan's float32 route against its plain loop, relative to
+       # max(1, the largest value): the state n grows with the steps
+       "slstm_f32": 1e-5}
 
 
 def log(*a):
@@ -600,6 +612,7 @@ def kernel_phase(dev):
     rows["flash_attention_chameleon"] = flash_window_row(
         dev, rnd, "flash_attention_chameleon", S=2048, H=64, K=8, hd=128, win=None)
     rows.update(stateful_kernel_rows(dev))
+    rows.update(slstm_kernel_rows(dev))
     for r in rows.values():
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         log(f"[kernels] {r['name']}: kernel_ms={r['ms']:.4f} plain_ms="
@@ -1091,6 +1104,179 @@ def stateful_kernel_rows(dev):
     return rows
 
 
+def slstm_kernel_rows(dev):
+    """The sLSTM scan's forward and gradient kernels against their plain
+    versions (the loop over time; autograd through it), float32 within
+    ``TOL["slstm_f32"]`` (gradients ``TOL["float32_grad"]``) and bf16
+    within ``TOL["bfloat16"]`` of max(1, the largest value), at xlstm-350m's
+    widths (4 heads of 256): its train microbatch [4, 1024], a 1500-token
+    admission in the 2048 bucket (right padding), decode (S = 1, a state
+    in), verify (S = 5, a state in, masked, every state kept) and an extend
+    (S = 130, a state in, masked); two calls give the same bits. Rows
+    ``slstm_scan`` (the forward at the train microbatch; the admission's
+    numbers beside) and ``slstm_scan_bwd`` (the gradient kernel at the
+    train microbatch on the forward's kept gates and states): call ms,
+    device ms (torch.profiler), the bound, the serial floor (the device ms
+    of the same S steps at the least work, [1, S] and one head of 16),
+    plain ms; no library call computes the recurrence."""
+    import torch
+    from repro_torch.kernels import slstm_scan as kss
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    f32, bf16 = torch.float32, torch.bfloat16
+    H, hd = 4, 256
+    D = H * hd
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    def inputs(B, S, dtype, state=False, valid=None, heads=H, width=hd):
+        # xlstm-350m's scales under its init: R fan-in scaled over the three
+        # stacked sLSTM layers, gates_x ~0.3 (an RMS-normed x through the
+        # scaled w_gates); at larger ones the recurrence amplifies each
+        # rounding over 1000 steps and the bf16 plain loop drifts far from
+        # its own float64 result
+        gx = rnd(B, S, 4, heads * width, scale=0.3).to(dtype)
+        R = rnd(heads, 4, width, width, scale=(12 * heads * width) ** -0.5).to(dtype)
+        st = None if not state else (rnd(B, heads * width), rnd(B, heads * width).abs() + 0.5,
+                                     rnd(B, heads * width, scale=0.5), rnd(B, heads * width))
+        mask = None if valid is None else (
+            torch.arange(S, device=dev)[None, :] < torch.tensor(valid, device=dev)[:, None])
+        return gx, R, st, mask
+
+    def close(name, got, want, tol):
+        err = float((got.double() - want.double()).abs().max()) / max(
+            1.0, float(want.double().abs().max()))
+        log(f"  {name}: scaled_err={err:.3e} (tol {tol})")
+        if not math.isfinite(err) or err > tol:
+            raise AssertionError(f"slstm_scan: {name} differs by {err} > {tol}")
+        return err
+
+    log("[kernels] slstm_scan")
+    for r in kss.launches_by_route:
+        kss.launches_by_route[r] = 0
+    cases = [("train microbatch [4,1024]", 4, 1024, False, None, False),
+             ("admission 1500 of 2048 [1,2048], padded", 1, 2048, False, [1500], False),
+             ("decode [4,1], state", 4, 1, True, None, False),
+             ("verify [4,5], state, masked, all states", 4, 5, True, [5, 3, 1, 4], True),
+             ("extend [2,130], state, masked", 2, 130, True, [130, 77], False)]
+    err = 0.0
+    for dtype in (f32, bf16):
+        tol = TOL["slstm_f32" if dtype == f32 else "bfloat16"]
+        for name, B, S, state, valid, every in cases:
+            gx, R, st, mask = inputs(B, S, dtype, state, valid)
+            (y, s), (y2, s2) = (kss.slstm_scan(gx, R, st, mask, every) for _ in range(2))
+            yw, sw = kss.slstm_scan_ref(gx, R, st, mask, every)
+            label = f"{'f32' if dtype == f32 else 'bf16'} {name}"
+            err = max(err, close(f"{label}: y", y, yw, tol),
+                      *(close(f"{label}: {k}", a, b, tol) for k, a, b in zip("cnhm", s, sw)))
+            if not (torch.equal(y, y2) and all(torch.equal(a, b) for a, b in zip(s, s2))):
+                raise AssertionError(f"slstm_scan: two calls differ ({label})")
+
+    def grads(fn, gx, R, st, mask, dy, dlast, dtype=None):
+        ins = [t.clone().to(dtype or t.dtype).requires_grad_()
+               for t in (gx, R) + tuple(st or ())]
+        y, last = fn(ins[0], ins[1], ins[2:] or None, mask)
+        return torch.autograd.grad([y, *last], ins, [dy.to(y.dtype), *dlast])
+
+    # the bf16 kernel's gradient against the plain loop run in float32 on
+    # the same values: autograd through the bf16 loop adds each step's bf16
+    # dR in bf16 (its distance to the float32 one is printed), the kernel
+    # path forms dR in one product with float32 sums
+    bwd_err = 0.0
+    for dtype, B, S, state, valid in ((f32, 2, 300, True, [300, 200]),
+                                      (bf16, 4, 1024, False, None)):
+        gx, R, st, mask = inputs(B, S, dtype, state, valid)
+        dy, dlast = rnd(B, S, D).to(dtype), [rnd(B, D) for _ in range(4)]
+        got = grads(kss.slstm_scan, gx, R, st, mask, dy, dlast)
+        want = grads(kss.slstm_scan_ref, gx, R, st, mask, dy, dlast, f32)
+        tol = TOL["float32_grad" if dtype == f32 else "bfloat16"]
+        label = f"{'f32' if dtype == f32 else 'bf16'} gradient [{B},{S}]"
+        for name, a, b in zip(("gates_x", "r_gates", "c0", "n0", "h0", "m0"), got, want):
+            bwd_err = max(bwd_err, close(f"{label}: d{name}", a, b, tol))
+        if dtype == bf16:
+            plain = grads(kss.slstm_scan_ref, gx, R, st, mask, dy, dlast)
+            for name, a, b in zip(("gates_x", "r_gates"), plain, want):
+                e = float((a.double() - b.double()).abs().max()) / max(
+                    1.0, float(b.double().abs().max()))
+                log(f"  (bf16 plain loop's autograd against float32: d{name} {e:.3e})")
+    routes = dict(kss.launches_by_route)
+    log(f"  launches_by_route={routes}")
+    if routes != {"cluster": 4 * len(cases) + 2, "cluster_bwd": 2}:
+        raise AssertionError(f"slstm_scan: routes {routes}")
+
+    # times: bf16 at the train microbatch and the admission
+    B, S = 4, 1024
+    gx, R, _, _ = inputs(B, S, bf16)
+    fwd = lambda: kss.slstm_scan(gx, R)                             # noqa: E731
+    ms, dms = time_ms(fwd, 10), device_ms(fwd, 5)
+    plain = time_ms(lambda: kss.slstm_scan_ref(gx, R), 1, warmup=1)
+    keep_ms = time_ms(lambda: kss._forward(gx, R, keep_gates=True), 10)
+
+    def floor(S, backward=False):
+        """The device ms of S steps at the least work: [1, S], one head of
+        16 (the cluster barrier and the exchange a step)."""
+        gs, Rs, _, _ = inputs(1, S, bf16, heads=1, width=16)
+        if not backward:
+            return device_ms(lambda: kss.slstm_scan(gs, Rs), 5)
+        _, (c, n, _, m), gk = kss._forward(gs, Rs, keep_gates=True)
+        dys = rnd(1, S, 16).to(bf16)
+        return device_ms(lambda: kss.slstm_scan_bwd(gk, Rs, c, n, m, None, None, dys), 5)
+
+    serial = floor(S)
+    b_ms, b_by = bound("slstm", B, S, H, hd, 2, False, False)
+    log(f"[kernels] slstm_scan train microbatch [4,1024,4x256] bf16: ms={ms:.4f} "
+        f"device_ms={fmt_ms(dms)} (keeping the gates and states for the gradient: "
+        f"{keep_ms:.4f} ms) bound_ms={b_ms:.4f} ({b_by}) serial_floor_ms={fmt_ms(serial)} "
+        f"plain_ms={plain:.4f} library: none")
+    ga, Ra, _, ma = inputs(1, 2048, bf16, valid=[1500])
+    adm = lambda: kss.slstm_scan(ga, Ra, None, ma)                  # noqa: E731
+    a_ms, a_dms = time_ms(adm, 10), device_ms(adm, 5)
+    a_plain = time_ms(lambda: kss.slstm_scan_ref(ga, Ra, None, ma), 1, warmup=1)
+    a_bound, a_by = bound("slstm", 1, 2048, H, hd, 2, False, False)
+    a_serial = floor(2048)
+    log(f"[kernels] slstm_scan admission [1,2048,4x256] bf16 (1500 valid): ms={a_ms:.4f} "
+        f"device_ms={fmt_ms(a_dms)} bound_ms={a_bound:.4f} ({a_by}) serial_floor_ms="
+        f"{fmt_ms(a_serial)} plain_ms={a_plain:.4f} library: none")
+    _, (c, n, _, m), gk = kss._forward(gx, R, keep_gates=True)
+    dy = rnd(B, S, D).to(bf16)
+    bwd = lambda: kss.slstm_scan_bwd(gk, R, c, n, m, None, None, dy)  # noqa: E731
+    if not all(torch.equal(a, b) for a, b in zip(bwd()[:1], bwd()[:1])):
+        raise AssertionError("slstm_scan_bwd: two calls differ")
+    bms, bdms = time_ms(bwd, 10), device_ms(bwd, 5)
+    b_plain = time_ms(lambda: kss.slstm_scan_bwd_ref(gk, R, c, n, m, None, None, dy), 1,
+                      warmup=1)
+
+    def autograd_loop():
+        ins = [gx.clone().requires_grad_(), R.clone().requires_grad_()]
+        y, _ = kss.slstm_scan_ref(*ins)
+        torch.autograd.grad(y, ins, dy)
+
+    b_autograd = time_ms(autograd_loop, 1, warmup=0)
+    bb_ms, bb_by = bound("slstm_bwd", B, S, H, hd, 2)
+    b_serial = floor(S, backward=True)
+    log(f"[kernels] slstm_scan_bwd train microbatch [4,1024,4x256] bf16: ms={bms:.4f} "
+        f"device_ms={fmt_ms(bdms)} bound_ms={bb_ms:.4f} ({bb_by}) serial_floor_ms="
+        f"{fmt_ms(b_serial)} plain_ms={b_plain:.4f} (written out) plain autograd "
+        f"(forward + backward through the loop) {b_autograd:.4f} ms; library: none")
+    src = "src/repro_torch/kernels/csrc/slstm_scan.cu"
+    return {
+        "slstm_scan": dict(
+            name="slstm_scan", route="cuda", source=src,
+            replaces="src/repro/models/xlstm.py:258", max_abs_err=err, ms=ms,
+            plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None, device_ms=dms,
+            serial_floor_ms=serial, keep_ms=keep_ms,
+            admission=dict(ms=a_ms, device_ms=a_dms, bound_ms=a_bound, bound_by=a_by,
+                           serial_floor_ms=a_serial, plain_ms=a_plain)),
+        "slstm_scan_bwd": dict(
+            name="slstm_scan_bwd", route="cuda", source=src,
+            replaces="src/repro/models/xlstm.py:258", max_abs_err=bwd_err, ms=bms,
+            plain_ms=b_plain, bound_ms=bb_ms, bound_by=bb_by, library_ms=None,
+            device_ms=bdms, serial_floor_ms=b_serial, plain_autograd_ms=b_autograd),
+    }
+
+
 def multi_query_equals_steps(qs, kc, vc, clen):
     """The multi-query kernels cut slots at the same absolute split
     boundaries as the one-token call, so query s equals a one-token call at
@@ -1150,23 +1336,25 @@ def kernel_modules():
     from repro_torch.kernels import (decode_attention, flash_attention,
                                      mlstm_chunk, paged_decode_attention,
                                      paged_spec_decode_attention, rglru_scan,
-                                     spec_decode_attention, spec_scan, split_decode)
+                                     slstm_scan, spec_decode_attention, spec_scan,
+                                     split_decode)
     return {"flash_attention": flash_attention, "decode_attention": decode_attention,
             "paged_decode_attention": paged_decode_attention,
             "accept_len": spec_scan, "spec_decode_attention": spec_decode_attention,
             "paged_spec_decode_attention": paged_spec_decode_attention,
             "rglru_scan": rglru_scan, "mlstm_chunk": mlstm_chunk,
+            "slstm_scan": slstm_scan,
             # the sequence-parallel decode's two launches (partials, combine)
             "seqpar_decode_attention": split_decode}
 
 
-ROUTED = ("flash_attention", "mlstm_chunk", "rglru_scan")   # kernels with routes
+ROUTED = ("flash_attention", "mlstm_chunk", "rglru_scan", "slstm_scan")  # with routes
 
 
 def kernel_counts():
     """Launches by kernel, and by route as ``<kernel>/<route>`` for the
     kernels with more than one (flash and mlstm_chunk by dtype, rglru_scan
-    by S)."""
+    by S, slstm_scan by direction)."""
     mods = kernel_modules()
     counts = {name: m.launches for name, m in mods.items()}
     for name in ROUTED:
@@ -1542,8 +1730,8 @@ def profile_prefill(server, prompt, *, reps: int = WALL_REPS, host_trace: bool =
     engine's admission step only (prefill, first sample and its host sync:
     the TTFT path, without the decode chunk that follows): the median wall
     time of ``reps`` unprofiled admissions after a warm-up, then one under
-    torch.profiler (host operators too unless ``host_trace`` is False: the
-    sLSTM loop's tens of thousands of them): device busy time, the device's
+    torch.profiler (host operators too unless ``host_trace`` is False):
+    device busy time, the device's
     idle share, the top kernels. Returns {"wall_ms": [...],
     "device_busy_ms", "prompt_tokens", "kernel_ms": {kernel: device ms}}."""
     import torch
@@ -1897,7 +2085,7 @@ STATEFUL = {
     "xlstm-350m": dict(capacity=2048, prompts=(200, 600, 1000, 1500),
                        num_snapshots=16, snap_stride=8,
                        f32=dict(num_layers=8), f32_prefill=300,
-                       kernels=("mlstm_chunk", "accept_len")),
+                       kernels=("mlstm_chunk", "slstm_scan", "accept_len")),
 }
 
 
@@ -2036,23 +2224,66 @@ def stateful_f32_checks(name, spec, dev, tok, rng):
     torch.cuda.empty_cache()
 
 
-def dense_run(name, cfg, params, dev, tok, rng, spec, profile_admission=True):
+@contextlib.contextmanager
+def slstm_rule(label, srv):
+    """Around one counted serving run (launch counts zeroed at its start,
+    read at its end, as ``serve_phase`` and ``spec_run`` do): the sLSTM
+    kernel's launches inside equal sLSTM layers x (prefill and extend
+    forwards + decode steps + verify steps), all on its ``cluster`` route,
+    and the plain loop ran on no CUDA tensor (it is swapped for a function
+    that raises). Yields a dict; put the run's launch counts under
+    ``"counts"``. Archs without sLSTM layers pass through."""
+    from repro_torch.kernels import slstm_scan as kss
+    out = {}
+    n_sl = srv.engine.cfg.layer_kinds.count("slstm")
+    if not n_sl:
+        yield out
+        return
+    progs = srv.engine.progs
+    d0, v0 = progs.decode_steps, progs.verify_steps
+    plain = kss.slstm_scan_ref
+
+    def refuse(gates_x, *a, **kw):
+        if gates_x.device.type != "cpu":
+            raise AssertionError(f"{label}: the plain sLSTM loop ran on {gates_x.device}")
+        return plain(gates_x, *a, **kw)
+
+    kss.slstm_scan_ref = refuse
+    try:
+        with counted_forwards(srv) as n:
+            yield out
+    finally:
+        kss.slstm_scan_ref = plain
+    steps, verify = progs.decode_steps - d0, progs.verify_steps - v0
+    c = out["counts"]
+    want = n_sl * (n["forwards"] + steps + verify)
+    log(f"[{label}] slstm_scan launches {c['slstm_scan']} (cluster "
+        f"{c['slstm_scan/cluster']}) == sLSTM layers x (forwards + decode steps + "
+        f"verify steps) = {n_sl} x ({n['forwards']} + {steps} + {verify}) = {want}")
+    if c["slstm_scan"] != want or c["slstm_scan/cluster"] != want or n["forwards"] <= 0:
+        raise AssertionError(f"{label}: slstm_scan launches {c['slstm_scan']} break the "
+                             f"rule {want}")
+
+
+def dense_run(name, cfg, params, dev, tok, rng, spec):
     """Dense serving of ``spec["prompts"]`` (4 slots, capacity
-    ``spec["capacity"]``) and a 2-turn session, then one decode chunk
-    profiled (graph and eager) and the longest prompt's admission.
-    Returns (prompts, launches, the chunk profile)."""
+    ``spec["capacity"]``) and a 2-turn session (sLSTM launches by
+    ``slstm_rule``), then one decode chunk profiled (graph and eager) and
+    the longest prompt's admission. Returns (prompts, launches, the chunk
+    profile)."""
     import torch
-    from repro_torch.serving.server import EngineConfig, LLMServer
+    from repro_torch.serving.server import EngineConfig, LLMServer, SamplingParams
     srv = LLMServer(cfg, num_slots=4, capacity=spec["capacity"], params=params,
                     device=dev, engine_cfg=EngineConfig(cache_mode="dense"))
     prompts = [make_text(tok, rng, n) for n in spec["prompts"]]
     turns = [make_text(tok, rng, 300), " user: " + make_text(tok, rng, 100)]
-    handles, counts, _ = serve_phase(f"{name}-dense", srv, prompts, 1, turns,
-                                     warm=make_text(tok, rng, 40))
+    srv.submit(make_text(tok, rng, 40), SamplingParams(max_new_tokens=4)).result()
+    with slstm_rule(f"{name}-dense", srv) as rule:
+        handles, counts, _ = serve_phase(f"{name}-dense", srv, prompts, 1, turns)
+        rule["counts"] = counts
     prof = profile_decode_chunk(srv, prompts)
     prof["decode_chunk"] = srv.engine.engine_cfg.decode_chunk
-    if profile_admission:
-        profile_prefill(srv, prompts[-1])
+    profile_prefill(srv, prompts[-1])
     del handles, srv            # a handle keeps its server (and cache) alive
     gc.collect()
     torch.cuda.empty_cache()
@@ -2076,14 +2307,18 @@ def prefix_run(label, cfg, params, dev, tok, rng, cap, **ecfg):
     """Prompts sharing a ~500-token system prompt and a 2-turn session on a
     prefix-sharing server (cache_mode="paged", page_size 16, decode_chunk 8:
     KV pages, or state snapshots on archs with per-slot state); fails
-    without prefix hits. Returns (server, prompts, launches)."""
-    from repro_torch.serving.server import EngineConfig, LLMServer
+    without prefix hits or off the sLSTM launch rule (``slstm_rule``).
+    Returns (server, prompts, launches)."""
+    from repro_torch.serving.server import EngineConfig, LLMServer, SamplingParams
     srv = LLMServer(cfg, num_slots=4, capacity=cap, params=params, device=dev,
                     engine_cfg=EngineConfig(cache_mode="paged", page_size=16,
                                             decode_chunk=8, **ecfg))
     warm, prompts, turns = prefix_prompts(tok, rng)
     before = srv.stats()
-    handles, counts, st = serve_phase(label, srv, prompts, 1, turns, warm=warm)
+    srv.submit(warm, SamplingParams(max_new_tokens=4)).result()
+    with slstm_rule(label, srv) as rule:
+        handles, counts, st = serve_phase(label, srv, prompts, 1, turns)
+        rule["counts"] = counts
     if srv.engine.snapshots:
         hits = st["snapshot_hits"] - before["snapshot_hits"]
         log(f"[{label}] snapshot_hits={hits} snapshot_captures="
@@ -2125,9 +2360,7 @@ def stateful_phase(dev):
         memory_report(name, cfg, params, spec)
         cap = spec["capacity"]
         counts = collections.Counter()
-        # the sLSTM loop's admission is not traced
-        prompts, c, _ = dense_run(name, cfg, params, dev, tok, rng, spec,
-                                  "flash_attention" in spec["kernels"])
+        prompts, c, _ = dense_run(name, cfg, params, dev, tok, rng, spec)
         counts.update(c)
         graph_matches_eager(f"{name}-dense", cfg, params, dev, prompts, cap,
                             cache_mode="dense")
@@ -2266,7 +2499,7 @@ def spec_run(name, cfg, params, dev, tok, rng, cap, **ecfg):
     own greedy continuation (``self_quotes``), so that its drafts do not
     hang on a random model copying text; unigram drafts; every request
     COMPLETED, verify steps and drafts > 0, every verify step on the graph
-    path. Returns the launches."""
+    path; sLSTM launches by ``slstm_rule``. Returns the launches."""
     import torch
     from repro_torch.serving.server import EngineConfig, LLMServer, SamplingParams
     srv = LLMServer(cfg, num_slots=4, capacity=cap, params=params, device=dev,
@@ -2278,16 +2511,17 @@ def spec_run(name, cfg, params, dev, tok, rng, cap, **ecfg):
                          list(r0.output_ids[:24]))
     before = srv.stats()
     gbefore = graph_counts(srv)
-    reset_counts()
-    t0 = time.perf_counter()
-    hs = [srv.submit(p, SamplingParams(max_new_tokens=48)) for p in cprompts]
-    hs += [srv.submit("", SamplingParams(max_new_tokens=48), token_ids=q)
-           for q in quoted]
-    srv.run_until_idle()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with slstm_rule(label, srv) as rule:
+        reset_counts()
+        t0 = time.perf_counter()
+        hs = [srv.submit(p, SamplingParams(max_new_tokens=48)) for p in cprompts]
+        hs += [srv.submit("", SamplingParams(max_new_tokens=48), token_ids=q)
+               for q in quoted]
+        srv.run_until_idle()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rule["counts"] = c = kernel_counts()
     not_completed(label, hs)
-    c = kernel_counts()
     check_bf16_routes(label, c)
     check_graphs(label, srv, gbefore)
     st = srv.stats()
@@ -3611,7 +3845,8 @@ def profile_train_step(step, params, opt, batch, ranges=("flash_attention_bwd",)
         metrics=metrics,
         by_kernel={k: sum(e.self_device_time_total for e in launched if k in e.key) / 1e3
                    for k in kernels},
-        top=[(e.key.split("(")[0][:60], e.self_device_time_total / 1e3, e.count)
+        top=[(e.key.replace("(anonymous namespace)::", "").split("(")[0][:60],
+              e.self_device_time_total / 1e3, e.count)
              for e in sorted(launched, key=lambda e: -e.self_device_time_total)[:6]],
         range_kernels=calls)
     return params, opt, out
@@ -3892,7 +4127,7 @@ def train_phase(dev, card):
 
 # arch: layers (None: the published depth), batch x seq tokens a step in
 # accum microbatches, AdamW lr, steps (the last two are the split step and
-# the profiled or sLSTM-timed one)
+# the profiled one)
 STATEFUL_TRAIN = {
     # 6 of 38 layers, two periods of (recurrent, recurrent, local attention):
     # 3.28 B params, ~52 GB of params, grads, float32 accumulation and AdamW
@@ -3901,17 +4136,16 @@ STATEFUL_TRAIN = {
     # whole (21 mLSTM, 3 sLSTM). lr 3e-3: at 1e-4 the loss moved 10.822 ->
     # 10.771 in 8 steps on an H100; 8 layers at the published widths in
     # float32 on the CPU fell by 0.06 at 1e-4, 0.86 at 1e-3 and 5.3 at 3e-3
-    # in 8 steps. The sLSTM loop runs on the host one time step at a time
-    # over all rows of a microbatch, so its cost goes with positions times
-    # microbatches: on an H100 a step took 14.5 s in one microbatch and
-    # 20-25 s in two. 4 steps: 8 do not fit the phase's budget; at 3e-3 the
-    # loss fell 10.82 -> 8.00 in 4
+    # in 8 steps; at 3e-3 the loss fell 10.82 -> 8.00 in 4 (H100, with the
+    # sLSTM as a host loop of ~20 operators a position, ~14 s a step; the
+    # sLSTM kernels keep the arithmetic)
     "xlstm-350m": dict(layers=None, batch=4, seq=1024, accum=1, lr=3e-3, steps=4),
 }
 STATEFUL_LOSS_DROP = 0.5
 STATEFUL_TRAIN_S = 150      # the phase's time budget (seconds)
-STATEFUL_RANGES = ("rglru_scan_bwd", "flash_attention_bwd")
-STATEFUL_KERNELS = ("rglru_scan", "mlstm_", "mlstm_bwd", "flash_wgmma", "flash_bwd")
+STATEFUL_RANGES = ("rglru_scan_bwd", "flash_attention_bwd", "slstm_scan_bwd")
+STATEFUL_KERNELS = ("rglru_scan", "mlstm_", "mlstm_bwd", "flash_wgmma", "flash_bwd",
+                    "slstm_fwd", "slstm_bwd")
 XLSTM_BWD = {}              # phase 14's mLSTM backward launches a step, for dryrun
 
 
@@ -3919,14 +4153,16 @@ def stateful_train_launches(cfg, accum, steps):
     """The launch rule of a train run under remat "full": a layer of a
     scanned period runs its forward twice (forward and recompute), a tail
     layer once; each adds one launch of its backward kernel (counted apart
-    too, as ``"rglru_scan/chunked_bwd"``, ``"flash_attention/wgmma_bwd"``
-    and ``"mlstm_chunk/wgmma_bwd"``). Per microbatch and step."""
+    too, as ``"rglru_scan/chunked_bwd"``, ``"flash_attention/wgmma_bwd"``,
+    ``"mlstm_chunk/wgmma_bwd"`` and ``"slstm_scan/cluster_bwd"``). Per
+    microbatch and step."""
     scanned = len(cfg.pattern) * cfg.num_scan_groups
     bwd = {"rglru_scan": "chunked_bwd", "mlstm_chunk": "wgmma_bwd",
-           "flash_attention": "wgmma_bwd"}
+           "flash_attention": "wgmma_bwd", "slstm_scan": "cluster_bwd"}
     want = dict.fromkeys(list(bwd) + [f"{k}/{r}" for k, r in bwd.items()], 0)
     kernel = {"recurrent": "rglru_scan", "mlstm": "mlstm_chunk",
-              "local_attn": "flash_attention", "attn": "flash_attention"}
+              "local_attn": "flash_attention", "attn": "flash_attention",
+              "slstm": "slstm_scan"}
     for i, kind in enumerate(cfg.layer_kinds):
         if kind in kernel:
             name = kernel[kind]
@@ -3935,90 +4171,15 @@ def stateful_train_launches(cfg, accum, steps):
     return {k: n * accum * steps for k, n in want.items()}
 
 
-@contextlib.contextmanager
-def slstm_timed(host):
-    """The sLSTM loop (``models/xlstm.slstm_scan``) timed on the host:
-    ``host["forward"]`` adds the seconds of its forward calls (the forward
-    and the recompute), ``host["backward"]`` the seconds from the moment its
-    output's gradient arrives to the moment its input's leaves, marked by
-    identity ``autograd.Function``s on either side of the loop. Nothing else
-    of the backward runs in between: the loop's nodes come after everything
-    that reads its output and before everything that feeds its input. (A
-    profiled step of xlstm is out of reach: the loop's ~10^5 operators a
-    step take torch.profiler several minutes to collect.)"""
-    import torch
-    from repro_torch.models import xlstm as txl
-
-    class Edge(torch.autograd.Function):
-        @staticmethod
-        def forward(ctx, x, box, opens):
-            ctx.box, ctx.opens = box, opens
-            return x.view_as(x)
-
-        @staticmethod
-        def backward(ctx, g):
-            if ctx.opens:
-                ctx.box.append(time.perf_counter())
-            elif ctx.box:
-                host["backward"] += time.perf_counter() - ctx.box.pop()
-            return g, None, None
-
-    real = txl.slstm_scan
-
-    def timed(p, x, cfg, *a, **kw):
-        box = []
-        if torch.is_grad_enabled():
-            x = Edge.apply(x, box, False)
-        t0 = time.perf_counter()
-        y, state = real(p, x, cfg, *a, **kw)
-        host["forward"] += time.perf_counter() - t0
-        if torch.is_grad_enabled():
-            y = Edge.apply(y, box, True)
-        return y, state
-
-    txl.slstm_scan = timed
-    try:
-        yield
-    finally:
-        txl.slstm_scan = real
-
-
-def slstm_device_ms(dev, params, cfg, rows, seq):
-    """Device ms (``graph_ms``: the calls captured once in a CUDA graph and
-    replayed, no host cost) of one sLSTM layer's loop at the train
-    microbatch's shape [rows, seq, d_model], bf16, on the model's own
-    weights: its forward, and its forward + backward (the weights'
-    gradients taken too, as in a step)."""
-    import torch
-    from repro_torch.models import xlstm as txl
-    p = params.blocks[cfg.layer_kinds.index("slstm")].slstm
-    g = torch.Generator(device=dev).manual_seed(5)
-    x = torch.randn(rows, seq, cfg.d_model, generator=g, device=dev).to(torch.bfloat16)
-    dy = torch.randn(rows, seq, cfg.d_model, generator=g, device=dev).to(torch.bfloat16)
-    x.requires_grad_()
-
-    def fwd():
-        with torch.no_grad():
-            txl.slstm_scan(p, x, cfg)
-
-    def fwd_bwd():
-        y, _ = txl.slstm_scan(p, x, cfg)
-        torch.autograd.grad(y, [x] + list(p.parameters()), dy, allow_unused=True)
-
-    return graph_ms(fwd, iters=3), graph_ms(fwd_bwd, iters=3)
-
-
 def stateful_train_run(dev, card, arch):
     """One arch of ``STATEFUL_TRAIN`` trained its steps
     (bf16, random weights from seed 0, remat full, SyntheticLM, AdamW):
     per-step loss, grad norm, wall and tok/s; launches against
     ``stateful_train_launches``; peak memory; the second-last step split
     into forward + backward and optimizer; the last step under the
-    profiler (the backwards' busy and host ms, the stateful and flash
-    kernels' device ms) or, where the arch has sLSTM layers, with the
-    loop's forward and backward timed on the host (``slstm_timed``) and
-    its device ms taken from one layer alone (``slstm_device_ms``); the
-    8·N·T share. Returns the launch counts."""
+    profiler (the backwards' busy and host ms, the stateful, sLSTM and
+    flash kernels' device ms); the 8·N·T share. Returns the launch
+    counts."""
     import torch
     from repro_torch.configs.registry import ARCHS
     from repro_torch.models import Model
@@ -4050,8 +4211,6 @@ def stateful_train_run(dev, card, arch):
     reset_counts()
     losses, norms, walls = [], [], []
     n = run["steps"]
-    n_sl = cfg.layer_kinds.count("slstm")
-    host = {"forward": 0.0, "backward": 0.0}
     prof = None
     for i in range(n):
         b = data.batch_at(i)
@@ -4066,9 +4225,6 @@ def stateful_train_run(dev, card, arch):
             m["loss"] = loss
             torch.cuda.synchronize()
             split = ((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3)
-        elif i == n - 1 and n_sl:   # the sLSTM loop timed on the host
-            with slstm_timed(host):
-                params, opt, m = step(params, opt, b)
         elif i == n - 1:            # under the profiler
             params, opt, prof = profile_train_step(step, params, opt, b,
                                                    STATEFUL_RANGES, STATEFUL_KERNELS)
@@ -4083,8 +4239,7 @@ def stateful_train_run(dev, card, arch):
         walls.append(wall)
         log(f"{tag} step {i} loss={loss:.4f} grad_norm={norm:.4f} wall_ms={wall:.2f} "
             f"tok/s={tokens / wall * 1e3:.1f}"
-            + {n - 2: " (split)", n - 1: " (sLSTM timed)" if n_sl else " (profiled)"}
-            .get(i, ""))
+            + {n - 2: " (split)", n - 1: " (profiled)"}.get(i, ""))
     counts = kernel_counts()
     peak = torch.cuda.max_memory_allocated()
     want = stateful_train_launches(cfg, accum, n)
@@ -4093,7 +4248,8 @@ def stateful_train_run(dev, card, arch):
     # each kernel's launches all on its train routes
     routed = {"rglru_scan": ("chunked", "chunked_bwd"),
               "mlstm_chunk": ("wgmma", "wgmma_bwd"),
-              "flash_attention": ("wgmma", "wgmma_bwd")}
+              "flash_attention": ("wgmma", "wgmma_bwd"),
+              "slstm_scan": ("cluster", "cluster_bwd")}
     others = {k: c for k, c in counts.items() if c and "/" not in k and k not in want}
     if any(counts[k] != c for k, c in want.items()) or others or any(
             sum(counts[f"{k}/{r}"] for r in rs) != want[k] for k, rs in routed.items()):
@@ -4122,7 +4278,9 @@ def stateful_train_run(dev, card, arch):
             f"{100 * (1 - prof['kernel_ms'] / prof['wall_ms']):.1f}%)")
         per = {"rglru_scan_bwd": ("RG-LRU gradient kernel", want["rglru_scan/chunked_bwd"]),
                "flash_attention_bwd": ("flash backward kernel",
-                                       want["flash_attention/wgmma_bwd"])}
+                                       want["flash_attention/wgmma_bwd"]),
+               "slstm_scan_bwd": ("sLSTM gradient kernel",
+                                  want["slstm_scan/cluster_bwd"])}
         kernel_ms = prof["kernel_ms"] or math.nan
         for r in STATEFUL_RANGES:
             what, calls = per[r][0], per[r][1] // n
@@ -4145,21 +4303,23 @@ def stateful_train_run(dev, card, arch):
                                         for k in kern):
                 raise AssertionError(f"stateful_train: the rglru_scan_bwd ranges hold {got}, "
                                      f"not one gradient kernel in each of {n_bwd} calls")
+        # likewise the sLSTM's: one gradient kernel a call, no loop of
+        # operators (dR's product follows outside the range)
+        n_sbwd = want["slstm_scan/cluster_bwd"] // n
+        if n_sbwd:
+            got = prof["range_kernels"]["slstm_scan_bwd"]
+            names = {k.replace("(anonymous namespace)::", "").split("(")[0][-40:]
+                     for ks in got for k in ks}
+            log(f"{tag}   slstm_scan_bwd range: {len(got)} calls (rule {n_sbwd}), "
+                f"{sorted(names)}")
+            if len(got) != n_sbwd or any(len(k) != 1 or "slstm_bwd" not in k[0] for k in got):
+                raise AssertionError(f"stateful_train: the slstm_scan_bwd ranges hold {got}, "
+                                     f"not one gradient kernel in each of {n_sbwd} calls")
         for k, ms in prof["by_kernel"].items():
             if ms:
                 log(f"{tag}   kernels '{k}*': {ms:.3f} device ms")
         for name, ms, c in prof["top"]:
             log(f"{tag}   top kernel {ms:9.2f} ms / {c:5d} calls  {name}")
-    if n_sl:
-        f_dms, fb_dms = slstm_device_ms(dev, params, cfg, batch // accum, seq)
-        busy = n_sl * accum * (f_dms + fb_dms)
-        total = 1e3 * (host["forward"] + host["backward"])
-        log(f"{tag} sLSTM loop in step {n - 1} ({walls[-1]:.2f} ms): forward and "
-            f"recompute {1e3 * host['forward']:.2f} ms, backward "
-            f"{1e3 * host['backward']:.2f} ms on the host, together {total:.2f} ms = "
-            f"{100 * total / walls[-1]:.1f}% of the step; device: one layer's forward "
-            f"{fmt_ms(f_dms)} ms, forward + backward {fmt_ms(fb_dms)} ms, so "
-            f"{fmt_ms(busy)} device ms a step ({n_sl} layers, the recompute included)")
     log(f"{tag} 8·N·T = {flops:.4e} FLOP a step (N={n_params}, T={tokens}) in "
         f"{step_ms / 1e3:.4f} s: {flops / step_ms / 1e9:.1f} TFLOP/s = "
         f"{100 * flops / step_ms * 1e3 / PEAK_BF16:.2f}% of the 989 TFLOP/s bf16 peak; "
@@ -4175,7 +4335,7 @@ SPREAD_CAP = 0.1           # the most a leaf's bound may take from its spread
 
 @contextlib.contextmanager
 def call_records(recs):
-    """Records each ``rglru_scan`` and ``mlstm_chunk`` call of a model's
+    """Records each ``rglru_scan``, ``mlstm_chunk`` and ``slstm_scan`` call of a model's
     train step whose output the backward reaches: the kernel, its arguments
     (tensors detached and copied) and the gradient that arrives at its
     output, appended to ``recs`` as dicts. Calls whose output no gradient
@@ -4184,7 +4344,8 @@ def call_records(recs):
     import torch
     from repro_torch.models import rglru as trg
     from repro_torch.models import xlstm as txl
-    taps = ((trg, "rglru_scan"), (txl, "mlstm_chunk"))
+    from repro_torch.kernels import slstm_scan as kss
+    taps = ((trg, "rglru_scan"), (txl, "mlstm_chunk"), (kss, "slstm_scan"))
     real = [(mod, name, getattr(mod, name)) for mod, name in taps]
 
     def tap(fn, kernel):
@@ -4214,14 +4375,20 @@ def call_check(rec, tol):
     backward) and through its plain version under autograd, on the same
     inputs and output gradient: the largest relative difference (to the
     plain value's largest) of the output and of each differentiable input's
-    gradient (rglru_scan: a, bx; mlstm_chunk: q, k, v, ig, fg), and those
-    past ``tol``."""
+    gradient (rglru_scan: a, bx; mlstm_chunk: q, k, v, ig, fg; slstm_scan:
+    gates_x, r_gates), and those past ``tol``. The sLSTM's plain loop runs
+    on float32 copies of its inputs: autograd through the bf16 loop adds
+    each step's bf16 dR in bf16, the kernel path forms dR in one product
+    with float32 sums (``slstm_kernel_rows`` prints the two apart)."""
     import torch
     from repro_torch.kernels import mlstm_chunk as kmc
     from repro_torch.kernels import rglru_scan as krs
+    from repro_torch.kernels import slstm_scan as kss
     kernel, ref, names = {
         "rglru_scan": (krs.rglru_scan, krs.rglru_scan_ref, ("a", "bx")),
         "mlstm_chunk": (kmc.mlstm_chunk, kmc.mlstm_chunk_ref, ("q", "k", "v", "ig", "fg")),
+        "slstm_scan": (kss.slstm_scan, lambda gx, r, *a, **kw: kss.slstm_scan_ref(
+            gx.float(), r.float(), *a, **kw), ("gates_x", "r_gates")),
     }[rec["kernel"]]
     errs = {}
     outs = []
@@ -4244,7 +4411,7 @@ def stateful_grad_checks(dev):
     autograd, on the card; bounds float32 1e-4 (loss 2e-5) and bf16 2e-2,
     relative to the largest value, as ``train_grad_checks``:
 
-    * every ``rglru_scan`` and ``mlstm_chunk`` call of the kernel-path
+    * every ``rglru_scan``, ``mlstm_chunk`` and ``slstm_scan`` call of the kernel-path
       step, on the inputs and output gradient it had there
       (``call_records``, ``call_check``): its output and its inputs'
       gradients, kernel against plain, at the bound;
@@ -4269,6 +4436,7 @@ def stateful_grad_checks(dev):
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import mlstm_chunk as kmc
     from repro_torch.kernels import rglru_scan as krs
+    from repro_torch.kernels import slstm_scan as kss
     from repro_torch.models import Model
     from repro_torch.models import rglru as trg
     from repro_torch.models import transformer as tfm
@@ -4281,7 +4449,8 @@ def stateful_grad_checks(dev):
               "xlstm-350m": dict(d_model=128, mlstm_chunk=64)}
     plain = ((tfm, "flash_attention", kfa.flash_attention_ref),
              (trg, "rglru_scan", krs.rglru_scan_ref),
-             (txl, "mlstm_chunk", kmc.mlstm_chunk_ref))
+             (txl, "mlstm_chunk", kmc.mlstm_chunk_ref),
+             (kss, "slstm_scan", kss.slstm_scan_ref))
 
     def rel(a, w):
         return float((a - w).abs().max()) / max(float(w.abs().max()), 1e-30)
@@ -4336,7 +4505,8 @@ def stateful_grad_checks(dev):
                 errs, past = call_check(rec, tol)
                 calls.append((max(errs.values()), rec["kernel"], errs))
                 bad += past
-            if len(recs) != sum(1 for k in cfg.layer_kinds if k in ("recurrent", "mlstm")):
+            if len(recs) != sum(1 for k in cfg.layer_kinds
+                                if k in ("recurrent", "mlstm", "slstm")):
                 bad.append(("calls recorded", len(recs)))
             dl = abs(float(loss) - float(loss_p)) / abs(float(loss_p))
             want = {k: n for k, n in stateful_train_launches(cfg, 1, 1).items()
@@ -4609,8 +4779,8 @@ def stateful_train_phase(dev, card):
     rows["rglru_scan_train"], rows["rglru_scan_bwd"] = rglru_train_row(dev)
     rows["mlstm_chunk_train"], rows["mlstm_chunk_bwd"] = mlstm_train_row(dev)
     parts["kernel rows"] = time.perf_counter() - t0
-    # xlstm's step is not profiled (``slstm_timed``): its mLSTM backward
-    # calls at the row's device time
+    # xlstm's mLSTM backward calls a step at the row's device time (the
+    # profiled step gives their sum in the step)
     xl = STATEFUL_TRAIN["xlstm-350m"]
     calls = counts["xlstm-350m"]["mlstm_chunk/wgmma_bwd"] // xl["steps"]
     b_dms = rows["mlstm_chunk_bwd"]["device_ms"]
@@ -5546,6 +5716,12 @@ def main() -> int:
         rows["rglru_scan_bwd"]["routes"] = {
             r: sc["recurrentgemma-9b"][f"rglru_scan/{r}"]
             for r in ("chunked_bwd", "sequential_bwd")}
+        launches["slstm_scan"] += sc["xlstm-350m"]["slstm_scan/cluster"]
+        launches["slstm_scan_bwd"] = sc["xlstm-350m"]["slstm_scan/cluster_bwd"]
+        for r in ("slstm_scan", "slstm_scan_bwd"):
+            if r in rows:
+                rows[r]["routes"] = {k: sc["xlstm-350m"][f"slstm_scan/{k}"]
+                                     for k in ("cluster", "cluster_bwd")}
         launches["mlstm_chunk_train"] = sc["xlstm-350m"]["mlstm_chunk/wgmma"]
         launches["mlstm_chunk_bwd"] = sc["xlstm-350m"]["mlstm_chunk/wgmma_bwd"]
         rows["mlstm_chunk_bwd"]["routes"] = {
@@ -5576,7 +5752,7 @@ def main() -> int:
     extra = ("device_ms", "library_device_ms", "backward_ms", "backward_device_ms",
              "backward_bound_ms", "plain_backward_ms", "library_backward_ms",
              "library_backward_device_ms", "written_out_ms", "written_out_device_ms",
-             "routes")
+             "routes", "serial_floor_ms", "keep_ms", "admission", "plain_autograd_ms")
     log(card)
     log(json.dumps({"kernels": [{k: r[k] for k in keys + extra if k in r}
                                 for r in rows.values()]}))

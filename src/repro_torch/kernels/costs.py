@@ -147,3 +147,32 @@ def mlstm_bwd_kernel(B, S, H, hd, L, elt=2) -> Cost:
     nbytes = (elt * 7 * B * S * H * hd + 4 * 4 * B * S * H
               + 4 * B * H * nc * (hd * hd + hd + 1))
     return ops, nbytes
+
+
+def slstm(B, S, H, hd, elt=2, state: bool = False, keep: bool = False) -> Cost:
+    """The sLSTM scan: the recurrent products h·R (4·hd outputs of length
+    hd a channel group, every step) at the rate of the activations' dtype;
+    gates_x and R read, y written (``elt`` bytes), the float32 state read
+    (``state``) and the last one written, or (``keep``, training and the
+    verify record) the float32 states after every step and the float32
+    gates g written beside y."""
+    D = H * hd
+    ops = {"bf16" if elt == 2 else "f32": 2.0 * B * S * 4 * D * hd}
+    nbytes = elt * (4 * B * S * D + H * 4 * hd * hd + B * S * D)
+    nbytes += 4 * 4 * B * D * (int(state) + (0 if keep else 1))
+    if keep:
+        nbytes += 4 * (4 + 4) * B * S * D
+    return ops, nbytes
+
+
+def slstm_bwd(B, S, H, hd, elt=2, state: bool = False) -> Cost:
+    """The sLSTM gradient kernel: the recurrent products dg·Rᵀ every step;
+    the forward's float32 gates and states c, n, m, dy and R read, d
+    gates_x written (``elt`` bytes); the first state read and its gradient
+    written with ``state``. dR is a product outside the kernel."""
+    D = H * hd
+    ops = {"bf16" if elt == 2 else "f32": 2.0 * B * S * 4 * D * hd}
+    nbytes = 4 * (4 + 3) * B * S * D + elt * (B * S * D + H * 4 * hd * hd + 4 * B * S * D)
+    nbytes += 4 * B * D * 4 + (4 * 3 * B * D + 4 * 4 * B * D if state else 0)
+    return ops, nbytes
+

@@ -24,7 +24,7 @@ from typing import Dict, Optional, Tuple
 
 NAMES = ("flash_attention", "decode_attention", "paged_decode_attention",
          "spec_decode_attention", "paged_spec_decode_attention", "spec_scan",
-         "rglru_scan", "mlstm_chunk", "split_decode")
+         "rglru_scan", "mlstm_chunk", "split_decode", "slstm_scan")
 
 Key = Tuple[str, str]          # (module, "" for ``launches`` or the route)
 

@@ -10,8 +10,9 @@ of the mesh,
   kernel's outputs and its work from ``kernels/costs.py``: the causal or
   windowed pairs of flash and of its backward kernel, the cache rows a
   decode reads, the scans' states), and one operation per output element
-  of every other arithmetic op (the backward kernels of flash and of the
-  mLSTM are operators too, counted by their analytic cost);
+  of every other arithmetic op (the backward kernels of flash, of the
+  mLSTM and of the sLSTM are operators too, counted by their analytic
+  cost);
 * ``bytes_accessed``: operand and result bytes at every op boundary, the
   upper bound (each eager op reads and writes memory);
 * ``bytes_min``: the data movers only: products, kernels (their analytic
@@ -33,7 +34,7 @@ One device: the single-controller program runs every "model" part and
 along an axis; several: a gather, no index), and only ops at position 0
 along every axis count; with ``one_part`` the program computes only part
 0 of equal parts (``tracing.one_part``). Loops of equal trips (the
-microbatches, the sLSTM over time) run once and count ``n`` times
+microbatches) run once and count ``n`` times
 (``tracing.loop``), as the reference counts a ``while`` body once times
 its trip count. The program finds the counter on the dispatch mode stack
 (``repro_torch/tracing.py``); nothing below this layer imports it.
@@ -366,9 +367,35 @@ def _mlstm_chunk_bwd(q, k, v, ig, fg, dh, dC, dn, C, n, gates, CT, nS, mS, has_s
             "mlstm_chunk_bwd")
 
 
+def _slstm_scan(gates_x, r_gates, c0, n0, h0, m0, mask, all_states=False,
+                keep_gates=False):
+    """The states after every step and the gates it keeps with
+    ``keep_gates`` count toward the peak (autograd saves them)."""
+    B, S, _, D = gates_x.shape
+    H, hd = r_gates.shape[0], r_gates.shape[-1]
+    f32 = dict(dtype=torch.float32, device=gates_x.device)
+    every = all_states or keep_gates
+    st = tuple(torch.empty((B, S, D) if every else (B, D), **f32) for _ in range(4))
+    g = torch.empty((B, S, 4, D) if keep_gates else (0,), **f32)
+    return ((torch.empty(B, S, D, dtype=r_gates.dtype, device=gates_x.device),) + st + (g,),
+            costs.slstm(B, S, H, hd, r_gates.element_size(), c0 is not None, every),
+            "slstm_scan")
+
+
+def _slstm_scan_bwd(g, r_gates, c, n, m, c0, n0, m0, mask, dy, dc, dn, dh, dm):
+    B, S, _, D = g.shape
+    H, hd = r_gates.shape[0], r_gates.shape[-1]
+    f32 = dict(dtype=torch.float32, device=g.device)
+    d0 = tuple(torch.empty((B, D) if c0 is not None else (0,), **f32) for _ in range(4))
+    return ((torch.empty(B, S, 4, D, dtype=r_gates.dtype, device=g.device),) + d0,
+            costs.slstm_bwd(B, S, H, hd, r_gates.element_size(), c0 is not None),
+            "slstm_scan_bwd")
+
+
 KERNELS = {"flash_attention": _flash, "flash_attention_bwd": _flash_bwd,
            "split_decode": _split_decode,
            "split_decode_partials": _partials, "split_decode_combine": _combine,
            "accept_len": _accept_len, "rglru_scan": _rglru_scan,
            "rglru_scan_bwd": _rglru_scan_bwd,
-           "mlstm_chunk": _mlstm_chunk, "mlstm_chunk_bwd": _mlstm_chunk_bwd}
+           "mlstm_chunk": _mlstm_chunk, "mlstm_chunk_bwd": _mlstm_chunk_bwd,
+           "slstm_scan": _slstm_scan, "slstm_scan_bwd": _slstm_scan_bwd}

@@ -4,18 +4,20 @@ Counterpart of ``repro.models.xlstm``. The mLSTM prefill and extend run
 in the ``mlstm_chunk`` kernel wrapper with the (C, n, m) state carried in
 and out (the JAX package ran its Pallas kernel without state and repeated
 the XLA chunkwise pass for the state; one call does both here); one decode
-step and the verify step's stepwise recurrence are plain PyTorch. sLSTM has
-no kernel: its state nonlinearity is sequential by nature, so it is a loop
-over time in PyTorch. Caches are ``{"state": (C, n, m), "conv"}`` (mLSTM)
-and ``{"state": (c, n, h, m)}`` (sLSTM), float32 states, written in place
-(``# mutation``); ``keep`` [B] bool freezes the rows it marks False.
+step and the verify step's stepwise recurrence are plain PyTorch. The sLSTM
+recurrence, sequential by nature, runs in the ``slstm_scan`` kernel
+wrapper: one launch walks every time step on the card (the JAX package's
+``lax.scan``), its gradient another. Caches are ``{"state": (C, n, m),
+"conv"}`` (mLSTM) and ``{"state": (c, n, h, m)}`` (sLSTM), float32
+states, written in place (``# mutation``); ``keep`` [B] bool freezes the
+rows it marks False.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch import tracing
+from repro_torch.kernels import slstm_scan as kslstm
 from repro_torch.kernels.mlstm_chunk import NEG_INF, mlstm_chunk
 from repro_torch.models.layers import assign
 from repro_torch.models.rglru import causal_conv1d, gather_conv, gather_states
@@ -118,43 +120,14 @@ def slstm_scan(p, x, cfg, state=None, mask=None, all_states: bool = False):
 
     ``mask`` [B,S] bool: padded timesteps carry the state through unchanged.
     Returns (y [B,S,D], state after the last step), or with ``all_states``
-    (y, the state after every step, each [B,S,D]).
+    (y, the state after every step, each [B,S,D]). The input projection is
+    one einsum here; the recurrence over time is the ``slstm_scan`` kernel
+    wrapper (one launch on the card, forward and gradient; the plain loop
+    on the CPU).
     """
-    B, S, D = x.shape
-    H = cfg.slstm_heads
-    hd = D // H
+    del cfg                                 # the heads are r_gates' first dim
     gates_x = torch.einsum("bsd,dge->bsge", x, p.w_gates) + p.b_gates   # [B,S,4,D]
-    if state is None:
-        zeros = torch.zeros(B, D, dtype=torch.float32, device=x.device)
-        state = (zeros, zeros, zeros, torch.full_like(zeros, NEG_INF))
-    c, n, h, m = state
-    ys, stack = [], []
-    for t in tracing.loop(S):
-        rec = torch.einsum("bhd,hgde->bhge", h.reshape(B, H, hd).to(x.dtype),
-                           p.r_gates)
-        g = gates_x[:, t].float() + rec.permute(0, 2, 1, 3).reshape(B, 4, D).float()
-        gi, gf, gz, go = g[:, 0], g[:, 1], g[:, 2], g[:, 3]
-        m_new = torch.maximum(gf + m, gi)
-        fp = torch.exp(gf + m - m_new)
-        ip = torch.exp(gi - m_new)
-        c_new = fp * c + ip * torch.tanh(gz)
-        n_new = fp * n + ip
-        h_new = torch.sigmoid(go) * c_new / torch.clamp(n_new, min=1e-6)
-        ys.append(h_new.to(x.dtype))
-        new = (c_new, n_new, h_new, m_new)
-        if mask is not None:
-            keep = mask[:, t, None]
-            new = tuple(torch.where(keep, a, b) for a, b in zip(new, (c, n, h, m)))
-        c, n, h, m = new
-        if all_states:
-            stack.append(new)
-    # a cost counter traces one step of the S alike (its trip count)
-    ys += ys[-1:] * (S - len(ys))
-    stack += stack[-1:] * (S - len(stack))
-    y = torch.stack(ys, dim=1)
-    if all_states:
-        return y, tuple(torch.stack(s, dim=1) for s in zip(*stack))
-    return y, (c, n, h, m)
+    return kslstm.slstm_scan(gates_x, p.r_gates, state, mask, all_states)
 
 
 def apply_slstm(p, x, cfg, *, cache=None, mode="full", length=None, mask=None,

@@ -6,8 +6,8 @@ it (the dry run's cost counter, ``launch/cost.py``) marks itself with
 such mode every function here is the plain behaviour:
 
 * ``loop(n)``: ``range(n)``. A tracer with ``trip_counts`` runs trip 0
-  only and counts it ``n`` times (the microbatch loop, the sLSTM over
-  time), as a ``while`` body is counted once times its trip count.
+  only and counts it ``n`` times (the microbatch loop), as a ``while``
+  body is counted once times its trip count.
 * ``one_part()``: whether only part 0 of a leaf's equal parts need be
   computed (the tracer counts one device's work).
 * ``collective(kind, nbytes, axes, inputs, output)``: the bytes one device

@@ -9,7 +9,10 @@ against the same steps run eagerly on the card, and the robustness layers
 on graphs: a two-replica fleet with a pump per replica, preempt-resume,
 journal restore, and a transient fault ahead of the first capture; the
 modality archs' kernel geometries (MHA at head dim 64) and servers;
-the FAME quickstart on a reduced bf16 server; training: the gradients of
+the FAME quickstart on a reduced bf16 server; the sLSTM scan's forward
+and gradient kernels against the plain loop (float32 and bf16, masks,
+states, the verify record, bit-identical repeats, a graph replay);
+training: the gradients of
 the flash, rglru_scan and mlstm_chunk wrappers (their
 autograd.Functions: the kernel forward; flash's and
 mLSTM's backwards are their backward kernels on the dtype's route, the
@@ -37,6 +40,7 @@ from repro_torch.kernels import mlstm_chunk as kmc  # noqa: E402
 from repro_torch.kernels import paged_decode_attention as kpda  # noqa: E402
 from repro_torch.kernels import paged_spec_decode_attention as kpsda  # noqa: E402
 from repro_torch.kernels import rglru_scan as krs  # noqa: E402
+from repro_torch.kernels import slstm_scan as kss  # noqa: E402
 from repro_torch.kernels import spec_decode_attention as ksda  # noqa: E402
 from repro_torch.kernels import spec_scan  # noqa: E402
 from repro_torch.kernels import split_decode as ksd  # noqa: E402
@@ -1524,6 +1528,162 @@ def test_gpu_rglru_forward_repeat_calls_are_bit_identical(B, S, R, out_dtype):
     assert krs.launches_by_route["chunked"] == before + 5
 
 
+# ---- the sLSTM scan: forward and gradient kernels ------------------------
+# (B, S, H, hd, state in, mask, all_states): xlstm-350m's train microbatch,
+# a 1500-token admission in its 2048 bucket (right padding), decode, verify
+# and small shapes at both edges of hd and of a cluster's rows
+SLSTM_CASES = [
+    (4, 1024, 4, 256, False, False, False),
+    (1, 2048, 4, 256, False, True, False),
+    (4, 1, 4, 256, True, False, False),
+    (4, 5, 4, 256, True, True, True),
+    (2, 37, 2, 32, True, True, False),
+    (3, 20, 4, 16, True, True, True),
+    (9, 10, 2, 64, False, True, False),
+    (1, 3, 1, 128, True, False, True),
+]
+
+
+def _slstm_inputs(dev, dtype, B, S, H, hd, with_state, with_mask, seed=0):
+    """Inputs at xlstm-350m's scales under its init: R of the fan-in scaled
+    rule over its three stacked sLSTM layers (std (3·4·H·hd)^-1/2), gates_x
+    of std 0.3 (an RMS-normed x through the fan-in scaled w_gates). At
+    larger scales the recurrence amplifies each rounding over 1000 steps:
+    the plain loop in bf16 drifts far from its own float64 result, and so
+    does the kernel, so the comparison could not tell a fault."""
+    D = H * hd
+    gx = _rand(dev, B, S, 4, D, scale=0.3, seed=seed).to(dtype)
+    R = _rand(dev, H, 4, hd, hd, scale=(12 * H * hd) ** -0.5, seed=seed + 1).to(dtype)
+    state = None
+    if with_state:
+        state = (_rand(dev, B, D, seed=seed + 2), _rand(dev, B, D, seed=seed + 3).abs() + 0.5,
+                 _rand(dev, B, D, scale=0.5, seed=seed + 4), _rand(dev, B, D, seed=seed + 5))
+    mask = None
+    if with_mask:
+        mask = torch.rand(B, S, generator=torch.Generator(device=dev).manual_seed(seed + 6),
+                          device=dev) > 0.2
+        mask[0, S * 3 // 4:] = False                 # a right-padded row
+        mask[:, 0] = True
+    return gx, R, state, mask
+
+
+def _scaled(got, want):
+    return float((got.double() - want.double()).abs().max()) / max(
+        1.0, float(want.double().abs().max()))
+
+
+SLSTM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,hd,with_state,with_mask,all_states", SLSTM_CASES)
+def test_gpu_slstm_kernel_matches_plain(dtype, B, S, H, hd, with_state, with_mask,
+                                        all_states):
+    """The forward kernel (one launch on ``cluster``) against the plain loop
+    on the same tensors: y and the state (the last, or after every step)
+    within 1e-5 (float32) / 2e-2 (bf16) of max(1, the largest value); two
+    calls give the same bits."""
+    dev = _need_card()
+    gx, R, state, mask = _slstm_inputs(dev, dtype, B, S, H, hd, with_state, with_mask)
+    before = kss.launches_by_route["cluster"]
+    y, st = kss.slstm_scan(gx, R, state, mask, all_states)
+    torch.cuda.synchronize()
+    assert kss.launches_by_route["cluster"] == before + 1
+    yw, stw = kss.slstm_scan_ref(gx, R, state, mask, all_states)
+    assert y.dtype == dtype and y.shape == yw.shape
+    assert _scaled(y, yw) <= SLSTM_TOL[dtype]
+    for a, b in zip(st, stw):
+        assert a.shape == b.shape and _scaled(a, b) <= SLSTM_TOL[dtype]
+    y2, st2 = kss.slstm_scan(gx, R, state, mask, all_states)
+    assert torch.equal(y, y2) and all(torch.equal(a, b) for a, b in zip(st, st2))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,hd,with_state,with_mask", [
+    (4, 1024, 4, 256, False, False), (2, 37, 2, 32, True, True),
+    (3, 20, 4, 16, True, True), (9, 10, 2, 64, True, False)])
+def test_gpu_slstm_gradient_matches_plain(dtype, B, S, H, hd, with_state, with_mask):
+    """``SLSTMScan`` on the card (forward: one ``cluster`` launch keeping
+    the gates and states; backward: one ``cluster_bwd`` launch, never the
+    plain loop or ``slstm_scan_bwd_ref``) against autograd through the plain
+    loop, gradients of y and of the last state: gates_x, r_gates and the
+    state passed in within 1e-4 (float32) / 2e-2 (bf16) of max(1, the
+    gradient's largest value); two backward calls give the same bits. The
+    bf16 kernel is held to the plain loop run in float32 on the same
+    values: autograd through the bf16 loop adds each step's bf16 dR in bf16
+    (S roundings), where the kernel path forms dR in one product with
+    float32 sums."""
+    dev = _need_card()
+    gx, R, state, mask = _slstm_inputs(dev, dtype, B, S, H, hd, with_state, with_mask,
+                                       seed=10)
+    D = H * hd
+    dy = _rand(dev, B, S, D, seed=20).to(dtype)
+    dlast = tuple(_rand(dev, B, D, scale=s, seed=21 + i)
+                  for i, s in enumerate((1.0, 0.3, 1.0, 0.1)))
+    ins = [gx.clone().requires_grad_(), R.clone().requires_grad_()]
+    ins += [t.clone().requires_grad_() for t in state or ()]
+    before = dict(kss.launches_by_route)
+    plain = kss.slstm_scan_ref, kss.slstm_scan_bwd_ref
+    try:
+        kss.slstm_scan_ref = kss.slstm_scan_bwd_ref = None      # the card never runs them
+        y, last = kss.slstm_scan(ins[0], ins[1], ins[2:] or None, mask)
+        assert type(y.grad_fn).__name__ == "SLSTMScanBackward"
+        got = torch.autograd.grad([y, *last], ins, [dy, *dlast])
+    finally:
+        kss.slstm_scan_ref, kss.slstm_scan_bwd_ref = plain
+    torch.cuda.synchronize()
+    assert kss.launches_by_route == {"cluster": before["cluster"] + 1,
+                                     "cluster_bwd": before["cluster_bwd"] + 1}
+    wide = [t.detach().float().requires_grad_() for t in ins]
+    yw, lw = kss.slstm_scan_ref(wide[0], wide[1], wide[2:] or None, mask)
+    want = torch.autograd.grad([yw, *lw], wide, [dy.float(), *dlast])
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for name, a, b in zip(("gates_x", "r_gates", "c0", "n0", "h0", "m0"), got, want):
+        assert _scaled(a, b) <= tol, name
+    _, (cs, ns, hs, ms), g = kss._forward(gx, R, state, mask, keep_gates=True)
+    s0 = None if state is None else (state[0], state[1], state[3])
+    first, second = (kss.slstm_scan_bwd(g, R, cs, ns, ms, s0, mask, dy, dlast)
+                     for _ in range(2))
+    assert torch.equal(first[0], second[0])
+    assert (first[1] is None) == (state is None)
+    if state is not None:
+        assert all(torch.equal(a, b) for a, b in zip(first[1], second[1]))
+
+
+@pytest.mark.gpu
+def test_gpu_slstm_cluster_launch_replays_in_a_graph():
+    """The decode shape's cluster launch captured in a CUDA graph replays
+    to the eager call's bits (the serving steps capture it)."""
+    dev = _need_card()
+    gx, R, state, _ = _slstm_inputs(dev, torch.bfloat16, 4, 1, 4, 256, True, False)
+    want = kss.slstm_scan(gx, R, state)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kss.slstm_scan(gx, R, state)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = kss.slstm_scan(gx, R, state)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], want[0])
+    assert all(torch.equal(a, b) for a, b in zip(out[1], want[1]))
+
+
+@pytest.mark.gpu
+def test_gpu_slstm_refuses_what_the_kernel_does_not_take():
+    dev = _need_card()
+    gx, R, _, _ = _slstm_inputs(dev, torch.float32, 1, 4, 2, 48, False, False)
+    with pytest.raises(ValueError, match="head dim"):
+        kss.slstm_scan(gx, R)
+    gx, R, _, _ = _slstm_inputs(dev, torch.float32, 1, 4, 2, 32, False, False)
+    with pytest.raises(ValueError, match="r_gates must be"):
+        kss.slstm_scan(gx.to(torch.bfloat16), R)
+
+
 # the bf16 backward's tiling edges: 64-row pair tiles kept per chunk, 64 or
 # 128 columns a dq / dk / dv block, GC_c per chunk
 MLSTM_BF16_EDGES = [
@@ -1686,7 +1846,9 @@ def test_gpu_stateful_train_step_matches_cpu(arch):
     scanned period (forward, recompute, reverse scan) and 2 a tail layer
     (no recompute), flash likewise (forward, recompute, its backward
     kernel), mlstm_chunk likewise (forward, recompute, its backward kernel
-    on ``simt_f32_bwd``), each a microbatch; no split-K launch."""
+    on ``simt_f32_bwd``), slstm_scan likewise (forward, recompute, its
+    gradient kernel on ``cluster_bwd``), each a microbatch; no split-K
+    launch."""
     from repro_torch.training import data as tdata
     from repro_torch.training import optimizer as topt
     from repro_torch.training import train_step as tts
@@ -1695,11 +1857,12 @@ def test_gpu_stateful_train_step_matches_cpu(arch):
     sd = Model(cfg, device="cpu").init(seed=0).state_dict()
     dcfg = tdata.DataConfig(global_batch=4, seq_len=96, vocab_size=cfg.vocab_size)
     scanned = len(cfg.pattern) * cfg.num_scan_groups
-    want = {"rglru_scan": 0, "flash_attention": 0, "mlstm_chunk": 0, "split_decode": 0}
+    want = {"rglru_scan": 0, "flash_attention": 0, "mlstm_chunk": 0, "split_decode": 0,
+            "slstm_scan": 0}
     for i, kind in enumerate(cfg.layer_kinds):
         runs = 2 if i < scanned else 1
         key = {"recurrent": "rglru_scan", "local_attn": "flash_attention",
-               "mlstm": "mlstm_chunk"}.get(kind)
+               "mlstm": "mlstm_chunk", "slstm": "slstm_scan"}.get(kind)
         if key:
             want[key] += 2 * (runs + 1)
     bwd = 2 * cfg.layer_kinds.count("mlstm")
@@ -1718,6 +1881,7 @@ def test_gpu_stateful_train_step_matches_cpu(arch):
             got = {k: snap[k, ""] for k in want}
             assert got == want
             assert snap["mlstm_chunk", "simt_f32_bwd"] == bwd
+            assert snap["slstm_scan", "cluster_bwd"] == 2 * cfg.layer_kinds.count("slstm")
     for i, what in enumerate(("loss", "grad_norm")):
         want_v, got_v = out["cpu"][i], out[str(dev)][i]
         assert abs(got_v - want_v) <= 1e-4 * abs(want_v), (what, got_v, want_v)

@@ -213,7 +213,7 @@ def test_build_commands_target_sm90a():
                     "split_decode_attention.cu", "spec_scan.cu",
                     "rglru_scan.cu", "mlstm_chunk.cu", "mlstm_chunk_wgmma.cu",
                     "mlstm_chunk_bwd.cu", "mlstm_chunk_bwd_wgmma.cu",
-                    "decode_loop.cu"}
+                    "decode_loop.cu", "slstm_scan.cu"}
     for c in cmds + [link]:
         assert "arch=compute_90a,code=sm_90a" in c
     assert "-shared" in link and lib.suffix == ".so"

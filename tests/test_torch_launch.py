@@ -14,9 +14,11 @@
   without attention's products (the reference's dots with two or more
   batch dims: XLA's masked S x T scores and P·V, forward and backward; the
   port's attention and mLSTM run in kernels, forward and backward, counted
-  apart by their analytic costs; no product runs inside a profiler range);
-* the sLSTM loop traced for one step and counted S times equals the loop
-  traced step by step (S = 16);
+  apart by their analytic costs; no product runs inside a profiler range;
+  the sLSTM's recurrent products, dots of one batch dim in the reference,
+  run in its two kernels and count at their analytic FLOPs);
+* xlstm's prefill traced with trip counts equals its step-by-step trace
+  (S = 16; the sLSTM over time is one kernel operator, no host loop);
 * ``dryrun_cell`` of qwen2.5-3b ``decode_32k`` and mixtral-8x22b
   ``train_4k`` at full width on (32, 8): JAX-free, the reference's keys
   and the H100 roofline terms.
@@ -222,19 +224,27 @@ def test_product_flops_match_hlo_cost(name, phase):
     run = dryrun.build_cell(cfg, shape, make_test_mesh((1, 1), devices="meta"))[0]
     res = dryrun.trace(run)
     # the gradients of attention and of the mLSTM chunk are kernels, counted
-    # apart (their products are left out as the reference's batched dots are)
-    got = res["product_flops"]
+    # apart (their products are left out as the reference's batched dots are);
+    # the sLSTM's recurrent products (h·R forward, dg·Rᵀ backward) moved
+    # into its two kernels, and the reference counts them as dots of one
+    # batch dim: they count here at the kernels' analytic FLOPs
+    got = res["product_flops"] + sum(res["kernel_flops_by"].get(k, 0.0)
+                                     for k in ("slstm_scan", "slstm_scan_bwd"))
     want = _dot_flops_without_attention(_reference_cell_hlo(name, phase))
     assert abs(got - want) <= 0.05 * want, (got, want)
     assert not res["range_product_flops"]
+    if name == "xlstm-350m":
+        assert res["kernels"]["slstm_scan"] > 0
     if name == "xlstm-350m" and phase == "train":
         assert res["kernels"]["mlstm_chunk_bwd"] > 0
         assert res["kernel_flops_by"]["mlstm_chunk_bwd"] > 0
+        assert res["kernels"]["slstm_scan_bwd"] > 0
 
 
 def test_slstm_trip_count_equals_the_traced_loop():
-    """xlstm's sLSTM over S = 16 traced one step and counted 16 times
-    equals the step-by-step trace, in every count."""
+    """xlstm's prefill over S = 16 traced with trip counts equals the
+    step-by-step trace, in every count: the sLSTM over time is one call
+    of its kernel's operator either way."""
     cfg = ARCHS["xlstm-350m"].reduced(**KW)
     shape = ShapeConfig("prefill_test", 16, 2, "prefill")
     run = dryrun.build_cell(cfg, shape, make_test_mesh((1, 1), devices="meta"))[0]

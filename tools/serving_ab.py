@@ -21,8 +21,13 @@ more under torch.profiler. ``--profiles`` picks them (default
     arch (full width, bf16, random weights from seed 0, 4 slots): admission
     of one ~3000-token prompt in recurrentgemma-9b (capacity 4096; its
     rglru_scan layers) and of one ~1500-token prompt in xlstm-350m
-    (capacity 2048; its mlstm_chunk layers and the sLSTM loop, whose host
-    operators are not traced), with the device ms of the scan kernels;
+    (capacity 2048; its mlstm_chunk and sLSTM layers; host operators not
+    traced there, for a tree whose sLSTM is a host loop), with the device
+    ms of the scan kernels;
+  * ``train``: xlstm-350m's train step as ``chip_smoke.STATEFUL_TRAIN``
+    runs it (whole, bf16, random weights from seed 0, remat full, 4 x
+    1024 tokens in one microbatch, AdamW): the wall of ``TRAIN_STEPS``
+    steps after a warm-up one, each ending in a host read of its loss;
   * ``spec``: ``profile_verify_step`` of qwen2.5-3b on a dense server with
     spec_len=4 (4 slots, capacity 2048, ``chip_smoke.copy_prompts``): one
     verify step, drafting and commit included;
@@ -96,7 +101,7 @@ def chunk_fields(key, chunk) -> dict:
 def stateful_admit(cs, arch, capacity, prompt_tokens, dev, reps, host_trace):
     """``profile_prefill`` on a dense server of ``arch`` (full width, bf16,
     random weights from seed 0, 4 slots); the device ms of the kernels
-    whose names hold "rglru" or "mlstm"."""
+    whose names hold "rglru", "mlstm" or "slstm"."""
     import torch
     from repro_torch.configs.registry import ARCHS
     from repro_torch.models import Model
@@ -112,8 +117,41 @@ def stateful_admit(cs, arch, capacity, prompt_tokens, dev, reps, host_trace):
                                host_trace=host_trace)
     del srv, model, params
     torch.cuda.empty_cache()
-    scan = {k: ms for k, ms in admit["kernel_ms"].items() if "rglru" in k or "mlstm" in k}
+    scan = {k: ms for k, ms in admit["kernel_ms"].items()
+            if any(w in k for w in ("rglru", "mlstm", "slstm"))}
     return admit, scan
+
+
+TRAIN_STEPS = 3
+
+
+def xlstm_train(cs, dev):
+    """Wall ms of ``TRAIN_STEPS`` xlstm-350m train steps after a warm-up
+    step (see the module docstring), and their losses."""
+    import time
+    import torch
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models import Model
+    from repro_torch.training import optimizer as topt
+    cfg = ARCHS["xlstm-350m"]
+    run = cs.STATEFUL_TRAIN["xlstm-350m"]
+    params = Model(cfg, device=dev).init(seed=0, trainable=True)
+    data = cs.train_data(cfg, dev, run["batch"], run["seq"])
+    _, step = cs.train_step_fn(cfg, run["lr"], run["accum"])
+    opt = topt.init_opt_state(params)
+    walls, losses = [], []
+    for i in range(TRAIN_STEPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, data.batch_at(i))
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        if i:
+            walls.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss)
+    del params, opt
+    torch.cuda.empty_cache()
+    return walls, losses
 
 
 def scans(cs, dev):
@@ -150,12 +188,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", required=True, help="directory holding repro_torch")
     ap.add_argument("--profiles", default="admit,paged",
-                    help="comma list of admit,paged,dense,spec,stateful,scans "
+                    help="comma list of admit,paged,dense,spec,stateful,scans,train "
                          "(default: admit,paged)")
     args = ap.parse_args()
     profiles = set(args.profiles.split(","))
     if not profiles or profiles - {"admit", "paged", "dense", "spec", "stateful",
-                                   "scans"}:
+                                   "scans", "train"}:
         ap.error(f"--profiles: {args.profiles}")
     import torch
     if not torch.cuda.is_available():
@@ -217,6 +255,10 @@ def main() -> int:
                         f"{key}_admit_median_ms": statistics.median(admit["wall_ms"]),
                         f"{key}_admit_device_ms": admit["device_busy_ms"],
                         f"{key}_admit_scan_kernel_ms": scan})
+    if "train" in profiles:
+        walls, losses = xlstm_train(cs, dev)
+        out.update(xlstm_train_ms=walls, xlstm_train_median_ms=statistics.median(walls),
+                   xlstm_train_losses=losses)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
